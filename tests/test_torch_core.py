@@ -1,0 +1,215 @@
+"""zaru_tpu_torch's standalone rule, device rule and numeric core, held to
+zaru_tpu on the CPU.
+
+Inputs come from seeded numpy and go through both packages. The JAX
+functions run op by op (not under ``jit``): compiled, XLA:CPU may contract a
+multiply and an add into one FMA, which the port does not do outside its
+samplers' colour map (see tests/test_torch_samplers.py).
+
+IEEE arithmetic is held bit-exact. ``cos``, ``sin``, ``atan2`` and ``exp``
+are each library's own and differ in the last ulp on 5-17% of inputs
+(measured); results that go through them are held to 4 ulp of their
+magnitude, the sigmoid to 2 ulp.
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from zaru_tpu import geometry as jgeom
+from zaru_tpu import num as jnum
+from zaru_tpu.pipeline import _ops as jops
+from zaru_tpu.resolution import Resolution as JRes
+from zaru_tpu_torch import geometry as tgeom
+from zaru_tpu_torch import num as tnum
+from zaru_tpu_torch.pipeline import _ops as tops
+from zaru_tpu_torch.resolution import Resolution as TRes
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _eq(got, want):
+    """Bit-exact f32 (NaN-free inputs)."""
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def _near(got, want, ulps=4):
+    """Within ``ulps`` ulp of the result's magnitude (for trig results)."""
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, rtol=0, atol=ulps * np.spacing(np.abs(want).max()))
+
+
+def test_imports_neither_jax_nor_zaru_tpu():
+    code = (
+        "import sys, zaru_tpu_torch, zaru_tpu_torch.pipeline, zaru_tpu_torch.weights\n"
+        "import zaru_tpu_torch.ops.rotated_fast, zaru_tpu_torch.ops.letterbox\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'zaru_tpu' or m.startswith('zaru_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    """No device given and no GPU: every entry point raises instead of
+    running on the CPU."""
+    from zaru_tpu_torch import FaceTracker, resolve_device
+    from zaru_tpu_torch.face.detection import ShortRangeNetwork
+    from zaru_tpu_torch.face.landmark.mediapipe import FaceMeshV1
+    from zaru_tpu_torch.nn import Cnn, ColorMapper
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        FaceTracker,
+        ShortRangeNetwork,
+        FaceMeshV1,
+        lambda: Cnn.load("face_landmark.onnx", ColorMapper.linear(-1.0, 1.0)),
+        resolve_device,
+        lambda: resolve_device("cuda"),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_num_bit_exact():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        rng.uniform(-1e3, 1e3, 4000),
+        np.arange(-20, 20) * 0.5,  # exact halves
+        rng.normal(0, 30, 1000),
+    ]).astype(np.float32)
+    _eq(tnum.round_half_away(_t(x)), jnum.round_half_away(jnp.asarray(x)))
+    np.testing.assert_array_max_ulp(
+        tnum.sigmoid(_t(x / 50)).numpy(), np.asarray(jnum.sigmoid(jnp.asarray(x / 50))), maxulp=2
+    )
+    _eq(tnum.div(_t(x), 30.0), jnp.asarray(x) / np.float32(30.0))
+
+
+def _rects(rng, n, rot=True):
+    r = np.stack([
+        rng.uniform(0, 1920, n), rng.uniform(0, 1080, n),
+        rng.uniform(20, 900, n), rng.uniform(20, 900, n),
+        rng.uniform(-3.1, 3.1, n) if rot else np.zeros(n),
+    ], -1)
+    return r.astype(np.float32)
+
+
+def test_geometry_bit_exact():
+    rng = np.random.default_rng(1)
+    rr = _rects(rng, 64)
+    pts = rng.uniform(-300, 300, (64, 468, 2)).astype(np.float32)
+    rad = rng.uniform(-3.1, 3.1, 64).astype(np.float32)
+    _eq(tgeom.rect_grow_rel(_t(rr[:, :4]), 0.3), jgeom.rect_grow_rel(jnp.asarray(rr[:, :4]), 0.3))
+    aspect = float(np.float32(192) / np.float32(128))
+    _eq(tgeom.rect_grow_to_fit_aspect(_t(rr[:, :4]), aspect),
+        jgeom.rect_grow_to_fit_aspect(jnp.asarray(rr[:, :4]), np.float32(aspect)))
+    _eq(tgeom.rect_iou(_t(rr[:1, :4]), _t(rr[:, :4])),
+        jgeom.rect_iou(jnp.asarray(rr[:1, :4]), jnp.asarray(rr[:, :4])))
+    _near(tgeom.rrect_transform_out(_t(rr[:, None, :]), _t(pts)),
+          jgeom.rrect_transform_out(jnp.asarray(rr[:, None, :]), jnp.asarray(pts)))
+    _near(tgeom.rrect_bounding(_t(rad), _t(pts)), jgeom.rrect_bounding(jnp.asarray(rad), jnp.asarray(pts)))
+    _near(tgeom.signed_angle_to_x(_t(pts)), jgeom.signed_angle_to_x(jnp.asarray(pts)))
+    # At angle 0 (cos 1, sin 0 in both libraries) the rotations are exact.
+    rr0 = _rects(rng, 64, rot=False)
+    _eq(tgeom.rrect_transform_out(_t(rr0[:, None, :]), _t(pts)),
+        jgeom.rrect_transform_out(jnp.asarray(rr0[:, None, :]), jnp.asarray(pts)))
+    _eq(tgeom.rrect_bounding(_t(rr0[:, 4]), _t(pts)),
+        jgeom.rrect_bounding(jnp.asarray(rr0[:, 4]), jnp.asarray(pts)))
+
+
+def test_pipeline_ops_bit_exact():
+    rng = np.random.default_rng(2)
+    det, lm = (128, 128), (192, 192)
+    for h, w in ((1080, 1920), (720, 1280)):
+        fit_t, rr_t = tops.full_frame_fit(torch.zeros((2, h, w, 4), dtype=torch.uint8), TRes(*det))
+        fit_j, rr_j = jops.full_frame_fit(jnp.zeros((h, w, 4), jnp.uint8), JRes(*det))
+        _eq(fit_t, fit_j)
+        _eq(rr_t, rr_j)
+    boxes = rng.uniform(0, 128, (8, 4)).astype(np.float32)
+    fit = np.asarray(fit_j)
+    _eq(tops.unmap_center_size(_t(boxes), _t(np.tile(fit, (8, 1))), TRes(*det)),
+        jnp.stack([jops.unmap_center_size(jnp.asarray(b), jnp.asarray(fit), JRes(*det)) for b in boxes]))
+    _eq(tops.unmap_points(_t(boxes[:, :2]), _t(fit), TRes(*det)),
+        jops.unmap_points(jnp.asarray(boxes[:, :2]), jnp.asarray(fit), JRes(*det)))
+    rois = _rects(rng, 8)
+    coords = rng.uniform(0, 192, (8, 468, 3)).astype(np.float32)
+    angles = rng.uniform(-1, 1, 8).astype(np.float32)
+    _eq(tops.aspect_view_rect(_t(rois), TRes(*lm)),
+        jnp.stack([jops.aspect_view_rect(jnp.asarray(r), JRes(*lm)) for r in rois]))
+    xy_t, pos_t = tops.landmarks_to_image(_t(coords), _t(rois), TRes(*lm))
+    got_j = [jops.landmarks_to_image(jnp.asarray(c), jnp.asarray(r), JRes(*lm)) for c, r in zip(coords, rois)]
+    _eq(xy_t, jnp.stack([g[0] for g in got_j]))
+    _near(pos_t, jnp.stack([g[1] for g in got_j]))
+    _near(tops.padded_roi(_t(coords[..., :2]), _t(angles), 0.3),
+        jnp.stack([jops.padded_roi(jnp.asarray(c[:, :2]), jnp.asarray(a), 0.3) for c, a in zip(coords, angles)]))
+
+
+def test_decode_and_nms_match_jax():
+    """SSD decode and weighted NMS on random BlazeFace-shaped outputs.
+    Decode is bit-exact apart from the sigmoid (each library's own exp;
+    held to 2 ulp); the NMS sums 896 weighted boxes in each library's own
+    order (held to 1e-5 relative)."""
+    from zaru_tpu.detection import decode_ssd_device as j_decode
+    from zaru_tpu.detection.nms import nms_average_device as j_nms
+    from zaru_tpu.face.detection import ShortRangeNetwork as JNet
+    from zaru_tpu_torch.detection import Anchors, decode_ssd_device as t_decode
+    from zaru_tpu_torch.detection.nms import nms_average_device as t_nms
+    from zaru_tpu_torch.face.detection import ShortRangeNetwork as TNet
+
+    rng = np.random.default_rng(3)
+    anchors = Anchors.calculate(TNet.LAYERS).centers
+    np.testing.assert_array_equal(anchors, JNet().anchors.centers)
+    B, N = 2, len(anchors)
+    boxes_raw = rng.normal(0, 4, (B, N, 16)).astype(np.float32)
+    boxes_raw[..., 2:4] = rng.uniform(10, 40, (B, N, 2))
+    conf_raw = rng.normal(-3, 3, (B, N, 1)).astype(np.float32)
+    t_out = t_decode(128, 128, _t(anchors), _t(boxes_raw), _t(conf_raw), 0.5, 6)
+    for b in range(B):
+        j_out = j_decode(128, 128, jnp.asarray(anchors), jnp.asarray(boxes_raw[b]),
+                         jnp.asarray(conf_raw[b]), 0.5, 6)
+        _eq(t_out[0][b], j_out[0])
+        _eq(t_out[2][b], j_out[2])
+        np.testing.assert_array_max_ulp(t_out[1][b].numpy(), np.asarray(j_out[1]), maxulp=2)
+    angles = tgeom.signed_angle_to_x(t_out[2][..., 1, :] - t_out[2][..., 0, :])
+    for max_out in (1, 4):
+        got = t_nms(t_out[0], t_out[1], t_out[2], angles, max_out=max_out)
+        for b in range(B):
+            want = j_nms(jnp.asarray(t_out[0][b].numpy()), jnp.asarray(t_out[1][b].numpy()),
+                         jnp.asarray(t_out[2][b].numpy()), jnp.asarray(angles[b].numpy()),
+                         max_out=max_out)
+            np.testing.assert_array_equal(got[0][b].numpy(), np.asarray(want[0]))
+            assert np.asarray(want[0]).any()
+            for g, w in zip(got[1:], want[1:]):
+                np.testing.assert_allclose(g[b].numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+def test_one_euro_matches_jax():
+    """1€ filter over several steps, including a seeded reset and a
+    zero-elapsed step: bit-exact."""
+    from zaru_tpu.filters import OneEuroFilter as JF
+    from zaru_tpu_torch.filters import OneEuroFilter as TF
+
+    rng = np.random.default_rng(4)
+    jf, tf = JF(1.0, 0.5), TF(1.0, 0.5)
+    js = {k: jnp.asarray(v) for k, v in jf.init_state((2, 468, 3)).items()}
+    ts = tf.init_state((2, 468, 3), "cpu")
+    for step, elapsed in enumerate([1 / 30, 1 / 30, 0.0, 1 / 30, 1 / 60]):
+        v = rng.uniform(0, 192, (2, 468, 3)).astype(np.float32)
+        js, jo = jf.apply(js, jnp.asarray(v), elapsed)
+        ts, to = tf.apply(ts, _t(v), elapsed)
+        _eq(to, jo)
+        for k in ("x", "dx", "init"):
+            _eq(ts[k], js[k])

@@ -1,0 +1,207 @@
+"""The port's plain samplers against the JAX samplers, bit for bit, on the
+CPU.
+
+- Letterbox: ``zaru_tpu_torch.ops.letterbox.letterbox_sample_reference``
+  against ``letterbox_sample_core`` (compiled, as the cascade runs it) and
+  ``letterbox_sample_pallas(..., interpret=True)``.
+- Rotated ROI: ``zaru_tpu_torch.ops.rotated_fast.rotated_sample_fast`` (a CPU
+  tensor takes the plain version) against ``zaru_tpu.ops.rotated_fast.
+  rotated_sample_fast``, which runs its Pallas kernels in interpret mode on
+  the CPU (rotated_fast.py:1083). The views cover upright, tilted (±0.25,
+  0.55, 0.8 rad), a frame corner read out of bounds, an 836 px view at
+  stride 2 and, tilted 0.7 rad, stride 3, and a view whose bbox exceeds
+  1536 px (stride 4), over ``[B,S,5]`` slots.
+- Exact rotated view: ``zaru_tpu_torch.ops.sampling.view_to_tensor_core``
+  against compiled ``view_to_tensor_core``.
+
+Two things XLA:CPU does when it compiles the JAX samplers, found here:
+
+- it contracts the colour map ``c * adjust + lo`` into one FMA (one
+  rounding; op by op, JAX rounds twice and differs in the last ulp on ~35%
+  of pixels at ``lo=-1``). The port rounds the colour map once as well, so
+  the letterbox sampler is bit-exact;
+- in the rotated sampler's index map (rotated_fast.py:641-654) it computes
+  ``j / 192`` as ``j * f32(1/192)``, which is one ulp off for 63 of the
+  192 columns, and contracts ``cth*px - sth*py`` into
+  ``fma(cth, px, -(sth*py))``. The port keeps the source's op order
+  (correctly rounded division, no contraction), so an output pixel whose
+  index lands within an ulp of a rounding boundary can read the
+  neighbouring prescale cell. Measured over these views: 110 pixels, all
+  in column 56 of the 420×360 view at -0.8 rad (56/192·420 = 122.5
+  exactly), and 1 pixel of the 320 px view at -0.55 rad; every other
+  pixel is bit-exact. The test holds each view to its measured count and
+  every differing pixel to one prescale cell (``stride`` source pixels,
+  1 px at stride 1).
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from zaru_tpu.ops.pallas_kernels import letterbox_sample_pallas
+from zaru_tpu.ops.rotated_fast import rotated_sample_fast as jax_rotated
+from zaru_tpu.ops.sampling import letterbox_sample_core, view_to_tensor_core
+from zaru_tpu.pipeline import _ops as jops
+from zaru_tpu.resolution import Resolution
+from zaru_tpu_torch.ops.letterbox import letterbox_sample_reference
+from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast
+from zaru_tpu_torch.ops.sampling import view_to_tensor_core as view_to_tensor_reference
+
+
+def coord_image(H, W):
+    """RGB encodes (x, y): r = x & 255, g = (x>>8)*16 + (y>>8), b = y & 255
+    (the trick of tests/test_rotated_fast.py)."""
+    x = np.arange(W)[None, :].repeat(H, 0)
+    y = np.arange(H)[:, None].repeat(W, 1)
+    img = np.zeros((H, W, 4), np.uint8)
+    img[..., 0] = x & 255
+    img[..., 1] = (x >> 8) * 16 + (y >> 8)
+    img[..., 2] = y & 255
+    img[..., 3] = 255
+    return img
+
+
+# (cx, cy, w, h, theta). Batch A: every view admits one of the Pallas crop
+# classes, so JAX runs its fused kernel; batch B holds a stride-4 view, so
+# JAX takes its exact fallback (take prescale + rotate kernel).
+# Each view with the number of its pixels measured to differ (see above).
+VIEWS_A = [
+    ((960, 540, 300, 300, 0.0), 0),      # upright, stride 1
+    ((500, 400, 192, 192, 0.0), 0),      # upright
+    ((960, 540, 300, 300, 0.25), 0),     # tilted
+    ((700, 500, 400, 400, -0.25), 0),
+    ((1300, 600, 350, 350, 0.55), 0),
+    ((600, 300, 250, 250, 0.8), 0),
+    ((60, 60, 300, 300, 1.2), 0),        # frame corner: reads out of bounds
+    ((960, 540, 836, 836, 0.0), 0),      # stride 2
+    ((960, 540, 836, 836, 0.7), 0),      # stride 3
+    ((1500, 700, 420, 360, -0.8), 110),  # stride 2
+]
+VIEWS_B = [
+    ((960, 540, 1600, 1600, 0.0), 0),    # bbox > 1536: stride 4
+    ((900, 500, 320, 320, -0.55), 1),
+]
+
+
+def _decode(mapped, b):
+    """Source (x, y) of colour-mapped ``[..., 3]`` pixels of frame ``b``."""
+    c = np.rint((mapped.astype(np.float64) + 1.0) * 127.5).astype(np.int64)
+    x = ((c[..., 1] // 16) * 256 + c[..., 0] + 7 * b) % 1920
+    return x, (c[..., 1] % 16) * 256 + c[..., 2]
+
+
+def _frames(n, H=1080, W=1920):
+    """n different coordinate frames (shifted per stream), so a wrong
+    slot→frame index shows."""
+    base = coord_image(H, W)
+    return np.stack([np.roll(base, 7 * i, axis=1) for i in range(n)])
+
+
+@pytest.mark.parametrize("views", [VIEWS_A, VIEWS_B], ids=["fused", "fallback"])
+def test_rotated_sampler_matches_jax(views):
+    rects = np.asarray([v for v, _ in views], np.float32).reshape(-1, 2, 5)  # [B, S=2, 5]
+    frames = _frames(rects.shape[0])
+    want = np.asarray(
+        jax_rotated(jnp.asarray(frames), jnp.asarray(rects), 192, 192, -1.0, 1.0)
+    )
+    got = rotated_sample_fast(
+        torch.from_numpy(frames), torch.from_numpy(rects), 192, 192, -1.0, 1.0
+    ).numpy()
+    assert got.shape == want.shape == (rects.shape[0], 2, 192, 192, 3)
+    for i, (view, count) in enumerate(views):
+        b, s = divmod(i, 2)
+        differ = (got[b, s] != want[b, s]).any(-1)
+        assert differ.sum() <= count, (view, differ.sum())
+        if differ.any():
+            gx, gy = _decode(got[b, s][differ], b)
+            wx, wy = _decode(want[b, s][differ], b)
+            cx, cy, w, h, th = view
+            bbox = max(w * abs(np.cos(th)) + h * abs(np.sin(th)),
+                       w * abs(np.sin(th)) + h * abs(np.cos(th))) + 2
+            stride = int(np.ceil(bbox / 512))
+            assert np.abs(gx - wx).max() <= stride and np.abs(gy - wy).max() <= stride
+    # Black (lo) where the view leaves the frame: the corner view has some.
+    assert (got == -1.0).all(-1).any()
+
+
+def test_kernel_wrappers_refuse_bad_input():
+    """The wrappers check dtype, shape and device before any launch, and
+    the CUDA launch itself refuses a CPU tensor instead of running the plain
+    version."""
+    from zaru_tpu_torch.ops.letterbox import letterbox_sample
+    from zaru_tpu_torch.ops.rotated_fast import rotated_sample_launch, sampler_coefs
+
+    frames = torch.zeros((2, 8, 8, 4), dtype=torch.uint8)
+    rects = torch.tensor([[4.0, 4.0, 6.0, 6.0, 0.3]] * 2)
+    with pytest.raises(ValueError, match="uint8"):
+        rotated_sample_fast(frames.float(), rects, 4, 4)
+    with pytest.raises(ValueError, match="rects"):
+        rotated_sample_fast(frames, rects[:1], 4, 4)
+    with pytest.raises(ValueError, match="rects"):
+        letterbox_sample(frames, rects[:, :4], 4, 4, -1.0, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        rotated_sample_launch(frames, *sampler_coefs(rects), 4, 4, -1.0, 1.0)
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_view_to_tensor_bit_exact(layout):
+    """The exact rotated-view sampler against compiled
+    ``view_to_tensor_core``, upright, tilted, out of bounds and large
+    views. Bit-exact, tilted views included: the cos/sin of these angles
+    agree in both libraries."""
+    rng = np.random.default_rng(5)
+    frames = rng.integers(0, 256, (6, 1080, 1920, 4), dtype=np.uint8)
+    rects = np.asarray([
+        (960, 540, 300, 300, 0.0), (500, 400, 192, 192, 0.0), (960, 540, 300, 300, 0.25),
+        (700, 500, 400, 400, -0.25), (60, 60, 300, 300, 1.2), (1300, 600, 836, 836, 0.7),
+    ], np.float32)
+    jit_core = jax.jit(
+        jax.vmap(lambda f, r: view_to_tensor_core(f, r, 192, 192, -1.0, 1.0, layout)[0])
+    )
+    want = np.asarray(jit_core(jnp.asarray(frames), jnp.asarray(rects)))
+    got = view_to_tensor_reference(
+        torch.from_numpy(frames), torch.from_numpy(rects), 192, 192, -1.0, 1.0, layout
+    ).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got == -1.0).any()  # the corner view reads outside the frame
+
+
+def _fit(H, W):
+    fit, rrect = jops.full_frame_fit(jnp.zeros((H, W, 4), jnp.uint8), Resolution(128, 128))
+    return np.asarray(rrect)
+
+
+@pytest.mark.parametrize("hw", [(1080, 1920), (720, 1280)])
+def test_letterbox_bit_exact(hw):
+    H, W = hw
+    rng = np.random.default_rng(H)
+    frames = rng.integers(0, 256, (2, H, W, 4), dtype=np.uint8)
+    fit = _fit(H, W)
+    # The full-frame fit (the detect path's rect), then views that are
+    # offset, scaled and partly outside the frame.
+    rects = np.stack([
+        fit,
+        fit,
+        [W * 0.3, H * 0.6, W * 0.9, W * 0.9, 0.0],
+        [W * 0.05, H * 0.1, 301.7, 287.3, 0.0],
+    ]).astype(np.float32)
+    jit_core = jax.jit(
+        jax.vmap(lambda f, r: letterbox_sample_core(f, r, 128, 128, -1.0, 1.0))
+    )
+    for pair in (rects[:2], rects[2:]):
+        got = letterbox_sample_reference(
+            torch.from_numpy(frames), torch.from_numpy(pair), 128, 128, -1.0, 1.0
+        ).numpy()
+        want = np.asarray(jit_core(jnp.asarray(frames), jnp.asarray(pair)))
+        np.testing.assert_array_equal(got, want)
+    got = letterbox_sample_reference(
+        torch.from_numpy(frames), torch.from_numpy(rects[:2]), 128, 128, -1.0, 1.0
+    ).numpy()
+    for b in range(2):
+        pallas = letterbox_sample_pallas(
+            jnp.asarray(frames[b]), fit[:4], 128, 128, -1.0, 1.0, interpret=True
+        )
+        np.testing.assert_array_equal(got[b], np.asarray(pallas)[0].transpose(1, 2, 0))

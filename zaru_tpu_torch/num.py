@@ -1,0 +1,38 @@
+"""Small numeric helpers (zaru_tpu/num.py:23-40).
+
+All of them keep the f32 results of the JAX package bit for bit where the
+arithmetic is IEEE: ``torch.round`` rounds half to even and is never used
+for pixel coordinates, and division by a Python number goes through
+:func:`div`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["round_half_away", "sigmoid", "div"]
+
+
+def round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """Round half away from zero, Rust's ``f32::round``
+    (zaru_tpu/num.py:32)."""
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Numerically stable logistic sigmoid (zaru_tpu/num.py:23)."""
+    pos = torch.where(x >= 0, x, 0.0)
+    neg = torch.where(x < 0, x, 0.0)
+    return torch.where(
+        x >= 0, 1.0 / (1.0 + torch.exp(-pos)), torch.exp(neg) / (1.0 + torch.exp(neg))
+    )
+
+
+def div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` for a Python number ``d``, correctly rounded on every device.
+
+    PyTorch's CUDA division by a Python scalar multiplies by the scalar's
+    reciprocal, which can be one ulp off the quotient; JAX divides. A 0-dim
+    tensor on ``x``'s device takes the true division.
+    """
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)

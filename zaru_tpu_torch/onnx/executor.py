@@ -1,0 +1,212 @@
+"""Runs a parsed ONNX graph as an ``nn.Module``.
+
+The counterpart of zaru_tpu/onnx/importer.py (``import_model``) for the 9
+ops the face cascade's two models use: Conv, Relu, PRelu, Add, Pad,
+MaxPool, Transpose, Reshape and Concat. Each op follows the JAX package's
+semantics in zaru_tpu/onnx/ops.py: ``_conv`` :219 with ``_conv_pads`` :205
+(explicit pads, SAME_UPPER, SAME_LOWER and VALID), ``_max_pool`` :328 with
+``_pool_pads`` :268, ``_pad`` :420, ``_prelu`` :72, ``_reshape`` :440,
+``_transpose`` :463 and ``_concat`` :472. A graph with any other op is
+refused when it is loaded.
+
+The parameters are the graph's float initializers, keyed by their ONNX
+names exactly as zaru_tpu/onnx/importer.py:125-136 keys them; other
+initializers (shape vectors) stay numpy constants. The graphs are exported
+at batch 1 and run here at batch B: a Reshape's leading 1 is read as the
+batch axis, as the JAX cascade's ``vmap`` over streams has it.
+
+Convolutions stay ``F.conv2d`` (cuDNN on the GPU), as the JAX package left
+them to XLA. cuDNN runs f32 convolutions in TF32 by default, which keeps
+about three decimal digits and breaks the repo's CNN bar
+(``atol = 1e-3·max(1,|out|max)``, ``rtol = 2e-3``), so :meth:`forward`
+turns TF32 off around them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .proto import OnnxModel, OnnxNode
+
+__all__ = ["OnnxModule", "SUPPORTED_OPS"]
+
+
+def _same_pads(size: int, k: int, s: int, d: int, lower: bool) -> tuple[int, int]:
+    """SAME padding of one spatial axis, as lax computes it: the odd pixel
+    goes to the end (SAME_UPPER) or the beginning (SAME_LOWER)."""
+    out = -(-size // s)
+    total = max((out - 1) * s + d * (k - 1) + 1 - size, 0)
+    half = total // 2
+    return (total - half, half) if lower else (half, total - half)
+
+
+def _pad_pairs(node: OnnxNode, x, kernel, strides, dilations) -> list[tuple[int, int]]:
+    """(begin, end) padding of the two spatial axes from ``auto_pad`` or the
+    explicit ``pads`` (ops.py:205, :268)."""
+    auto_pad = node.attrs.get("auto_pad", "NOTSET")
+    if auto_pad in ("SAME_UPPER", "SAME_LOWER"):
+        return [
+            _same_pads(x.shape[2 + i], k, s, d, auto_pad == "SAME_LOWER")
+            for i, (k, s, d) in enumerate(zip(kernel, strides, dilations))
+        ]
+    if auto_pad == "VALID":
+        return [(0, 0), (0, 0)]
+    pads = node.attrs.get("pads") or [0, 0, 0, 0]
+    return list(zip(pads[:2], pads[2:]))
+
+
+def _conv(node, vals):
+    x, w = vals[0], vals[1]
+    b = vals[2] if len(vals) > 2 else None
+    if x.ndim != 4:
+        raise NotImplementedError(f"Conv node {node.name!r}: only 2-D convolutions")
+    strides = node.attrs.get("strides", [1, 1])
+    dilations = node.attrs.get("dilations", [1, 1])
+    (pt, pb), (pl, pr) = _pad_pairs(node, x, w.shape[2:], strides, dilations)
+    if pt == pb and pl == pr:
+        padding = (pt, pl)
+    else:
+        x = F.pad(x, (pl, pr, pt, pb))
+        padding = 0
+    return F.conv2d(
+        x, w, b, stride=strides, padding=padding, dilation=dilations,
+        groups=node.attrs.get("group", 1),
+    )
+
+
+def _max_pool(node, vals):
+    x = vals[0]
+    kernel = node.attrs["kernel_shape"]
+    strides = node.attrs.get("strides", [1, 1])
+    dilations = node.attrs.get("dilations", [1, 1])
+    (pt, pb), (pl, pr) = _pad_pairs(node, x, kernel, strides, dilations)
+    if node.attrs.get("ceil_mode", 0):
+        # Extend the end padding so the floor division gives the ceil
+        # output size (ops.py:298-304).
+        keh = dilations[0] * (kernel[0] - 1) + 1
+        kew = dilations[1] * (kernel[1] - 1) + 1
+        h, w = x.shape[2], x.shape[3]
+        out_h = -(-(h + pt + pb - keh) // strides[0]) + 1
+        out_w = -(-(w + pl + pr - kew) // strides[1]) + 1
+        pb = (out_h - 1) * strides[0] + keh - h - pt
+        pr = (out_w - 1) * strides[1] + kew - w - pl
+    if pt or pb or pl or pr:
+        x = F.pad(x, (pl, pr, pt, pb), value=float("-inf"))
+    return F.max_pool2d(x, kernel, strides, 0, dilations)
+
+
+def _pad(node, vals):
+    x = vals[0]
+    pads = node.attrs.get("pads")
+    if pads is None:
+        pads = np.asarray(vals[1]).tolist()
+    value = node.attrs.get("value", 0.0)
+    if len(vals) > 2 and vals[2] is not None:
+        value = float(np.asarray(vals[2]))
+    mode = node.attrs.get("mode", "constant")
+    if mode != "constant":
+        raise NotImplementedError(f"Pad node {node.name!r}: mode {mode!r}")
+    rank = x.ndim
+    flat = []
+    for i in reversed(range(rank)):  # F.pad lists the last axis first
+        flat += [int(pads[i]), int(pads[i + rank])]
+    return F.pad(x, flat, value=value)
+
+
+def _reshape(node, vals):
+    x = vals[0]
+    shape = node.attrs.get("shape")
+    if shape is None:
+        shape = np.asarray(vals[1]).tolist()
+    shape = [int(s) for s in shape]
+    if not node.attrs.get("allowzero", 0):
+        shape = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
+    if shape and shape[0] == 1 and x.shape[0] != 1:
+        shape[0] = x.shape[0]  # the batch-1 graph's leading axis is the batch
+    return torch.reshape(x, shape)
+
+
+def _transpose(node, vals):
+    x = vals[0]
+    perm = node.attrs.get("perm") or list(reversed(range(x.ndim)))
+    return x.permute(*perm)
+
+
+def _concat(node, vals):
+    return torch.cat(vals, dim=node.attrs["axis"])
+
+
+_OPS = {
+    "Conv": _conv,
+    "Relu": lambda node, vals: torch.relu(vals[0]),
+    "PRelu": lambda node, vals: torch.where(vals[0] < 0, vals[1] * vals[0], vals[0]),
+    "Add": lambda node, vals: vals[0] + vals[1],
+    "Pad": _pad,
+    "MaxPool": _max_pool,
+    "Transpose": _transpose,
+    "Reshape": _reshape,
+    "Concat": _concat,
+}
+SUPPORTED_OPS = frozenset(_OPS)
+
+
+class OnnxModule(nn.Module):
+    """An ONNX graph as a module: ``forward(*inputs) -> list`` of the graph's
+    outputs, NCHW like the ONNX contract."""
+
+    def __init__(self, model: OnnxModel, device: torch.device):
+        super().__init__()
+        g = model.graph
+        unsupported = sorted({n.op_type for n in g.nodes} - SUPPORTED_OPS)
+        if unsupported:
+            raise NotImplementedError(
+                f"model {g.name!r} uses ONNX ops the port does not run: {unsupported}"
+            )
+        self.nodes = g.nodes
+        self._attr_of: dict[str, str] = {}
+        self._static: dict[str, np.ndarray] = {}
+        for i, (name, arr) in enumerate(g.initializers.items()):
+            if arr.dtype in (np.float32, np.float16, np.float64):
+                attr = f"p{i}"
+                self._attr_of[name] = attr
+                t = torch.tensor(np.asarray(arr, np.float32), device=device)
+                self.register_parameter(attr, nn.Parameter(t, requires_grad=False))
+            else:
+                self._static[name] = arr
+        self.input_info = [vi for vi in g.inputs if vi.name not in g.initializers]
+        self.output_names = [vi.name for vi in g.outputs]
+
+    def params(self) -> dict[str, torch.Tensor]:
+        """The float initializers by ONNX name."""
+        return {name: getattr(self, attr) for name, attr in self._attr_of.items()}
+
+    @torch.no_grad()
+    def load_params(self, params: dict) -> None:
+        """Copies ``{onnx name: array}`` into the parameters; the names and
+        shapes must be exactly the graph's."""
+        if set(params) != set(self._attr_of):
+            missing = sorted(set(self._attr_of) - set(params))[:5]
+            extra = sorted(set(params) - set(self._attr_of))[:5]
+            raise ValueError(f"parameter names differ: missing {missing}, unknown {extra}")
+        for name, value in params.items():
+            p = getattr(self, self._attr_of[name])
+            v = torch.as_tensor(value, dtype=torch.float32)
+            if tuple(v.shape) != tuple(p.shape):
+                raise ValueError(f"parameter {name!r}: shape {tuple(v.shape)}, want {tuple(p.shape)}")
+            p.copy_(v)
+
+    def forward(self, *inputs: torch.Tensor) -> list[torch.Tensor]:
+        if len(inputs) != len(self.input_info):
+            raise ValueError(f"expected {len(self.input_info)} inputs, got {len(inputs)}")
+        env: dict = dict(self._static)
+        env.update(self.params())
+        env.update((vi.name, x) for vi, x in zip(self.input_info, inputs))
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            for node in self.nodes:
+                vals = [env[i] if i else None for i in node.inputs]
+                out = _OPS[node.op_type](node, vals)
+                env[node.outputs[0]] = out
+        return [env[n] for n in self.output_names]

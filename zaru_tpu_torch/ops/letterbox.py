@@ -1,0 +1,64 @@
+"""The letterbox sampler: hand-written CUDA kernel and its plain version.
+
+``letterbox_sample`` is the detect path's sampler (``Cnn.
+sample_views_letterbox``): frames ``[B,H,W,4] u8`` and one unrotated rect per
+stream ``[B,5] f32`` → ``[B,out_h,out_w,3] f32`` NHWC, colour-mapped. On a
+CUDA tensor it launches ``csrc/letterbox_sample.cu``, which replaces the TPU
+kernel ``letterbox_sample_pallas`` (zaru_tpu/ops/pallas_kernels.py:44); on a
+CPU tensor it runs the plain version, :func:`letterbox_sample_reference`
+(``letterbox_sample_core``, zaru_tpu/ops/sampling.py:120). Both are
+bit-exact to the JAX functions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ._build import library
+from .sampling import color_adjust, letterbox_sample_core
+
+__all__ = ["letterbox_sample", "letterbox_sample_reference"]
+
+letterbox_sample_reference = letterbox_sample_core
+
+
+def _check(frames_u8, rrects):
+    if frames_u8.dtype != torch.uint8 or frames_u8.ndim != 4 or frames_u8.shape[-1] != 4:
+        raise ValueError(f"frames must be [B,H,W,4] uint8, got {tuple(frames_u8.shape)} {frames_u8.dtype}")
+    if rrects.dtype != torch.float32 or tuple(rrects.shape) != (frames_u8.shape[0], 5):
+        raise ValueError(f"rects must be [B,5] float32, got {tuple(rrects.shape)} {rrects.dtype}")
+    if rrects.device != frames_u8.device:
+        raise ValueError("frames and rects must be on one device")
+
+
+def letterbox_sample(frames_u8, rrects, out_w: int, out_h: int, lo: float, hi: float):
+    """Letterbox sample + colour map; see the module docstring."""
+    _check(frames_u8, rrects)
+    if frames_u8.device.type == "cpu":
+        return letterbox_sample_core(frames_u8, rrects, out_w, out_h, lo, hi)
+    if frames_u8.device.type != "cuda":
+        raise ValueError(f"unsupported device {frames_u8.device}")
+    if not (frames_u8.is_contiguous() and rrects.is_contiguous()):
+        raise ValueError("frames and rects must be contiguous")
+    B, H, W, _ = frames_u8.shape
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the kernel's grid limit of 65535")
+    out = torch.empty((B, out_h, out_w, 3), dtype=torch.float32, device=frames_u8.device)
+    fn = library("letterbox_sample").zaru_letterbox_sample
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(
+        frames_u8.data_ptr(), rrects.data_ptr(), out.data_ptr(), B, H, W, out_w, out_h,
+        color_adjust(lo, hi), float(np.float32(lo)),
+        torch.cuda.current_stream(frames_u8.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"letterbox_sample kernel launch failed: CUDA error {rc}")
+    letterbox_sample.launches += 1
+    return out
+
+
+letterbox_sample.launches = 0

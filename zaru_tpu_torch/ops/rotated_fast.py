@@ -1,0 +1,191 @@
+"""The rotated-ROI sampler: hand-written CUDA kernel and its plain version.
+
+``rotated_sample_fast`` is the function of zaru_tpu/ops/rotated_fast.py:930
+(``rotated_sample_fast``), the every-frame crop of the face cascade: frames
+``[B,H,W,4] u8`` and view rects ``[B,...,5] f32`` → ``[B,...,out_h,out_w,3]
+f32`` NHWC, colour-mapped. The extra middle dims of the rects are slots:
+several views of one frame (rotated_fast.py:960-963).
+
+Each output pixel reads one source pixel through an integer-stride
+prescale grid of side ``PRESCALE_M`` (512, the JAX default): bit-exact to
+the exact sampler for views whose rotated bounding box fits 512 pixels,
+within ``ceil(stride/2)`` source pixels beyond. The per-view coefficients are computed here with torch on
+the tensor's device, in the f32 op order of ``_prescale_geometry`` (:118),
+``_prescale_coefs`` (:366-371) and ``_sampler_coefs`` (:539-570)
+(:func:`sampler_coefs`); the per-pixel index map runs in
+``csrc/rotated_sample.cu`` (:func:`rotated_sample_launch`) on a CUDA
+tensor, or in :func:`rotated_sample_fast_reference`, the plain version, on
+a CPU tensor. The TPU kernels replaced are listed in the CUDA source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..num import div
+from ._build import library
+from .sampling import color_map
+
+__all__ = [
+    "PRESCALE_M",
+    "rotated_sample_fast",
+    "rotated_sample_fast_reference",
+    "rotated_sample_launch",
+    "sampler_coefs",
+]
+
+PRESCALE_M = 512  # prescale grid side; sampling is bit-exact for bbox <= M
+PRESCALE_MARGIN = 2.0  # prescale bbox slack (rotated_fast.py:76)
+
+
+def sampler_coefs(rrects):
+    """Per-view coefficients of the index map for ``rrects [N,5]``.
+
+    Returns ``(coefs [N,12] f32, icoefs [N,4] i32)``: ``coefs`` as
+    ``_sampler_coefs`` orders them (w, h, cos, sin, w/2, h/2, top-left x/y,
+    the prescale grid's additive terms and inverse strides) and ``icoefs``
+    the grid's first source pixel and integer strides ``(lx, ly, sx, sy)``.
+    """
+    cx, cy, w, h, th = rrects.unbind(-1)
+    c, s = torch.abs(torch.cos(th)), torch.abs(torch.sin(th))
+    bw = w * c + h * s + PRESCALE_MARGIN
+    bh = w * s + h * c + PRESCALE_MARGIN
+    m = float(PRESCALE_M)
+    sx = torch.ceil(torch.clamp_min(div(bw, m), 1.0))
+    sy = torch.ceil(torch.clamp_min(div(bh, m), 1.0))
+    left = cx - sx * m * 0.5
+    top = cy - sy * m * 0.5
+    left = torch.floor(left + 0.5) - 0.5
+    top = torch.floor(top + 0.5) - 0.5
+    coefs = torch.stack(
+        [
+            w,
+            h,
+            torch.cos(th),
+            torch.sin(th),
+            w * 0.5,
+            h * 0.5,
+            cx - w * 0.5,
+            cy - h * 0.5,
+            (-0.5 - left) / sx - 0.5,
+            (-0.5 - top) / sy - 0.5,
+            1.0 / sx,
+            1.0 / sy,
+        ],
+        dim=-1,
+    )
+    sxi = sx.to(torch.int32)
+    syi = sy.to(torch.int32)
+    lx = (left + 0.5).to(torch.int32) + (sxi - 1) // 2
+    ly = (top + 0.5).to(torch.int32) + (syi - 1) // 2
+    return coefs.contiguous(), torch.stack([lx, ly, sxi, syi], dim=-1).contiguous()
+
+
+def _color(lo: float, hi: float) -> tuple[float, float]:
+    """The colour map's f32 scale and offset (rotated_fast.py:1530-1531)."""
+    return float(np.float32((hi - lo) / 255.0)), float(np.float32(lo))
+
+
+def _reference(frames_u8, coefs, icoefs, out_w, out_h, lo, hi):
+    """The kernel's per-pixel map in torch ops: ``[N,out_h,out_w,3]``."""
+    B, H, W, _ = frames_u8.shape
+    dev = frames_u8.device
+    N = coefs.shape[0]
+    col = lambda i: coefs[:, i, None, None]  # noqa: E731  [N,1,1]
+    jf = div(torch.arange(out_w, dtype=torch.float32, device=dev), out_w)
+    kf = div(torch.arange(out_h, dtype=torch.float32, device=dev), out_h)
+    xv = torch.floor(jf[None, None, :] * col(0) + 0.5)  # [N,1,out_w]
+    yv = torch.floor(kf[None, :, None] * col(1) + 0.5)  # [N,out_h,1]
+    px = (xv + 0.5) - col(4)
+    py = (yv + 0.5) - col(5)
+    fx = (col(2) * px - col(3) * py + col(4)) + col(6)
+    fy = (col(3) * px + col(2) * py + col(5)) + col(7)
+    jq = torch.floor(fx * col(10) + col(8) + 0.5)  # [N,out_h,out_w]
+    kq = torch.floor(fy * col(11) + col(9) + 0.5)
+    ok = (jq >= 0) & (jq < PRESCALE_M) & (kq >= 0) & (kq < PRESCALE_M)
+    ic = icoefs.to(torch.int64)
+    x = ic[:, 0, None, None] + ic[:, 2, None, None] * torch.where(ok, jq, 0.0).to(torch.int64)
+    y = ic[:, 1, None, None] + ic[:, 3, None, None] * torch.where(ok, kq, 0.0).to(torch.int64)
+    ok &= (x >= 0) & (x < W) & (y >= 0) & (y < H)
+    frame = (torch.arange(N, device=dev) // (N // B))[:, None, None]
+    lin = torch.where(ok, (frame * H + y) * W + x, 0)
+    # The frame as one int32 RGBA pixel per element (little-endian R first).
+    pixels = frames_u8.reshape(-1).view(torch.int32)[lin]
+    pixels = torch.where(ok, pixels, 0)
+    rgb = torch.stack([(pixels >> sh) & 0xFF for sh in (0, 8, 16)], dim=-1)
+    return color_map(rgb, *_color(lo, hi))
+
+
+def _check(frames_u8, rrects):
+    if frames_u8.dtype != torch.uint8 or frames_u8.ndim != 4 or frames_u8.shape[-1] != 4:
+        raise ValueError(f"frames must be [B,H,W,4] uint8, got {tuple(frames_u8.shape)} {frames_u8.dtype}")
+    if (rrects.dtype != torch.float32 or rrects.ndim < 2 or rrects.shape[-1] != 5
+            or rrects.shape[0] != frames_u8.shape[0]):
+        raise ValueError(f"rects must be [B,...,5] float32, got {tuple(rrects.shape)} {rrects.dtype}")
+    if rrects.device != frames_u8.device:
+        raise ValueError("frames and rects must be on one device")
+
+
+def rotated_sample_fast_reference(
+    frames_u8, rrects, out_w: int, out_h: int, lo: float = 0.0, hi: float = 1.0
+):
+    """Plain PyTorch version of :func:`rotated_sample_fast` (same result bit
+    for bit), on any device: the same index map with torch ops and a gather
+    on the frame viewed as ``int32`` (out-of-range indices are masked before
+    the gather, because torch wraps negative ones)."""
+    _check(frames_u8, rrects)
+    coefs, icoefs = sampler_coefs(rrects.reshape(-1, 5))
+    out = _reference(frames_u8.contiguous(), coefs, icoefs, out_w, out_h, lo, hi)
+    return out.reshape(*rrects.shape[:-1], out_h, out_w, 3)
+
+
+def rotated_sample_launch(frames_u8, coefs, icoefs, out_w: int, out_h: int, lo: float, hi: float):
+    """Launches ``csrc/rotated_sample.cu`` on CUDA ``frames_u8 [B,H,W,4] u8``
+    with the coefficients of :func:`sampler_coefs` for ``N`` views (``N/B``
+    slots per frame) → ``[N,out_h,out_w,3] f32``. Counts the launch in
+    ``rotated_sample_fast.launches``."""
+    B, H, W, _ = frames_u8.shape
+    N = coefs.shape[0]
+    if not (frames_u8.is_cuda and frames_u8.dtype == torch.uint8 and frames_u8.is_contiguous()):
+        raise ValueError("frames must be a contiguous uint8 CUDA tensor")
+    for t, dtype, width in ((coefs, torch.float32, 12), (icoefs, torch.int32, 4)):
+        if (t.device != frames_u8.device or t.dtype != dtype or tuple(t.shape) != (N, width)
+                or not t.is_contiguous()):
+            raise ValueError(f"coefficients must be contiguous [{N},{width}] {dtype} on {frames_u8.device}")
+    if N % B or not 0 < N <= 65535:
+        raise ValueError(f"{N} views for {B} frames: need a whole number of slots, at most 65535 views")
+    out = torch.empty((N, out_h, out_w, 3), dtype=torch.float32, device=frames_u8.device)
+    fn = library("rotated_sample").zaru_rotated_sample
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(
+        frames_u8.data_ptr(), coefs.data_ptr(), icoefs.data_ptr(), out.data_ptr(),
+        N, N // B, H, W, PRESCALE_M, out_w, out_h, *_color(lo, hi),
+        torch.cuda.current_stream(frames_u8.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"rotated_sample kernel launch failed: CUDA error {rc}")
+    rotated_sample_fast.launches += 1
+    return out
+
+
+def rotated_sample_fast(
+    frames_u8, rrects, out_w: int, out_h: int, lo: float = 0.0, hi: float = 1.0
+):
+    """Rotated-view sample + colour map; see the module docstring. A CUDA
+    tensor launches the kernel (or raises), a CPU tensor runs the plain
+    version."""
+    if frames_u8.device.type == "cpu":
+        return rotated_sample_fast_reference(frames_u8, rrects, out_w, out_h, lo, hi)
+    if frames_u8.device.type != "cuda":
+        raise ValueError(f"unsupported device {frames_u8.device}")
+    _check(frames_u8, rrects)
+    coefs, icoefs = sampler_coefs(rrects.reshape(-1, 5))
+    out = rotated_sample_launch(frames_u8, coefs, icoefs, out_w, out_h, lo, hi)
+    return out.reshape(*rrects.shape[:-1], out_h, out_w, 3)
+
+
+rotated_sample_fast.launches = 0

@@ -1,0 +1,153 @@
+"""Batch-gated face detect → crop → landmark → smooth cascade
+(zaru_tpu/pipeline/face_cascade.py:62 ``FaceTracker``).
+
+One step over a batch of streams (``step_batch``, face_cascade.py:452):
+
+- **Detect**, only when some stream is lost or the caller forces it
+  (``_detect_batch`` :197): letterbox every frame to 128×128 (the letterbox
+  kernel), BlazeFace, SSD decode, weighted NMS with one output → seed ROI.
+- **Track**, every step (``_track_batch`` :250, ``_track_tail`` :285):
+  aspect-fit view rect, rotated 192×192 crop (the rotated-ROI kernel), Face
+  Mesh, decode, 1€ smoothing in network coordinates, landmarks back to the
+  image, next ROI from the rotated landmark bbox plus padding.
+
+The batch gate: in JAX the detect-or-keep choice is a device-side
+``lax.cond`` (face_cascade.py:509). Here it is one host read of one bool per
+step (``all streams tracking and not forced``), which waits for the previous
+step's tracking flags; capturing the two branches as CUDA graphs is left
+for later. Not ported yet: iris refinement, ``redetect_bucket``, the
+single-stream ``step``/``run_frame`` and ``scan_video``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._device import resolve_device
+from ..detection import nms_average_device
+from ..face.detection import ShortRangeNetwork
+from ..face.landmark.mediapipe import FaceMeshV1, LandmarkIdx
+from ..filters import OneEuroFilter
+from ..geometry import signed_angle_to_x
+from . import _ops
+
+__all__ = ["FaceTracker"]
+
+
+class FaceTracker:
+    """Batched face tracking cascade on ``device`` (``cuda`` unless named).
+
+    ``params``: optional ``{"det": {...}, "lm": {...}}`` ONNX-initializer
+    dicts (see :func:`zaru_tpu_torch.weights.params_from_jax`) replacing the
+    weights loaded from the ONNX files.
+    """
+
+    def __init__(
+        self,
+        *,
+        detection_threshold: float = 0.5,
+        loss_threshold: float = 0.5,
+        roi_padding: float = 0.3,
+        smooth: OneEuroFilter | None = OneEuroFilter(min_cutoff=1.0, beta=0.5),
+        frame_rate: float = 30.0,
+        params: dict | None = None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.detector = ShortRangeNetwork(device=self.device)
+        self.landmarker = FaceMeshV1(device=self.device)
+        self.det_cnn = self.detector.cnn()
+        self.lm_cnn = self.landmarker.cnn()
+        if params is not None:
+            self.det_cnn.net.load_params(params["det"])
+            self.lm_cnn.net.load_params(params["lm"])
+        self.detection_threshold = detection_threshold
+        self.loss_threshold = loss_threshold
+        self.roi_padding = roi_padding
+        self.smooth = smooth
+        self.elapsed = 1.0 / frame_rate
+        self.num_landmarks = FaceMeshV1.NUM_LANDMARKS
+
+    def init_state(self, batch: int) -> dict:
+        """Fresh (not tracking) state for ``batch`` streams."""
+        dev = self.device
+        filt = (
+            self.smooth.init_state((batch, self.num_landmarks, 3), dev) if self.smooth else {}
+        )
+        return {
+            "roi": torch.zeros((batch, 5), dtype=torch.float32, device=dev),
+            "tracking": torch.zeros(batch, dtype=torch.bool, device=dev),
+            "filter": filt,
+        }
+
+    def _detect_batch(self, frames):
+        """Letterbox + BlazeFace + decode + NMS for every stream → (rois
+        [B,5], founds [B])."""
+        res = self.det_cnn.input_resolution()
+        fit, fit_rrect = _ops.full_frame_fit(frames, res)
+        b = frames.shape[0]
+        xs = self.det_cnn.sample_views_letterbox(frames, fit_rrect.expand(b, 5).contiguous())
+        outputs = self.det_cnn.apply_tensor_hwc(xs)
+        boxes, conf, kps, angles = self.detector.decode_device(outputs, self.detection_threshold)
+        valid, _conf, avg_box, _kp, _angle = nms_average_device(boxes, conf, kps, angles, max_out=1)
+        rect = _ops.unmap_center_size(avg_box[:, 0], fit, res)
+        rois = torch.cat([rect, torch.zeros_like(rect[:, :1])], dim=-1)
+        return rois, valid[:, 0]
+
+    def _track_batch(self, state, frames, rois, seeded):
+        """Rotated crops + Face Mesh for every stream, then the tail."""
+        res = self.lm_cnn.input_resolution()
+        view_rects = _ops.aspect_view_rect(rois, res)
+        xs = self.lm_cnn.sample_views_fast(frames, view_rects)
+        outputs = self.lm_cnn.apply_tensor_hwc(xs)
+        return self._track_tail(state, outputs, view_rects, seeded)
+
+    def _track_tail(self, state, outputs, view_rects, seeded):
+        """Decode → smooth → unmap → ROI update, batched."""
+        res = self.lm_cnn.input_resolution()
+        coords, conf = self.landmarker.decode_device(outputs)
+        coords = coords[:, : self.num_landmarks]
+        fstate = state["filter"]
+        if self.smooth:
+            # Freshly seeded streams restart their filter.
+            fstate = {
+                k: torch.where(seeded.reshape(-1, 1, 1), torch.zeros_like(s), s)
+                for k, s in fstate.items()
+            }
+            fstate, coords = self.smooth.apply(fstate, coords, self.elapsed)
+        xy_view, pos = _ops.landmarks_to_image(coords, view_rects, res)
+        ltr = (
+            xy_view[:, LandmarkIdx.RIGHT_EYE_OUTER_CORNER]
+            - xy_view[:, LandmarkIdx.LEFT_EYE_OUTER_CORNER]
+        )
+        angle = view_rects[:, 4] + signed_angle_to_x(ltr)
+        new_roi = _ops.padded_roi(pos[..., 0:2], angle, self.roi_padding)
+        tracking = conf >= self.loss_threshold
+        new_state = {"roi": new_roi, "tracking": tracking, "filter": fstate}
+        out = {"landmarks": pos, "confidence": conf, "roi": new_roi, "valid": tracking}
+        return new_state, out
+
+    @torch.inference_mode()
+    def step_batch(self, state: dict, frames, force_detect: bool = False):
+        """One step for ``frames [B,H,W,4] u8`` on the tracker's device →
+        ``(new_state, outputs)``; outputs hold ``landmarks [B,468,3]`` in
+        image coords, ``confidence [B]``, ``roi [B,5]`` and ``valid [B]``.
+
+        Detection runs for every stream when some stream is lost or
+        ``force_detect`` is set (the redetect cadence); tracked streams keep
+        their carried ROIs either way."""
+        tr = state["tracking"]
+        if not force_detect and bool(tr.all()):
+            rois, founds, seeded = state["roi"], torch.ones_like(tr), torch.zeros_like(tr)
+        else:
+            det_rois, det_founds = self._detect_batch(frames)
+            rois = torch.where(tr[:, None], state["roi"], det_rois)
+            founds, seeded = tr | det_founds, ~tr
+        new_state, out = self._track_batch(state, frames, rois, seeded)
+        new_state["tracking"] = new_state["tracking"] & founds
+        out["valid"] = out["valid"] & founds
+        return new_state, out
+
+    def run_frames_gated(self, state: dict, frames):
+        """The serving step: :meth:`step_batch` without forced detection."""
+        return self.step_batch(state, frames)
