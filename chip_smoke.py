@@ -7,22 +7,34 @@ NVIDIA GPU.
 Phases, one line of output each (any failed check exits non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, CUDA version;
-2. build: both kernels from ``zaru_tpu_torch/csrc``, one ``nvcc`` each;
-3. each kernel against its plain PyTorch version on the card, bit for bit:
-   the rotated-ROI sampler on coordinate-encoded 1080p frames at batch 64
-   with ``[B,2,5]`` slots (upright, tilted, frame-corner, stride 2, 3 and 4
-   views), the letterbox sampler on 1080p and 720p frames;
+2. build: the three kernels from ``zaru_tpu_torch/csrc``, one ``nvcc``
+   each, all started together;
+3. each kernel against its plain PyTorch version on the card: the
+   rotated-ROI sampler bit for bit on coordinate-encoded 1080p frames at
+   batch 64 with ``[B,2,5]`` slots (upright, tilted, frame-corner, stride
+   2, 3 and 4 views) on the 512-pixel grid, and on 64×64 eye views on the
+   256-pixel grid; the letterbox sampler bit for bit on 1080p and 720p
+   frames; the BlazeBlock stage kernel within ``rtol = atol = 1e-4`` on
+   random weights at odd sizes whose tiles have ragged edges;
 4. the main path against the JAX reference stored in
    ``zaru_tpu_torch/fixtures/sad_linus_track.npz``: one step at a time from
    JAX's state (flags equal, landmarks and ROI within the CPU test's
-   tolerance), then free-running (flags equal);
+   tolerance, and with ``iris=True`` the eyes within theirs), then
+   free-running (flags equal);
 5. the main path at full size: the fixture photo upscaled to 1920×1080 on
    the card, tiled to batches 64 and 512, ``FaceTracker.step_batch`` with
-   detection forced every 9th step; frames/s and ms/step. The kernels'
-   launch counts are zeroed just before the batch-512 run and read just
-   after it;
+   detection forced every 9th step, then ``FaceTracker(iris=True)`` at
+   batch 512; frames/s and ms/step. The kernels' launch counts are zeroed
+   just before each run and read just after it; every kernel must have
+   launched in both batch-512 runs. A profile of each batch-512 run
+   follows;
 6. each kernel's time at the batch-512 main-path inputs (the launch alone,
-   and the whole wrapper) beside its plain version's and its bound;
+   queued behind a device spin so the host's launch cost is hidden, and for
+   the samplers the whole wrapper) beside its plain version's and its
+   bound; for the stage kernel at each of the ten chains of the two face
+   CNNs, on the chain's real input and weights, checked against its plain
+   version (``rtol = atol = 1e-4``), with the per-op chain it replaces
+   timed as its library yardstick;
 7. the launch counts of phase 5, then one JSON line of per-kernel numbers,
    then the result line.
 
@@ -43,6 +55,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 STEP_TOL_PX = 1e-2  # tests/test_torch_face_cascade.py STEP_TOL_PX
+EYE_RECT_TOL_PX = 1e-3  # tests/test_torch_face_cascade.py EYE_RECT_TOL_PX
+EYE_TOL_PX = 1.0  # tests/test_torch_face_cascade.py EYE_TOL_PX
+STAGE_TOL = 1e-4  # rtol = atol, tests/test_cnn_stage.py:42
 VIEW_CASES = [  # (cx, cy, w, h, theta), tests/test_torch_samplers.py
     (960, 540, 300, 300, 0.0),
     (500, 400, 192, 192, 0.0),
@@ -61,6 +76,7 @@ VIEW_CASES = [  # (cx, cy, w, h, theta), tests/test_torch_samplers.py
 
 # Kernel-name substrings grouping the profile's device time.
 PROFILE_GROUPS = [
+    ("blaze_stage", ("blaze_stage_kernel",)),
     ("samplers", ("rotated_sample_kernel", "letterbox_sample_kernel")),
     ("convolution", ("conv", "xmma", "gemm", "cudnn", "winograd")),
     ("elementwise", ("elementwise",)),
@@ -88,13 +104,17 @@ def coord_frames(torch, n, H, W, device):
     return torch.stack([torch.roll(base, 7 * i, dims=1) for i in range(n)])
 
 
-def cuda_ms(torch, fn, reps=50):
-    """Mean device time of ``fn`` in ms over ``reps`` calls, after one
-    warm-up call, from CUDA events."""
+def cuda_ms(torch, fn, reps=50, queued=False):
+    """Mean time of ``fn`` in ms over ``reps`` calls, after one warm-up
+    call, from CUDA events. ``queued``: the device first spins ~10 ms while
+    the host queues all ``reps`` calls, so a call whose launch costs the host
+    more than its kernel costs the device is timed by its kernel alone."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -104,6 +124,7 @@ def cuda_ms(torch, fn, reps=50):
 
 
 def phase_kernels_vs_plain(torch, device):
+    from zaru_tpu_torch.ops.cnn_stage import _tiling, blaze_blocks_reference, fused_blocks, pack_blocks
     from zaru_tpu_torch.ops.letterbox import letterbox_sample, letterbox_sample_reference
     from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast, rotated_sample_fast_reference
     from zaru_tpu_torch.pipeline import _ops
@@ -126,6 +147,22 @@ def phase_kernels_vs_plain(torch, device):
           f"{black} black (out of frame)", flush=True)
     check(differ == 0 and black > 0, "rotated_sample kernel disagrees with its plain version")
 
+    # Eye crops: square 64x64 views of 60-460 px at any angle, 256-px grid.
+    eye = torch.stack([
+        torch.rand(2 * B, generator=gen) * 1920, torch.rand(2 * B, generator=gen) * 1080,
+        60 + torch.rand(2 * B, generator=gen) * 400, torch.zeros(2 * B),
+        (torch.rand(2 * B, generator=gen) - 0.5) * 6.0,
+    ], -1)
+    eye[:, 3] = eye[:, 2]
+    eye = eye.reshape(B, 2, 5).to(device)
+    got = rotated_sample_fast(frames, eye, 64, 64, -1.0, 1.0, prescale_m=256)
+    want = rotated_sample_fast_reference(frames, eye, 64, 64, -1.0, 1.0, prescale_m=256)
+    torch.cuda.synchronize()
+    differ = int((got != want).any(-1).sum())
+    print(f"rotated_sample vs plain on the 256-px grid: {tuple(got.shape)}, {differ} pixels differ",
+          flush=True)
+    check(differ == 0, "rotated_sample kernel disagrees with its plain version at prescale_m=256")
+
     for H, W in ((1080, 1920), (720, 1280)):
         frames = torch.randint(0, 256, (8, H, W, 4), generator=gen, dtype=torch.uint8).to(device)
         _fit, fit_rrect = _ops.full_frame_fit(frames, Resolution(128, 128))
@@ -139,6 +176,27 @@ def phase_kernels_vs_plain(torch, device):
         print(f"letterbox_sample vs plain at {W}x{H}: {tuple(got.shape)}, {differ} pixels differ",
               flush=True)
         check(differ == 0, "letterbox_sample kernel disagrees with its plain version")
+
+    # Random weights at sizes the face CNNs do not have: 12x20 fits one tile,
+    # 37x53 and 50x70 are tiled with ragged edges.
+    for C, H, W, nb in ((32, 12, 20, 3), (16, 37, 53, 3), (24, 50, 70, 2)):
+        blocks = [{
+            "dw_w": torch.randn((C, 1, 3, 3), generator=gen) * 0.3,
+            "dw_b": torch.randn(C, generator=gen) * 0.1,
+            "pw_w": torch.randn((C, C, 1, 1), generator=gen) * 0.3,
+            "pw_b": torch.randn(C, generator=gen) * 0.1,
+            "alpha": torch.rand(C, generator=gen) * 0.25 + 0.05,
+        } for _ in range(nb)]
+        x = torch.randn((512, C, H, W), generator=gen).to(device)
+        got = fused_blocks(x, pack_blocks(blocks, C).to(device), H, W, C)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            want = blaze_blocks_reference(x, [{k: v.to(device) for k, v in b.items()} for b in blocks])
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = bool(((got - want).abs() <= STAGE_TOL + STAGE_TOL * want.abs()).all())
+        print(f"blaze_stage vs plain, random weights, [512,{C},{H},{W}] x {nb} blocks "
+              f"(tiles {_tiling(C, H, W, nb)[:2]}): max abs err {err}", flush=True)
+        check(ok, "blaze_stage kernel disagrees with its plain version")
 
 
 def phase_vs_jax(torch, np, device):
@@ -158,15 +216,17 @@ def phase_vs_jax(torch, np, device):
             frames[int(ref["zero"][t])] = 0
         return frames
 
-    lm_err = roi_err = 0.0
-    for t, force in enumerate(ref["force"]):
-        state = {
+    def state_at(t):
+        return {
             "roi": torch.from_numpy(ref["state_roi"][t]).to(device),
             "tracking": torch.from_numpy(ref["state_tracking"][t]).to(device),
             "filter": {k: torch.from_numpy(ref[f"state_{k}"][t]).to(device)
                        for k in ("x", "dx", "init")},
         }
-        _, out = tracker.step_batch(state, frames_for(t), bool(force))
+
+    lm_err = roi_err = 0.0
+    for t, force in enumerate(ref["force"]):
+        _, out = tracker.step_batch(state_at(t), frames_for(t), bool(force))
         out = {k: v.cpu().numpy() for k, v in out.items()}
         check((out["valid"] == ref["valid"][t]).all(), f"step {t}: tracking flags differ from JAX")
         lm_err = max(lm_err, float(np.abs(out["landmarks"] - ref["landmarks"][t]).max()))
@@ -182,12 +242,46 @@ def phase_vs_jax(torch, np, device):
         check((out["valid"].cpu().numpy() == ref["valid"][t]).all(),
               f"free-running step {t}: tracking flags differ from JAX")
     print("main path free-running: tracking flags equal to JAX at every step", flush=True)
+
+    iris = FaceTracker(iris=True, device=device)
+    rect_err = given_err = 0.0
+    for t in range(len(ref["force"])):
+        frames, pos = frames_for(t), torch.from_numpy(ref["landmarks"][t]).to(device)
+        rects = iris._eye_view_rects(pos).cpu().numpy()
+        rect_err = max(rect_err, float(np.abs(rects - ref["eye_rects"][t]).max()))
+        eyes = iris._iris_views(frames, torch.from_numpy(ref["eye_rects"][t]).to(device)).cpu().numpy()
+        given_err = max(given_err, float(np.abs(eyes - ref["eyes"][t]).max()))
+    print(f"iris vs JAX reference on JAX's landmarks: eye rects within {rect_err:.6f} px; eyes from "
+          f"JAX's eye rects within {given_err:.6f} px (tolerance {EYE_RECT_TOL_PX} px)", flush=True)
+    check(rect_err <= EYE_RECT_TOL_PX and given_err <= EYE_RECT_TOL_PX, "iris disagrees with JAX")
+
+    lm_err = eye_err = 0.0
+    for t, force in enumerate(ref["force"]):
+        _, out = iris.step_batch(state_at(t), frames_for(t), bool(force))
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        check(out["eyes"].shape == ref["eyes"][t].shape and np.isfinite(out["eyes"]).all(),
+              f"iris step {t}: eyes of shape {out['eyes'].shape}")
+        check((out["valid"] == ref["valid"][t]).all(), f"iris step {t}: tracking flags differ from JAX")
+        lm_err = max(lm_err, float(np.abs(out["landmarks"] - ref["landmarks"][t]).max()))
+        eye_err = max(eye_err, float(np.abs(out["eyes"] - ref["eyes"][t]).max()))
+    print(f"iris vs JAX reference, one step at a time: max landmark error {lm_err:.6f} px "
+          f"(tolerance {STEP_TOL_PX} px), max eye error {eye_err:.6f} px (tolerance {EYE_TOL_PX} px)",
+          flush=True)
+    check(lm_err <= STEP_TOL_PX and eye_err <= EYE_TOL_PX, "iris disagrees with JAX")
     return rgba
 
 
-def phase_full_size(torch, F, rgba, device, card):
+def launch_counters():
+    """Each kernel's wrapper, whose ``launches`` counts its kernel's launches."""
+    from zaru_tpu_torch.ops.cnn_stage import fused_blocks
     from zaru_tpu_torch.ops.letterbox import letterbox_sample
     from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast
+
+    return {"rotated_sample": rotated_sample_fast, "letterbox_sample": letterbox_sample,
+            "blaze_stage": fused_blocks}
+
+
+def phase_full_size(torch, F, rgba, device, card):
     from zaru_tpu_torch.pipeline import FaceTracker
 
     img = F.interpolate(
@@ -195,39 +289,45 @@ def phase_full_size(torch, F, rgba, device, card):
     )
     img = img[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).contiguous()
     tracker = FaceTracker(device=device)
+    iris = FaceTracker(iris=True, device=device)
     steps, warmup = 54, 9
-    result = {}
-    for batch in (64, 512):
+    result = {"launches": {}}
+    for what, tr, batch in (("main path", tracker, 64), ("main path", tracker, 512),
+                            ("FaceTracker(iris=True)", iris, 512)):
         frames = img.expand(batch, *img.shape).contiguous()
-        state = tracker.init_state(batch)
+        state = tr.init_state(batch)
         for i in range(warmup):
-            state, out = tracker.step_batch(state, frames, force_detect=(i % 9 == 0))
+            state, out = tr.step_batch(state, frames, force_detect=(i % 9 == 0))
         torch.cuda.synchronize()
-        if batch == 512:
-            rotated_sample_fast.launches = 0
-            letterbox_sample.launches = 0
+        for fn in launch_counters().values():
+            fn.launches = 0
         t0 = time.perf_counter()
         for i in range(steps):
-            state, out = tracker.step_batch(state, frames, force_detect=(i % 9 == 0))
+            state, out = tr.step_batch(state, frames, force_detect=(i % 9 == 0))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        if batch == 512:
-            result["launches"] = {
-                "rotated_sample": rotated_sample_fast.launches,
-                "letterbox_sample": letterbox_sample.launches,
-            }
+        launches = {name: fn.launches for name, fn in launch_counters().items()}
         valid = bool(out["valid"].all())
         conf = float(out["confidence"].min())
-        print(f"main path at 1920x1080, batch {batch}: {steps} steps (detect every 9th) in "
+        print(f"{what} at 1920x1080, batch {batch}: {steps} steps (detect every 9th) in "
               f"{dt:.3f} s: {dt / steps * 1e3:.3f} ms/step, {batch * steps / dt:.1f} frames/s, "
-              f"all valid {valid}, min confidence {conf:.4f} [{card}]", flush=True)
-        check(valid and conf > 0.9, f"batch {batch}: lost the face")
-        result[batch] = (frames, state)
-    result["profile"] = profile_steps(torch, tracker, *result[512])
+              f"all valid {valid}, min confidence {conf:.4f}; launches {launches} [{card}]", flush=True)
+        check(valid and conf > 0.9, f"{what}, batch {batch}: lost the face")
+        if tr is iris:
+            eyes = out["eyes"]
+            check(tuple(eyes.shape) == (batch, 2, 76, 3) and bool(torch.isfinite(eyes).all()),
+                  f"iris: eyes of shape {tuple(eyes.shape)}")
+        if batch == 512:
+            result["launches"][what] = launches
+            check(all(n > 0 for n in launches.values()),
+                  f"{what}: a kernel of the path was never launched: {launches}")
+        result[batch if tr is tracker else "iris"] = (frames, state)
+    profile_steps(torch, tracker, *result[512], "main path")
+    profile_steps(torch, iris, *result["iris"], "FaceTracker(iris=True)")
     return tracker, result
 
 
-def profile_steps(torch, tracker, frames, state, steps=9):
+def profile_steps(torch, tracker, frames, state, what, steps=9):
     """torch.profiler over one detect step and 8 track steps: device time
     by kernel, and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -248,10 +348,10 @@ def profile_steps(torch, tracker, frames, state, steps=9):
         groups[group] = groups.get(group, 0.0) + ms
     by_group = ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1]))
     top = "; ".join(f"{name[:72]} {ms:.3f}" for ms, name in per_step[:8])
-    print(f"profile, batch {frames.shape[0]}, {steps} steps (1 detect): {wall_ms / steps:.3f} ms/step "
-          f"wall, device busy {busy:.3f} ms/step ({100 * busy * steps / wall_ms:.1f}%), "
-          f"{len(per_step)} kernels; ms/step by group: {by_group}; top: {top}", flush=True)
-    return per_step
+    print(f"profile of the {what}, batch {frames.shape[0]}, {steps} steps (1 detect): "
+          f"{wall_ms / steps:.3f} ms/step wall, device busy {busy:.3f} ms/step "
+          f"({100 * busy * steps / wall_ms:.1f}%), {len(per_step)} kernels; ms/step by group: "
+          f"{by_group}; top: {top}", flush=True)
 
 
 def phase_kernel_times(torch, tracker, frames, state, launches, steps):
@@ -295,7 +395,7 @@ def phase_kernel_times(torch, tracker, frames, state, launches, steps):
         nbytes = out_px * 12 + reads * 4 + rects.numel() * 4
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = out_px * flops_px / F32_FLOPS * 1e3
-        ms = cuda_ms(torch, lambda: launch(frames))
+        ms = cuda_ms(torch, lambda: launch(frames), queued=True)
         wrapper_ms = cuda_ms(torch, lambda: call(frames))
         plain_ms = cuda_ms(torch, lambda: call_plain(frames), reps=5)
         kernels.append({
@@ -310,6 +410,89 @@ def phase_kernel_times(torch, tracker, frames, state, launches, steps):
               f"max abs err {err}", flush=True)
         check(err == 0.0, f"{name} disagrees with its plain version at the main-path inputs")
     return kernels
+
+
+def phase_stage_times(torch, tracker, frames, state, launches, steps):
+    """The stage kernel at each BlazeBlock chain of the two face CNNs, on the
+    chain's real input at batch 512 (the main path's crops and letterbox
+    views) and the real weights: checked against its plain version, then
+    timed beside the plain version and the per-op chain the executor ran
+    before the stage plan (``F.conv2d`` depthwise, ``F.conv2d`` 1×1, ``+``,
+    ``torch.where`` PReLU or ``torch.relu`` per block, TF32 off). The JSON
+    row sums the ten chains, one launch each."""
+    from zaru_tpu_torch.onnx.executor import _OPS
+    from zaru_tpu_torch.ops.cnn_stage import (
+        _tiling, blaze_blocks_reference, fused_blocks, pack_blocks, unpack_blocks,
+    )
+    from zaru_tpu_torch.pipeline import _ops
+
+    lm, det = tracker.lm_cnn, tracker.det_cnn
+    view_rects = _ops.aspect_view_rect(state["roi"], lm.input_resolution())
+    _fit, fit_rrect = _ops.full_frame_fit(frames, det.input_resolution())
+    inputs = (
+        ("face_landmark", lm, lm.sample_views_fast(frames, view_rects)),
+        ("face_detection_short_range", det,
+         det.sample_views_letterbox(frames, fit_rrect.expand(frames.shape[0], 5).contiguous())),
+    )
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0, "err": 0.0}
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for model, cnn, xs in inputs:
+            net = cnn.net
+            params = net.params()
+            env = net.activations(xs.permute(0, 3, 1, 2).contiguous())
+            for k, st in enumerate(net.stages):
+                x = env[st.input]
+                B, C, H, W = x.shape
+                nb = len(st.blocks)
+                packed = pack_blocks(
+                    [{n: None if v is None else params[v] for n, v in b.items()} for b in st.blocks], C
+                )
+
+                def chain(x=x, st=st):
+                    vals = dict(params)
+                    vals[st.input] = x
+                    for i in st.nodes:
+                        node = net.nodes[i]
+                        vals[node.outputs[0]] = _OPS[node.op_type](node, [vals[n] for n in node.inputs])
+                    return vals[st.output]
+
+                kernel = lambda x=x, p=packed, H=H, W=W, C=C: fused_blocks(x, p, H, W, C)  # noqa: E731
+                plain = lambda x=x, p=packed, C=C: blaze_blocks_reference(x, unpack_blocks(p, C))  # noqa: E731
+                got, want, ops_out = kernel(), plain(), chain()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                ok = bool(((got - want).abs() <= STAGE_TOL + STAGE_TOL * want.abs()).all())
+                chain_err = float((ops_out - want).abs().max())
+                ms = cuda_ms(torch, kernel, queued=True)
+                plain_ms = cuda_ms(torch, plain, reps=20, queued=True)
+                chain_ms = cuda_ms(torch, chain, reps=20, queued=True)
+                nbytes = 2 * x.numel() * 4 + packed.numel() * 4
+                ops = nb * B * H * W * C * (2 * (9 + C) + 4)
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+                print(f"blaze_stage {model} chain {k}: [{B},{C},{H},{W}] x {nb} blocks "
+                      f"(tiles {_tiling(C, H, W, nb)[:2]}): {ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+                      f"({'bytes' if t_bytes >= t_ops else 'operations'}), plain {plain_ms:.4f} ms, "
+                      f"per-op chain {chain_ms:.4f} ms, max abs err {err} (per-op chain vs plain "
+                      f"{chain_err})", flush=True)
+                check(ok, f"blaze_stage disagrees with its plain version at {model} chain {k}")
+                check(chain_err <= STAGE_TOL, f"{model} chain {k}: the per-op chain differs from the plain version")
+                for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", chain_ms),
+                               ("bytes", nbytes), ("ops", ops)):
+                    tot[key] += v
+                tot["err"] = max(tot["err"], err)
+            del env
+    t_bytes, t_ops = tot["bytes"] / HBM_BYTES_PER_S * 1e3, tot["ops"] / F32_FLOPS * 1e3
+    print(f"blaze_stage, the ten chains at batch {frames.shape[0]}, one launch each: {tot['ms']:.4f} ms, "
+          f"bound {max(t_bytes, t_ops):.4f} ms, plain {tot['plain_ms']:.4f} ms, per-op chain "
+          f"{tot['library_ms']:.4f} ms; {launches / steps:.3f} launches/step", flush=True)
+    return {
+        "name": "blaze_stage", "route": "cuda", "source": "zaru_tpu_torch/csrc/blaze_stage.cu",
+        "replaces": "zaru_tpu/ops/cnn_stage.py:148", "launches": launches,
+        "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": tot["library_ms"],
+        "library": "per-op chain: F.conv2d depthwise, F.conv2d 1x1, add, torch.where PReLU or relu",
+    }
 
 
 def main() -> int:
@@ -342,11 +525,11 @@ def main() -> int:
     phase_kernels_vs_plain(torch, device)
     rgba = phase_vs_jax(torch, np, device)
     tracker, runs = phase_full_size(torch, F, rgba, device, smi)
-    launches = runs["launches"]
-    print(f"launches in the batch-512 main-path run (54 steps): {launches}", flush=True)
-    check(all(n > 0 for n in launches.values()), "a kernel of the main path was never launched")
+    print(f"launches in the batch-512 runs (54 steps each): {runs['launches']}", flush=True)
+    launches = runs["launches"]["main path"]
     frames, state = runs[512]
     kernels = phase_kernel_times(torch, tracker, frames, state, launches, 54)
+    kernels.append(phase_stage_times(torch, tracker, frames, state, launches["blaze_stage"], 54))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,131 @@
+"""The port's fused BlazeBlock stage (zaru_tpu_torch.ops.cnn_stage) and the
+executor's stage plan, against zaru_tpu on the CPU.
+
+- ``fused_blocks`` on a CPU tensor (its plain version) and
+  ``blaze_blocks_reference`` against JAX ``fused_blocks(interpret=True)``
+  and ``blaze_blocks_reference`` at the three cases of
+  tests/test_cnn_stage.py and a ReLU case (α = 0), ``rtol = atol = 1e-4``
+  (tests/test_cnn_stage.py:42).
+- The executor finds the chains listed below in the two face models and
+  none in the iris model (its blocks are bottlenecks: 1×1 128→64, PReLU,
+  depthwise 64, 1×1 64→128); ``load_params`` after construction reaches
+  the stages. The models' outputs against JAX, stage plan included, are
+  tests/test_torch_onnx.py's.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from zaru_tpu.ops.cnn_stage import blaze_blocks_reference as jax_reference
+from zaru_tpu.ops.cnn_stage import fused_blocks as jax_fused
+from zaru_tpu.ops.cnn_stage import pack_blocks as jax_pack
+from zaru_tpu_torch.assets import model_path
+from zaru_tpu_torch.onnx import load_model
+from zaru_tpu_torch.ops.cnn_stage import (
+    blaze_blocks_reference, fused_blocks, pack_blocks, unpack_blocks,
+)
+
+# (blocks, channels, H×W, ReLU) per chain, in graph order.
+STAGES = {
+    "face_landmark.onnx": (192, [
+        (2, 16, (96, 96), False), (2, 32, (48, 48), False), (2, 64, (24, 24), False),
+        (2, 128, (12, 12), False), (2, 128, (6, 6), False), (1, 32, (3, 3), False),
+        (2, 128, (3, 3), False), (1, 32, (3, 3), False),
+    ]),
+    "face_detection_short_range.onnx": (128, [(1, 24, (64, 64), True), (4, 96, (8, 8), True)]),
+    "iris_landmark.onnx": (64, []),
+}
+
+
+def make_blocks(rng, C, nb, relu=False):
+    """tests/test_cnn_stage.py's blocks; ``relu`` makes every slope 0."""
+    return [
+        {
+            "dw_w": rng.normal(0, 0.3, (C, 1, 3, 3)).astype(np.float32),
+            "dw_b": rng.normal(0, 0.1, (C,)).astype(np.float32),
+            "pw_w": rng.normal(0, 0.3, (C, C, 1, 1)).astype(np.float32),
+            "pw_b": rng.normal(0, 0.1, (C,)).astype(np.float32),
+            "alpha": (np.zeros(C, np.float32) if relu
+                      else rng.uniform(0.05, 0.3, (C,)).astype(np.float32)),
+        }
+        for _ in range(nb)
+    ]
+
+
+@pytest.mark.parametrize("C,H,W,B,nb,relu", [
+    (32, 24, 24, 8, 3, False),
+    (16, 12, 20, 8, 2, False),
+    (128, 6, 6, 2, 2, False),
+    (24, 12, 20, 5, 2, True),   # α = 0, BlazeFace's ReLU blocks (G = 5)
+])
+def test_fused_blocks_matches_jax(C, H, W, B, nb, relu):
+    rng = np.random.default_rng(11)
+    blocks = make_blocks(rng, C, nb, relu)
+    x = rng.normal(0, 1, (B, C, H, W)).astype(np.float32)
+    want_ref = np.asarray(jax_reference(jnp.asarray(x), blocks))
+    G = max(1, 128 // C)
+    want_kernel = np.asarray(jax_fused(jnp.asarray(x), jax_pack(blocks, C, G), H, W, C,
+                                       interpret=True, group=G))
+    packed = pack_blocks(blocks, C)
+    assert packed.shape == (nb, C * C + 12 * C)
+    got = fused_blocks(torch.from_numpy(x), packed, H, W, C).numpy()
+    got_ref = blaze_blocks_reference(torch.from_numpy(x), blocks).numpy()
+    for g in (got, got_ref):
+        np.testing.assert_allclose(g, want_kernel, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(g, want_ref, rtol=1e-4, atol=1e-4)
+    # α = 0 comes back from the packed layout as a ReLU; the same numbers.
+    assert all((b["alpha"] is None) == relu for b in unpack_blocks(packed, C))
+    np.testing.assert_array_equal(got, got_ref)
+
+
+def test_fused_blocks_refuses_bad_input():
+    rng = np.random.default_rng(1)
+    packed = pack_blocks(make_blocks(rng, 16, 2), 16)
+    x = torch.zeros((2, 16, 6, 6))
+    with pytest.raises(ValueError, match="x must be"):
+        fused_blocks(x, packed, 6, 6, 8)
+    with pytest.raises(ValueError, match="x must be"):
+        fused_blocks(x.double(), packed, 6, 6, 16)
+    with pytest.raises(ValueError, match="packed must be"):
+        fused_blocks(x, packed[:, :-1], 6, 6, 16)
+
+
+@pytest.mark.parametrize("name", sorted(STAGES))
+def test_stage_plan(name):
+    """Chain count, blocks per chain, channels, spatial size and activation
+    of every chain the executor finds."""
+    res, want = STAGES[name]
+    net = load_model(model_path(name).read_bytes(), torch.device("cpu"))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (1, 3, res, res)).astype(np.float32))
+    env = net.activations(x)
+    got = [
+        (len(st.blocks), st.channels, tuple(env[st.input].shape[2:]), st.blocks[0]["alpha"] is None)
+        for st in net.stages
+    ]
+    assert got == want
+    for st in net.stages:
+        assert env[st.output].shape == env[st.input].shape
+        assert len(st.nodes) == 4 * len(st.blocks)
+
+
+def test_load_params_reaches_the_stages():
+    """New weights loaded after construction are the ones the stages run
+    with: the output changes, and equals the plain chain on the new
+    weights."""
+    net = load_model(model_path("face_landmark.onnx").read_bytes(), torch.device("cpu"))
+    st = net.stages[0]
+    x = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, (1, 3, 192, 192)).astype(np.float32))
+    before = net.activations(x)
+    params = {k: v.clone() for k, v in net.params().items()}
+    for b in st.blocks:
+        params[b["pw_w"]] *= 1.5
+        params[b["alpha"]] += 0.1
+    net.load_params(params)
+    after = net.activations(x)
+    assert not torch.allclose(after[st.output], before[st.output])
+    blocks = [{k: None if v is None else params[v] for k, v in b.items()} for b in st.blocks]
+    want = blaze_blocks_reference(after[st.input], blocks)
+    torch.testing.assert_close(after[st.output], want, rtol=0, atol=0)

@@ -55,6 +55,7 @@ def test_imports_neither_jax_nor_zaru_tpu():
     code = (
         "import sys, zaru_tpu_torch, zaru_tpu_torch.pipeline, zaru_tpu_torch.weights\n"
         "import zaru_tpu_torch.ops.rotated_fast, zaru_tpu_torch.ops.letterbox\n"
+        "import zaru_tpu_torch.ops.cnn_stage, zaru_tpu_torch.face.eye\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'zaru_tpu' or m.startswith('zaru_tpu.')]\n"
         "assert not bad, bad\n"
@@ -67,13 +68,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     running on the CPU."""
     from zaru_tpu_torch import FaceTracker, resolve_device
     from zaru_tpu_torch.face.detection import ShortRangeNetwork
+    from zaru_tpu_torch.face.eye import EyeNetwork
     from zaru_tpu_torch.face.landmark.mediapipe import FaceMeshV1
     from zaru_tpu_torch.nn import Cnn, ColorMapper
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (
         FaceTracker,
+        lambda: FaceTracker(iris=True, redetect_bucket=4),
         ShortRangeNetwork,
+        EyeNetwork,
         FaceMeshV1,
         lambda: Cnn.load("face_landmark.onnx", ColorMapper.linear(-1.0, 1.0)),
         resolve_device,

@@ -2,7 +2,9 @@
 
 Both trackers run at batch 2 on the fixture photo over one step sequence:
 detect, forced redetect, stream 1's frame zeroed (loss), redetect, track.
-Both use the same weights (``params_from_jax``).
+Both use the same weights (``params_from_jax``). The JAX tracker runs with
+``iris=True``, which adds the eyes and leaves the rest of the step as it
+is; the port runs both without and with iris.
 
 The cascade feeds each step's landmarks back into the next step's ROI and
 samples its crops nearest-neighbour, so it amplifies tiny differences:
@@ -16,7 +18,24 @@ JAX in two ways:
 - free-running over the whole sequence: tracking flags equal at every step
   and landmarks within 8 px (4.3 px measured).
 
-The same sequence, with JAX's states and outputs, is stored in
+Iris (``eyes [B,2,76,3]``). Given JAX's own eye rects (stored with its
+run), the port's crops are JAX's bit for bit and the eyes differ by
+≤ 6.1e-5 px (the iris CNN sums in another order); held to EYE_RECT_TOL_PX.
+The port's own eye rects go through ``atan2``, ``cos`` and ``sin``, which
+differ by an ulp between the libraries: they differ from JAX's by
+≤ 1.8e-4 px (held to EYE_RECT_TOL_PX), and that is enough to move an eye
+crop pixel that lies on a rounding boundary (a crop pixel spans ~2.3
+source pixels). At steps 0 and 3 one pixel of one crop moves and the eyes
+by up to 0.117 px; on an H100, whose CUDA trigonometry differs again, they
+moved by up to 0.473 px (chip_smoke.py). So eyes from the port's own rects,
+given JAX's landmarks and one step at a time from JAX's state, are held to
+EYE_TOL_PX.
+
+``redetect_bucket=1`` runs over its own plan (BUCKET_PLAN: both streams
+lost at the start and drained one per step, a loss, a forced redetect),
+held to JAX like the main sequence.
+
+The main sequence, with JAX's states and outputs, is stored in
 ``zaru_tpu_torch/fixtures/sad_linus_track.npz`` for ``chip_smoke.py`` to
 replay on the GPU, where JAX is absent. Regenerate it with::
 
@@ -47,6 +66,15 @@ PLAN = [(False, -1), (True, -1), (False, 1), (False, -1), (False, -1)]
 STEP_TOL_PX = 1e-2
 # Free-running bound (px): 4.3 px measured; see the module docstring.
 FREE_TOL_PX = 8.0
+# Eye rects, and eyes from JAX's own eye rects (px): 1.8e-4 and 6.1e-5
+# measured.
+EYE_RECT_TOL_PX = 1e-3
+# Eyes from the port's own rects (px): 0.117 measured on the CPU and 0.473
+# on an H100, where crop pixels moved; see the module docstring.
+EYE_TOL_PX = 1.0
+# redetect_bucket=1: both streams start lost (stream 0 detected at step 0,
+# stream 1 at step 1), stream 0 lost at step 2, forced redetect, track.
+BUCKET_PLAN = [(False, -1), (False, -1), (False, 0), (True, -1), (False, -1)]
 
 
 def _frames(rgb, zero):
@@ -65,19 +93,24 @@ def _np_state(state):
     }
 
 
-def jax_run(rgb):
-    """zaru_tpu FaceTracker over PLAN: pre-step states and outputs per step."""
+def jax_run(rgb, plan=PLAN, **kwargs):
+    """zaru_tpu FaceTracker(**kwargs) over ``plan``: pre-step states and
+    outputs per step."""
     from zaru_tpu.pipeline import FaceTracker
 
-    tracker = FaceTracker()
+    tracker = FaceTracker(**kwargs)
     state = tracker.init_state(batch=BATCH)
     states, outs = [], []
-    for force, zero in PLAN:
+    for force, zero in plan:
         states.append(_np_state(state))
         state, out = tracker._step_batch_gated(
             tracker.params, state, jnp.asarray(_frames(rgb, zero)), force
         )
         outs.append({k: np.asarray(v) for k, v in out.items()})
+    if tracker.iris:  # the eye view rects that _iris_batch computed
+        rects = jax.jit(jax.vmap(tracker._eye_view_rects))
+        for out in outs:
+            out["eye_rects"] = np.asarray(rects(jnp.asarray(out["landmarks"])))
     return tracker, states, outs
 
 
@@ -92,7 +125,7 @@ def _flat(rgb, states, outs):
         "state_roi": st("roi"), "state_tracking": st("tracking"),
         "state_x": fl("x"), "state_dx": fl("dx"), "state_init": fl("init"),
         "landmarks": ou("landmarks"), "confidence": ou("confidence"),
-        "roi": ou("roi"), "valid": ou("valid"),
+        "roi": ou("roi"), "valid": ou("valid"), "eyes": ou("eyes"), "eye_rects": ou("eye_rects"),
     }
 
 
@@ -102,7 +135,7 @@ def regen():
     from zaru_tpu.image import Image
 
     rgb = np.ascontiguousarray(Image.load(fixture_path("sad_linus.jpg")).data[..., :3])
-    _, states, outs = jax_run(rgb)
+    _, states, outs = jax_run(rgb, iris=True)
     np.savez_compressed(FIXTURE, **_flat(rgb, states, outs))
     print(f"wrote {FIXTURE}")
 
@@ -126,9 +159,17 @@ def live(stored):
     from zaru_tpu_torch.pipeline import FaceTracker as PortTracker
     from zaru_tpu_torch.weights import params_from_jax
 
-    tracker, states, outs = jax_run(stored["rgb"])
+    tracker, states, outs = jax_run(stored["rgb"], iris=True)
     port = PortTracker(params=params_from_jax(tracker.params), device="cpu")
     return tracker, port, states, outs
+
+
+@pytest.fixture(scope="module")
+def port_iris(live):
+    from zaru_tpu_torch.pipeline import FaceTracker as PortTracker
+    from zaru_tpu_torch.weights import params_from_jax
+
+    return PortTracker(iris=True, params=params_from_jax(live[0].params), device="cpu")
 
 
 def _assert_step_close(got, want, tol):
@@ -154,7 +195,8 @@ def test_fixture_is_current(stored, live):
     flat = _flat(stored["rgb"], states, outs)
     for k in ("state_tracking", "state_init", "valid"):
         np.testing.assert_array_equal(stored[k], flat[k], err_msg=k)
-    for k in ("state_roi", "state_x", "state_dx", "landmarks", "roi", "confidence"):
+    for k in ("state_roi", "state_x", "state_dx", "landmarks", "roi", "confidence", "eyes",
+              "eye_rects"):
         np.testing.assert_allclose(stored[k], flat[k], rtol=0, atol=1e-3, err_msg=k)
 
 
@@ -167,6 +209,7 @@ def test_one_step_matches_jax(stored, live):
             _torch_state(states[t]), torch.from_numpy(_frames(stored["rgb"], zero)), force
         )
         got = {k: v.numpy() for k, v in out.items()}
+        assert "eyes" not in got
         _assert_step_close(got, outs[t], STEP_TOL_PX)
 
 
@@ -186,6 +229,56 @@ def test_free_running_matches_jax(stored, live):
         err = np.abs(out["landmarks"].numpy()[ok] - outs[t]["landmarks"][ok]).max()
         assert err <= FREE_TOL_PX, (t, err)
     assert not outs[2]["valid"][1] and outs[3]["valid"].all()
+
+
+def test_iris_batch_given_jax_landmarks(stored, live, port_iris):
+    """On JAX's own landmarks: the port's eye rects are JAX's within
+    EYE_RECT_TOL_PX; on JAX's eye rects its crops, iris network and decode
+    give JAX's eyes within EYE_RECT_TOL_PX; on its own rects, within
+    EYE_TOL_PX."""
+    _, _, _, outs = live
+    for t, (_force, zero) in enumerate(PLAN):
+        frames = torch.from_numpy(_frames(stored["rgb"], zero))
+        pos = torch.from_numpy(np.array(outs[t]["landmarks"]))
+        rects = port_iris._eye_view_rects(pos).numpy()
+        np.testing.assert_allclose(rects, outs[t]["eye_rects"], rtol=0, atol=EYE_RECT_TOL_PX)
+        eyes = port_iris._iris_views(frames, torch.from_numpy(np.array(outs[t]["eye_rects"]))).numpy()
+        np.testing.assert_allclose(eyes, outs[t]["eyes"], rtol=0, atol=EYE_RECT_TOL_PX)
+        eyes = port_iris._iris_batch(frames, pos)
+        assert eyes.shape == (BATCH, 2, 76, 3)
+        np.testing.assert_allclose(eyes.numpy(), outs[t]["eyes"], rtol=0, atol=EYE_TOL_PX)
+
+
+def test_iris_one_step_matches_jax(stored, live, port_iris):
+    """FaceTracker(iris=True), one step at a time from JAX's state."""
+    _, _, states, outs = live
+    for t, (force, zero) in enumerate(PLAN):
+        _, out = port_iris.step_batch(
+            _torch_state(states[t]), torch.from_numpy(_frames(stored["rgb"], zero)), force
+        )
+        got = {k: v.numpy() for k, v in out.items()}
+        _assert_step_close(got, outs[t], STEP_TOL_PX)
+        np.testing.assert_allclose(got["eyes"], outs[t]["eyes"], rtol=0, atol=EYE_TOL_PX)
+
+
+def test_redetect_bucket_matches_jax(stored):
+    """redetect_bucket=1 over BUCKET_PLAN: one step at a time from JAX's
+    state (flags equal, landmarks within STEP_TOL_PX), then free-running
+    (flags equal), and the plan does drain one lost stream per step."""
+    from zaru_tpu_torch.pipeline import FaceTracker as PortTracker
+    from zaru_tpu_torch.weights import params_from_jax
+
+    tracker, states, outs = jax_run(stored["rgb"], BUCKET_PLAN, redetect_bucket=1)
+    port = PortTracker(redetect_bucket=1, params=params_from_jax(tracker.params), device="cpu")
+    state = port.init_state(BATCH)
+    for t, (force, zero) in enumerate(BUCKET_PLAN):
+        frames = torch.from_numpy(_frames(stored["rgb"], zero))
+        _, out = port.step_batch(_torch_state(states[t]), frames, force)
+        _assert_step_close({k: v.numpy() for k, v in out.items()}, outs[t], STEP_TOL_PX)
+        state, out = port.step_batch(state, frames, force)
+        np.testing.assert_array_equal(out["valid"].numpy(), outs[t]["valid"])
+    valid = np.stack([o["valid"] for o in outs])
+    np.testing.assert_array_equal(valid, [[1, 0], [1, 1], [0, 1], [1, 1], [1, 1]])
 
 
 if __name__ == "__main__":

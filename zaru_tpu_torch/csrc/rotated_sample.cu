@@ -18,10 +18,12 @@
 //   5. black unless the source lies inside the frame;
 //   6. one 4-byte load of the RGBA pixel, c*adjust + lo for its 3 channels
 //      (:1530-1531).
-// Every multiply, add and divide of the index map is written as an
-// explicitly rounded intrinsic, and the file is built with --fmad=false: the
-// JAX index map is tuned to an exact f32 op order, and a contracted FMA
-// moves pixels.
+// Every multiply and add of the index map is written as an explicitly
+// rounded intrinsic, and the file is built with --fmad=false: the JAX index
+// map is tuned to an exact f32 op order, and a contracted FMA moves pixels.
+// Two steps follow what XLA compiles rather than the JAX source: `j / out_w`
+// is `j * f32(1/out_w)` (the reciprocal comes from the host), and
+// `cth*px - sth*py` is one FMA, `fma(cth, px, -(sth*py))`.
 //
 // Bound: bytes. Each output pixel does one 4-byte read and writes 12 bytes;
 // at batch 512 of 192x192 views that is about 302 MB per step, about
@@ -42,7 +44,7 @@ __global__ void rotated_sample_kernel(
     const int* __restrict__ icoefs,       // [N, 4] lx, ly, sx, sy
     float* __restrict__ out,              // [N, out_h, out_w, 3]
     int slots, int height, int width, int m, int out_w, int out_h,
-    float adjust, float lo) {
+    float inv_w, float inv_h, float adjust, float lo) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int k = blockIdx.y * blockDim.y + threadIdx.y;
   const int n = blockIdx.z;
@@ -55,14 +57,14 @@ __global__ void rotated_sample_kernel(
 
   // q_of(jf, kf, rounded=True): the exact sampler's two-stage rounding,
   // then the map into the prescale grid.
-  float xv = __fmul_rn(__fdiv_rn((float)j, (float)out_w), w);
-  float yv = __fmul_rn(__fdiv_rn((float)k, (float)out_h), h);
+  float xv = __fmul_rn(__fmul_rn((float)j, inv_w), w);
+  float yv = __fmul_rn(__fmul_rn((float)k, inv_h), h);
   xv = floorf(__fadd_rn(xv, 0.5f));
   yv = floorf(__fadd_rn(yv, 0.5f));
   const float px = __fsub_rn(__fadd_rn(xv, 0.5f), whalf);
   const float py = __fsub_rn(__fadd_rn(yv, 0.5f), hhalf);
   const float fx = __fadd_rn(
-      __fadd_rn(__fsub_rn(__fmul_rn(cth, px), __fmul_rn(sth, py)), whalf), tlx);
+      __fadd_rn(__fmaf_rn(cth, px, -__fmul_rn(sth, py)), whalf), tlx);
   const float fy = __fadd_rn(
       __fadd_rn(__fadd_rn(__fmul_rn(sth, px), __fmul_rn(cth, py)), hhalf), tly);
   const float qx = __fadd_rn(__fmul_rn(fx, inv_sx), qx0);
@@ -95,12 +97,12 @@ __global__ void rotated_sample_kernel(
 extern "C" int zaru_rotated_sample(
     const void* frames, const void* coefs, const void* icoefs, void* out,
     int n_views, int slots, int height, int width, int m, int out_w, int out_h,
-    float adjust, float lo, void* stream) {
+    float inv_w, float inv_h, float adjust, float lo, void* stream) {
   const dim3 block(32, 8);
   const dim3 grid((out_w + 31) / 32, (out_h + 7) / 8, n_views);
   rotated_sample_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(frames), static_cast<const float*>(coefs),
       static_cast<const int*>(icoefs), static_cast<float*>(out), slots, height,
-      width, m, out_w, out_h, adjust, lo);
+      width, m, out_w, out_h, inv_w, inv_h, adjust, lo);
   return static_cast<int>(cudaGetLastError());
 }

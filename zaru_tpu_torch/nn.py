@@ -22,7 +22,7 @@ from ._device import resolve_device
 from .assets import model_path
 from .onnx import OnnxModule, load_model
 from .ops.letterbox import letterbox_sample
-from .ops.rotated_fast import rotated_sample_fast
+from .ops.rotated_fast import PRESCALE_M, rotated_sample_fast
 from .resolution import Resolution
 
 __all__ = ["ColorMapper", "Cnn"]
@@ -64,10 +64,11 @@ class Cnn:
     def input_resolution(self) -> Resolution:
         return self._res
 
-    def sample_views_fast(self, frames_u8, rrects):
-        """``[B,H,W,4] u8`` + ``[B,...,5]`` rects → ``[B,...,h,w,3] f32``."""
+    def sample_views_fast(self, frames_u8, rrects, prescale_m: int = PRESCALE_M):
+        """``[B,H,W,4] u8`` + ``[B,...,5]`` rects → ``[B,...,h,w,3] f32``,
+        through a prescale grid of side ``prescale_m``."""
         r, m = self._res, self.mapper
-        return rotated_sample_fast(frames_u8, rrects, r.width, r.height, m.lo, m.hi)
+        return rotated_sample_fast(frames_u8, rrects, r.width, r.height, m.lo, m.hi, prescale_m)
 
     def sample_views_letterbox(self, frames_u8, rrects):
         """``[B,H,W,4] u8`` + ``[B,5]`` unrotated rects → ``[B,h,w,3] f32``."""

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["round_half_away", "sigmoid", "div"]
+__all__ = ["round_half_away", "sigmoid", "div", "fma"]
 
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
@@ -36,3 +36,22 @@ def div(x: torch.Tensor, d: float) -> torch.Tensor:
     tensor on ``x``'s device takes the true division.
     """
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for f32 tensors of one shape, rounded once, as CUDA's
+    ``__fmaf_rn`` and XLA's contracted multiply-add round it.
+
+    The product of two f32 numbers is exact in f64. The f64 sum is then
+    rounded to odd (the TwoSum error picks the odd neighbour when the sum
+    is inexact), and rounding that to f32 is the correctly rounded result:
+    f64 keeps more than two bits beyond f32's.
+    """
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    odd = torch.where((err != 0) & ((s.view(torch.int64) & 1) == 0), torch.nextafter(s, toward), s)
+    return odd.float()

@@ -15,23 +15,36 @@ initializers (shape vectors) stay numpy constants. The graphs are exported
 at batch 1 and run here at batch B: a Reshape's leading 1 is read as the
 batch axis, as the JAX cascade's ``vmap`` over streams has it.
 
-Convolutions stay ``F.conv2d`` (cuDNN on the GPU), as the JAX package left
-them to XLA. cuDNN runs f32 convolutions in TF32 by default, which keeps
-about three decimal digits and breaks the repo's CNN bar
+**Stage plan.** When a module is built it finds the maximal chains of
+stride-1 BlazeBlocks (:func:`find_stages`): a depthwise 3×3 ``Conv``
+(``group == C``, stride 1, pads 1) → a 1×1 ``Conv`` C→C → an ``Add`` with
+the depthwise conv's input → ``PRelu`` or ``Relu``, every intermediate read
+by that one consumer only. :meth:`OnnxModule.forward` runs each chain as one
+``ops.cnn_stage.fused_blocks`` call (the stage kernel on CUDA, the plain
+per-op chain on the CPU) and every other node one by one. The packed stage
+weights are built from the parameters at construction and again by
+:meth:`OnnxModule.load_params`.
+
+The other convolutions stay ``F.conv2d`` (cuDNN on the GPU), as the JAX
+package left them to XLA. cuDNN runs f32 convolutions in TF32 by default,
+which keeps about three decimal digits and breaks the repo's CNN bar
 (``atol = 1e-3·max(1,|out|max)``, ``rtol = 2e-3``), so :meth:`forward`
 turns TF32 off around them.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import cnn_stage
 from .proto import OnnxModel, OnnxNode
 
-__all__ = ["OnnxModule", "SUPPORTED_OPS"]
+__all__ = ["OnnxModule", "SUPPORTED_OPS", "Stage", "find_stages"]
 
 
 def _same_pads(size: int, k: int, s: int, d: int, lower: bool) -> tuple[int, int]:
@@ -153,6 +166,112 @@ _OPS = {
 SUPPORTED_OPS = frozenset(_OPS)
 
 
+@dataclass(frozen=True)
+class Stage:
+    """A chain of BlazeBlocks: its input and output value names, its channel
+    count, each block's initializer names (``dw_w``, ``dw_b``, ``pw_w``,
+    ``pw_b``, ``alpha``; ``alpha`` is None for a ReLU) and the indices of its
+    nodes in the graph."""
+
+    input: str
+    output: str
+    channels: int
+    blocks: tuple
+    nodes: tuple
+
+
+def _block_at(nodes, i, consumers, inits):
+    """The BlazeBlock whose depthwise conv is ``nodes[i]``, as ``(block
+    names, node indices, output name)``, or None."""
+    dw = nodes[i]
+    if dw.op_type != "Conv" or len(dw.inputs) != 3:
+        return None
+    x, w, b = dw.inputs
+    wt = inits.get(w)
+    if wt is None or wt.ndim != 4 or b not in inits:
+        return None
+    C = wt.shape[0]
+    a = dw.attrs
+    if (wt.shape != (C, 1, 3, 3) or a.get("group") != C or a.get("pads") != [1, 1, 1, 1]
+            or a.get("auto_pad", "NOTSET") != "NOTSET"
+            or a.get("strides", [1, 1]) != [1, 1] or a.get("dilations", [1, 1]) != [1, 1]):
+        return None
+
+    def only(name, op):
+        cs = consumers.get(name, [])
+        return cs[0] if len(cs) == 1 and cs[0] >= 0 and nodes[cs[0]].op_type == op else None
+
+    j = only(dw.outputs[0], "Conv")
+    if j is None:
+        return None
+    pw = nodes[j]
+    a = pw.attrs
+    pwt = inits.get(pw.inputs[1])
+    if (len(pw.inputs) != 3 or pw.inputs[0] != dw.outputs[0] or pwt is None
+            or pwt.shape != (C, C, 1, 1) or pw.inputs[2] not in inits
+            or a.get("group", 1) != 1 or any(a.get("pads") or [])
+            or a.get("auto_pad", "NOTSET") not in ("NOTSET", "VALID")
+            or a.get("strides", [1, 1]) != [1, 1]):
+        return None
+    k = only(pw.outputs[0], "Add")
+    if k is None or sorted(nodes[k].inputs) != sorted([x, pw.outputs[0]]):
+        return None
+    add_out = nodes[k].outputs[0]
+    act = only(add_out, "PRelu")
+    if act is not None:
+        slope = nodes[act].inputs[1]
+        if nodes[act].inputs[0] != add_out or slope not in inits or inits[slope].size != C:
+            return None
+    else:
+        act = only(add_out, "Relu")
+        if act is None:
+            return None
+        slope = None
+    names = {"dw_w": w, "dw_b": b, "pw_w": pw.inputs[1], "pw_b": pw.inputs[2], "alpha": slope}
+    return names, (i, j, k, act), nodes[act].outputs[0]
+
+
+def find_stages(model: OnnxModel) -> list[Stage]:
+    """The graph's maximal chains of BlazeBlocks (see the module docstring).
+    A block output read by anything but the next block (or a graph output)
+    ends its chain."""
+    g = model.graph
+    nodes = g.nodes
+    consumers: dict[str, list[int]] = {}
+    for i, n in enumerate(nodes):
+        for name in n.inputs:
+            consumers.setdefault(name, []).append(i)
+    for vi in g.outputs:
+        consumers.setdefault(vi.name, []).append(-1)
+    stages, taken = [], set()
+    for i in range(len(nodes)):
+        if i in taken:
+            continue
+        found = _block_at(nodes, i, consumers, g.initializers)
+        if found is None:
+            continue
+        names, idx, out = found
+        x = nodes[i].inputs[0]
+        blocks, node_idx = [names], list(idx)
+        while True:
+            nxt = None
+            cs = consumers.get(out, [])
+            if len(cs) == 2 and -1 not in cs:
+                for c in cs:
+                    f = _block_at(nodes, c, consumers, g.initializers)
+                    if f is not None and set(cs) == {c, f[1][2]}:
+                        nxt = f
+            if nxt is None:
+                break
+            blocks.append(nxt[0])
+            node_idx += nxt[1]
+            out = nxt[2]
+        taken.update(node_idx)
+        C = g.initializers[blocks[0]["dw_w"]].shape[0]
+        stages.append(Stage(x, out, C, tuple(blocks), tuple(node_idx)))
+    return stages
+
+
 class OnnxModule(nn.Module):
     """An ONNX graph as a module: ``forward(*inputs) -> list`` of the graph's
     outputs, NCHW like the ONNX contract."""
@@ -178,6 +297,21 @@ class OnnxModule(nn.Module):
                 self._static[name] = arr
         self.input_info = [vi for vi in g.inputs if vi.name not in g.initializers]
         self.output_names = [vi.name for vi in g.outputs]
+        self.stages = find_stages(model)
+        self._stage_at = {st.nodes[0]: st for st in self.stages}
+        self._in_stage = {i for st in self.stages for i in st.nodes}
+        self._pack_stages()
+
+    @torch.no_grad()
+    def _pack_stages(self) -> None:
+        params = self.params()
+        self._packed = {
+            st.nodes[0]: cnn_stage.pack_blocks(
+                [{k: None if v is None else params[v] for k, v in b.items()} for b in st.blocks],
+                st.channels,
+            )
+            for st in self.stages
+        }
 
     def params(self) -> dict[str, torch.Tensor]:
         """The float initializers by ONNX name."""
@@ -197,16 +331,29 @@ class OnnxModule(nn.Module):
             if tuple(v.shape) != tuple(p.shape):
                 raise ValueError(f"parameter {name!r}: shape {tuple(v.shape)}, want {tuple(p.shape)}")
             p.copy_(v)
+        self._pack_stages()
 
-    def forward(self, *inputs: torch.Tensor) -> list[torch.Tensor]:
+    def activations(self, *inputs: torch.Tensor) -> dict:
+        """Every value of the graph by name (a chain's inner values are not
+        computed), for ``inputs``."""
         if len(inputs) != len(self.input_info):
             raise ValueError(f"expected {len(self.input_info)} inputs, got {len(inputs)}")
         env: dict = dict(self._static)
         env.update(self.params())
         env.update((vi.name, x) for vi, x in zip(self.input_info, inputs))
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            for node in self.nodes:
-                vals = [env[i] if i else None for i in node.inputs]
-                out = _OPS[node.op_type](node, vals)
-                env[node.outputs[0]] = out
+            for i, node in enumerate(self.nodes):
+                st = self._stage_at.get(i)
+                if st is not None:
+                    x = env[st.input]
+                    env[st.output] = cnn_stage.fused_blocks(
+                        x, self._packed[i], x.shape[2], x.shape[3], st.channels
+                    )
+                elif i not in self._in_stage:
+                    vals = [env[n] if n else None for n in node.inputs]
+                    env[node.outputs[0]] = _OPS[node.op_type](node, vals)
+        return env
+
+    def forward(self, *inputs: torch.Tensor) -> list[torch.Tensor]:
+        env = self.activations(*inputs)
         return [env[n] for n in self.output_names]

@@ -1,0 +1,158 @@
+"""The fused BlazeBlock stage: hand-written CUDA kernel and its plain version.
+
+The counterpart of zaru_tpu/ops/cnn_stage.py. A stage is ``nb``
+consecutive stride-1 BlazeBlocks on ``[B,C,H,W] f32``::
+
+    x <- PReLU_i(x + pw1x1_i(dw3x3_i(x) + b_dw) + b_pw)
+
+(depthwise 3×3 with zero padding 1 → pointwise 1×1 → residual Add →
+PReLU; a ReLU block is PReLU with α = 0). The ONNX executor finds such
+chains in the face CNNs (``onnx/executor.py``) and runs each through
+:func:`fused_blocks`: on a CUDA tensor it launches ``csrc/blaze_stage.cu``,
+which keeps the stage's activations in shared memory; on a CPU tensor it
+runs :func:`blaze_blocks_reference`, the plain version, which is the
+executor's own per-op chain (the same ``F.conv2d`` calls, Add and PReLU in
+the same order), so on the CPU the executor's numbers do not move.
+
+Blocks are dicts of ``dw_w [C,1,3,3]``, ``dw_b [C]``, ``pw_w [C,C,1,1]``,
+``pw_b [C]`` and ``alpha`` (``[C]``, any shape of C values, or None for a
+ReLU), as in the JAX module. :func:`pack_blocks` lays them out for the
+kernel: one row of ``C*C + 12*C`` floats per block, the pointwise weights
+transposed to ``[C_in, C_out]``, the taps ``[9, C]``, then the depthwise
+bias, the pointwise bias and the slopes. There is no image group ``G`` and
+no block-diagonal weight inflation: both existed to fill the TPU's MXU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ._build import library
+
+__all__ = ["blaze_blocks_reference", "fused_blocks", "pack_blocks", "unpack_blocks"]
+
+SMEM_LIMIT = 232448  # dynamic shared memory one thread block may use (H100)
+_OUTS = 8  # output channels per pointwise work item (csrc/blaze_stage.cu kOuts)
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def pack_blocks(blocks, C: int) -> torch.Tensor:
+    """``blocks`` → the kernel's ``[nb, C*C + 12*C] f32`` layout, on the
+    device of the blocks' tensors (the CPU for numpy arrays)."""
+    rows = []
+    for b in blocks:
+        dev = b["dw_w"].device if isinstance(b["dw_w"], torch.Tensor) else None
+        dw = _f32(b["dw_w"], dev).reshape(C, 9)
+        pw = _f32(b["pw_w"], dev).reshape(C, C)  # [out, in]
+        alpha = (torch.zeros(C, device=dw.device) if b["alpha"] is None
+                 else _f32(b["alpha"], dev).reshape(C))
+        rows.append(torch.cat([
+            pw.t().reshape(-1), dw.t().reshape(-1), _f32(b["dw_b"], dev).reshape(C),
+            _f32(b["pw_b"], dev).reshape(C), alpha,
+        ]))
+    return torch.stack(rows).contiguous()
+
+
+def unpack_blocks(packed, C: int) -> list[dict]:
+    """The blocks of :func:`pack_blocks`'s layout; a block whose slopes are
+    all zero comes back as a ReLU (``alpha`` None)."""
+    blocks = []
+    for row in packed:
+        pw, rest = row[: C * C], row[C * C:]
+        alpha = rest[11 * C:]
+        blocks.append({
+            "dw_w": rest[: 9 * C].reshape(9, C).t().reshape(C, 1, 3, 3),
+            "dw_b": rest[9 * C: 10 * C],
+            "pw_w": pw.reshape(C, C).t().reshape(C, C, 1, 1),
+            "pw_b": rest[10 * C: 11 * C],
+            "alpha": None if not bool(alpha.any()) else alpha,
+        })
+    return blocks
+
+
+def blaze_blocks_reference(x, blocks):
+    """Plain PyTorch version of the stage on any device: per block a
+    depthwise ``F.conv2d`` with padding 1, a 1×1 ``F.conv2d``, the residual
+    Add and PReLU (``torch.where(y < 0, a·y, y)``, the executor's) or ReLU."""
+    C = x.shape[1]
+    for b in blocks:
+        f = lambda k: _f32(b[k], x.device)  # noqa: E731
+        dw = F.conv2d(x, f("dw_w"), f("dw_b"), stride=1, padding=(1, 1), groups=C)
+        y = x + F.conv2d(dw, f("pw_w"), f("pw_b"))
+        if b["alpha"] is None:
+            x = torch.relu(y)
+        else:
+            x = torch.where(y < 0, f("alpha").reshape(C, 1, 1) * y, y)
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def _tiling(C: int, H: int, W: int, nb: int) -> tuple[int, int, int]:
+    """``(tile_h, tile_w, shared-memory bytes)`` for a stage: the even
+    tiling that computes the fewest pixels (tile plus recomputed halo),
+    where a tiling that needs more than half the shared memory (one thread
+    block per SM instead of two) counts 1.5 times its pixels."""
+    best = None
+    for nty in range(1, H + 1):
+        th = -(-H // nty)
+        for ntx in range(1, W + 1):
+            tw = -(-W // ntx)
+            region = min(H, th + 2 * nb) * min(W, tw + 2 * nb)
+            smem = (2 * C * region + C * C + 12 * C) * 4
+            if smem > SMEM_LIMIT:
+                continue
+            cost = nty * ntx * region * (1.0 if smem <= SMEM_LIMIT // 2 - 1024 else 1.5)
+            if best is None or cost < best[0]:
+                best = (cost, th, tw, smem)
+    if best is None:
+        raise ValueError(f"a stage of {C} channels does not fit the shared memory")
+    return best[1:]
+
+
+def _check(x, packed, H, W, C):
+    if x.dtype != torch.float32 or x.ndim != 4 or tuple(x.shape[1:]) != (C, H, W):
+        raise ValueError(f"x must be [B,{C},{H},{W}] float32, got {tuple(x.shape)} {x.dtype}")
+    if (packed.dtype != torch.float32 or packed.ndim != 2 or packed.shape[1] != C * C + 12 * C
+            or packed.shape[0] < 1 or packed.device != x.device):
+        raise ValueError(f"packed must be [nb,{C * C + 12 * C}] float32 on {x.device}, "
+                         f"got {tuple(packed.shape)} {packed.dtype} on {packed.device}")
+
+
+def fused_blocks(x, packed, H: int, W: int, C: int):
+    """Runs the packed stage over ``x [B,C,H,W] f32`` → the last block's
+    output, same shape. A CUDA tensor launches the kernel (or raises), a
+    CPU tensor runs the plain version."""
+    _check(x, packed, H, W, C)
+    if x.device.type == "cpu":
+        return blaze_blocks_reference(x, unpack_blocks(packed, C))
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    B, nb = x.shape[0], packed.shape[0]
+    if C % _OUTS or not 0 < B <= 65535:
+        raise ValueError(f"the kernel takes C a multiple of {_OUTS} and 1..65535 images, "
+                         f"got C={C}, B={B}")
+    x = x.contiguous()
+    packed = packed.contiguous()
+    tile_h, tile_w, smem = _tiling(C, H, W, nb)
+    out = torch.empty_like(x)
+    fn = library("blaze_stage").zaru_blaze_stage
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(
+        x.data_ptr(), packed.data_ptr(), out.data_ptr(), B, C, H, W, nb, tile_h, tile_w, smem,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"blaze_stage kernel launch failed: CUDA error {rc}")
+    fused_blocks.launches += 1
+    return out
+
+
+fused_blocks.launches = 0

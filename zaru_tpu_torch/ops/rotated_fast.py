@@ -7,9 +7,10 @@ f32`` NHWC, colour-mapped. The extra middle dims of the rects are slots:
 several views of one frame (rotated_fast.py:960-963).
 
 Each output pixel reads one source pixel through an integer-stride
-prescale grid of side ``PRESCALE_M`` (512, the JAX default): bit-exact to
-the exact sampler for views whose rotated bounding box fits 512 pixels,
-within ``ceil(stride/2)`` source pixels beyond. The per-view coefficients are computed here with torch on
+prescale grid of side ``prescale_m`` (``PRESCALE_M`` = 512, the JAX default;
+the eye crops of iris refinement use 256): bit-exact to the exact sampler
+for views whose rotated bounding box fits the grid, within
+``ceil(stride/2)`` source pixels beyond. The per-view coefficients are computed here with torch on
 the tensor's device, in the f32 op order of ``_prescale_geometry`` (:118),
 ``_prescale_coefs`` (:366-371) and ``_sampler_coefs`` (:539-570)
 (:func:`sampler_coefs`); the per-pixel index map runs in
@@ -25,7 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..num import div
+from ..num import div, fma
 from ._build import library
 from .sampling import color_map
 
@@ -41,8 +42,9 @@ PRESCALE_M = 512  # prescale grid side; sampling is bit-exact for bbox <= M
 PRESCALE_MARGIN = 2.0  # prescale bbox slack (rotated_fast.py:76)
 
 
-def sampler_coefs(rrects):
-    """Per-view coefficients of the index map for ``rrects [N,5]``.
+def sampler_coefs(rrects, prescale_m: int = PRESCALE_M):
+    """Per-view coefficients of the index map for ``rrects [N,5]`` on a
+    prescale grid of side ``prescale_m``.
 
     Returns ``(coefs [N,12] f32, icoefs [N,4] i32)``: ``coefs`` as
     ``_sampler_coefs`` orders them (w, h, cos, sin, w/2, h/2, top-left x/y,
@@ -53,7 +55,7 @@ def sampler_coefs(rrects):
     c, s = torch.abs(torch.cos(th)), torch.abs(torch.sin(th))
     bw = w * c + h * s + PRESCALE_MARGIN
     bh = w * s + h * c + PRESCALE_MARGIN
-    m = float(PRESCALE_M)
+    m = float(prescale_m)
     sx = torch.ceil(torch.clamp_min(div(bw, m), 1.0))
     sy = torch.ceil(torch.clamp_min(div(bh, m), 1.0))
     left = cx - sx * m * 0.5
@@ -89,23 +91,33 @@ def _color(lo: float, hi: float) -> tuple[float, float]:
     return float(np.float32((hi - lo) / 255.0)), float(np.float32(lo))
 
 
-def _reference(frames_u8, coefs, icoefs, out_w, out_h, lo, hi):
-    """The kernel's per-pixel map in torch ops: ``[N,out_h,out_w,3]``."""
+def _recip(n: int) -> float:
+    """``f32(1/n)``, the factor XLA compiles ``x / n`` into."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
+def _reference(frames_u8, coefs, icoefs, out_w, out_h, lo, hi, prescale_m):
+    """The kernel's per-pixel map in torch ops: ``[N,out_h,out_w,3]``.
+
+    Two steps follow compiled JAX rather than its source (rotated_fast.py:
+    645-652): ``j / out_w`` is ``j * f32(1/out_w)``, and ``cth*px -
+    sth*py`` is one fused multiply-add, ``fma(cth, px, -(sth*py))``."""
     B, H, W, _ = frames_u8.shape
     dev = frames_u8.device
     N = coefs.shape[0]
     col = lambda i: coefs[:, i, None, None]  # noqa: E731  [N,1,1]
-    jf = div(torch.arange(out_w, dtype=torch.float32, device=dev), out_w)
-    kf = div(torch.arange(out_h, dtype=torch.float32, device=dev), out_h)
+    jf = torch.arange(out_w, dtype=torch.float32, device=dev) * _recip(out_w)
+    kf = torch.arange(out_h, dtype=torch.float32, device=dev) * _recip(out_h)
     xv = torch.floor(jf[None, None, :] * col(0) + 0.5)  # [N,1,out_w]
     yv = torch.floor(kf[None, :, None] * col(1) + 0.5)  # [N,out_h,1]
     px = (xv + 0.5) - col(4)
     py = (yv + 0.5) - col(5)
-    fx = (col(2) * px - col(3) * py + col(4)) + col(6)
+    shape = (N, out_h, out_w)
+    fx = (fma(col(2).expand(shape), px.expand(shape), -(col(3) * py).expand(shape)) + col(4)) + col(6)
     fy = (col(3) * px + col(2) * py + col(5)) + col(7)
     jq = torch.floor(fx * col(10) + col(8) + 0.5)  # [N,out_h,out_w]
     kq = torch.floor(fy * col(11) + col(9) + 0.5)
-    ok = (jq >= 0) & (jq < PRESCALE_M) & (kq >= 0) & (kq < PRESCALE_M)
+    ok = (jq >= 0) & (jq < prescale_m) & (kq >= 0) & (kq < prescale_m)
     ic = icoefs.to(torch.int64)
     x = ic[:, 0, None, None] + ic[:, 2, None, None] * torch.where(ok, jq, 0.0).to(torch.int64)
     y = ic[:, 1, None, None] + ic[:, 3, None, None] * torch.where(ok, kq, 0.0).to(torch.int64)
@@ -130,22 +142,27 @@ def _check(frames_u8, rrects):
 
 
 def rotated_sample_fast_reference(
-    frames_u8, rrects, out_w: int, out_h: int, lo: float = 0.0, hi: float = 1.0
+    frames_u8, rrects, out_w: int, out_h: int, lo: float = 0.0, hi: float = 1.0,
+    prescale_m: int = PRESCALE_M,
 ):
     """Plain PyTorch version of :func:`rotated_sample_fast` (same result bit
     for bit), on any device: the same index map with torch ops and a gather
     on the frame viewed as ``int32`` (out-of-range indices are masked before
     the gather, because torch wraps negative ones)."""
     _check(frames_u8, rrects)
-    coefs, icoefs = sampler_coefs(rrects.reshape(-1, 5))
-    out = _reference(frames_u8.contiguous(), coefs, icoefs, out_w, out_h, lo, hi)
+    coefs, icoefs = sampler_coefs(rrects.reshape(-1, 5), prescale_m)
+    out = _reference(frames_u8.contiguous(), coefs, icoefs, out_w, out_h, lo, hi, prescale_m)
     return out.reshape(*rrects.shape[:-1], out_h, out_w, 3)
 
 
-def rotated_sample_launch(frames_u8, coefs, icoefs, out_w: int, out_h: int, lo: float, hi: float):
+def rotated_sample_launch(
+    frames_u8, coefs, icoefs, out_w: int, out_h: int, lo: float, hi: float,
+    prescale_m: int = PRESCALE_M,
+):
     """Launches ``csrc/rotated_sample.cu`` on CUDA ``frames_u8 [B,H,W,4] u8``
-    with the coefficients of :func:`sampler_coefs` for ``N`` views (``N/B``
-    slots per frame) → ``[N,out_h,out_w,3] f32``. Counts the launch in
+    with the coefficients of :func:`sampler_coefs` (for the same
+    ``prescale_m``) for ``N`` views (``N/B`` slots per frame) →
+    ``[N,out_h,out_w,3] f32``. Counts the launch in
     ``rotated_sample_fast.launches``."""
     B, H, W, _ = frames_u8.shape
     N = coefs.shape[0]
@@ -159,11 +176,11 @@ def rotated_sample_launch(frames_u8, coefs, icoefs, out_w: int, out_h: int, lo: 
         raise ValueError(f"{N} views for {B} frames: need a whole number of slots, at most 65535 views")
     out = torch.empty((N, out_h, out_w, 3), dtype=torch.float32, device=frames_u8.device)
     fn = library("rotated_sample").zaru_rotated_sample
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(
         frames_u8.data_ptr(), coefs.data_ptr(), icoefs.data_ptr(), out.data_ptr(),
-        N, N // B, H, W, PRESCALE_M, out_w, out_h, *_color(lo, hi),
+        N, N // B, H, W, prescale_m, out_w, out_h, _recip(out_w), _recip(out_h), *_color(lo, hi),
         torch.cuda.current_stream(frames_u8.device).cuda_stream,
     )
     if rc != 0:
@@ -173,18 +190,19 @@ def rotated_sample_launch(frames_u8, coefs, icoefs, out_w: int, out_h: int, lo: 
 
 
 def rotated_sample_fast(
-    frames_u8, rrects, out_w: int, out_h: int, lo: float = 0.0, hi: float = 1.0
+    frames_u8, rrects, out_w: int, out_h: int, lo: float = 0.0, hi: float = 1.0,
+    prescale_m: int = PRESCALE_M,
 ):
     """Rotated-view sample + colour map; see the module docstring. A CUDA
     tensor launches the kernel (or raises), a CPU tensor runs the plain
     version."""
     if frames_u8.device.type == "cpu":
-        return rotated_sample_fast_reference(frames_u8, rrects, out_w, out_h, lo, hi)
+        return rotated_sample_fast_reference(frames_u8, rrects, out_w, out_h, lo, hi, prescale_m)
     if frames_u8.device.type != "cuda":
         raise ValueError(f"unsupported device {frames_u8.device}")
     _check(frames_u8, rrects)
-    coefs, icoefs = sampler_coefs(rrects.reshape(-1, 5))
-    out = rotated_sample_launch(frames_u8, coefs, icoefs, out_w, out_h, lo, hi)
+    coefs, icoefs = sampler_coefs(rrects.reshape(-1, 5), prescale_m)
+    out = rotated_sample_launch(frames_u8, coefs, icoefs, out_w, out_h, lo, hi, prescale_m)
     return out.reshape(*rrects.shape[:-1], out_h, out_w, 3)
 
 

@@ -1,8 +1,9 @@
 """Parameters from the JAX package.
 
 ``params_from_jax`` turns ``zaru_tpu`` ``FaceTracker.params``
-(``{"det": {...}, "lm": {...}}``, f32 arrays keyed by ONNX initializer name,
-zaru_tpu/pipeline/face_cascade.py:125-128) into the port's parameters, which
+(``{"det": {...}, "lm": {...}}`` and, for an iris tracker, ``"eye"``: f32
+arrays keyed by ONNX initializer name, zaru_tpu/pipeline/face_cascade.py:
+125-130) into the port's parameters, which
 ``FaceTracker(params=...)`` accepts, so that both packages compute with the
 same weights. Any array that converts with ``np.asarray`` is accepted; the
 JAX package itself is not imported.
@@ -17,10 +18,11 @@ __all__ = ["params_from_jax"]
 
 
 def params_from_jax(tracker_params: dict) -> dict:
-    """``{"det": {name: array}, "lm": {name: array}}`` → the same dicts of
-    f32 CPU tensors; ``FaceTracker`` copies them to its device."""
+    """``{"det": {name: array}, "lm": {name: array}[, "eye": ...]}`` → the
+    same dicts of f32 CPU tensors; ``FaceTracker`` copies them to its
+    device."""
     out = {}
-    for net in ("det", "lm"):
+    for net in ("det", "lm", "eye") if "eye" in tracker_params else ("det", "lm"):
         out[net] = {}
         for name, value in tracker_params[net].items():
             arr = np.asarray(value)
