@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Builds the PyTorch port's CUDA kernels and drives its main path on one
+"""Builds the PyTorch port's CUDA kernels and drives its paths on one
 NVIDIA GPU.
 
     python3 chip_smoke.py
@@ -7,34 +7,45 @@ NVIDIA GPU.
 Phases, one line of output each (any failed check exits non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, CUDA version;
-2. build: the three kernels from ``zaru_tpu_torch/csrc``, one ``nvcc``
+2. build: the four kernels from ``zaru_tpu_torch/csrc``, one ``nvcc``
    each, all started together;
 3. each kernel against its plain PyTorch version on the card: the
    rotated-ROI sampler bit for bit on coordinate-encoded 1080p frames at
    batch 64 with ``[B,2,5]`` slots (upright, tilted, frame-corner, stride
-   2, 3 and 4 views) on the 512-pixel grid, and on 64×64 eye views on the
-   256-pixel grid; the letterbox sampler bit for bit on 1080p and 720p
+   2, 3 and 4 views) on the 512-pixel grid, on 64×64 eye views on the
+   256-pixel grid, and on 224×224 hand views of 150-700 px at any angle on
+   the 256-pixel grid; the letterbox sampler bit for bit on 1080p and 720p
    frames; the BlazeBlock stage kernel within ``rtol = atol = 1e-4`` on
-   random weights at odd sizes whose tiles have ragged edges;
-4. the main path against the JAX reference stored in
-   ``zaru_tpu_torch/fixtures/sad_linus_track.npz``: one step at a time from
+   random weights at odd sizes whose tiles have ragged edges; the RGB→YUV
+   kernel bit for bit on the fixture photo at 1920×1080 and on random
+   images of ragged sizes;
+4. the paths against the JAX reference stored in
+   ``zaru_tpu_torch/fixtures/``: ``FaceTracker`` one step at a time from
    JAX's state (flags equal, landmarks and ROI within the CPU test's
    tolerance, and with ``iris=True`` the eyes within theirs), then
-   free-running (flags equal);
-5. the main path at full size: the fixture photo upscaled to 1920×1080 on
-   the card, tiled to batches 64 and 512, ``FaceTracker.step_batch`` with
-   detection forced every 9th step, then ``FaceTracker(iris=True)`` at
-   batch 512; frames/s and ms/step. The kernels' launch counts are zeroed
-   just before each run and read just after it; every kernel must have
-   launched in both batch-512 runs. A profile of each batch-512 run
-   follows;
-6. each kernel's time at the batch-512 main-path inputs (the launch alone,
-   queued behind a device spin so the host's launch cost is hidden, and for
-   the samplers the whole wrapper) beside its plain version's and its
-   bound; for the stage kernel at each of the ten chains of the two face
-   CNNs, on the chain's real input and weights, checked against its plain
-   version (``rtol = atol = 1e-4``), with the per-op chain it replaces
-   timed as its library yardstick;
+   free-running (flags equal), and the same for ``redetect_bucket=1``;
+   ``MultiFaceTracker`` and ``MultiHandTracker`` (``multi_track.npz``):
+   detection candidates, one step at a time from JAX's state and
+   free-running flags, each within the CPU tests' tolerances;
+5. the paths at full size on the fixture photo upscaled to 1920×1080 on
+   the card, 54 steps after 9 of warm-up: ``FaceTracker.step_batch`` at
+   batches 64 and 512 with detection forced every 9th step, then
+   ``FaceTracker(iris=True)`` at 512; ``MultiFaceTracker(max_faces=4)`` at
+   batch 128; ``MultiHandTracker(max_hands=4)`` at batch 128 tracking four
+   seeded hands per stream (palm detection every 9th step), and with no
+   hand in view (palm detection every step); frames/s, ms/step, active
+   slots and detect steps. The kernels' launch counts are zeroed just
+   before each run and read just after it; every kernel of a path must have
+   launched in its run. A profile of the batch-512 face runs and of the
+   tracking hand run follows;
+6. each kernel's time at its main-path inputs (the launch alone, queued
+   behind a device spin so the host's launch cost is hidden, and for the
+   samplers the whole wrapper) beside its plain version's and its bound; for
+   the stage kernel at each of the ten chains of the two face CNNs, on the
+   chain's real input and weights, checked against its plain version
+   (``rtol = atol = 1e-4``), with the per-op chain it replaces timed as its
+   library yardstick; the RGB→YUV kernel at 1920×1080 beside
+   ``torch.matmul``; the samplers at the hand tracker's shapes;
 7. the launch counts of phase 5, then one JSON line of per-kernel numbers,
    then the result line.
 
@@ -58,6 +69,12 @@ STEP_TOL_PX = 1e-2  # tests/test_torch_face_cascade.py STEP_TOL_PX
 EYE_RECT_TOL_PX = 1e-3  # tests/test_torch_face_cascade.py EYE_RECT_TOL_PX
 EYE_TOL_PX = 1.0  # tests/test_torch_face_cascade.py EYE_TOL_PX
 STAGE_TOL = 1e-4  # rtol = atol, tests/test_cnn_stage.py:42
+# tests/test_torch_multi_object.py: (px, score) one-step tolerances of a
+# step that tracks carried slots and of one that seeds a slot from a new
+# detection; detection candidates (px, rad).
+MULTI_STEP_TOLS = (1e-2, 1e-5)
+MULTI_SEED_TOLS = (0.25, 1e-3)
+CAND_TOL_PX, CAND_TOL_RAD = 1e-3, 1e-5
 VIEW_CASES = [  # (cx, cy, w, h, theta), tests/test_torch_samplers.py
     (960, 540, 300, 300, 0.0),
     (500, 400, 192, 192, 0.0),
@@ -74,11 +91,14 @@ VIEW_CASES = [  # (cx, cy, w, h, theta), tests/test_torch_samplers.py
 ]
 
 
-# Kernel-name substrings grouping the profile's device time.
+# Kernel-name substrings grouping the profile's device time, first match
+# wins: cuDNN's convolution kernels before the matrix products (Gemm).
 PROFILE_GROUPS = [
     ("blaze_stage", ("blaze_stage_kernel",)),
     ("samplers", ("rotated_sample_kernel", "letterbox_sample_kernel")),
-    ("convolution", ("conv", "xmma", "gemm", "cudnn", "winograd")),
+    ("convolution", ("conv", "fprop", "implicit", "cudnn", "winograd")),
+    ("gemm", ("gemm", "gemv", "xmma")),
+    ("upsample", ("upsample",)),
     ("elementwise", ("elementwise",)),
     ("copy/pad/cat", ("copy", "Cat", "pad", "Pad")),
     ("reduce", ("reduce",)),
@@ -163,6 +183,24 @@ def phase_kernels_vs_plain(torch, device):
           flush=True)
     check(differ == 0, "rotated_sample kernel disagrees with its plain version at prescale_m=256")
 
+    # Hand crops: square 224x224 views of 150-700 px (strides 1-3) at any
+    # angle, four slots per frame, 256-px grid, colour range [0, 1].
+    hand = torch.stack([
+        torch.rand(4 * B, generator=gen) * 1920, torch.rand(4 * B, generator=gen) * 1080,
+        150 + torch.rand(4 * B, generator=gen) * 550, torch.zeros(4 * B),
+        (torch.rand(4 * B, generator=gen) - 0.5) * 6.3,
+    ], -1)
+    hand[:, 3] = hand[:, 2]
+    hand = hand.reshape(B, 4, 5).to(device)
+    got = rotated_sample_fast(frames, hand, 224, 224, 0.0, 1.0, prescale_m=256)
+    want = rotated_sample_fast_reference(frames, hand, 224, 224, 0.0, 1.0, prescale_m=256)
+    torch.cuda.synchronize()
+    differ = int((got != want).any(-1).sum())
+    print(f"rotated_sample vs plain at hand views on the 256-px grid: {tuple(got.shape)}, "
+          f"{differ} pixels differ", flush=True)
+    check(differ == 0, "rotated_sample kernel disagrees with its plain version at hand views")
+    del got, want
+
     for H, W in ((1080, 1920), (720, 1280)):
         frames = torch.randint(0, 256, (8, H, W, 4), generator=gen, dtype=torch.uint8).to(device)
         _fit, fit_rrect = _ops.full_frame_fit(frames, Resolution(128, 128))
@@ -199,28 +237,59 @@ def phase_kernels_vs_plain(torch, device):
         check(ok, "blaze_stage kernel disagrees with its plain version")
 
 
-def phase_vs_jax(torch, np, device):
+def phase_yuv_vs_plain(torch, img, device):
+    """The RGB→YUV kernel bit for bit against its plain version: the photo
+    at 1920×1080 in [0, 1], and random images whose pixel counts are not a
+    multiple of the kernel's 4-pixel vector."""
+    from zaru_tpu_torch.ops.yuv import rgb_to_yuv_fast, rgb_to_yuv_fast_reference
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    rgb = img[..., :3].float() / 255.0
+    for x in (rgb, torch.rand((37, 53, 3), generator=gen).to(device),
+              torch.rand((1081, 1917, 3), generator=gen).to(device)):
+        got, want = rgb_to_yuv_fast(x), rgb_to_yuv_fast_reference(x)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        print(f"rgb_to_yuv vs plain at {x.shape[1]}x{x.shape[0]}: {differ} values differ, "
+              f"max abs err {float((got - want).abs().max())}", flush=True)
+        check(differ == 0, "rgb_to_yuv kernel disagrees with its plain version")
+    return rgb
+
+
+def load_photo(torch, F, np, device):
+    """The fixture photo as RGBA u8 on the card, as stored (1280×720) and
+    upscaled to 1920×1080."""
+    from zaru_tpu_torch.assets import fixture_path
+
+    with np.load(fixture_path("sad_linus_track.npz")) as f:
+        rgb = torch.from_numpy(f["rgb"]).to(device)
+    rgba = torch.cat([rgb, torch.full_like(rgb[..., :1], 255)], -1)
+    img = F.interpolate(
+        rgba.permute(2, 0, 1)[None].float(), size=(1080, 1920), mode="bilinear", align_corners=False
+    )
+    return rgba, img[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).contiguous()
+
+
+def phase_vs_jax(torch, np, device, rgba):
     from zaru_tpu_torch.assets import fixture_path
     from zaru_tpu_torch.pipeline import FaceTracker
 
     with np.load(fixture_path("sad_linus_track.npz")) as f:
         ref = {k: f[k] for k in f.files}
-    rgb = torch.from_numpy(ref["rgb"]).to(device)
-    rgba = torch.cat([rgb, torch.full_like(rgb[..., :1], 255)], -1)
     batch = ref["state_roi"].shape[1]
     tracker = FaceTracker(device=device)
 
-    def frames_for(t):
+    def frames_for(t, prefix=""):
         frames = rgba.expand(batch, *rgba.shape).clone()
-        if ref["zero"][t] >= 0:
-            frames[int(ref["zero"][t])] = 0
+        if ref[prefix + "zero"][t] >= 0:
+            frames[int(ref[prefix + "zero"][t])] = 0
         return frames
 
-    def state_at(t):
+    def state_at(t, prefix=""):
         return {
-            "roi": torch.from_numpy(ref["state_roi"][t]).to(device),
-            "tracking": torch.from_numpy(ref["state_tracking"][t]).to(device),
-            "filter": {k: torch.from_numpy(ref[f"state_{k}"][t]).to(device)
+            "roi": torch.from_numpy(ref[prefix + "state_roi"][t]).to(device),
+            "tracking": torch.from_numpy(ref[prefix + "state_tracking"][t]).to(device),
+            "filter": {k: torch.from_numpy(ref[f"{prefix}state_{k}"][t]).to(device)
                        for k in ("x", "dx", "init")},
         }
 
@@ -268,7 +337,89 @@ def phase_vs_jax(torch, np, device):
           f"(tolerance {STEP_TOL_PX} px), max eye error {eye_err:.6f} px (tolerance {EYE_TOL_PX} px)",
           flush=True)
     check(lm_err <= STEP_TOL_PX and eye_err <= EYE_TOL_PX, "iris disagrees with JAX")
-    return rgba
+
+    bucket = FaceTracker(redetect_bucket=1, device=device)
+    lm_err = roi_err = 0.0
+    state = bucket.init_state(batch)
+    for t, force in enumerate(ref["bucket_force"]):
+        frames = frames_for(t, "bucket_")
+        _, out = bucket.step_batch(state_at(t, "bucket_"), frames, bool(force))
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        check((out["valid"] == ref["bucket_valid"][t]).all(),
+              f"redetect_bucket step {t}: tracking flags differ from JAX")
+        lm_err = max(lm_err, float(np.abs(out["landmarks"] - ref["bucket_landmarks"][t]).max()))
+        roi_err = max(roi_err, float(np.abs(out["roi"] - ref["bucket_roi"][t]).max()))
+        state, out = bucket.step_batch(state, frames, bool(force))
+        check((out["valid"].cpu().numpy() == ref["bucket_valid"][t]).all(),
+              f"redetect_bucket free-running step {t}: tracking flags differ from JAX")
+    print(f"FaceTracker(redetect_bucket=1) vs JAX reference over {len(ref['bucket_force'])} steps: "
+          f"one step at a time max landmark error {lm_err:.6f} px, max ROI error {roi_err:.6f} px "
+          f"(tolerance {STEP_TOL_PX} px); free-running flags equal at every step", flush=True)
+    check(lm_err <= STEP_TOL_PX and roi_err <= STEP_TOL_PX, "redetect_bucket disagrees with JAX")
+
+
+def phase_multi_vs_jax(torch, np, device, rgba):
+    """Each run of ``multi_track.npz`` (see tests/test_torch_multi_object.py):
+    detection candidates on the photo, one step at a time from JAX's state,
+    and free-running flags."""
+    import zaru_tpu_torch.pipeline as tp
+    from zaru_tpu_torch.assets import fixture_path
+
+    with np.load(fixture_path("multi_track.npz")) as f:
+        ref = {k: f[k] for k in f.files}
+    for run in sorted({k.split("__")[0] for k in ref}):
+        r = lambda k: ref[f"{run}__{k}"]  # noqa: E731
+        cls, kwargs = str(r("tracker")), json.loads(str(r("kwargs")))
+        tracker = getattr(tp, cls)(device=device, **kwargs)
+        batch = r("state_active").shape[1]
+
+        def frames_for(zero):
+            frames = rgba.expand(batch, *rgba.shape).clone()
+            frames[torch.from_numpy(zero).to(device)] = 0
+            return frames
+
+        def state_at(t):
+            return {k: torch.from_numpy(r(f"state_{k}")[t]).to(device) for k in ("rois", "active", "frame")}
+
+        rois, valid = tracker._detect_batch(frames_for(np.zeros(batch, bool)))
+        check((valid.cpu().numpy() == r("cand_valid")).all(), f"{run}: detection flags differ from JAX")
+        cand = np.abs(rois.cpu().numpy() - r("cand_rois"))
+        check(cand[..., :4].max() <= CAND_TOL_PX and cand[..., 4].max() <= CAND_TOL_RAD,
+              f"{run}: detection candidates differ from JAX by {cand.max((0, 1))}")
+        errs = {}
+        state = None
+        for t, force in enumerate(r("force")):
+            frames = frames_for(r("zero")[t])
+            start = state_at(t)
+            _, out = tracker.step_batch(start, frames, bool(force))
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            check((out["valid"] == r("out_valid")[t]).all(), f"{run} step {t}: flags differ from JAX")
+            seeded = (r("out_valid")[t] & ~r("state_active")[t]).any()
+            tols = MULTI_SEED_TOLS if seeded else MULTI_STEP_TOLS
+            for k, v in out.items():
+                if k == "valid":
+                    continue
+                err = float(np.abs(v - r(f"out_{k}")[t]).max())
+                tol = tols[0] if k in ("landmarks", "rois") else tols[1]
+                check(err <= tol, f"{run} step {t}: {k} differs from JAX by {err} (tolerance {tol})")
+                errs[k] = max(errs.get(k, 0.0), err)
+            kind = str(r("start")[t])
+            state = tracker.init_state(batch) if kind == "init" else start if kind == "seed" else state
+            state, out = tracker.step_batch(state, frames, bool(force))
+            check((out["valid"].cpu().numpy() == r("out_valid")[t]).all(),
+                  f"{run} free-running step {t}: flags differ from JAX")
+        print(f"{cls}({', '.join(f'{k}={v}' for k, v in kwargs.items())}) vs JAX reference over "
+              f"{len(r('force'))} steps at batch {batch}: candidates within {cand[..., :4].max():.6f} px "
+              f"and {cand[..., 4].max():.3g} rad; one step at a time max errors "
+              f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tolerances {MULTI_STEP_TOLS} tracking, "
+              f"{MULTI_SEED_TOLS} seeding); free-running flags equal at every step", flush=True)
+
+
+# The kernels each path must launch in its run (rgb_to_yuv is on no path).
+FACE_KERNELS = ("rotated_sample", "letterbox_sample", "blaze_stage")
+HAND_KERNELS = ("rotated_sample", "letterbox_sample")
+STEPS, WARMUP = 54, 9
+MULTI_BATCH = 128  # streams of the multi-object runs (4 slots each: 512 crops a step)
 
 
 def launch_counters():
@@ -276,41 +427,52 @@ def launch_counters():
     from zaru_tpu_torch.ops.cnn_stage import fused_blocks
     from zaru_tpu_torch.ops.letterbox import letterbox_sample
     from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast
+    from zaru_tpu_torch.ops.yuv import rgb_to_yuv_fast
 
     return {"rotated_sample": rotated_sample_fast, "letterbox_sample": letterbox_sample,
-            "blaze_stage": fused_blocks}
+            "blaze_stage": fused_blocks, "rgb_to_yuv": rgb_to_yuv_fast}
 
 
-def phase_full_size(torch, F, rgba, device, card):
+def timed_run(torch, step, what, kernels):
+    """``step(i)`` for WARMUP steps, then STEPS steps timed on the host
+    clock with the launch counts zeroed just before and read just after;
+    fails unless every kernel in ``kernels`` launched. → (seconds,
+    launches)."""
+    for i in range(WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    for fn in launch_counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for i in range(STEPS):
+        step(i)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in launch_counters().items()}
+    check(all(launches[k] > 0 for k in kernels), f"{what}: a kernel of the path was never launched: {launches}")
+    return dt, launches
+
+
+def phase_full_size(torch, img, device, card):
     from zaru_tpu_torch.pipeline import FaceTracker
 
-    img = F.interpolate(
-        rgba.permute(2, 0, 1)[None].float(), size=(1080, 1920), mode="bilinear", align_corners=False
-    )
-    img = img[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).contiguous()
     tracker = FaceTracker(device=device)
     iris = FaceTracker(iris=True, device=device)
-    steps, warmup = 54, 9
     result = {"launches": {}}
     for what, tr, batch in (("main path", tracker, 64), ("main path", tracker, 512),
                             ("FaceTracker(iris=True)", iris, 512)):
         frames = img.expand(batch, *img.shape).contiguous()
-        state = tr.init_state(batch)
-        for i in range(warmup):
-            state, out = tr.step_batch(state, frames, force_detect=(i % 9 == 0))
-        torch.cuda.synchronize()
-        for fn in launch_counters().values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        for i in range(steps):
-            state, out = tr.step_batch(state, frames, force_detect=(i % 9 == 0))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in launch_counters().items()}
+        box = {"state": tr.init_state(batch)}
+
+        def step(i, tr=tr, frames=frames, box=box):
+            box["state"], box["out"] = tr.step_batch(box["state"], frames, force_detect=(i % 9 == 0))
+
+        dt, launches = timed_run(torch, step, what, FACE_KERNELS)
+        out = box["out"]
         valid = bool(out["valid"].all())
         conf = float(out["confidence"].min())
-        print(f"{what} at 1920x1080, batch {batch}: {steps} steps (detect every 9th) in "
-              f"{dt:.3f} s: {dt / steps * 1e3:.3f} ms/step, {batch * steps / dt:.1f} frames/s, "
+        print(f"{what} at 1920x1080, batch {batch}: {STEPS} steps (detect every 9th) in "
+              f"{dt:.3f} s: {dt / STEPS * 1e3:.3f} ms/step, {batch * STEPS / dt:.1f} frames/s, "
               f"all valid {valid}, min confidence {conf:.4f}; launches {launches} [{card}]", flush=True)
         check(valid and conf > 0.9, f"{what}, batch {batch}: lost the face")
         if tr is iris:
@@ -319,24 +481,102 @@ def phase_full_size(torch, F, rgba, device, card):
                   f"iris: eyes of shape {tuple(eyes.shape)}")
         if batch == 512:
             result["launches"][what] = launches
-            check(all(n > 0 for n in launches.values()),
-                  f"{what}: a kernel of the path was never launched: {launches}")
-        result[batch if tr is tracker else "iris"] = (frames, state)
-    profile_steps(torch, tracker, *result[512], "main path")
-    profile_steps(torch, iris, *result["iris"], "FaceTracker(iris=True)")
+            result[what] = (frames, box["state"], step)
+    profile_steps(torch, result["main path"][2], 512, "main path")
+    profile_steps(torch, result["FaceTracker(iris=True)"][2], 512, "FaceTracker(iris=True)")
     return tracker, result
 
 
-def profile_steps(torch, tracker, frames, state, what, steps=9):
-    """torch.profiler over one detect step and 8 track steps: device time
-    by kernel, and the device's busy share of the wall time."""
+def hand_seed_rois(torch, batch, device):
+    """Four hands per stream at fixed rects: 200-600 px, -3 to 3 rad, inside
+    the 1920×1080 frame (seeded, so the same every run)."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    n = batch * 4
+    size = 200 + torch.rand(n, generator=gen) * 400
+    rois = torch.stack([
+        300 + torch.rand(n, generator=gen) * 1320, 300 + torch.rand(n, generator=gen) * 480,
+        size, size * (0.8 + 0.4 * torch.rand(n, generator=gen)),
+        (torch.rand(n, generator=gen) - 0.5) * 6.0,
+    ], -1)
+    return rois.reshape(batch, 4, 5).to(device)
+
+
+def phase_multi_full_size(torch, img, device, card):
+    """MultiFaceTracker and the two MultiHandTracker runs at batch 128."""
+    from zaru_tpu_torch.pipeline import MultiFaceTracker, MultiHandTracker
+
+    batch = MULTI_BATCH
+    frames = img.expand(batch, *img.shape).contiguous()
+    result = {"launches": {}}
+
+    def report(key, what, dt, launches, out, detects, extra=""):
+        active = int(out["valid"].sum())
+        print(f"{what} at 1920x1080, batch {batch}: {STEPS} steps in {dt:.3f} s: "
+              f"{dt / STEPS * 1e3:.3f} ms/step, {batch * STEPS / dt:.1f} frames/s, "
+              f"{batch * 4} crops/step, active slots after the last "
+              f"step {active}, detect steps {launches['letterbox_sample']}{extra}; launches {launches} "
+              f"[{card}]", flush=True)
+        check(launches["letterbox_sample"] == detects and launches["rotated_sample"] == STEPS,
+              f"{what}: {launches['letterbox_sample']} detect steps, want {detects}")
+        result["launches"][key] = launches
+
+    faces = MultiFaceTracker(max_faces=4, device=device)
+    box = {"state": faces.init_state(batch)}
+
+    def face_step(i):
+        box["state"], box["out"] = faces.run_frames_gated(box["state"], frames)
+
+    what = "MultiFaceTracker(max_faces=4)"
+    dt, launches = timed_run(torch, face_step, what, FACE_KERNELS)
+    out = box["out"]
+    conf = float(out["confidence"][:, 0].min())
+    report("multi-face", what, dt, launches, out, STEPS // 9, f", face in slot 0 of every stream "
+           f"{bool(out['valid'][:, 0].all())}, min confidence {conf:.4f}")
+    check(bool(out["valid"][:, 0].all()) and conf > 0.9 and int(out["valid"].sum()) == batch,
+          f"{what}: lost the face")
+
+    hands = MultiHandTracker(max_hands=4, device=device)
+    seed = hand_seed_rois(torch, batch, device)
+    active = torch.ones((batch, 4), dtype=torch.bool, device=device)
+    box = {}
+
+    def hand_step(i):
+        state = {"rois": seed, "active": active,
+                 "frame": torch.full((batch,), i, dtype=torch.int32, device=device)}
+        box["state"], box["out"] = hands.step_batch(state, frames)
+
+    what = "MultiHandTracker(max_hands=4), tracking 4 seeded hands per stream"
+    dt, launches = timed_run(torch, hand_step, what, HAND_KERNELS)
+    out = box["out"]
+    check(tuple(out["landmarks"].shape) == (batch, 4, 21, 3) and bool(torch.isfinite(out["landmarks"]).all()),
+          f"{what}: landmarks of shape {tuple(out['landmarks'].shape)}")
+    report("hand tracking", what, dt, launches, out, STEPS // 9,
+           f", max presence {float(out['presence'].max()):.4f}")
+    profile_steps(torch, hand_step, batch, "MultiHandTracker tracking run")
+
+    box = {"state": hands.init_state(batch)}
+
+    def lost_step(i):
+        box["state"], box["out"] = hands.run_frames_gated(box["state"], frames)
+
+    what = "MultiHandTracker(max_hands=4), no hand in view"
+    dt, launches = timed_run(torch, lost_step, what, HAND_KERNELS)
+    report("hand, none in view", what, dt, launches, box["out"], STEPS)
+    check(not bool(box["out"]["valid"].any()), f"{what}: found a hand in the photo")
+    return hands, frames, seed, result["launches"]
+
+
+def profile_steps(torch, step, batch, what, steps=9):
+    """torch.profiler over ``step(0)`` … ``step(8)`` (one detect step, then
+    8 track steps): device time by kernel, and the device's busy share of
+    the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            state, _ = tracker.step_batch(state, frames, force_detect=(i == 0))
+            step(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -348,49 +588,51 @@ def profile_steps(torch, tracker, frames, state, what, steps=9):
         groups[group] = groups.get(group, 0.0) + ms
     by_group = ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1]))
     top = "; ".join(f"{name[:72]} {ms:.3f}" for ms, name in per_step[:8])
-    print(f"profile of the {what}, batch {frames.shape[0]}, {steps} steps (1 detect): "
+    print(f"profile of the {what}, batch {batch}, {steps} steps (1 detect): "
           f"{wall_ms / steps:.3f} ms/step wall, device busy {busy:.3f} ms/step "
           f"({100 * busy * steps / wall_ms:.1f}%), {len(per_step)} kernels; ms/step by group: "
           f"{by_group}; top: {top}", flush=True)
 
 
-def phase_kernel_times(torch, tracker, frames, state, launches, steps):
-    """Each kernel at the batch-512 main-path inputs: ``ms`` is the kernel
-    launch alone, from CUDA events (the rotated sampler's coefficients are
-    computed once beforehand: with them, the wrapper's ~60 small torch ops
-    make a lone call host-bound, and that is printed as ``wrapper``)."""
+def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=512):
+    """The two samplers at a path's inputs (``lm``/``det``: its landmark and
+    detector ``Cnn``; ``rois``: the ROIs of its last step): ``ms`` is the
+    kernel launch alone, from CUDA events (the rotated sampler's
+    coefficients are computed once beforehand: with them, the wrapper's ~60
+    small torch ops make a lone call host-bound, and that is printed as
+    ``wrapper``)."""
     from zaru_tpu_torch.ops.letterbox import letterbox_sample, letterbox_sample_reference
     from zaru_tpu_torch.ops.rotated_fast import (
         rotated_sample_fast, rotated_sample_fast_reference, rotated_sample_launch, sampler_coefs,
     )
     from zaru_tpu_torch.pipeline import _ops
 
-    lm, det = tracker.lm_cnn, tracker.det_cnn
     lm_res, det_res = lm.input_resolution(), det.input_resolution()
-    view_rects = _ops.aspect_view_rect(state["roi"], lm_res)
-    coefs, icoefs = sampler_coefs(view_rects)
+    view_rects = _ops.aspect_view_rect(rois, lm_res)
+    coefs, icoefs = sampler_coefs(view_rects.reshape(-1, 5), prescale_m)
     _fit, fit_rrect = _ops.full_frame_fit(frames, det_res)
     fit_rects = fit_rrect.expand(frames.shape[0], 5).contiguous()
     white = torch.full_like(frames[:1], 255).expand_as(frames)
+    lm_col, det_col = (lm.mapper.lo, lm.mapper.hi), (det.mapper.lo, det.mapper.hi)
     kernels = []
-    for name, kernel, plain, launch, rects, res, source, replaces, flops_px in (
+    for name, kernel, plain, launch, rects, res, col, opts, source, replaces, flops_px in (
         ("rotated_sample", rotated_sample_fast, rotated_sample_fast_reference,
-         lambda f: rotated_sample_launch(f, coefs, icoefs, lm_res.width, lm_res.height, -1.0, 1.0),
-         view_rects, lm_res, "zaru_tpu_torch/csrc/rotated_sample.cu",
+         lambda f: rotated_sample_launch(f, coefs, icoefs, lm_res.width, lm_res.height, *lm_col, prescale_m),
+         view_rects, lm_res, lm_col, {"prescale_m": prescale_m}, "zaru_tpu_torch/csrc/rotated_sample.cu",
          "zaru_tpu/ops/rotated_fast.py:1481", 32),
         ("letterbox_sample", letterbox_sample, letterbox_sample_reference,
-         lambda f: letterbox_sample(f, fit_rects, det_res.width, det_res.height, -1.0, 1.0),
-         fit_rects, det_res, "zaru_tpu_torch/csrc/letterbox_sample.cu",
+         lambda f: letterbox_sample(f, fit_rects, det_res.width, det_res.height, *det_col),
+         fit_rects, det_res, det_col, {}, "zaru_tpu_torch/csrc/letterbox_sample.cu",
          "zaru_tpu/ops/pallas_kernels.py:112", 22),
     ):
-        call = lambda f, fn=kernel: fn(f, rects, res.width, res.height, -1.0, 1.0)  # noqa: E731
-        call_plain = lambda f, fn=plain: fn(f, rects, res.width, res.height, -1.0, 1.0)  # noqa: E731
+        call = lambda f, fn=kernel: fn(f, rects, res.width, res.height, *col, **opts)  # noqa: E731
+        call_plain = lambda f, fn=plain: fn(f, rects, res.width, res.height, *col, **opts)  # noqa: E731
         got, want = call(frames), call_plain(frames)
         err = float((got - want).abs().max())
         check(torch.equal(launch(frames).reshape(got.shape), got), f"{name}: launch differs from wrapper")
         # Pixels that read an in-frame source: on an all-white frame they map
-        # to hi (1), the others to lo (-1).
-        reads = int((call_plain(white) > 0).all(-1).sum())
+        # to hi, the others to lo.
+        reads = int((call_plain(white) > (col[0] + col[1]) / 2).all(-1).sum())
         out_px = got.numel() // 3
         nbytes = out_px * 12 + reads * 4 + rects.numel() * 4
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -404,12 +646,47 @@ def phase_kernel_times(torch, tracker, frames, state, launches, steps):
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
         })
-        print(f"{name} at batch {frames.shape[0]} ({tuple(got.shape)}): {ms:.4f} ms, bound "
+        print(f"{name}, {what}, batch {frames.shape[0]} ({tuple(got.shape)}): {ms:.4f} ms, bound "
               f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB), wrapper {wrapper_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library none, {launches[name] / steps:.3f} launches/step, "
+              f"plain {plain_ms:.4f} ms, library none, {launches[name] / STEPS:.3f} launches/step, "
               f"max abs err {err}", flush=True)
-        check(err == 0.0, f"{name} disagrees with its plain version at the main-path inputs")
+        check(err == 0.0, f"{name} disagrees with its plain version at the {what} inputs")
     return kernels
+
+
+def phase_yuv_times(torch, rgb, launches):
+    """The RGB→YUV kernel at 1920×1080 (queued launches) beside its plain
+    version and ``torch.matmul(rgb, M.T)``, the one PyTorch call that
+    computes the same function (full f32: TF32 off for matrix products)."""
+    from zaru_tpu_torch.ops.yuv import YUV_FROM_RGB, rgb_to_yuv_fast_reference, rgb_to_yuv_launch
+
+    m_t = torch.from_numpy(YUV_FROM_RGB).to(rgb.device).T.contiguous()
+    got, want = rgb_to_yuv_launch(rgb), rgb_to_yuv_fast_reference(rgb)
+    err = float((got - want).abs().max())
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        lib_err = float((torch.matmul(rgb, m_t) - want).abs().max())
+        ms = cuda_ms(torch, lambda: rgb_to_yuv_launch(rgb), reps=200, queued=True)
+        plain_ms = cuda_ms(torch, lambda: rgb_to_yuv_fast_reference(rgb), reps=50, queued=True)
+        library_ms = cuda_ms(torch, lambda: torch.matmul(rgb, m_t), reps=200, queued=True)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    n = rgb.shape[0] * rgb.shape[1]
+    nbytes = 2 * n * 12
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, n * 15 / F32_FLOPS * 1e3
+    print(f"rgb_to_yuv at {rgb.shape[1]}x{rgb.shape[0]}: {ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+          f"({nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, torch.matmul {library_ms:.4f} ms "
+          f"(max abs diff to the plain version {lib_err}), {launches} launches on the main path, "
+          f"max abs err {err}", flush=True)
+    check(err == 0.0, "rgb_to_yuv disagrees with its plain version at 1920x1080")
+    return {
+        "name": "rgb_to_yuv", "route": "cuda", "source": "zaru_tpu_torch/csrc/rgb_to_yuv.cu",
+        "replaces": "zaru_tpu/ops/pallas_kernels.py:174", "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms,
+        "library": "torch.matmul(rgb, M.T), f32",
+    }
 
 
 def phase_stage_times(torch, tracker, frames, state, launches, steps):
@@ -523,13 +800,22 @@ def main() -> int:
           f"({' '.join(_build.NVCC_FLAGS)})", flush=True)
 
     phase_kernels_vs_plain(torch, device)
-    rgba = phase_vs_jax(torch, np, device)
-    tracker, runs = phase_full_size(torch, F, rgba, device, smi)
-    print(f"launches in the batch-512 runs (54 steps each): {runs['launches']}", flush=True)
+    rgba, img = load_photo(torch, F, np, device)
+    rgb = phase_yuv_vs_plain(torch, img, device)
+    phase_vs_jax(torch, np, device, rgba)
+    phase_multi_vs_jax(torch, np, device, rgba)
+    tracker, runs = phase_full_size(torch, img, device, smi)
+    hands, hand_frames, seed, multi = phase_multi_full_size(torch, img, device, smi)
+    print(f"launches in the batch-512 face runs ({STEPS} steps each): {runs['launches']}", flush=True)
+    print(f"launches in the batch-128 multi-object runs ({STEPS} steps each): {multi}", flush=True)
     launches = runs["launches"]["main path"]
-    frames, state = runs[512]
-    kernels = phase_kernel_times(torch, tracker, frames, state, launches, 54)
-    kernels.append(phase_stage_times(torch, tracker, frames, state, launches["blaze_stage"], 54))
+    frames, state, _ = runs["main path"]
+    kernels = phase_kernel_times(torch, frames, tracker.lm_cnn, tracker.det_cnn, state["roi"], launches,
+                                 "main path")
+    kernels.append(phase_stage_times(torch, tracker, frames, state, launches["blaze_stage"], STEPS))
+    kernels.append(phase_yuv_times(torch, rgb, launches["rgb_to_yuv"]))
+    phase_kernel_times(torch, hand_frames, hands.lm_cnn, hands.det_cnn, seed, multi["hand tracking"],
+                       "hand tracking run", prescale_m=256)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -55,7 +55,9 @@ def test_imports_neither_jax_nor_zaru_tpu():
     code = (
         "import sys, zaru_tpu_torch, zaru_tpu_torch.pipeline, zaru_tpu_torch.weights\n"
         "import zaru_tpu_torch.ops.rotated_fast, zaru_tpu_torch.ops.letterbox\n"
-        "import zaru_tpu_torch.ops.cnn_stage, zaru_tpu_torch.face.eye\n"
+        "import zaru_tpu_torch.ops.cnn_stage, zaru_tpu_torch.face.eye, zaru_tpu_torch.ops.yuv\n"
+        "import zaru_tpu_torch.hand.detection, zaru_tpu_torch.hand.landmark\n"
+        "import zaru_tpu_torch.pipeline.multi_face, zaru_tpu_torch.pipeline.hand_cascade\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'zaru_tpu' or m.startswith('zaru_tpu.')]\n"
         "assert not bad, bad\n"
@@ -70,7 +72,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from zaru_tpu_torch.face.detection import ShortRangeNetwork
     from zaru_tpu_torch.face.eye import EyeNetwork
     from zaru_tpu_torch.face.landmark.mediapipe import FaceMeshV1
+    from zaru_tpu_torch.hand.detection import LiteNetwork as PalmLite
+    from zaru_tpu_torch.hand.landmark import LiteNetwork as HandLite
     from zaru_tpu_torch.nn import Cnn, ColorMapper
+    from zaru_tpu_torch.pipeline import MultiFaceTracker, MultiHandTracker
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (
@@ -79,6 +84,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ShortRangeNetwork,
         EyeNetwork,
         FaceMeshV1,
+        MultiFaceTracker,
+        lambda: MultiHandTracker(redetect_bucket=2),
+        PalmLite,
+        HandLite,
         lambda: Cnn.load("face_landmark.onnx", ColorMapper.linear(-1.0, 1.0)),
         resolve_device,
         lambda: resolve_device("cuda"),
@@ -198,6 +207,31 @@ def test_decode_and_nms_match_jax():
             assert np.asarray(want[0]).any()
             for g, w in zip(got[1:], want[1:]):
                 np.testing.assert_allclose(g[b].numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+def test_palm_decode_matches_jax():
+    """Palm detection: the port's anchors are JAX's 2016, and the decode with
+    7 keypoints and the fingers-up angle matches JAX's on random palm-shaped
+    outputs (boxes and keypoints bit for bit, the sigmoid within 2 ulp, the
+    angle, through ``atan2``, within 4 ulp)."""
+    from zaru_tpu.hand.detection import LiteNetwork as JPalm
+    from zaru_tpu_torch.hand.detection import LiteNetwork as TPalm
+
+    rng = np.random.default_rng(5)
+    jnet, tnet = JPalm(), TPalm(device="cpu")
+    assert tnet.anchors.shape == (2016, 2)
+    np.testing.assert_array_equal(tnet.anchors.numpy(), jnet.anchors.centers)
+    B, N = 2, 2016
+    boxes_raw = rng.normal(0, 20, (B, N, 18)).astype(np.float32)
+    conf_raw = rng.normal(-3, 3, (B, N, 1)).astype(np.float32)
+    got = tnet.decode_device([_t(boxes_raw), _t(conf_raw)], 0.5)
+    for b in range(B):
+        want = jnet.decode_device([jnp.asarray(boxes_raw[b]), jnp.asarray(conf_raw[b])], 0.5)
+        assert got[2][b].shape == (N, 7, 2)
+        _eq(got[0][b], want[0])
+        _eq(got[2][b], want[2])
+        np.testing.assert_array_max_ulp(got[1][b].numpy(), np.asarray(want[1]), maxulp=2)
+        _near(got[3][b], want[3])
 
 
 def test_one_euro_matches_jax():

@@ -35,9 +35,10 @@ EYE_TOL_PX.
 lost at the start and drained one per step, a loss, a forced redetect),
 held to JAX like the main sequence.
 
-The main sequence, with JAX's states and outputs, is stored in
-``zaru_tpu_torch/fixtures/sad_linus_track.npz`` for ``chip_smoke.py`` to
-replay on the GPU, where JAX is absent. Regenerate it with::
+The main sequence and the bucket sequence, with JAX's states and outputs,
+are stored in ``zaru_tpu_torch/fixtures/sad_linus_track.npz`` for
+``chip_smoke.py`` to replay on the GPU, where JAX is absent. Regenerate it
+with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_face_cascade.py
 """
@@ -114,29 +115,32 @@ def jax_run(rgb, plan=PLAN, **kwargs):
     return tracker, states, outs
 
 
-def _flat(rgb, states, outs):
+def _flat(states, outs, plan=PLAN, prefix=""):
+    """A run over ``plan`` as fixture arrays, keyed ``prefix + name``."""
     st = lambda k: np.stack([s[k] for s in states])  # noqa: E731
     fl = lambda k: np.stack([s["filter"][k] for s in states])  # noqa: E731
-    ou = lambda k: np.stack([o[k] for o in outs])  # noqa: E731
-    return {
-        "rgb": rgb,
-        "force": np.asarray([f for f, _ in PLAN]),
-        "zero": np.asarray([z for _, z in PLAN], np.int32),
+    flat = {
+        "force": np.asarray([f for f, _ in plan]),
+        "zero": np.asarray([z for _, z in plan], np.int32),
         "state_roi": st("roi"), "state_tracking": st("tracking"),
         "state_x": fl("x"), "state_dx": fl("dx"), "state_init": fl("init"),
-        "landmarks": ou("landmarks"), "confidence": ou("confidence"),
-        "roi": ou("roi"), "valid": ou("valid"), "eyes": ou("eyes"), "eye_rects": ou("eye_rects"),
     }
+    flat.update({k: np.stack([o[k] for o in outs]) for k in outs[0]})
+    return {prefix + k: v for k, v in flat.items()}
 
 
 def regen():
-    """Writes the fixture: the decoded photo and JAX's run over PLAN."""
+    """Writes the fixture: the decoded photo, JAX's iris run over PLAN, and
+    its ``redetect_bucket=1`` run over BUCKET_PLAN (keys ``bucket_*``)."""
     from zaru_tpu.assets import fixture_path
     from zaru_tpu.image import Image
 
     rgb = np.ascontiguousarray(Image.load(fixture_path("sad_linus.jpg")).data[..., :3])
     _, states, outs = jax_run(rgb, iris=True)
-    np.savez_compressed(FIXTURE, **_flat(rgb, states, outs))
+    _, bstates, bouts = jax_run(rgb, BUCKET_PLAN, redetect_bucket=1)
+    np.savez_compressed(
+        FIXTURE, rgb=rgb, **_flat(states, outs), **_flat(bstates, bouts, BUCKET_PLAN, "bucket_")
+    )
     print(f"wrote {FIXTURE}")
 
 
@@ -192,7 +196,7 @@ def test_fixture_is_current(stored, live):
     np.testing.assert_array_equal(stored["force"], [f for f, _ in PLAN])
     np.testing.assert_array_equal(stored["zero"], [z for _, z in PLAN])
     _, _, states, outs = live
-    flat = _flat(stored["rgb"], states, outs)
+    flat = _flat(states, outs)
     for k in ("state_tracking", "state_init", "valid"):
         np.testing.assert_array_equal(stored[k], flat[k], err_msg=k)
     for k in ("state_roi", "state_x", "state_dx", "landmarks", "roi", "confidence", "eyes",
@@ -262,13 +266,19 @@ def test_iris_one_step_matches_jax(stored, live, port_iris):
 
 
 def test_redetect_bucket_matches_jax(stored):
-    """redetect_bucket=1 over BUCKET_PLAN: one step at a time from JAX's
-    state (flags equal, landmarks within STEP_TOL_PX), then free-running
-    (flags equal), and the plan does drain one lost stream per step."""
+    """redetect_bucket=1 over BUCKET_PLAN: the stored run (``bucket_*``) is
+    current, one step at a time from JAX's state (flags equal, landmarks
+    within STEP_TOL_PX), then free-running (flags equal), and the plan does
+    drain one lost stream per step."""
     from zaru_tpu_torch.pipeline import FaceTracker as PortTracker
     from zaru_tpu_torch.weights import params_from_jax
 
     tracker, states, outs = jax_run(stored["rgb"], BUCKET_PLAN, redetect_bucket=1)
+    for k, v in _flat(states, outs, BUCKET_PLAN, "bucket_").items():
+        if v.dtype.kind == "f":
+            np.testing.assert_allclose(stored[k], v, rtol=0, atol=1e-3, err_msg=k)
+        else:
+            np.testing.assert_array_equal(stored[k], v, err_msg=k)
     port = PortTracker(redetect_bucket=1, params=params_from_jax(tracker.params), device="cpu")
     state = port.init_state(BATCH)
     for t, (force, zero) in enumerate(BUCKET_PLAN):

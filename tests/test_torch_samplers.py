@@ -11,6 +11,8 @@ CPU.
   0.55, 0.8 rad), a frame corner read out of bounds, an 836 px view at
   stride 2 and, tilted 0.7 rad, stride 3, and a view whose bbox exceeds
   1536 px (stride 4), over ``[B,S,5]`` slots.
+- The same at the hand tracker's geometry: 224×224 views on the 256-pixel
+  grid at any angle, strides 1-3.
 - Exact rotated view: ``zaru_tpu_torch.ops.sampling.view_to_tensor_core``
   against compiled ``view_to_tensor_core``.
 
@@ -151,6 +153,31 @@ def test_rotated_sampler_eye_grid_matches_jax():
     assert got.shape == (3, 2, 64, 64, 3)
     np.testing.assert_array_equal(got, want)
     assert (got == -1.0).all(-1).any()
+
+
+def test_rotated_sampler_hand_grid_matches_jax():
+    """The hand crops of MultiHandTracker: 224×224 square views on a
+    256-pixel prescale grid with the hand tracker's sampler options
+    (hand_cascade.py:83-86), at angles near ±π and ±π/2, at stride 1, and
+    at stride 2 and 3 (views of 400-600 px), across the frame corner, bit
+    for bit (colour range [0, 1])."""
+    rects = np.asarray([
+        (960, 540, 200, 200, 3.14159), (700, 500, 240, 240, -3.1),
+        (500, 400, 230, 230, 1.5708), (1200, 300, 250, 250, -1.5708),
+        (960, 540, 400, 400, 3.0), (800, 600, 600, 600, -1.6),
+        (60, 1000, 300, 300, 2.5), (1500, 200, 500, 500, 0.785),
+    ], np.float32).reshape(4, 2, 5)
+    frames = _frames(4)
+    want = np.asarray(jax_rotated(
+        jnp.asarray(frames), jnp.asarray(rects), 224, 224, 0.0, 1.0,
+        prescale_m=256, band_p=256, col_split=1, square_views=True,
+    ))
+    got = rotated_sample_fast(
+        torch.from_numpy(frames), torch.from_numpy(rects), 224, 224, 0.0, 1.0, prescale_m=256
+    ).numpy()
+    assert got.shape == (4, 2, 224, 224, 3)
+    np.testing.assert_array_equal(got, want)
+    assert (got == 0.0).all(-1).any()  # the corner view reads outside the frame
 
 
 def test_kernel_wrappers_refuse_bad_input():

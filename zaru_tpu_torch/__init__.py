@@ -7,12 +7,13 @@ its counterpart there. Entry points run on ``cuda`` unless the caller
 passes another ``device`` (the tests pass ``device="cpu"``); without a GPU
 they raise rather than fall back to the CPU.
 
-Ported so far: the batch-gated ``FaceTracker`` main path, with hand-written
-CUDA kernels for the rotated-ROI and letterbox samplers
+Ported so far: the batch-gated ``FaceTracker`` (with iris and bounded
+redetection), ``MultiFaceTracker`` and ``MultiHandTracker``, with
+hand-written CUDA kernels for every TPU kernel of the JAX package
 (``zaru_tpu_torch/csrc``).
 """
 
 from ._device import resolve_device
-from .pipeline import FaceTracker
+from .pipeline import FaceTracker, MultiFaceTracker, MultiHandTracker
 
-__all__ = ["FaceTracker", "resolve_device"]
+__all__ = ["FaceTracker", "MultiFaceTracker", "MultiHandTracker", "resolve_device"]

@@ -1,19 +1,27 @@
 """Runs a parsed ONNX graph as an ``nn.Module``.
 
-The counterpart of zaru_tpu/onnx/importer.py (``import_model``) for the 9
-ops the face cascade's two models use: Conv, Relu, PRelu, Add, Pad,
-MaxPool, Transpose, Reshape and Concat. Each op follows the JAX package's
-semantics in zaru_tpu/onnx/ops.py: ``_conv`` :219 with ``_conv_pads`` :205
-(explicit pads, SAME_UPPER, SAME_LOWER and VALID), ``_max_pool`` :328 with
+The counterpart of zaru_tpu/onnx/importer.py (``import_model``) for the 15
+ops the face and hand cascades' models use: Conv, Relu, PRelu, Add, Pad,
+MaxPool, Transpose, Reshape and Concat (the face models), Resize (palm
+detection), Clip, GlobalAveragePool, Squeeze, Gemm and Sigmoid (hand
+landmarks). Each op follows the JAX package's semantics in
+zaru_tpu/onnx/ops.py: ``_conv`` :219 with ``_conv_pads`` :205 (explicit
+pads, SAME_UPPER, SAME_LOWER and VALID), ``_max_pool`` :328 with
 ``_pool_pads`` :268, ``_pad`` :420, ``_prelu`` :72, ``_reshape`` :440,
-``_transpose`` :463 and ``_concat`` :472. A graph with any other op is
+``_transpose`` :463, ``_concat`` :472, ``_sigmoid`` :78, ``_clip`` :115,
+``_global_avg_pool`` :355, ``_squeeze`` :480, ``_resize`` :573 (its two
+exact configurations) and ``_gemm`` :656. A graph with any other op is
 refused when it is loaded.
 
 The parameters are the graph's float initializers, keyed by their ONNX
-names exactly as zaru_tpu/onnx/importer.py:125-136 keys them; other
-initializers (shape vectors) stay numpy constants. The graphs are exported
-at batch 1 and run here at batch B: a Reshape's leading 1 is read as the
-batch axis, as the JAX cascade's ``vmap`` over streams has it.
+names exactly as zaru_tpu/onnx/importer.py:109-136 keys them: a float
+initializer read only by a structural input slot (Resize ``roi`` and
+``scales``, Upsample ``scales``, Pad ``constant_value``) is no parameter,
+and other initializers (shape vectors) stay numpy constants as well. The
+graphs are exported at batch 1 and run here at batch B: a Reshape's leading
+1 is read as the batch axis, as the JAX cascade's ``vmap`` over streams has
+it, a Resize keeps the batch and takes only the spatial sizes, and a
+Squeeze never drops the batch axis.
 
 **Stage plan.** When a module is built it finds the maximal chains of
 stride-1 BlazeBlocks (:func:`find_stages`): a depthwise 3×3 ``Conv``
@@ -29,11 +37,13 @@ The other convolutions stay ``F.conv2d`` (cuDNN on the GPU), as the JAX
 package left them to XLA. cuDNN runs f32 convolutions in TF32 by default,
 which keeps about three decimal digits and breaks the repo's CNN bar
 (``atol = 1e-3·max(1,|out|max)``, ``rtol = 2e-3``), so :meth:`forward`
-turns TF32 off around them.
+turns TF32 off around them, and pins f32 matrix products (Gemm) to full
+f32 whatever ``torch.set_float32_matmul_precision`` the caller set.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -152,6 +162,78 @@ def _concat(node, vals):
     return torch.cat(vals, dim=node.attrs["axis"])
 
 
+def _clip(node, vals):
+    """``min(max(x, lo), hi)`` in one pass; a bound from an input is a
+    static initializer (a Python float here) or a tensor."""
+    x = vals[0]
+    lo, hi = node.attrs.get("min"), node.attrs.get("max")
+    if lo is None and len(vals) > 1:
+        lo = vals[1]
+    if hi is None and len(vals) > 2:
+        hi = vals[2]
+    bounds = [float(np.asarray(v)) if isinstance(v, np.ndarray) else v for v in (lo, hi)]
+    if all(v is None for v in bounds):
+        return x
+    if any(isinstance(v, torch.Tensor) for v in bounds):  # torch.clamp takes two tensors or two numbers
+        bounds = [None if v is None else torch.as_tensor(v, dtype=x.dtype, device=x.device) for v in bounds]
+    return torch.clamp(x, *bounds)
+
+
+def _squeeze(node, vals):
+    x = vals[0]
+    axes = node.attrs.get("axes")
+    if axes is None and len(vals) > 1 and vals[1] is not None:
+        axes = np.asarray(vals[1]).tolist()
+    if axes is None:  # every size-1 axis but the batch
+        axes = [i for i in range(1, x.ndim) if x.shape[i] == 1]
+    axes = sorted({int(a) % x.ndim for a in axes})
+    if 0 in axes:
+        raise NotImplementedError(f"Squeeze node {node.name!r}: squeezes the batch axis")
+    return x.reshape([s for i, s in enumerate(x.shape) if i not in axes])
+
+
+def _resize(node, vals):
+    """Bilinear with half-pixel centres, the configuration of the JAX
+    handler that ``jax.image.resize`` computes exactly (ops.py:604-616). The
+    target size comes from ``sizes`` or else ``scales`` (``floor(scale ·
+    dim)``); only its spatial part is taken, the batch is the input's."""
+    x = vals[0]
+    mode = node.attrs.get("mode", "nearest")
+    coord = node.attrs.get("coordinate_transformation_mode", "half_pixel")
+    sizes = None
+    if len(vals) > 3 and vals[3] is not None and np.size(vals[3]) > 0:
+        sizes = [int(s) for s in np.asarray(vals[3]).tolist()]
+    elif len(vals) > 2 and vals[2] is not None and np.size(vals[2]) > 0:
+        scales = np.asarray(vals[2]).tolist()
+        sizes = [int(np.floor(float(s) * d + 1e-7)) for s, d in zip(scales, x.shape)]
+    if sizes is None:
+        raise ValueError(f"Resize node {node.name!r}: no static sizes/scales")
+    if x.ndim != 4 or mode != "linear" or coord not in ("half_pixel", "pytorch_half_pixel"):
+        raise NotImplementedError(
+            f"Resize node {node.name!r}: only 2-D linear half_pixel, got mode={mode!r} coord={coord!r}"
+        )
+    if coord == "pytorch_half_pixel" and 1 in sizes[2:]:
+        raise ValueError(f"Resize node {node.name!r}: pytorch_half_pixel with an output dim of 1")
+    # Channels-last: PyTorch's NCHW bilinear kernel on CUDA runs one thread
+    # per output pixel over every image and channel, which is slow at a
+    # small spatial size and a large batch.
+    x = x.contiguous(memory_format=torch.channels_last)
+    return F.interpolate(x, size=sizes[2:], mode="bilinear", align_corners=False).contiguous()
+
+
+def _gemm(node, vals):
+    a, b = vals[0], vals[1]
+    c = vals[2] if len(vals) > 2 else None
+    if node.attrs.get("transA", 0):
+        raise NotImplementedError(f"Gemm node {node.name!r}: transA (A's leading axis is the batch)")
+    if node.attrs.get("transB", 0):
+        b = b.t()
+    out = node.attrs.get("alpha", 1.0) * torch.matmul(a, b)
+    if c is not None:
+        out = out + node.attrs.get("beta", 1.0) * c
+    return out
+
+
 _OPS = {
     "Conv": _conv,
     "Relu": lambda node, vals: torch.relu(vals[0]),
@@ -162,8 +244,40 @@ _OPS = {
     "Transpose": _transpose,
     "Reshape": _reshape,
     "Concat": _concat,
+    "Resize": _resize,
+    "Clip": _clip,
+    "GlobalAveragePool": lambda node, vals: vals[0].mean(dim=tuple(range(2, vals[0].ndim)), keepdim=True),
+    "Squeeze": _squeeze,
+    "Gemm": _gemm,
+    "Sigmoid": lambda node, vals: torch.sigmoid(vals[0]),
 }
 SUPPORTED_OPS = frozenset(_OPS)
+# Input slots whose float initializer is structural, never a parameter
+# (zaru_tpu/onnx/importer.py:109-123).
+_FLOAT_STATIC_SLOTS = frozenset({("Resize", 1), ("Resize", 2), ("Upsample", 1), ("Pad", 2)})
+
+
+def _float_static_names(nodes) -> set[str]:
+    """Names read only through :data:`_FLOAT_STATIC_SLOTS`."""
+    static, traced = set(), set()
+    for n in nodes:
+        for idx, name in enumerate(n.inputs):
+            if name:
+                (static if (n.op_type, idx) in _FLOAT_STATIC_SLOTS else traced).add(name)
+    return static - traced
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """cuDNN convolutions without TF32, and f32 matrix products at full f32
+    precision, restoring the caller's setting afterwards."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 @dataclass(frozen=True)
@@ -287,8 +401,9 @@ class OnnxModule(nn.Module):
         self.nodes = g.nodes
         self._attr_of: dict[str, str] = {}
         self._static: dict[str, np.ndarray] = {}
+        static_floats = _float_static_names(g.nodes)
         for i, (name, arr) in enumerate(g.initializers.items()):
-            if arr.dtype in (np.float32, np.float16, np.float64):
+            if arr.dtype in (np.float32, np.float16, np.float64) and name not in static_floats:
                 attr = f"p{i}"
                 self._attr_of[name] = attr
                 t = torch.tensor(np.asarray(arr, np.float32), device=device)
@@ -341,7 +456,7 @@ class OnnxModule(nn.Module):
         env: dict = dict(self._static)
         env.update(self.params())
         env.update((vi.name, x) for vi, x in zip(self.input_info, inputs))
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with _full_f32():
             for i, node in enumerate(self.nodes):
                 st = self._stage_at.get(i)
                 if st is not None:
