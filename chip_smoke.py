@@ -16,8 +16,9 @@ Phases, one line of output each (any failed check exits non-zero):
    256-pixel grid, and on 224×224 hand views of 150-700 px at any angle on
    the 256-pixel grid; the letterbox sampler bit for bit on 1080p and 720p
    frames; the BlazeBlock stage kernel within ``rtol = atol = 1e-4`` on
-   random weights at odd sizes whose tiles have ragged edges; the RGB→YUV
-   kernel bit for bit on the fixture photo at 1920×1080 and on random
+   random weights at odd sizes whose tiles have ragged edges, one for each
+   channel count it is built for (with a ReLU case and a 4-block case), and
+   its refusal of 8 channels; the RGB→YUV kernel bit for bit on the fixture photo at 1920×1080 and on random
    images of ragged sizes;
 4. the paths against the JAX reference stored in
    ``zaru_tpu_torch/fixtures/``: ``FaceTracker`` one step at a time from
@@ -215,26 +216,36 @@ def phase_kernels_vs_plain(torch, device):
               flush=True)
         check(differ == 0, "letterbox_sample kernel disagrees with its plain version")
 
-    # Random weights at sizes the face CNNs do not have: 12x20 fits one tile,
-    # 37x53 and 50x70 are tiled with ragged edges.
-    for C, H, W, nb in ((32, 12, 20, 3), (16, 37, 53, 3), (24, 50, 70, 2)):
+    # Random weights at sizes the face CNNs do not have, one case for each
+    # channel count the kernel is built for: 12x20 fits one tile, the others
+    # are tiled, all but 50x70 with ragged edges.
+    for C, H, W, nb, relu in ((32, 12, 20, 3, False), (16, 37, 53, 3, False), (24, 50, 70, 2, False),
+                              (64, 29, 31, 2, False), (96, 19, 23, 4, False), (128, 13, 17, 2, True)):
         blocks = [{
             "dw_w": torch.randn((C, 1, 3, 3), generator=gen) * 0.3,
             "dw_b": torch.randn(C, generator=gen) * 0.1,
             "pw_w": torch.randn((C, C, 1, 1), generator=gen) * 0.3,
             "pw_b": torch.randn(C, generator=gen) * 0.1,
-            "alpha": torch.rand(C, generator=gen) * 0.25 + 0.05,
+            "alpha": None if relu else torch.rand(C, generator=gen) * 0.25 + 0.05,
         } for _ in range(nb)]
         x = torch.randn((512, C, H, W), generator=gen).to(device)
         got = fused_blocks(x, pack_blocks(blocks, C).to(device), H, W, C)
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            want = blaze_blocks_reference(x, [{k: v.to(device) for k, v in b.items()} for b in blocks])
+            want = blaze_blocks_reference(
+                x, [{k: None if v is None else v.to(device) for k, v in b.items()} for b in blocks])
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         ok = bool(((got - want).abs() <= STAGE_TOL + STAGE_TOL * want.abs()).all())
-        print(f"blaze_stage vs plain, random weights, [512,{C},{H},{W}] x {nb} blocks "
-              f"(tiles {_tiling(C, H, W, nb)[:2]}): max abs err {err}", flush=True)
+        print(f"blaze_stage vs plain, random weights, [512,{C},{H},{W}] x {nb} blocks"
+              f"{' (ReLU)' if relu else ''} (tiles {_tiling(C, H, W, nb)[:2]}): max abs err {err}", flush=True)
         check(ok, "blaze_stage kernel disagrees with its plain version")
+    try:
+        fused_blocks(torch.zeros((2, 8, 6, 6), device=device), torch.zeros((1, 8 * 8 + 12 * 8), device=device),
+                     6, 6, 8)
+    except ValueError as e:
+        print(f"blaze_stage refuses 8 channels on the card: {e}", flush=True)
+    else:
+        check(False, "fused_blocks launched a stage of 8 channels, which the kernel is not built for")
 
 
 def phase_yuv_vs_plain(torch, img, device):

@@ -6,6 +6,9 @@ executor's stage plan, against zaru_tpu on the CPU.
   and ``blaze_blocks_reference`` at the three cases of
   tests/test_cnn_stage.py and a ReLU case (α = 0), ``rtol = atol = 1e-4``
   (tests/test_cnn_stage.py:42).
+- Every chain's channel count is one the CUDA kernel is built for, and its
+  tiling covers the image with regions whose shared memory, counted from
+  the kernel's layout, is what the launch asks for and fits the card.
 - The executor finds the chains listed below in the two face models and
   none in the iris model (its blocks are bottlenecks: 1×1 128→64, PReLU,
   depthwise 64, 1×1 64→128); ``load_params`` after construction reaches
@@ -25,7 +28,8 @@ from zaru_tpu.ops.cnn_stage import pack_blocks as jax_pack
 from zaru_tpu_torch.assets import model_path
 from zaru_tpu_torch.onnx import load_model
 from zaru_tpu_torch.ops.cnn_stage import (
-    blaze_blocks_reference, fused_blocks, pack_blocks, unpack_blocks,
+    KERNEL_CHANNELS, SMEM_LIMIT, _tiling, blaze_blocks_reference, fused_blocks, pack_blocks,
+    unpack_blocks,
 )
 
 # (blocks, channels, H×W, ReLU) per chain, in graph order.
@@ -38,6 +42,8 @@ STAGES = {
     "face_detection_short_range.onnx": (128, [(1, 24, (64, 64), True), (4, 96, (8, 8), True)]),
     "iris_landmark.onnx": (64, []),
 }
+
+CHAINS = [(name, nb, C, H, W) for name, (_res, chains) in STAGES.items() for nb, C, (H, W), _ in chains]
 
 
 def make_blocks(rng, C, nb, relu=False):
@@ -91,6 +97,30 @@ def test_fused_blocks_refuses_bad_input():
         fused_blocks(x.double(), packed, 6, 6, 16)
     with pytest.raises(ValueError, match="packed must be"):
         fused_blocks(x, packed[:, :-1], 6, 6, 16)
+
+
+@pytest.mark.parametrize("name,nb,C,H,W", CHAINS)
+def test_chain_fits_the_kernel(name, nb, C, H, W):
+    """The chain's C is in KERNEL_CHANNELS; ``_tiling``'s tiles cover the
+    image once; every region's shared memory, counted from
+    csrc/blaze_stage.cu's layout, is within what the launch asks for, which
+    fits SMEM_LIMIT."""
+    assert C in KERNEL_CHANNELS
+    th, tw, smem = _tiling(C, H, W, nb)
+    covered = np.zeros((H, W), int)
+    most = 0
+    for y0 in range(0, H, th):
+        for x0 in range(0, W, tw):
+            y1, x1 = min(H, y0 + th), min(W, x0 + tw)
+            covered[y0:y1, x0:x1] += 1
+            rh, rw = min(H, y1 + nb) - max(0, y0 - nb), min(W, x1 + nb) - max(0, x0 - nb)
+            floats = (C * (rh + 1) * (rw + 1)        # the activation, rows and channels led by zeros
+                      + -(-(rw + 2) // 4) * 4         # the zeros that close the last channel
+                      + C * rh * rw                   # the depthwise result
+                      + C * C + 12 * C)               # one block's packed parameters
+            most = max(most, 4 * floats)
+    assert (covered == 1).all()
+    assert most <= smem <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("name", sorted(STAGES))

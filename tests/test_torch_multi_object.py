@@ -284,19 +284,30 @@ def test_plans_do_what_they_say(stored):
     assert stored["hand_open__out_presence"][4].max() < 0.5  # no hand in the photo
 
 
-def test_angle_clamp_matches_jax(rgb):
+@pytest.fixture(scope="module")
+def jax_hands():
+    """One JAX MultiHandTracker for the tests below. ``detect_interval`` is
+    read only by the detection gates, which neither test runs."""
+    from zaru_tpu.pipeline import MultiHandTracker as JTracker
+
+    return JTracker(max_hands=S, detect_interval=5)
+
+
+def test_angle_clamp_matches_jax(rgb, jax_hands):
     """``angle_clamp`` (set by neither tracker) clamps the sampled view's
     angle and leaves the ROI's: the per-slot pass on the seeded slots against
     JAX's ``_track_slots_batch`` with the same clamp."""
-    from zaru_tpu.pipeline import MultiHandTracker as JTracker
     from zaru_tpu_torch.pipeline import MultiHandTracker as TTracker
     from zaru_tpu_torch.weights import params_from_jax
 
-    jt = JTracker(max_hands=S)
+    jt = jax_hands
     pt = TTracker(max_hands=S, params=params_from_jax(jt.params), device="cpu")
     jt.angle_clamp = pt.angle_clamp = 0.6
     frames, rois = frames_for(rgb, ()), seed_state()["rois"]
-    want = jax.jit(jt._track_slots_batch)(jt.params, jnp.asarray(frames), jnp.asarray(rois))
+    try:
+        want = jax.jit(jt._track_slots_batch)(jt.params, jnp.asarray(frames), jnp.asarray(rois))
+    finally:
+        jt.angle_clamp = None
     got = pt._track_slots_batch(torch.from_numpy(frames), torch.from_numpy(rois))
     for g, w in ((got[0], want[0]), (got[3], want[3])):  # next ROIs, landmarks
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=STEP_TOL_PX)
@@ -306,11 +317,10 @@ def test_angle_clamp_matches_jax(rgb):
     assert not torch.equal(pt._track_slots_batch(torch.from_numpy(frames), torch.from_numpy(rois))[3], got[3])
 
 
-def test_assign_matches_jax():
+def test_assign_matches_jax(jax_hands):
     """The three slot-assignment cases of tests/test_hand_cascade.py:27-57
     (free slots, dedup against an active slot, no free slot), batched as
     three streams, against JAX's ``_assign``."""
-    from zaru_tpu.pipeline import MultiHandTracker as JTracker
     from zaru_tpu_torch.pipeline import MultiHandTracker as TTracker
 
     roi = lambda cx, cy, size=100.0: [cx, cy, size, size, 0.0]  # noqa: E731
@@ -325,8 +335,7 @@ def test_assign_matches_jax():
         [roi(700, 700)] * 3,
     ], np.float32)
     valid = np.asarray([[1, 1, 0], [1, 1, 0], [1, 1, 1]], bool)
-    jt = JTracker(max_hands=3, detect_interval=5)
-    jassign = jax.jit(jt._assign)
+    jassign = jax.jit(jax_hands._assign)
     port = TTracker(max_hands=3, detect_interval=5, device="cpu")
     got = port._assign(*(torch.from_numpy(a) for a in (rois, active, cands, valid)))
     for b in range(3):

@@ -17,10 +17,34 @@
 // buffer, then the pointwise 1x1 with the residual and the PReLU back into
 // the first. Each block computes one pixel less on every side that is not
 // the image's border, so the halo is recomputed rather than exchanged
-// between thread blocks; at the image border the 3x3 reads zeros (the
-// convolution's padding). The result's tile is written once. The wrapper
+// between thread blocks. The result's tile is written once. The wrapper
 // picks the tile (ops/cnn_stage.py `_tiling`): the whole image where it
 // fits (12x12x128 and below), else square-ish tiles.
+//
+// The narrow chains (16-32 channels) do few operations per byte, so the
+// first version of this kernel was held back by its integer index
+// arithmetic, not by memory or FMAs: runtime divisions and modulos for every
+// element and four compares per depthwise tap. This version takes that out:
+//
+// - C is a template parameter, instantiated for the channel counts of the
+//   face CNNs' chains (16, 24, 32, 64, 96, 128), so the channel loops unroll
+//   and their offsets are constants;
+// - each channel's region sits in a ring of zeros, written once by the
+//   load: a channel is RH+1 rows of RW+1 floats, a zero row and then RH rows
+//   that each start with a zero. The next row's zero (or the next channel's
+//   zero row, or a zero tail after the last channel) closes the ring on the
+//   right and below, so a channel takes (RH+1)*(RW+1) floats, not
+//   (RH+2)*(RW+2), and the 12x12x128 chain still fits one tile. At the
+//   image border the ring is the convolution's padding; at an interior tile
+//   edge no computed pixel reads it (block blk computes only pixels at least
+//   blk+1 from such an edge); the pointwise writes only computed pixels, so
+//   the ring stays zero. The depthwise reads its nine taps with no compare;
+// - load and store run lanes along a row (a narrow row takes a group of
+//   lanes, so a warp holds several) and warps over rows, with an unrolled
+//   loop over a slice of 8 or 16 channels, coalesced along W; the depthwise
+//   and the pointwise give a thread 8 channels of one pixel. Both find their
+//   (slice, row) or pixel with exact float reciprocal products
+//   (`div_small`), once per row or work item.
 //
 // Arithmetic: f32 FMAs on the CUDA cores (no TF32, no tensor cores). The
 // depthwise taps are summed in the TPU kernel's order: bias, then the nine
@@ -30,49 +54,90 @@
 //
 // Bound. At batch 512, Face Mesh's stages move 2*B*C*H*W*4 bytes each
 // (one read, one write) and do 2*B*H*W*C*(9 + C) operations per block plus
-// the elementwise ones; the large early stages (96x96x16) are bound by
-// bytes, the 128-channel ones by operations. This first design keeps the
-// pointwise weights in shared memory and gives each thread 8 output
-// channels of one pixel; it does not use the tensor cores, and its large
-// tiles run one or two thread blocks per SM.
+// the elementwise ones; the narrow early stages (96x96x16, 64x64x24,
+// 48x48x32) are bound by bytes, the 128-channel ones by operations. Times on
+// the card are in PERF.md section 6 (chip_smoke.py phase 6). The pointwise
+// still reads its weights from shared memory for every 8 outputs, and the
+// large early tiles run one or two thread blocks per SM, so load, compute
+// and store of a block do not overlap.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kOuts = 8;  // output channels per pointwise work item
+constexpr int kOuts = 8;  // channels per depthwise and pointwise work item
 
+// floor(n / d) for 0 <= n < 2^22, given inv = 1.0f / d (d >= 1): exact,
+// because (n + 0.5) / d lies at least 0.5 / d from an integer, and the two
+// roundings (of inv and of the product) move it by less than
+// (n + 0.5) / d * 2^-23 < 0.5 / d.
+__device__ __forceinline__ int div_small(int n, float inv) {
+  return __float2int_rz((static_cast<float>(n) + 0.5f) * inv);
+}
+
+// Calls f(c0, r, q) for channels [c0, c0 + CS) of every row r < rows and
+// column q < width of a plane: the load's and the store's map. A row goes to
+// a group of lw lanes, the least power of two >= width (at most 32), so a
+// warp takes 32/lw rows, and a narrow plane still fills the block; the
+// (channel slice, row) pairs are dealt to the groups in turn.
+template <int C, int CS, class F>
+__device__ __forceinline__ void for_rows(int rows, int width, F f) {
+  int lws = 5;
+  while (lws > 0 && (1 << (lws - 1)) >= width) --lws;
+  const int lw = 1 << lws;
+  const float inv_rows = 1.0f / rows;
+  for (int u = threadIdx.x >> lws; u < (C / CS) * rows; u += kThreads >> lws) {
+    const int s = div_small(u, inv_rows);
+    for (int q = threadIdx.x & (lw - 1); q < width; q += lw) f(s * CS, u - s * rows, q);
+  }
+}
+
+template <int C>
 __global__ void __launch_bounds__(kThreads) blaze_stage_kernel(
     const float* __restrict__ x,       // [B, C, H, W]
     const float* __restrict__ params,  // [nb, C*C + 12*C], see cnn_stage.pack_blocks
     float* __restrict__ out,           // [B, C, H, W]
-    int C, int H, int W, int nb, int tile_h, int tile_w, int tiles_w) {
-  extern __shared__ float smem[];
+    int H, int W, int nb, int tile_h, int tile_w, int tiles_w) {
+  static_assert(C % kOuts == 0, "C must be a multiple of kOuts");
+  constexpr int P = C * C + 12 * C;
+  constexpr int G = C / kOuts;                    // work items per pixel
+  constexpr int CS = C % 16 == 0 ? 16 : kOuts;  // channels per load and store row
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.y;
-  const int y0 = (blockIdx.x / tiles_w) * tile_h, x0 = (blockIdx.x % tiles_w) * tile_w;
+  const int ty = blockIdx.x / tiles_w;
+  const int y0 = ty * tile_h, x0 = (blockIdx.x - ty * tiles_w) * tile_w;
   const int y1 = min(H, y0 + tile_h), x1 = min(W, x0 + tile_w);
-  // The region held in shared memory: the tile and its halo, clipped.
+  // The region: the tile and its halo, clipped to the image.
   const int ry0 = max(0, y0 - nb), rx0 = max(0, x0 - nb);
   const int ry1 = min(H, y1 + nb), rx1 = min(W, x1 + nb);
   const int RH = ry1 - ry0, RW = rx1 - rx0, R = RH * RW;
-  const int P = C * C + 12 * C;
+  // Region pixel (r, q) of channel c is xs[c*PP + (r+1)*PW + q+1].
+  const int PW = RW + 1, PP = (RH + 1) * PW;
+  const int tail = (RW + 5) & ~3;  // the PW+1 zeros after the last channel, to 4 floats
 
-  float* xs = smem;       // [C, RH, RW] the activation
-  float* ds = xs + C * R;  // [C, RH, RW] the depthwise result
-  float* wp = ds + C * R;  // one block's packed parameters
-  const float* wt = wp;                // [C_in, C_out] pointwise weights
-  const float* taps = wt + C * C;      // [9, C] depthwise taps, row-major
+  // Every offset below is a multiple of 4 floats (C is one of 8, the tail
+  // one of 4), so the float4 reads of the parameters are aligned.
+  float* xs = smem;                // [C, RH+1, RW+1] + tail: the activation in its ring
+  float* ds = xs + C * PP + tail;  // [C, RH, RW] the depthwise result
+  float* wp = ds + C * R;          // one block's packed parameters
+  const float* wt = wp;            // [C_in, C_out] pointwise weights
+  const float* taps = wt + C * C;  // [9, C] depthwise taps, row-major
   const float* dwb = taps + 9 * C;
   const float* pwb = dwb + C;
   const float* alpha = pwb + C;
 
   const size_t plane = (size_t)H * W;
   const float* xb = x + (size_t)b * C * plane;
-  for (int i = threadIdx.x; i < C * R; i += kThreads) {
-    const int c = i / R, r = (i % R) / RW, q = i % RW;
-    xs[i] = __ldg(xb + c * plane + (size_t)(ry0 + r) * W + rx0 + q);
-  }
+  for (int i = threadIdx.x; i < tail; i += kThreads) xs[C * PP + i] = 0.0f;
+  for_rows<C, CS>(RH + 1, PW, [&](int c0, int r, int q) {
+    const bool in = r > 0 && q > 0;
+    const float* src = xb + c0 * plane + (in ? (size_t)(ry0 + r - 1) * W + rx0 + q - 1 : 0);
+    float* dst = xs + c0 * PP + r * PW + q;
+#pragma unroll
+    for (int j = 0; j < CS; ++j) dst[j * PP] = in ? __ldg(src + j * plane) : 0.0f;
+  });
 
   for (int blk = 0; blk < nb; ++blk) {
     __syncthreads();  // the previous block is done with wp and ds
@@ -81,36 +146,56 @@ __global__ void __launch_bounds__(kThreads) blaze_stage_kernel(
     __syncthreads();
 
     // Block blk computes the pixels at least blk+1 from each region edge
-    // that is not the image's border.
+    // that is not the image's border: the window [r0, r1) x [q0, q1).
     const int m = blk + 1;
     const int r0 = ry0 > 0 ? m : 0, r1 = ry1 < H ? RH - m : RH;
     const int q0 = rx0 > 0 ? m : 0, q1 = rx1 < W ? RW - m : RW;
     const int cw = q1 - q0, np = (r1 - r0) * cw;
+    const float inv_cw = 1.0f / cw, inv_np = 1.0f / np;
 
-    for (int i = threadIdx.x; i < C * np; i += kThreads) {
-      const int c = i / np, p = i % np;
-      const int r = r0 + p / cw, q = q0 + p % cw;
-      const float* xc = xs + c * R;
-      float acc = dwb[c];
+    // Work item i: channels [8g, 8g+8) of window pixel p, i = g*np + p, so
+    // the lanes of a warp take neighbouring pixels of the same channels.
+    for (int i = threadIdx.x; i < G * np; i += kThreads) {
+      const int g = div_small(i, inv_np), p = i - g * np;
+      const int pr = div_small(p, inv_cw);
+      const int r = r0 + pr, q = q0 + p - pr * cw, c0 = g * kOuts;
+      // The top-left tap of region pixel (r, q).
+      const float* xc = xs + c0 * PP + r * PW + q;
+      const float4 b0 = *reinterpret_cast<const float4*>(dwb + c0);
+      const float4 b1 = *reinterpret_cast<const float4*>(dwb + c0 + 4);
+      float acc[kOuts] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int k = 0; k < 9; ++k) {
-        const int rr = r + k / 3 - 1, qq = q + k % 3 - 1;
-        const float v = (rr >= 0 && rr < RH && qq >= 0 && qq < RW) ? xc[rr * RW + qq] : 0.0f;
-        acc += taps[k * C + c] * v;
+        const float4 t0 = *reinterpret_cast<const float4*>(taps + k * C + c0);
+        const float4 t1 = *reinterpret_cast<const float4*>(taps + k * C + c0 + 4);
+        const float* xk = xc + (k / 3) * PW + k % 3;
+        acc[0] += t0.x * xk[0];
+        acc[1] += t0.y * xk[PP];
+        acc[2] += t0.z * xk[2 * PP];
+        acc[3] += t0.w * xk[3 * PP];
+        acc[4] += t1.x * xk[4 * PP];
+        acc[5] += t1.y * xk[5 * PP];
+        acc[6] += t1.z * xk[6 * PP];
+        acc[7] += t1.w * xk[7 * PP];
       }
-      ds[c * R + r * RW + q] = acc;
+      float* dc = ds + c0 * R + r * RW + q;
+#pragma unroll
+      for (int j = 0; j < kOuts; ++j) dc[j * R] = acc[j];
     }
     __syncthreads();
 
-    const int items = (C / kOuts) * np;
-    for (int i = threadIdx.x; i < items; i += kThreads) {
-      const int o0 = (i / np) * kOuts, p = i % np;
-      const int idx = (r0 + p / cw) * RW + q0 + p % cw;
+    // Work item i: output channels [8g, 8g+8) of window pixel p.
+    for (int i = threadIdx.x; i < G * np; i += kThreads) {
+      const int g = div_small(i, inv_np), p = i - g * np;
+      const int pr = div_small(p, inv_cw);
+      const int r = r0 + pr, q = q0 + p - pr * cw, o0 = g * kOuts;
+      const float* dp = ds + r * RW + q;
       float acc[kOuts];
 #pragma unroll
       for (int j = 0; j < kOuts; ++j) acc[j] = 0.0f;
+#pragma unroll
       for (int ci = 0; ci < C; ++ci) {
-        const float d = ds[ci * R + idx];
+        const float d = dp[ci * R];
         const float4 w0 = *reinterpret_cast<const float4*>(wt + ci * C + o0);
         const float4 w1 = *reinterpret_cast<const float4*>(wt + ci * C + o0 + 4);
         acc[0] += w0.x * d;
@@ -122,42 +207,62 @@ __global__ void __launch_bounds__(kThreads) blaze_stage_kernel(
         acc[6] += w1.z * d;
         acc[7] += w1.w * d;
       }
+      float* xp = xs + (r + 1) * PW + q + 1;
 #pragma unroll
       for (int j = 0; j < kOuts; ++j) {
         const int o = o0 + j;
-        const float y = (acc[j] + pwb[o]) + xs[o * R + idx];
-        xs[o * R + idx] = y > 0.0f ? y : alpha[o] * y;
+        const float y = (acc[j] + pwb[o]) + xp[o * PP];
+        xp[o * PP] = y > 0.0f ? y : alpha[o] * y;
       }
     }
   }
   __syncthreads();
 
-  const int th = y1 - y0, tw = x1 - x0, tp = th * tw;
+  const int th = y1 - y0, tw = x1 - x0;
   float* ob = out + (size_t)b * C * plane;
-  for (int i = threadIdx.x; i < C * tp; i += kThreads) {
-    const int c = i / tp, r = (i % tp) / tw, q = i % tw;
-    ob[c * plane + (size_t)(y0 + r) * W + x0 + q] =
-        xs[c * R + (y0 - ry0 + r) * RW + (x0 - rx0 + q)];
-  }
+  const float* xt = xs + (y0 - ry0 + 1) * PW + (x0 - rx0 + 1);
+  for_rows<C, CS>(th, tw, [&](int c0, int r, int q) {
+    float* dst = ob + c0 * plane + (size_t)(y0 + r) * W + x0 + q;
+    const float* src = xt + c0 * PP + r * PW + q;
+#pragma unroll
+    for (int j = 0; j < CS; ++j) dst[j * plane] = src[j * PP];
+  });
+}
+
+template <int C>
+int launch(const void* x, const void* params, void* out, int batch, int H, int W, int nb,
+           int tile_h, int tile_w, int smem_bytes, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      blaze_stage_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_w = (W + tile_w - 1) / tile_w;
+  const int tiles_h = (H + tile_h - 1) / tile_h;
+  const dim3 grid(tiles_h * tiles_w, batch);
+  blaze_stage_kernel<C><<<grid, kThreads, smem_bytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(params), static_cast<float*>(out),
+      H, W, nb, tile_h, tile_w, tiles_w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches on `stream`; allocates nothing and does not synchronise. C must
-// be a multiple of 8; `smem_bytes` is the dynamic shared memory of the
-// largest region, (2*C*RH*RW + C*C + 12*C)*4. Returns the CUDA error code
-// (0 when the launch was accepted).
+// be one of 16, 24, 32, 64, 96, 128 (ops/cnn_stage.py KERNEL_CHANNELS), else
+// cudaErrorInvalidValue; `smem_bytes` is the dynamic shared memory of the
+// largest region, (C*((RH+1)*(RW+1) + RH*RW) + ((RW+5) & ~3) + C*C + 12*C)*4
+// (ops/cnn_stage.py smem_bytes). Returns the CUDA error code (0 when the
+// launch was accepted).
 extern "C" int zaru_blaze_stage(
     const void* x, const void* params, void* out, int batch, int C, int H, int W,
     int nb, int tile_h, int tile_w, int smem_bytes, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      blaze_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_w = (W + tile_w - 1) / tile_w;
-  const int tiles_h = (H + tile_h - 1) / tile_h;
-  const dim3 grid(tiles_h * tiles_w, batch);
-  blaze_stage_kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(params),
-      static_cast<float*>(out), C, H, W, nb, tile_h, tile_w, tiles_w);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 16: return launch<16>(x, params, out, batch, H, W, nb, tile_h, tile_w, smem_bytes, s);
+    case 24: return launch<24>(x, params, out, batch, H, W, nb, tile_h, tile_w, smem_bytes, s);
+    case 32: return launch<32>(x, params, out, batch, H, W, nb, tile_h, tile_w, smem_bytes, s);
+    case 64: return launch<64>(x, params, out, batch, H, W, nb, tile_h, tile_w, smem_bytes, s);
+    case 96: return launch<96>(x, params, out, batch, H, W, nb, tile_h, tile_w, smem_bytes, s);
+    case 128: return launch<128>(x, params, out, batch, H, W, nb, tile_h, tile_w, smem_bytes, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

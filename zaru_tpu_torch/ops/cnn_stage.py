@@ -33,10 +33,15 @@ import torch.nn.functional as F
 
 from ._build import library
 
-__all__ = ["blaze_blocks_reference", "fused_blocks", "pack_blocks", "unpack_blocks"]
+__all__ = [
+    "KERNEL_CHANNELS", "blaze_blocks_reference", "fused_blocks", "pack_blocks", "smem_bytes",
+    "unpack_blocks",
+]
 
 SMEM_LIMIT = 232448  # dynamic shared memory one thread block may use (H100)
-_OUTS = 8  # output channels per pointwise work item (csrc/blaze_stage.cu kOuts)
+# The channel counts csrc/blaze_stage.cu is instantiated for: those of the
+# face CNNs' chains.
+KERNEL_CHANNELS = (16, 24, 32, 64, 96, 128)
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -93,9 +98,18 @@ def blaze_blocks_reference(x, blocks):
     return x
 
 
+def smem_bytes(C: int, rh: int, rw: int) -> int:
+    """The kernel's shared memory for a region of ``rh × rw`` pixels: the
+    activation in its ring of zeros (``[C, rh+1, rw+1]`` and a tail of
+    ``rw+2`` zeros rounded up to 4 floats), the depthwise result
+    ``[C, rh, rw]`` and one block's packed parameters."""
+    return (C * ((rh + 1) * (rw + 1) + rh * rw) + (rw + 5) // 4 * 4 + C * C + 12 * C) * 4
+
+
 @functools.lru_cache(maxsize=None)
 def _tiling(C: int, H: int, W: int, nb: int) -> tuple[int, int, int]:
-    """``(tile_h, tile_w, shared-memory bytes)`` for a stage: the even
+    """``(tile_h, tile_w, shared-memory bytes)`` for a stage (the bytes
+    of an unclipped region, at least any tile's): the even
     tiling that computes the fewest pixels (tile plus recomputed halo),
     where a tiling that needs more than half the shared memory (one thread
     block per SM instead of two) counts 1.5 times its pixels."""
@@ -104,8 +118,9 @@ def _tiling(C: int, H: int, W: int, nb: int) -> tuple[int, int, int]:
         th = -(-H // nty)
         for ntx in range(1, W + 1):
             tw = -(-W // ntx)
-            region = min(H, th + 2 * nb) * min(W, tw + 2 * nb)
-            smem = (2 * C * region + C * C + 12 * C) * 4
+            rh, rw = min(H, th + 2 * nb), min(W, tw + 2 * nb)
+            region = rh * rw
+            smem = smem_bytes(C, rh, rw)
             if smem > SMEM_LIMIT:
                 continue
             cost = nty * ntx * region * (1.0 if smem <= SMEM_LIMIT // 2 - 1024 else 1.5)
@@ -135,8 +150,8 @@ def fused_blocks(x, packed, H: int, W: int, C: int):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     B, nb = x.shape[0], packed.shape[0]
-    if C % _OUTS or not 0 < B <= 65535:
-        raise ValueError(f"the kernel takes C a multiple of {_OUTS} and 1..65535 images, "
+    if C not in KERNEL_CHANNELS or not 0 < B <= 65535:
+        raise ValueError(f"the kernel takes C in {KERNEL_CHANNELS} and 1..65535 images, "
                          f"got C={C}, B={B}")
     x = x.contiguous()
     packed = packed.contiguous()
