@@ -28,7 +28,7 @@ from zaru_tpu.ops.cnn_stage import pack_blocks as jax_pack
 from zaru_tpu_torch.assets import model_path
 from zaru_tpu_torch.onnx import load_model
 from zaru_tpu_torch.ops.cnn_stage import (
-    KERNEL_CHANNELS, SMEM_LIMIT, _tiling, blaze_blocks_reference, fused_blocks, pack_blocks,
+    KERNEL_CHANNELS, PIXELS_PER_THREAD, SMEM_LIMIT, THREADS, _tiling, blaze_blocks_reference, fused_blocks, pack_blocks,
     unpack_blocks,
 )
 
@@ -104,9 +104,12 @@ def test_chain_fits_the_kernel(name, nb, C, H, W):
     """The chain's C is in KERNEL_CHANNELS; ``_tiling``'s tiles cover the
     image once; every region's shared memory, counted from
     csrc/blaze_stage.cu's layout, is within what the launch asks for, which
-    fits SMEM_LIMIT."""
+    fits SMEM_LIMIT; where the depthwise stays in registers, the threads hold
+    every pixel of a region."""
     assert C in KERNEL_CHANNELS
     th, tw, smem = _tiling(C, H, W, nb)
+    # The launch's path, from its unclipped region, as the kernel decides it.
+    in_registers = C <= 24 and min(H, th + 2 * nb) * min(W, tw + 2 * nb) > THREADS // 2
     covered = np.zeros((H, W), int)
     most = 0
     for y0 in range(0, H, th):
@@ -114,11 +117,13 @@ def test_chain_fits_the_kernel(name, nb, C, H, W):
             y1, x1 = min(H, y0 + th), min(W, x0 + tw)
             covered[y0:y1, x0:x1] += 1
             rh, rw = min(H, y1 + nb) - max(0, y0 - nb), min(W, x1 + nb) - max(0, x0 - nb)
-            floats = (C * (rh + 1) * (rw + 1)        # the activation, rows and channels led by zeros
-                      + -(-(rw + 2) // 4) * 4         # the zeros that close the last channel
-                      + C * rh * rw                   # the depthwise result
-                      + C * C + 12 * C)               # one block's packed parameters
+            floats = (C * (rh + 1) * (rw + 1)                 # the activation, rows and channels led by zeros
+                      + -(-(rw + 2) // 4) * 4                  # the zeros that close the last channel
+                      + (0 if in_registers else C * rh * rw)   # the depthwise result
+                      + C * C + 12 * C)                        # one block's packed parameters
             most = max(most, 4 * floats)
+            if in_registers:
+                assert rh * rw <= PIXELS_PER_THREAD[C] * THREADS
     assert (covered == 1).all()
     assert most <= smem <= SMEM_LIMIT
 

@@ -13,18 +13,17 @@
 //
 // Design. A thread block takes one (image, spatial tile). It loads the tile
 // plus an nb-pixel halo (clipped to the image) into shared memory once, then
-// runs every block of the stage there: the depthwise 3x3 into a second
-// buffer, then the pointwise 1x1 with the residual and the PReLU back into
-// the first. Each block computes one pixel less on every side that is not
-// the image's border, so the halo is recomputed rather than exchanged
-// between thread blocks. The result's tile is written once. The wrapper
-// picks the tile (ops/cnn_stage.py `_tiling`): the whole image where it
-// fits (12x12x128 and below), else square-ish tiles.
+// runs every block of the stage there, the result back into the same place.
+// Each block computes one pixel less on every side that is not the image's
+// border, so the halo is recomputed rather than exchanged between thread
+// blocks. The result's tile is written once. The wrapper picks the tile
+// (ops/cnn_stage.py `_tiling`): the whole image where it fits (12x12x128 and
+// below), else square-ish tiles.
 //
-// The narrow chains (16-32 channels) do few operations per byte, so the
-// first version of this kernel was held back by its integer index
-// arithmetic, not by memory or FMAs: runtime divisions and modulos for every
-// element and four compares per depthwise tap. This version takes that out:
+// The narrow chains do few operations per byte, and the first version of
+// this kernel was held back by its integer index arithmetic, not by memory
+// or FMAs: runtime divisions and modulos for every element and four compares
+// per depthwise tap. This version takes that out:
 //
 // - C is a template parameter, instantiated for the channel counts of the
 //   face CNNs' chains (16, 24, 32, 64, 96, 128), so the channel loops unroll
@@ -41,10 +40,17 @@
 //   the ring stays zero. The depthwise reads its nine taps with no compare;
 // - load and store run lanes along a row (a narrow row takes a group of
 //   lanes, so a warp holds several) and warps over rows, with an unrolled
-//   loop over a slice of 8 or 16 channels, coalesced along W; the depthwise
-//   and the pointwise give a thread 8 channels of one pixel. Both find their
-//   (slice, row) or pixel with exact float reciprocal products
-//   (`div_small`), once per row or work item.
+//   loop over a slice of 8 or 16 channels, coalesced along W. Work items
+//   find their (slice, row) or pixel with exact float reciprocal products
+//   (`div_small`), once per row or item.
+//
+// Two ways to run a block. At 16 and 24 channels (and regions of more than
+// 128 pixels) a thread holds up to 4 or 3 pixels, computes all C depthwise
+// values of each into registers, and after a barrier runs the pointwise from
+// them, four outputs at a time, each float4 of weights serving all its
+// pixels; no depthwise buffer, half the shared memory. Otherwise the
+// depthwise goes into a second buffer in shared memory, 8 channels of one
+// pixel a work item, then the pointwise, 8 outputs of one pixel an item.
 //
 // Arithmetic: f32 FMAs on the CUDA cores (no TF32, no tensor cores). The
 // depthwise taps are summed in the TPU kernel's order: bias, then the nine
@@ -54,19 +60,32 @@
 //
 // Bound. At batch 512, Face Mesh's stages move 2*B*C*H*W*4 bytes each
 // (one read, one write) and do 2*B*H*W*C*(9 + C) operations per block plus
-// the elementwise ones; the narrow early stages (96x96x16, 64x64x24,
-// 48x48x32) are bound by bytes, the 128-channel ones by operations. Times on
-// the card are in PERF.md section 6 (chip_smoke.py phase 6). The pointwise
-// still reads its weights from shared memory for every 8 outputs, and the
-// large early tiles run one or two thread blocks per SM, so load, compute
-// and store of a block do not overlap.
+// the elementwise ones; the 96x96x16 and 64x64x24 stages are bound by bytes,
+// the others by operations. Times on the card are in PERF.md section 6
+// (chip_smoke.py phase 6). What still holds the kernel back: two thread
+// blocks an SM at most (registers or shared memory), whose load, compute and
+// store do not overlap; shared-memory reads for every FMA of the depthwise;
+// no tensor cores for the 1x1.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kOuts = 8;  // channels per depthwise and pointwise work item
+constexpr int kOuts = 8;               // channels per depthwise and pointwise work item
+constexpr int kRegisterChannels = 24;  // C up to this keeps the depthwise in registers
+// Pixels a thread holds on that path, all C depthwise values of each
+// (ops/cnn_stage.py PIXELS_PER_THREAD): a region has at most kPixels *
+// kThreads pixels.
+template <int C>
+constexpr int kPixels = C <= 16 ? 4 : 3;
+// Thread blocks an SM must hold, which caps a thread's registers (65536 /
+// (256 * n)): 2 (128 registers) lets the register path run two blocks an SM
+// and made the 64- and 128-channel chains faster on the card; the 32- and
+// 96-channel ones were faster held to 64 and 80 registers, as ptxas chose
+// before the register path existed (PERF.md, PR 6).
+template <int C>
+constexpr int kMinBlocks = C == 32 ? 4 : C == 96 ? 3 : 2;
 
 // floor(n / d) for 0 <= n < 2^22, given inv = 1.0f / d (d >= 1): exact,
 // because (n + 0.5) / d lies at least 0.5 / d from an integer, and the two
@@ -93,8 +112,108 @@ __device__ __forceinline__ void for_rows(int rows, int width, F f) {
   }
 }
 
+// One BlazeBlock on the window for C <= kRegisterChannels, with K rounds of
+// pixels: thread t takes window pixels p = t + k*kThreads (k < K), computes
+// all C depthwise values of each into registers, waits for the block, then
+// runs the pointwise from registers and writes its pixels in place. A thread
+// past the window's end in the last round computes its last pixel again and
+// writes nothing. `at` is the top-left tap of a pixel, region pixel
+// (r-1, q-1): r*PW + q.
+template <int C, int K>
+__device__ __forceinline__ void block_in_registers(float* xs, const float* wp, int PW, int PP,
+                                                   int r0, int q0, int cw, int np) {
+  const float* wt = wp;
+  const float* taps = wt + C * C;
+  const float* dwb = taps + 9 * C;
+  const float* pwb = dwb + C;
+  const float* alpha = pwb + C;
+  const float inv_cw = 1.0f / cw;
+  int at[K];
+  bool own[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    own[k] = i < np;
+    const int p = own[k] ? i : np - 1;
+    const int pr = div_small(p, inv_cw);
+    at[k] = (r0 + pr) * PW + q0 + p - pr * cw;
+  }
+
+  float d[K][C];
+#pragma unroll
+  for (int c = 0; c < C; c += 4) {
+    const float4 b = *reinterpret_cast<const float4*>(dwb + c);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      d[k][c] = b.x;
+      d[k][c + 1] = b.y;
+      d[k][c + 2] = b.z;
+      d[k][c + 3] = b.w;
+    }
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const float4 w = *reinterpret_cast<const float4*>(taps + t * C + c);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float* xk = xs + c * PP + at[k] + (t / 3) * PW + t % 3;
+        d[k][c] += w.x * xk[0];
+        d[k][c + 1] += w.y * xk[PP];
+        d[k][c + 2] += w.z * xk[2 * PP];
+        d[k][c + 3] += w.w * xk[3 * PP];
+      }
+    }
+  }
+  __syncthreads();  // every thread has read xs for this block
+
+  // Four outputs at a time, so that the sums take few registers beside d.
+#pragma unroll
+  for (int o0 = 0; o0 < C; o0 += 4) {
+    float acc[K][4];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[k][j] = 0.0f;
+    }
+#pragma unroll
+    for (int ci = 0; ci < C; ++ci) {
+      const float4 w = *reinterpret_cast<const float4*>(wt + ci * C + o0);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        acc[k][0] += w.x * d[k][ci];
+        acc[k][1] += w.y * d[k][ci];
+        acc[k][2] += w.z * d[k][ci];
+        acc[k][3] += w.w * d[k][ci];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (!own[k]) continue;
+      float* xp = xs + at[k] + PW + 1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = o0 + j;
+        const float y = (acc[k][j] + pwb[o]) + xp[o * PP];
+        xp[o * PP] = y > 0.0f ? y : alpha[o] * y;
+      }
+    }
+  }
+}
+
+// block_in_registers with the fewest rounds that cover np pixels.
+template <int C, int K>
+__device__ __forceinline__ void block_in_registers_for(float* xs, const float* wp, int PW, int PP,
+                                                       int r0, int q0, int cw, int np) {
+  if constexpr (K > 1) {
+    if (np <= (K - 1) * kThreads) {
+      block_in_registers_for<C, K - 1>(xs, wp, PW, PP, r0, q0, cw, np);
+      return;
+    }
+  }
+  block_in_registers<C, K>(xs, wp, PW, PP, r0, q0, cw, np);
+}
+
 template <int C>
-__global__ void __launch_bounds__(kThreads) blaze_stage_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks<C>) blaze_stage_kernel(
     const float* __restrict__ x,       // [B, C, H, W]
     const float* __restrict__ params,  // [nb, C*C + 12*C], see cnn_stage.pack_blocks
     float* __restrict__ out,           // [B, C, H, W]
@@ -120,8 +239,14 @@ __global__ void __launch_bounds__(kThreads) blaze_stage_kernel(
   // Every offset below is a multiple of 4 floats (C is one of 8, the tail
   // one of 4), so the float4 reads of the parameters are aligned.
   float* xs = smem;                // [C, RH+1, RW+1] + tail: the activation in its ring
-  float* ds = xs + C * PP + tail;  // [C, RH, RW] the depthwise result
-  float* wp = ds + C * R;          // one block's packed parameters
+  // Up to kRegisterChannels the depthwise stays in registers, unless the
+  // launch's regions (the unclipped one, so every block of the launch
+  // agrees; ops/cnn_stage.py in_registers) are so small, as in the 3x3
+  // heads, that a thread a pixel would leave most of the block idle.
+  const bool in_registers = C <= kRegisterChannels &&
+                            min(H, tile_h + 2 * nb) * min(W, tile_w + 2 * nb) > kThreads / 2;
+  float* ds = xs + C * PP + tail;               // [C, RH, RW] the depthwise result, if not
+  float* wp = ds + (in_registers ? 0 : C * R);  // one block's packed parameters
   const float* wt = wp;            // [C_in, C_out] pointwise weights
   const float* taps = wt + C * C;  // [9, C] depthwise taps, row-major
   const float* dwb = taps + 9 * C;
@@ -151,6 +276,12 @@ __global__ void __launch_bounds__(kThreads) blaze_stage_kernel(
     const int r0 = ry0 > 0 ? m : 0, r1 = ry1 < H ? RH - m : RH;
     const int q0 = rx0 > 0 ? m : 0, q1 = rx1 < W ? RW - m : RW;
     const int cw = q1 - q0, np = (r1 - r0) * cw;
+    if constexpr (C <= kRegisterChannels) {
+      if (in_registers) {
+        block_in_registers_for<C, kPixels<C>>(xs, wp, PW, PP, r0, q0, cw, np);
+        continue;
+      }
+    }
     const float inv_cw = 1.0f / cw, inv_np = 1.0f / np;
 
     // Work item i: channels [8g, 8g+8) of window pixel p, i = g*np + p, so
@@ -249,7 +380,8 @@ int launch(const void* x, const void* params, void* out, int batch, int H, int W
 // Launches on `stream`; allocates nothing and does not synchronise. C must
 // be one of 16, 24, 32, 64, 96, 128 (ops/cnn_stage.py KERNEL_CHANNELS), else
 // cudaErrorInvalidValue; `smem_bytes` is the dynamic shared memory of the
-// largest region, (C*((RH+1)*(RW+1) + RH*RW) + ((RW+5) & ~3) + C*C + 12*C)*4
+// largest region, (C*(RH+1)*(RW+1) + ((RW+5) & ~3) + C*RH*RW + C*C + 12*C)*4,
+// without the C*RH*RW where the depthwise stays in registers
 // (ops/cnn_stage.py smem_bytes). Returns the CUDA error code (0 when the
 // launch was accepted).
 extern "C" int zaru_blaze_stage(
