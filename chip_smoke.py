@@ -216,11 +216,14 @@ def phase_kernels_vs_plain(torch, device):
               flush=True)
         check(differ == 0, "letterbox_sample kernel disagrees with its plain version")
 
-    # Random weights at sizes the face CNNs do not have, one case for each
-    # channel count the kernel is built for: 12x20 fits one tile, the others
-    # are tiled, all but 50x70 with ragged edges.
+    # Random weights at sizes the face CNNs do not have, each channel count
+    # the kernel is built for: 12x20, 9x21 and 7x13 fit one tile, the others
+    # are tiled, all but 50x70 with ragged edges. 16 and 24 channels keep the
+    # depthwise in registers (9x21: one pixel a thread), except on regions
+    # of at most 128 pixels (7x13).
     for C, H, W, nb, relu in ((32, 12, 20, 3, False), (16, 37, 53, 3, False), (24, 50, 70, 2, False),
-                              (64, 29, 31, 2, False), (96, 19, 23, 4, False), (128, 13, 17, 2, True)):
+                              (64, 29, 31, 2, False), (96, 19, 23, 4, False), (128, 13, 17, 2, True),
+                              (16, 9, 21, 2, False), (24, 7, 13, 2, False)):
         blocks = [{
             "dw_w": torch.randn((C, 1, 3, 3), generator=gen) * 0.3,
             "dw_b": torch.randn(C, generator=gen) * 0.1,

@@ -220,7 +220,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<C>) blaze_stage_kernel(
     int H, int W, int nb, int tile_h, int tile_w, int tiles_w) {
   static_assert(C % kOuts == 0, "C must be a multiple of kOuts");
   constexpr int P = C * C + 12 * C;
-  constexpr int G = C / kOuts;                    // work items per pixel
+  constexpr int G = C / kOuts;                  // work items per pixel
   constexpr int CS = C % 16 == 0 ? 16 : kOuts;  // channels per load and store row
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -241,7 +241,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<C>) blaze_stage_kernel(
   float* xs = smem;                // [C, RH+1, RW+1] + tail: the activation in its ring
   // Up to kRegisterChannels the depthwise stays in registers, unless the
   // launch's regions (the unclipped one, so every block of the launch
-  // agrees; ops/cnn_stage.py in_registers) are so small, as in the 3x3
+  // agrees; ops/cnn_stage.py _in_registers) are so small, as in the 3x3
   // heads, that a thread a pixel would leave most of the block idle.
   const bool in_registers = C <= kRegisterChannels &&
                             min(H, tile_h + 2 * nb) * min(W, tile_w + 2 * nb) > kThreads / 2;
@@ -382,7 +382,7 @@ int launch(const void* x, const void* params, void* out, int batch, int H, int W
 // cudaErrorInvalidValue; `smem_bytes` is the dynamic shared memory of the
 // largest region, (C*(RH+1)*(RW+1) + ((RW+5) & ~3) + C*RH*RW + C*C + 12*C)*4,
 // without the C*RH*RW where the depthwise stays in registers
-// (ops/cnn_stage.py smem_bytes). Returns the CUDA error code (0 when the
+// (ops/cnn_stage.py _smem_bytes). Returns the CUDA error code (0 when the
 // launch was accepted).
 extern "C" int zaru_blaze_stage(
     const void* x, const void* params, void* out, int batch, int C, int H, int W,

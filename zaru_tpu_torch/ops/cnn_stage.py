@@ -41,7 +41,7 @@ SMEM_LIMIT = 232448  # dynamic shared memory one thread block may use (H100)
 KERNEL_CHANNELS = (16, 24, 32, 64, 96, 128)
 THREADS = 256  # threads of a thread block (csrc/blaze_stage.cu kThreads)
 # At 16 and 24 channels the kernel holds a pixel's depthwise values in
-# registers (see in_registers), this many pixels a thread (kPixels), so a
+# registers (see _in_registers), this many pixels a thread (kPixels), so a
 # region has at most PIXELS_PER_THREAD[C] * THREADS pixels and needs no
 # depthwise buffer.
 PIXELS_PER_THREAD = {16: 4, 24: 3}
@@ -101,20 +101,20 @@ def blaze_blocks_reference(x, blocks):
     return x
 
 
-def in_registers(C: int, rh: int, rw: int) -> bool:
+def _in_registers(C: int, rh: int, rw: int) -> bool:
     """Whether the kernel keeps the depthwise values in registers for a
     launch whose unclipped region is ``rh × rw``: at 16 and 24 channels,
     unless the region has no more pixels than half a thread block."""
     return C in PIXELS_PER_THREAD and rh * rw > THREADS // 2
 
 
-def smem_bytes(C: int, rh: int, rw: int) -> int:
+def _smem_bytes(C: int, rh: int, rw: int) -> int:
     """The kernel's shared memory for a region of ``rh × rw`` pixels: the
     activation in its ring of zeros (``[C, rh+1, rw+1]`` and a tail of
     ``rw+2`` zeros rounded up to 4 floats), the depthwise result
     ``[C, rh, rw]`` unless it stays in registers, and one block's packed
     parameters."""
-    ds = 0 if in_registers(C, rh, rw) else C * rh * rw
+    ds = 0 if _in_registers(C, rh, rw) else C * rh * rw
     return (C * (rh + 1) * (rw + 1) + (rw + 5) // 4 * 4 + ds + C * C + 12 * C) * 4
 
 
@@ -132,8 +132,8 @@ def _tiling(C: int, H: int, W: int, nb: int) -> tuple[int, int, int]:
             tw = -(-W // ntx)
             rh, rw = min(H, th + 2 * nb), min(W, tw + 2 * nb)
             region = rh * rw
-            smem = smem_bytes(C, rh, rw)
-            if smem > SMEM_LIMIT or (in_registers(C, rh, rw) and region > PIXELS_PER_THREAD[C] * THREADS):
+            smem = _smem_bytes(C, rh, rw)
+            if smem > SMEM_LIMIT or (_in_registers(C, rh, rw) and region > PIXELS_PER_THREAD[C] * THREADS):
                 continue
             cost = nty * ntx * region * (1.0 if smem <= SMEM_LIMIT // 2 - 1024 else 1.5)
             if best is None or cost < best[0]:
