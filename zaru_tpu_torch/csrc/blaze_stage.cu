@@ -83,7 +83,7 @@ constexpr int kPixels = C <= 16 ? 4 : 3;
 // (256 * n)): 2 (128 registers) lets the register path run two blocks an SM
 // and made the 64- and 128-channel chains faster on the card; the 32- and
 // 96-channel ones were faster held to 64 and 80 registers, as ptxas chose
-// before the register path existed (PERF.md, PR 6).
+// before the register path existed (PERF.md, section 6).
 template <int C>
 constexpr int kMinBlocks = C == 32 ? 4 : C == 96 ? 3 : 2;
 
