@@ -10,12 +10,19 @@ Phases, one line of output each (any failed check exits non-zero):
 2. build: the four kernels from ``zaru_tpu_torch/csrc``, one ``nvcc``
    each, all started together;
 3. each kernel against its plain PyTorch version on the card: the
-   rotated-ROI sampler bit for bit on coordinate-encoded 1080p frames at
-   batch 64 with ``[B,2,5]`` slots (upright, tilted, frame-corner, stride
-   2, 3 and 4 views) on the 512-pixel grid, on 64×64 eye views on the
-   256-pixel grid, and on 224×224 hand views of 150-700 px at any angle on
-   the 256-pixel grid; the letterbox sampler bit for bit on 1080p and 720p
-   frames; the BlazeBlock stage kernel within ``rtol = atol = 1e-4`` on
+   rotated-ROI sampler bit for bit, in the NHWC and the planar layout, on
+   coordinate-encoded 1080p frames at batch 64 with ``[B,2,5]`` slots
+   (upright, tilted, frame-corner, stride 2, 3 and 4 views) on the 512-pixel
+   grid, on 64×64 eye views on the 256-pixel grid (also with the right eyes
+   mirrored, as the iris path samples them), on 224×224 hand views of
+   150-700 px at any angle on the 256-pixel grid, and on random views
+   (strides 1-8, any angle, partly outside the frame) on both grids; the
+   coefficients the kernel computes for each view (``cosf``/``sinf``
+   included) against the plain version's torch ops, bit for bit, on 10^6
+   random rects and every angle stored in the fixtures; a profile showing
+   that one call of each sampler is one kernel; the letterbox sampler bit
+   for bit in both layouts on 1080p and 720p frames at 128² and 192²; the
+   BlazeBlock stage kernel within ``rtol = atol = 1e-4`` on
    random weights at odd sizes whose tiles have ragged edges, one for each
    channel count it is built for (with a ReLU case and a 4-block case), and
    its refusal of 8 channels; the RGB→YUV kernel bit for bit on the fixture photo at 1920×1080 and on random
@@ -38,10 +45,15 @@ Phases, one line of output each (any failed check exits non-zero):
    slots and detect steps. The kernels' launch counts are zeroed just
    before each run and read just after it; every kernel of a path must have
    launched in its run. A profile of the batch-512 face runs and of the
-   tracking hand run follows;
-6. each kernel's time at its main-path inputs (the launch alone, queued
-   behind a device spin so the host's launch cost is hidden, and for the
-   samplers the whole wrapper) beside its plain version's and its bound; for
+   tracking hand run follows, and for every run a profile with shapes of a
+   detect step and a tracking step that fails if a crop is copied between
+   its sampler and its network;
+6. each kernel's time at its main-path inputs (queued behind a device spin
+   so the host's launch cost is hidden) beside its plain version's and its
+   bound; for the samplers the whole call in the planar layout the path
+   uses (one launch), the launch alone in both layouts, a lone call not
+   queued, the sector figure (the distinct 32-byte sectors the index map
+   reads) and the layout copy the path no longer runs; for
    the stage kernel at each of the ten chains of the two face CNNs, on the
    chain's real input and weights, checked against its plain version
    (``rtol = atol = 1e-4``), with the per-op chain it replaces timed as its
@@ -144,10 +156,80 @@ def cuda_ms(torch, fn, reps=50, queued=False):
     return start.elapsed_time(end) / reps
 
 
+def kernels_in(torch, fn):
+    """The device kernels ``fn()`` issues, by name, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def random_views(torch, gen, n, m, device):
+    """``n`` rects at random: centres inside and outside a 1920×1080 frame,
+    sizes that give strides 1 to 8 on the ``m``-pixel grid, any angle."""
+    u = lambda lo, hi: lo + torch.rand(n, generator=gen) * (hi - lo)  # noqa: E731
+    return torch.stack([u(-300, 2200), u(-300, 1400), u(10, 0.69 * 8 * m), u(10, 0.69 * 8 * m),
+                        u(-3.14159265, 3.14159265)], -1).to(device)
+
+
+def check_rotated(torch, label, frames, rects, size, lo, hi, m, mirror=None):
+    """The rotated sampler's kernel against its plain version, bit for bit,
+    in both layouts. → the NHWC output."""
+    from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast, rotated_sample_fast_reference
+
+    out = {}
+    for layout in ("NHWC", "NCHW"):
+        got = rotated_sample_fast(frames, rects, size, size, lo, hi, m, layout, mirror)
+        want = rotated_sample_fast_reference(frames, rects, size, size, lo, hi, m, layout, mirror)
+        torch.cuda.synchronize()
+        out[layout] = int((got != want).sum()), got
+    black = int((out["NHWC"][1] == lo).all(-1).sum())
+    print(f"rotated_sample vs plain, {label}: {tuple(out['NHWC'][1].shape)} on the {m}-px grid"
+          f"{', mirror ' + str(mirror) if mirror else ''}: {out['NHWC'][0]} values differ (NHWC), "
+          f"{out['NCHW'][0]} (planar); {black} black pixels", flush=True)
+    check(out["NHWC"][0] == 0 and out["NCHW"][0] == 0,
+          f"rotated_sample kernel disagrees with its plain version ({label})")
+    return out["NHWC"][1]
+
+
+def check_coefs(torch, np, gen, device):
+    """The kernel's per-view coefficients (its ``cosf``/``sinf`` among them)
+    against :func:`sampler_coefs`'s torch ops on the card: 10^6 rects with
+    angles over [-π, π], then every angle stored in the fixtures."""
+    from zaru_tpu_torch.assets import fixture_path
+    from zaru_tpu_torch.ops.rotated_fast import kernel_coefs, sampler_coefs
+
+    angles = []
+    for name in ("sad_linus_track.npz", "multi_track.npz"):
+        with np.load(fixture_path(name)) as f:
+            angles += [f[k][..., 4].ravel() for k in f.files
+                       if f[k].dtype == np.float32 and f[k].ndim >= 2 and f[k].shape[-1] == 5]
+    stored = random_views(torch, gen, sum(a.size for a in angles), 512, device)
+    stored[:, 4] = torch.from_numpy(np.concatenate(angles)).to(device)
+    for label, rects in (("10^6 random rects", random_views(torch, gen, 10**6, 512, device)),
+                         (f"{stored.shape[0]} fixture angles", stored)):
+        for m in (512, 256):
+            got, igot = kernel_coefs(rects, m)
+            want, iwant = sampler_coefs(rects, m)
+            torch.cuda.synchronize()
+            trig = int((got[:, 2:4] != want[:, 2:4]).any(-1).sum())
+            rows = int(((got != want).any(-1) | (igot != iwant).any(-1)).sum())
+            print(f"rotated_sample coefficients in the kernel vs sampler_coefs on the card, {label}, "
+                  f"{m}-px grid: {trig} angles whose cos or sin differ, {rows} views whose coefficients "
+                  f"differ", flush=True)
+            check(rows == 0, f"the kernel's coefficients differ from sampler_coefs ({label}, m={m})")
+
+
 def phase_kernels_vs_plain(torch, device):
+    import numpy as np
+
     from zaru_tpu_torch.ops.cnn_stage import _tiling, blaze_blocks_reference, fused_blocks, pack_blocks
     from zaru_tpu_torch.ops.letterbox import letterbox_sample, letterbox_sample_reference
-    from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast, rotated_sample_fast_reference
+    from zaru_tpu_torch.ops.letterbox import letterbox_sample_planar_reference
+    from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast
     from zaru_tpu_torch.pipeline import _ops
     from zaru_tpu_torch.resolution import Resolution
 
@@ -159,16 +241,11 @@ def phase_kernels_vs_plain(torch, device):
     jitter = (torch.rand((2 * B, 5), generator=gen) - 0.5) * torch.tensor([40.0, 40.0, 10.0, 10.0, 0.04])
     rects = (cases[idx] + jitter * (torch.arange(2 * B) >= len(VIEW_CASES))[:, None])
     rects = rects.reshape(B, 2, 5).to(device)
-    got = rotated_sample_fast(frames, rects, 192, 192, -1.0, 1.0)
-    want = rotated_sample_fast_reference(frames, rects, 192, 192, -1.0, 1.0)
-    torch.cuda.synchronize()
-    differ = int((got != want).any(-1).sum())
-    black = int((got == -1.0).all(-1).sum())
-    print(f"rotated_sample vs plain: {tuple(got.shape)}, {differ} pixels differ, "
-          f"{black} black (out of frame)", flush=True)
-    check(differ == 0 and black > 0, "rotated_sample kernel disagrees with its plain version")
+    got = check_rotated(torch, "the test views, jittered", frames, rects, 192, -1.0, 1.0, 512)
+    check(bool((got == -1.0).all(-1).any()), "no view of the set reads outside the frame")
 
-    # Eye crops: square 64x64 views of 60-460 px at any angle, 256-px grid.
+    # Eye crops: square 64x64 views of 60-460 px at any angle, 256-px grid,
+    # as the iris path samples them (right eyes mirrored) and unmirrored.
     eye = torch.stack([
         torch.rand(2 * B, generator=gen) * 1920, torch.rand(2 * B, generator=gen) * 1080,
         60 + torch.rand(2 * B, generator=gen) * 400, torch.zeros(2 * B),
@@ -176,13 +253,8 @@ def phase_kernels_vs_plain(torch, device):
     ], -1)
     eye[:, 3] = eye[:, 2]
     eye = eye.reshape(B, 2, 5).to(device)
-    got = rotated_sample_fast(frames, eye, 64, 64, -1.0, 1.0, prescale_m=256)
-    want = rotated_sample_fast_reference(frames, eye, 64, 64, -1.0, 1.0, prescale_m=256)
-    torch.cuda.synchronize()
-    differ = int((got != want).any(-1).sum())
-    print(f"rotated_sample vs plain on the 256-px grid: {tuple(got.shape)}, {differ} pixels differ",
-          flush=True)
-    check(differ == 0, "rotated_sample kernel disagrees with its plain version at prescale_m=256")
+    check_rotated(torch, "eye views", frames, eye, 64, -1.0, 1.0, 256)
+    check_rotated(torch, "eye views", frames, eye, 64, -1.0, 1.0, 256, mirror=(False, True))
 
     # Hand crops: square 224x224 views of 150-700 px (strides 1-3) at any
     # angle, four slots per frame, 256-px grid, colour range [0, 1].
@@ -193,14 +265,18 @@ def phase_kernels_vs_plain(torch, device):
     ], -1)
     hand[:, 3] = hand[:, 2]
     hand = hand.reshape(B, 4, 5).to(device)
-    got = rotated_sample_fast(frames, hand, 224, 224, 0.0, 1.0, prescale_m=256)
-    want = rotated_sample_fast_reference(frames, hand, 224, 224, 0.0, 1.0, prescale_m=256)
-    torch.cuda.synchronize()
-    differ = int((got != want).any(-1).sum())
-    print(f"rotated_sample vs plain at hand views on the 256-px grid: {tuple(got.shape)}, "
-          f"{differ} pixels differ", flush=True)
-    check(differ == 0, "rotated_sample kernel disagrees with its plain version at hand views")
-    del got, want
+    check_rotated(torch, "hand views", frames, hand, 224, 0.0, 1.0, 256)
+    for m in (512, 256):
+        check_rotated(torch, "random views (strides 1-8, any angle, partly outside)", frames,
+                      random_views(torch, gen, 2 * B, m, device).reshape(B, 2, 5), 192, -1.0, 1.0, m)
+    check_coefs(torch, np, gen, device)
+    names = kernels_in(torch, lambda: rotated_sample_fast(frames, rects, 192, 192, -1.0, 1.0, layout="NCHW"))
+    names_iris = kernels_in(torch, lambda: rotated_sample_fast(
+        frames, eye, 64, 64, -1.0, 1.0, 256, "NCHW", (False, True)))
+    print(f"one CUDA call of rotated_sample_fast issues {len(names)} kernel(s): {names}; "
+          f"with mirrored slots {len(names_iris)}", flush=True)
+    check(len(names) == 1 and len(names_iris) == 1 and "rotated_sample_kernel" in names[0],
+          "a call of rotated_sample_fast issues more than its one kernel")
 
     for H, W in ((1080, 1920), (720, 1280)):
         frames = torch.randint(0, 256, (8, H, W, 4), generator=gen, dtype=torch.uint8).to(device)
@@ -208,13 +284,19 @@ def phase_kernels_vs_plain(torch, device):
         rr = fit_rrect.expand(8, 5).clone()
         rr[4:, 0] += torch.tensor([-300.0, 200.0, 31.3, 700.0], device=device)
         rr[4:, 2:4] *= 0.61
-        got = letterbox_sample(frames, rr, 128, 128, -1.0, 1.0)
-        want = letterbox_sample_reference(frames, rr, 128, 128, -1.0, 1.0)
-        torch.cuda.synchronize()
-        differ = int((got != want).any(-1).sum())
-        print(f"letterbox_sample vs plain at {W}x{H}: {tuple(got.shape)}, {differ} pixels differ",
-              flush=True)
-        check(differ == 0, "letterbox_sample kernel disagrees with its plain version")
+        for size in (128, 192):
+            got = letterbox_sample(frames, rr, size, size, -1.0, 1.0)
+            want = letterbox_sample_reference(frames, rr, size, size, -1.0, 1.0)
+            got_p = letterbox_sample(frames, rr, size, size, -1.0, 1.0, layout="NCHW")
+            want_p = letterbox_sample_planar_reference(frames, rr, size, size, -1.0, 1.0)
+            torch.cuda.synchronize()
+            differ, differ_p = int((got != want).sum()), int((got_p != want_p).sum())
+            print(f"letterbox_sample vs plain at {W}x{H}: {tuple(got.shape)}, {differ} values differ "
+                  f"(NHWC), {differ_p} (planar)", flush=True)
+            check(differ == 0 and differ_p == 0, "letterbox_sample kernel disagrees with its plain version")
+    names = kernels_in(torch, lambda: letterbox_sample(frames, rr, 128, 128, -1.0, 1.0, layout="NCHW"))
+    print(f"one CUDA call of letterbox_sample issues {len(names)} kernel(s): {names}", flush=True)
+    check(len(names) == 1, "a call of letterbox_sample issues more than its one kernel")
 
     # Random weights at sizes the face CNNs do not have, each channel count
     # the kernel is built for: 12x20, 9x21 and 7x13 fit one tile, the others
@@ -496,6 +578,8 @@ def phase_full_size(torch, img, device, card):
         if batch == 512:
             result["launches"][what] = launches
             result[what] = (frames, box["state"], step)
+            crops = [(192, 192), (128, 128)] + ([(64, 64)] if tr is iris else [])
+            check_no_layout_copy(torch, step, crops, what)
     profile_steps(torch, result["main path"][2], 512, "main path")
     profile_steps(torch, result["FaceTracker(iris=True)"][2], 512, "FaceTracker(iris=True)")
     return tracker, result
@@ -549,6 +633,11 @@ def phase_multi_full_size(torch, img, device, card):
     check(bool(out["valid"][:, 0].all()) and conf > 0.9 and int(out["valid"].sum()) == batch,
           f"{what}: lost the face")
 
+    def face_detect_step(i):
+        box["state"], box["out"] = faces.step_batch(box["state"], frames, force_detect=(i == 0))
+
+    check_no_layout_copy(torch, face_detect_step, [(192, 192), (128, 128)], what)
+
     hands = MultiHandTracker(max_hands=4, device=device)
     seed = hand_seed_rois(torch, batch, device)
     active = torch.ones((batch, 4), dtype=torch.bool, device=device)
@@ -567,6 +656,7 @@ def phase_multi_full_size(torch, img, device, card):
     report("hand tracking", what, dt, launches, out, STEPS // 9,
            f", max presence {float(out['presence'].max()):.4f}")
     profile_steps(torch, hand_step, batch, "MultiHandTracker tracking run")
+    check_no_layout_copy(torch, hand_step, [(224, 224), (192, 192)], what)
 
     box = {"state": hands.init_state(batch)}
 
@@ -577,7 +667,34 @@ def phase_multi_full_size(torch, img, device, card):
     dt, launches = timed_run(torch, lost_step, what, HAND_KERNELS)
     report("hand, none in view", what, dt, launches, box["out"], STEPS)
     check(not bool(box["out"]["valid"].any()), f"{what}: found a hand in the photo")
+    check_no_layout_copy(torch, lost_step, [(224, 224), (192, 192)], what)
     return hands, frames, seed, result["launches"]
+
+
+# Ops that would copy a crop between a sampler and its network (a layout
+# change, a mirror, a concatenation of slots). ``aten::copy_`` itself is not
+# listed: the networks' own Pad copies its input into the padded tensor.
+COPY_OPS = ("aten::contiguous", "aten::clone", "aten::cat", "aten::stack", "aten::flip", "aten::_to_copy")
+
+
+def check_no_layout_copy(torch, step, crops, what):
+    """torch.profiler with shapes over ``step(0)`` (a detect step) and
+    ``step(1)``: fails if a copy-like op takes a crop-shaped input, ``[...,
+    h, w, 3]`` or ``[..., 3, h, w]`` for ``(h, w)`` in ``crops``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        for i in range(2):
+            step(i)
+        torch.cuda.synchronize()
+    shapes = {(h, w, 3) for h, w in crops} | {(3, h, w) for h, w in crops}
+    found = sorted({(e.key, str(shape)) for e in prof.key_averages(group_by_input_shape=True)
+                    if e.key in COPY_OPS for shape in e.input_shapes
+                    if len(shape) >= 3 and tuple(shape[-3:]) in shapes})
+    print(f"layout copies of a crop ({', '.join(f'{h}x{w}' for h, w in crops)}) in two steps of the "
+          f"{what} (one detect): {found if found else 'none'}", flush=True)
+    check(not found, f"{what}: a crop is copied between its sampler and its network")
 
 
 def profile_steps(torch, step, batch, what, steps=9):
@@ -610,60 +727,82 @@ def profile_steps(torch, step, batch, what, steps=9):
 
 def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=512):
     """The two samplers at a path's inputs (``lm``/``det``: its landmark and
-    detector ``Cnn``; ``rois``: the ROIs of its last step): ``ms`` is the
-    kernel launch alone, from CUDA events (the rotated sampler's
-    coefficients are computed once beforehand: with them, the wrapper's ~60
-    small torch ops make a lone call host-bound, and that is printed as
-    ``wrapper``)."""
-    from zaru_tpu_torch.ops.letterbox import letterbox_sample, letterbox_sample_reference
+    detector ``Cnn``; ``rois``: the ROIs of its last step), in the planar
+    layout the path samples: ``ms`` is the whole call (``rotated_sample_fast``,
+    ``letterbox_sample``: one kernel each), queued behind a device spin so
+    the host's launch cost is hidden; ``kernel_ms`` the launch alone and
+    ``nhwc_ms`` the NHWC launch, both queued; ``call_ms`` a lone call, not
+    queued (host time included). Beside the bound (4 B read per
+    in-frame pixel), ``sector_ms``: the distinct 32-byte sectors the plain
+    version's index map reads, × 32 B, plus the bytes written, over the
+    memory rate. ``copy_ms``: the ``permute(0,3,1,2).contiguous()`` of the
+    NHWC output that the path ran before it sampled planar."""
+    from zaru_tpu_torch.ops.letterbox import letterbox_sample, letterbox_sample_planar_reference
     from zaru_tpu_torch.ops.rotated_fast import (
-        rotated_sample_fast, rotated_sample_fast_reference, rotated_sample_launch, sampler_coefs,
+        rotated_sample_fast, rotated_sample_fast_reference, rotated_sample_launch, source_index,
     )
+    from zaru_tpu_torch.ops.sampling import letterbox_source_index
     from zaru_tpu_torch.pipeline import _ops
 
     lm_res, det_res = lm.input_resolution(), det.input_resolution()
     view_rects = _ops.aspect_view_rect(rois, lm_res)
-    coefs, icoefs = sampler_coefs(view_rects.reshape(-1, 5), prescale_m)
+    flat = view_rects.reshape(-1, 5).contiguous()
+    slots = flat.shape[0] // frames.shape[0]
     _fit, fit_rrect = _ops.full_frame_fit(frames, det_res)
     fit_rects = fit_rrect.expand(frames.shape[0], 5).contiguous()
-    white = torch.full_like(frames[:1], 255).expand_as(frames)
     lm_col, det_col = (lm.mapper.lo, lm.mapper.hi), (det.mapper.lo, det.mapper.hi)
+    w, h, dw, dh = lm_res.width, lm_res.height, det_res.width, det_res.height
     kernels = []
-    for name, kernel, plain, launch, rects, res, col, opts, source, replaces, flops_px in (
-        ("rotated_sample", rotated_sample_fast, rotated_sample_fast_reference,
-         lambda f: rotated_sample_launch(f, coefs, icoefs, lm_res.width, lm_res.height, *lm_col, prescale_m),
-         view_rects, lm_res, lm_col, {"prescale_m": prescale_m}, "zaru_tpu_torch/csrc/rotated_sample.cu",
-         "zaru_tpu/ops/rotated_fast.py:1481", 32),
-        ("letterbox_sample", letterbox_sample, letterbox_sample_reference,
-         lambda f: letterbox_sample(f, fit_rects, det_res.width, det_res.height, *det_col),
-         fit_rects, det_res, det_col, {}, "zaru_tpu_torch/csrc/letterbox_sample.cu",
-         "zaru_tpu/ops/pallas_kernels.py:112", 22),
+    for name, call, plain, launch, launch_nhwc, index, source, replaces, flops_px in (
+        ("rotated_sample",
+         lambda: rotated_sample_fast(frames, view_rects, w, h, *lm_col, prescale_m, "NCHW"),
+         lambda: rotated_sample_fast_reference(frames, view_rects, w, h, *lm_col, prescale_m, "NCHW"),
+         lambda: rotated_sample_launch(frames, flat, slots, w, h, *lm_col, prescale_m, "NCHW"),
+         lambda: rotated_sample_launch(frames, flat, slots, w, h, *lm_col, prescale_m, "NHWC"),
+         lambda: source_index(frames, view_rects, w, h, prescale_m),
+         "zaru_tpu_torch/csrc/rotated_sample.cu", "zaru_tpu/ops/rotated_fast.py:1481", 32),
+        ("letterbox_sample",
+         lambda: letterbox_sample(frames, fit_rects, dw, dh, *det_col, "NCHW"),
+         lambda: letterbox_sample_planar_reference(frames, fit_rects, dw, dh, *det_col),
+         lambda: letterbox_sample(frames, fit_rects, dw, dh, *det_col, "NCHW"),
+         lambda: letterbox_sample(frames, fit_rects, dw, dh, *det_col, "NHWC"),
+         lambda: letterbox_source_index(frames, fit_rects, dw, dh),
+         "zaru_tpu_torch/csrc/letterbox_sample.cu", "zaru_tpu/ops/pallas_kernels.py:112", 22),
     ):
-        call = lambda f, fn=kernel: fn(f, rects, res.width, res.height, *col, **opts)  # noqa: E731
-        call_plain = lambda f, fn=plain: fn(f, rects, res.width, res.height, *col, **opts)  # noqa: E731
-        got, want = call(frames), call_plain(frames)
+        got, want, nhwc = call(), plain(), launch_nhwc()
         err = float((got - want).abs().max())
-        check(torch.equal(launch(frames).reshape(got.shape), got), f"{name}: launch differs from wrapper")
-        # Pixels that read an in-frame source: on an all-white frame they map
-        # to hi, the others to lo.
-        reads = int((call_plain(white) > (col[0] + col[1]) / 2).all(-1).sum())
+        check(torch.equal(launch().reshape(got.shape), got), f"{name}: launch differs from the call")
+        check(torch.equal(nhwc.reshape(-1, *nhwc.shape[-3:]).permute(0, 3, 1, 2), got.reshape(
+            -1, *got.shape[-3:])), f"{name}: the NHWC launch differs from the planar call")
+        lin, ok = index()
+        reads = int(ok.sum())
+        sectors = int(torch.unique(lin[ok] // 8).numel())  # 8 RGBA pixels = 32 bytes
+        del lin, ok
         out_px = got.numel() // 3
-        nbytes = out_px * 12 + reads * 4 + rects.numel() * 4
+        rect_bytes = (view_rects if name == "rotated_sample" else fit_rects).numel() * 4
+        nbytes = out_px * 12 + reads * 4 + rect_bytes
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = out_px * flops_px / F32_FLOPS * 1e3
-        ms = cuda_ms(torch, lambda: launch(frames), queued=True)
-        wrapper_ms = cuda_ms(torch, lambda: call(frames))
-        plain_ms = cuda_ms(torch, lambda: call_plain(frames), reps=5)
+        sector_ms = (out_px * 12 + sectors * 32 + rect_bytes) / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(torch, call, queued=True)
+        kernel_ms = cuda_ms(torch, launch, queued=True)
+        nhwc_ms = cuda_ms(torch, launch_nhwc, queued=True)
+        call_ms = cuda_ms(torch, call)
+        copy_ms = cuda_ms(torch, lambda: nhwc.permute(0, 3, 1, 2).contiguous(), queued=True)
+        plain_ms = cuda_ms(torch, plain, reps=5)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": None, "kernel_ms": kernel_ms, "nhwc_ms": nhwc_ms, "call_ms": call_ms,
+            "sector_ms": sector_ms, "copy_ms": copy_ms,
         })
-        print(f"{name}, {what}, batch {frames.shape[0]} ({tuple(got.shape)}): {ms:.4f} ms, bound "
-              f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB), wrapper {wrapper_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library none, {launches[name] / STEPS:.3f} launches/step, "
-              f"max abs err {err}", flush=True)
+        print(f"{name}, {what}, batch {frames.shape[0]} ({tuple(got.shape)}, planar): call {ms:.4f} ms "
+              f"(kernel {kernel_ms:.4f}, NHWC kernel {nhwc_ms:.4f}, lone call not queued {call_ms:.4f}), "
+              f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB), sector figure {sector_ms:.4f} ms "
+              f"({sectors} sectors of 32 B for {reads} reads), permute copy it no longer runs "
+              f"{copy_ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
+              f"{launches[name] / STEPS:.3f} launches/step, max abs err {err}", flush=True)
         check(err == 0.0, f"{name} disagrees with its plain version at the {what} inputs")
     return kernels
 
@@ -721,16 +860,16 @@ def phase_stage_times(torch, tracker, frames, state, launches, steps):
     view_rects = _ops.aspect_view_rect(state["roi"], lm.input_resolution())
     _fit, fit_rrect = _ops.full_frame_fit(frames, det.input_resolution())
     inputs = (
-        ("face_landmark", lm, lm.sample_views_fast(frames, view_rects)),
+        ("face_landmark", lm, lm.sample_views_fast(frames, view_rects, layout="NCHW")),
         ("face_detection_short_range", det,
-         det.sample_views_letterbox(frames, fit_rrect.expand(frames.shape[0], 5).contiguous())),
+         det.sample_views_letterbox(frames, fit_rrect.expand(frames.shape[0], 5).contiguous(), "NCHW")),
     )
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0, "err": 0.0}
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         for model, cnn, xs in inputs:
             net = cnn.net
             params = net.params()
-            env = net.activations(xs.permute(0, 3, 1, 2).contiguous())
+            env = net.activations(xs)
             for k, st in enumerate(net.stages):
                 x = env[st.input]
                 B, C, H, W = x.shape

@@ -2,7 +2,8 @@
 
 Both trackers run at batch 2 on the fixture photo over one step sequence:
 detect, forced redetect, stream 1's frame zeroed (loss), redetect, track.
-Both use the same weights (``params_from_jax``). The JAX tracker runs with
+Both use the same weights: the port's trackers load the ONNX files JAX
+loads (``test_fixture_is_current`` holds them equal). The JAX tracker runs with
 ``iris=True``, which adds the eyes and leaves the rest of the step as it
 is; the port runs both without and with iris.
 
@@ -36,15 +37,20 @@ lost at the start and drained one per step, a loss, a forced redetect),
 held to JAX like the main sequence.
 
 The main sequence and the bucket sequence, with JAX's states and outputs,
-are stored in ``zaru_tpu_torch/fixtures/sad_linus_track.npz`` for
-``chip_smoke.py`` to replay on the GPU, where JAX is absent. Regenerate it
-with::
+are stored in ``zaru_tpu_torch/fixtures/sad_linus_track.npz``. The port is
+held to the stored runs, here and in ``chip_smoke.py`` on the GPU, where JAX
+is absent; ``test_fixture_is_current`` runs both sequences through JAX
+again (one compile of each tracker, about 90 s of the file's time) and ties
+the stored runs, and the port's own weights, to the reference. The port's
+trackers load their weights from the same ONNX files as JAX's. Regenerate
+the fixture with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_face_cascade.py
 """
 
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -54,6 +60,8 @@ import jax.numpy as jnp
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 FIXTURE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -144,6 +152,23 @@ def regen():
     print(f"wrote {FIXTURE}")
 
 
+def _unflat(stored, plan=PLAN, prefix=""):
+    """The inverse of :func:`_flat`: a stored run as pre-step states and
+    outputs per step."""
+    run = {k[len(prefix):]: v for k, v in stored.items() if k.startswith(prefix)}
+    fkeys = ("x", "dx", "init")
+    states = [
+        {"roi": run["state_roi"][t], "tracking": run["state_tracking"][t],
+         "filter": {k: run[f"state_{k}"][t] for k in fkeys}}
+        for t in range(len(plan))
+    ]
+    okeys = [k for k in run if k not in ("force", "zero") and not k.startswith("state_")]
+    if prefix == "":  # the bucket run's keys share the prefix-free namespace
+        okeys = [k for k in okeys if not k.startswith("bucket_") and k != "rgb"]
+    outs = [{k: run[k][t] for k in okeys} for t in range(len(plan))]
+    return states, outs
+
+
 def _torch_state(state):
     return {
         "roi": torch.from_numpy(np.array(state["roi"])),
@@ -159,21 +184,23 @@ def stored():
 
 
 @pytest.fixture(scope="module")
-def live(stored):
-    from zaru_tpu_torch.pipeline import FaceTracker as PortTracker
-    from zaru_tpu_torch.weights import params_from_jax
-
-    tracker, states, outs = jax_run(stored["rgb"], iris=True)
-    port = PortTracker(params=params_from_jax(tracker.params), device="cpu")
-    return tracker, port, states, outs
+def run(stored):
+    """JAX's run over PLAN, from the fixture: pre-step states and outputs."""
+    return _unflat(stored)
 
 
 @pytest.fixture(scope="module")
-def port_iris(live):
+def port():
     from zaru_tpu_torch.pipeline import FaceTracker as PortTracker
-    from zaru_tpu_torch.weights import params_from_jax
 
-    return PortTracker(iris=True, params=params_from_jax(live[0].params), device="cpu")
+    return PortTracker(device="cpu")
+
+
+@pytest.fixture(scope="module")
+def port_iris():
+    from zaru_tpu_torch.pipeline import FaceTracker as PortTracker
+
+    return PortTracker(iris=True, device="cpu")
 
 
 def _assert_step_close(got, want, tol):
@@ -183,31 +210,48 @@ def _assert_step_close(got, want, tol):
     np.testing.assert_allclose(got["confidence"], want["confidence"], rtol=0, atol=1e-5)
 
 
-def test_fixture_is_current(stored, live):
-    """The stored photo is the decoded JPEG, and the stored JAX states and
-    outputs are what zaru_tpu computes now (JAX on the CPU is deterministic:
-    held to 1e-3 px, the same bar as the regen machine's own rounding)."""
+def _assert_run_current(stored, flat):
+    for k, v in flat.items():
+        if v.dtype.kind == "f":
+            np.testing.assert_allclose(stored[k], v, rtol=0, atol=1e-3, err_msg=k)
+        else:
+            np.testing.assert_array_equal(stored[k], v, err_msg=k)
+
+
+def test_fixture_is_current(stored, port_iris):
+    """The stored photo is the decoded JPEG; the stored JAX runs (PLAN with
+    iris, BUCKET_PLAN with ``redetect_bucket=1``) are what zaru_tpu computes
+    now (JAX on the CPU is deterministic: held to 1e-3 px, the same bar as
+    the regen machine's own rounding); and the port's trackers, which load
+    their weights themselves, hold JAX's weights bit for bit."""
     from zaru_tpu.assets import fixture_path
     from zaru_tpu.image import Image
+    from zaru_tpu_torch.weights import params_from_jax
 
     decoded = Image.load(fixture_path("sad_linus.jpg")).data[..., :3]
     assert stored["rgb"].shape == (720, 1280, 3)
     assert np.abs(stored["rgb"].astype(int) - decoded).mean() < 1.0
     np.testing.assert_array_equal(stored["force"], [f for f, _ in PLAN])
     np.testing.assert_array_equal(stored["zero"], [z for _, z in PLAN])
-    _, _, states, outs = live
-    flat = _flat(states, outs)
-    for k in ("state_tracking", "state_init", "valid"):
-        np.testing.assert_array_equal(stored[k], flat[k], err_msg=k)
-    for k in ("state_roi", "state_x", "state_dx", "landmarks", "roi", "confidence", "eyes",
-              "eye_rects"):
-        np.testing.assert_allclose(stored[k], flat[k], rtol=0, atol=1e-3, err_msg=k)
+    with ThreadPoolExecutor(max_workers=2) as pool:  # XLA compiles one while Python traces the other
+        main = pool.submit(jax_run, stored["rgb"], iris=True)
+        bucket = pool.submit(jax_run, stored["rgb"], BUCKET_PLAN, redetect_bucket=1)
+        tracker, states, outs = main.result()
+        _, bstates, bouts = bucket.result()
+    _assert_run_current(stored, _flat(states, outs))
+    _assert_run_current(stored, _flat(bstates, bouts, BUCKET_PLAN, "bucket_"))
+    want = params_from_jax(tracker.params)
+    for net, cnn in (("det", port_iris.det_cnn), ("lm", port_iris.lm_cnn), ("eye", port_iris.eye_cnn)):
+        got = cnn.net.params()
+        assert set(got) == set(want[net]), net
+        for k, v in want[net].items():
+            np.testing.assert_array_equal(got[k].numpy(), v.numpy(), err_msg=f"{net}/{k}")
 
 
-def test_one_step_matches_jax(stored, live):
+def test_one_step_matches_jax(stored, run, port):
     """From JAX's state before each step, one port step gives JAX's
     outputs: flags equal, landmarks and ROI within STEP_TOL_PX."""
-    _, port, states, outs = live
+    states, outs = run
     for t, (force, zero) in enumerate(PLAN):
         _, out = port.step_batch(
             _torch_state(states[t]), torch.from_numpy(_frames(stored["rgb"], zero)), force
@@ -217,11 +261,11 @@ def test_one_step_matches_jax(stored, live):
         _assert_step_close(got, outs[t], STEP_TOL_PX)
 
 
-def test_free_running_matches_jax(stored, live):
+def test_free_running_matches_jax(stored, run, port):
     """The port tracking on its own over the sequence: flags equal at every
     step (loss on the zeroed stream, then redetection), and landmarks within
     FREE_TOL_PX of JAX's."""
-    _, port, _states, outs = live
+    _states, outs = run
     state = port.init_state(BATCH)
     for t, (force, zero) in enumerate(PLAN):
         state, out = port.step_batch(
@@ -235,12 +279,12 @@ def test_free_running_matches_jax(stored, live):
     assert not outs[2]["valid"][1] and outs[3]["valid"].all()
 
 
-def test_iris_batch_given_jax_landmarks(stored, live, port_iris):
+def test_iris_batch_given_jax_landmarks(stored, run, port_iris):
     """On JAX's own landmarks: the port's eye rects are JAX's within
     EYE_RECT_TOL_PX; on JAX's eye rects its crops, iris network and decode
     give JAX's eyes within EYE_RECT_TOL_PX; on its own rects, within
     EYE_TOL_PX."""
-    _, _, _, outs = live
+    _states, outs = run
     for t, (_force, zero) in enumerate(PLAN):
         frames = torch.from_numpy(_frames(stored["rgb"], zero))
         pos = torch.from_numpy(np.array(outs[t]["landmarks"]))
@@ -253,9 +297,9 @@ def test_iris_batch_given_jax_landmarks(stored, live, port_iris):
         np.testing.assert_allclose(eyes.numpy(), outs[t]["eyes"], rtol=0, atol=EYE_TOL_PX)
 
 
-def test_iris_one_step_matches_jax(stored, live, port_iris):
+def test_iris_one_step_matches_jax(stored, run, port_iris):
     """FaceTracker(iris=True), one step at a time from JAX's state."""
-    _, _, states, outs = live
+    states, outs = run
     for t, (force, zero) in enumerate(PLAN):
         _, out = port_iris.step_batch(
             _torch_state(states[t]), torch.from_numpy(_frames(stored["rgb"], zero)), force
@@ -266,20 +310,15 @@ def test_iris_one_step_matches_jax(stored, live, port_iris):
 
 
 def test_redetect_bucket_matches_jax(stored):
-    """redetect_bucket=1 over BUCKET_PLAN: the stored run (``bucket_*``) is
-    current, one step at a time from JAX's state (flags equal, landmarks
-    within STEP_TOL_PX), then free-running (flags equal), and the plan does
-    drain one lost stream per step."""
+    """redetect_bucket=1 over BUCKET_PLAN against the stored run
+    (``bucket_*``, tied to JAX by test_fixture_is_current): one step at a
+    time from JAX's state (flags equal, landmarks within STEP_TOL_PX), then
+    free-running (flags equal), and the plan does drain one lost stream per
+    step."""
     from zaru_tpu_torch.pipeline import FaceTracker as PortTracker
-    from zaru_tpu_torch.weights import params_from_jax
 
-    tracker, states, outs = jax_run(stored["rgb"], BUCKET_PLAN, redetect_bucket=1)
-    for k, v in _flat(states, outs, BUCKET_PLAN, "bucket_").items():
-        if v.dtype.kind == "f":
-            np.testing.assert_allclose(stored[k], v, rtol=0, atol=1e-3, err_msg=k)
-        else:
-            np.testing.assert_array_equal(stored[k], v, err_msg=k)
-    port = PortTracker(redetect_bucket=1, params=params_from_jax(tracker.params), device="cpu")
+    states, outs = _unflat(stored, BUCKET_PLAN, "bucket_")
+    port = PortTracker(redetect_bucket=1, device="cpu")
     state = port.init_state(BATCH)
     for t, (force, zero) in enumerate(BUCKET_PLAN):
         frames = torch.from_numpy(_frames(stored["rgb"], zero))

@@ -2,7 +2,8 @@
 ``MultiFaceTracker``, ``MultiHandTracker``) against zaru_tpu's, on the CPU.
 
 Every run is batch 2 on the fixture photo (1280×720, one face, no hand),
-with the same weights in both packages (``params_from_jax``), through the
+with the same weights in both packages (the port's trackers load the ONNX
+files JAX loads; ``test_fixture_is_current`` holds them equal), through the
 gated batch step (JAX ``_step_batch_gated``, the port's ``step_batch``).
 A plan step is ``(start, force_detect, zeroed streams)``: it starts from
 the previous step's state (``carry``), from ``init_state`` (``init``) or
@@ -40,9 +41,13 @@ to their neighbours, and the landmarks of that step by up to 0.033 px
 (0.051 px on an H100).
 
 JAX's states and outputs are stored in
-``zaru_tpu_torch/fixtures/multi_track.npz`` for ``chip_smoke.py`` to replay
-on the GPU (the photo comes from ``sad_linus_track.npz``). Regenerate it
-with::
+``zaru_tpu_torch/fixtures/multi_track.npz`` (the photo comes from
+``sad_linus_track.npz``). The port is held to the stored runs, here and in
+``chip_smoke.py`` on the GPU, where JAX is absent; ``test_fixture_is_current``
+runs each plan through JAX again (one compile of its tracker) and ties the
+stored run to the reference. The four JAX runs start together on threads
+(``jax_runs``), so that XLA compiles one tracker while Python traces the
+next. Regenerate it with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_multi_object.py
 """
@@ -50,6 +55,7 @@ with::
 import json
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -59,6 +65,8 @@ import jax.numpy as jnp
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 FIXTURES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "zaru_tpu_torch", "fixtures"
@@ -210,36 +218,62 @@ def stored():
         return {k: f[k] for k in f.files}
 
 
+def unflat(stored, name):
+    """The inverse of :func:`flat`: run ``name`` from the fixture as pre-step
+    states and outputs per step, the detection candidates last."""
+    run = {k.split("__", 1)[1]: v for k, v in stored.items() if k.startswith(f"{name}__")}
+    steps = range(len(RUNS[name][2]))
+    states = [{k[6:]: v[t] for k, v in run.items() if k.startswith("state_")} for t in steps]
+    outs = [{k[4:]: v[t] for k, v in run.items() if k.startswith("out_")} for t in steps]
+    outs.append({k: run[k] for k in ("cand_rois", "cand_valid")})
+    return states, outs
+
+
+@pytest.fixture(scope="module")
+def jax_runs(rgb):
+    """Every run of RUNS through JAX, started together: run name → future
+    of :func:`jax_run`'s result."""
+    with ThreadPoolExecutor(max_workers=len(RUNS)) as pool:
+        yield {name: pool.submit(jax_run, rgb, name) for name in RUNS}
+
+
 @pytest.fixture(scope="module", params=list(RUNS))
-def live(request, rgb):
-    """One run through JAX (compiled once per run) and the port's tracker
-    with JAX's weights."""
+def live(request, stored):
+    """One stored JAX run and the port's tracker for it (its own weights)."""
     import zaru_tpu_torch.pipeline as tp
-    from zaru_tpu_torch.weights import params_from_jax
 
     name = request.param
-    tracker, states, outs = jax_run(rgb, name)
     cls, kwargs, _ = RUNS[name]
-    port = getattr(tp, cls)(params=params_from_jax(tracker.params), device="cpu", **kwargs)
-    return name, tracker, port, states, outs
+    port = getattr(tp, cls)(device="cpu", **kwargs)
+    return name, port, *unflat(stored, name)
 
 
-def test_fixture_is_current(stored, live):
+def test_fixture_is_current(stored, live, jax_runs):
     """The stored JAX run is what zaru_tpu computes now (1e-3 px, the regen
-    machine's own rounding)."""
-    name, _, _, states, outs = live
+    machine's own rounding), and the port's tracker holds JAX's weights bit
+    for bit."""
+    from zaru_tpu_torch.weights import params_from_jax
+
+    name, port, _, _ = live
+    tracker, states, outs = jax_runs[name].result()
     now = flat(name, states, outs)
     for k, v in now.items():
         if v.dtype.kind in "fc":
             np.testing.assert_allclose(stored[k], v, rtol=0, atol=1e-3, equal_nan=True, err_msg=k)
         else:
             np.testing.assert_array_equal(stored[k], v, err_msg=k)
+    want = params_from_jax(tracker.params)
+    for net, cnn in (("det", port.det_cnn), ("lm", port.lm_cnn)):
+        got = cnn.net.params()
+        assert set(got) == set(want[net]), net
+        for k, v in want[net].items():
+            np.testing.assert_array_equal(got[k].numpy(), v.numpy(), err_msg=f"{net}/{k}")
 
 
 def test_one_step_matches_jax(rgb, live):
     """From JAX's state before each step, one port step gives JAX's outputs
     and next state."""
-    name, _, port, states, outs = live
+    name, port, states, outs = live
     for t, (_start, force, zeroed) in enumerate(RUNS[name][2]):
         state, out = port.step_batch(_torch_state(states[t]), torch.from_numpy(frames_for(rgb, zeroed)), force)
         got = {k: v.numpy() for k, v in out.items()}
@@ -252,7 +286,7 @@ def test_one_step_matches_jax(rgb, live):
 def test_detect_candidates_match_jax(rgb, live):
     """Letterbox, detector, decode, NMS and candidate ROIs on the photo:
     valid flags equal, ROIs within CAND_TOL_PX and CAND_TOL_RAD."""
-    _name, _, port, _, outs = live
+    _name, port, _, outs = live
     rois, valid = port._detect_batch(torch.from_numpy(frames_for(rgb, ())))
     np.testing.assert_array_equal(valid.numpy(), outs[-1]["cand_valid"])
     err = np.abs(rois.numpy() - outs[-1]["cand_rois"])
@@ -261,7 +295,7 @@ def test_detect_candidates_match_jax(rgb, live):
 
 def test_free_running_flags_match_jax(rgb, live):
     """The port on its own over the plan: flags equal at every step."""
-    name, _, port, states, outs = live
+    name, port, states, outs = live
     state = None
     for t, (start, force, zeroed) in enumerate(RUNS[name][2]):
         if start == "init":

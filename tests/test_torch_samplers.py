@@ -10,11 +10,20 @@ CPU.
   the CPU (rotated_fast.py:1083). The views cover upright, tilted (±0.25,
   0.55, 0.8 rad), a frame corner read out of bounds, an 836 px view at
   stride 2 and, tilted 0.7 rad, stride 3, and a view whose bbox exceeds
-  1536 px (stride 4), over ``[B,S,5]`` slots.
+  1536 px (stride 4), over ``[B,S,5]`` slots. Both batches have one shape,
+  so JAX compiles its sampler once for both (about 25 s on the CPU).
 - The same at the hand tracker's geometry: 224×224 views on the 256-pixel
   grid at any angle, strides 1-3.
 - Exact rotated view: ``zaru_tpu_torch.ops.sampling.view_to_tensor_core``
   against compiled ``view_to_tensor_core``.
+- The rotated sampler's per-view coefficients (``sampler_coefs``, which the
+  CUDA kernel computes in the same op order) against JAX's
+  ``_prescale_geometry``/``_sampler_coefs``/``_prescale_coefs`` on random
+  rects: every coefficient bit for bit except ``cos`` and ``sin``, which
+  differ by one ulp between the libraries on about 10% of angles.
+- The planar ``[...,3,h,w]`` layout the pipelines feed their CNNs (and the
+  iris path's mirrored slots) against the NHWC result, permuted (flipped),
+  bit for bit, for both samplers on small frames.
 
 Two things XLA:CPU does when it compiles the JAX samplers, found here:
 
@@ -40,6 +49,8 @@ contracts the ``fy`` line or the prescale map is not settled by these
 views.
 """
 
+from functools import partial
+
 import numpy as np
 import pytest
 
@@ -52,9 +63,11 @@ from zaru_tpu.ops.rotated_fast import rotated_sample_fast as jax_rotated
 from zaru_tpu.ops.sampling import letterbox_sample_core, view_to_tensor_core
 from zaru_tpu.pipeline import _ops as jops
 from zaru_tpu.resolution import Resolution
-from zaru_tpu_torch.ops.letterbox import letterbox_sample_reference
-from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast
+from zaru_tpu.ops import rotated_fast as jax_rf
+from zaru_tpu_torch.ops.letterbox import letterbox_sample, letterbox_sample_reference
+from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast, sampler_coefs
 from zaru_tpu_torch.ops.sampling import view_to_tensor_core as view_to_tensor_reference
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def coord_image(H, W):
@@ -72,7 +85,8 @@ def coord_image(H, W):
 
 # (cx, cy, w, h, theta). Batch A: every view admits one of the Pallas crop
 # classes, so JAX runs its fused kernel; batch B holds a stride-4 view, so
-# JAX takes its exact fallback (take prescale + rotate kernel).
+# JAX takes its exact fallback (take prescale + rotate kernel) for the whole
+# batch, batch A's first eight views included.
 # Each view with the number of its pixels allowed to differ: none.
 VIEWS_A = [
     ((960, 540, 300, 300, 0.0), 0),      # upright, stride 1
@@ -89,7 +103,10 @@ VIEWS_A = [
 VIEWS_B = [
     ((960, 540, 1600, 1600, 0.0), 0),    # bbox > 1536: stride 4
     ((900, 500, 320, 320, -0.55), 0),
+    *VIEWS_A[:8],
 ]
+# JAX's sampler at the face crop, compiled once for both batches.
+jax_rotated_192 = jax.jit(partial(jax_rotated, out_w=192, out_h=192, lo=-1.0, hi=1.0))
 
 
 def _decode(mapped, b):
@@ -110,9 +127,7 @@ def _frames(n, H=1080, W=1920):
 def test_rotated_sampler_matches_jax(views):
     rects = np.asarray([v for v, _ in views], np.float32).reshape(-1, 2, 5)  # [B, S=2, 5]
     frames = _frames(rects.shape[0])
-    want = np.asarray(
-        jax_rotated(jnp.asarray(frames), jnp.asarray(rects), 192, 192, -1.0, 1.0)
-    )
+    want = np.asarray(jax_rotated_192(jnp.asarray(frames), jnp.asarray(rects)))
     got = rotated_sample_fast(
         torch.from_numpy(frames), torch.from_numpy(rects), 192, 192, -1.0, 1.0
     ).numpy()
@@ -181,11 +196,10 @@ def test_rotated_sampler_hand_grid_matches_jax():
 
 
 def test_kernel_wrappers_refuse_bad_input():
-    """The wrappers check dtype, shape and device before any launch, and
-    the CUDA launch itself refuses a CPU tensor instead of running the plain
-    version."""
-    from zaru_tpu_torch.ops.letterbox import letterbox_sample
-    from zaru_tpu_torch.ops.rotated_fast import rotated_sample_launch, sampler_coefs
+    """The wrappers check dtype, shape, layout, mirror flags and device
+    before any launch, and the CUDA launches themselves refuse a CPU tensor
+    instead of running the plain version."""
+    from zaru_tpu_torch.ops.rotated_fast import kernel_coefs, rotated_sample_launch
 
     frames = torch.zeros((2, 8, 8, 4), dtype=torch.uint8)
     rects = torch.tensor([[4.0, 4.0, 6.0, 6.0, 0.3]] * 2)
@@ -193,10 +207,102 @@ def test_kernel_wrappers_refuse_bad_input():
         rotated_sample_fast(frames.float(), rects, 4, 4)
     with pytest.raises(ValueError, match="rects"):
         rotated_sample_fast(frames, rects[:1], 4, 4)
+    with pytest.raises(ValueError, match="layout"):
+        rotated_sample_fast(frames, rects, 4, 4, layout="HWC")
+    with pytest.raises(ValueError, match="mirror"):
+        rotated_sample_fast(frames, rects, 4, 4, mirror=(False, True))
     with pytest.raises(ValueError, match="rects"):
         letterbox_sample(frames, rects[:, :4], 4, 4, -1.0, 1.0)
+    with pytest.raises(ValueError, match="layout"):
+        letterbox_sample(frames, rects, 4, 4, -1.0, 1.0, layout="HWC")
     with pytest.raises(ValueError, match="CUDA"):
-        rotated_sample_launch(frames, *sampler_coefs(rects), 4, 4, -1.0, 1.0)
+        rotated_sample_launch(frames, rects, 1, 4, 4, -1.0, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel_coefs(rects)
+
+
+@pytest.mark.parametrize("m", [512, 256])
+def test_sampler_coefs_match_jax(m):
+    """The per-view coefficients on 4000 random rects: centres inside and
+    outside a 1920×1080 frame, sizes that give strides 1 to 8, angles over
+    [-π, π]. Every coefficient and integer is JAX's bit for bit except cos
+    and sin, which are within one ulp (and differ on about 10%)."""
+    rng = np.random.default_rng(m)
+    n = 4000
+    rects = np.stack([
+        rng.uniform(-300, 2200, n), rng.uniform(-300, 1400, n),
+        rng.uniform(10, 0.69 * 8 * m, n), rng.uniform(10, 0.69 * 8 * m, n),
+        rng.uniform(-np.pi, np.pi, n),
+    ], -1).astype(np.float32)
+
+    def one(rr):
+        left, top, sx, sy, _bw, _bh = jax_rf._prescale_geometry(rr, m)
+        return jax_rf._sampler_coefs(rr, 192, 192, left, top, sx, sy)
+
+    want = np.asarray(jax.jit(jax.vmap(one))(jnp.asarray(rects)))
+    # [ystart, xstart, ly, lx, syi, sxi] → (lx, ly, sx, sy)
+    iwant = np.asarray(jax.jit(
+        lambda r: jax_rf._prescale_coefs(r, m, 1080, 1920, jax_rf.PRESCALE_SMAX)
+    )(jnp.asarray(rects)))[:, [3, 2, 5, 4]]
+    got, igot = (t.numpy() for t in sampler_coefs(torch.from_numpy(rects), m))
+    np.testing.assert_array_equal(np.unique(igot[:, 2:]), np.arange(1, 9))  # strides 1-8
+    np.testing.assert_array_equal(igot, iwant)
+    trig = [2, 3]
+    rest = [i for i in range(12) if i not in trig]
+    np.testing.assert_array_equal(got[:, rest], want[:, rest])
+    ulps = np.abs(got[:, trig].view(np.int32) - want[:, trig].view(np.int32))
+    assert ulps.max() <= 1 and (ulps > 0).any(-1).mean() < 0.2, (ulps.max(), (ulps > 0).any(-1).mean())
+
+
+def _small(views, scale):
+    """A view set scaled onto a 384×288 frame, the original views beside it
+    (mostly outside the small frame): ``[B,2,5]``."""
+    v = np.asarray([r for r, _ in views] if len(views[0]) == 2 else views, np.float32)
+    small = v * np.asarray([scale, scale, scale, scale, 1.0], np.float32)
+    both = np.concatenate([small, v])
+    return both[: len(both) // 2 * 2].reshape(-1, 2, 5)
+
+
+@pytest.mark.parametrize("case", ["fused", "fallback", "eye", "hand"])
+def test_planar_layout_is_permuted_nhwc(case):
+    """The planar layout the pipelines feed their CNNs is the NHWC result
+    permuted, bit for bit, on each rotated view set (scaled onto a small
+    frame, and as they are), and a mirrored slot is the NHWC slot flipped
+    left to right."""
+    eye = [(640, 340, 147, 147, -0.02), (762, 337, 151, 151, 0.3), (300, 500, 90, 90, -1.1),
+           (900, 400, 400, 400, 0.6), (20, 30, 120, 120, 0.0), (1800, 1000, 160, 160, 2.2)]
+    hand = [(960, 540, 200, 200, 3.14159), (700, 500, 240, 240, -3.1), (60, 1000, 300, 300, 2.5),
+            (1500, 200, 500, 500, 0.785)]
+    views, size, m = {"fused": (VIEWS_A, 192, 512), "fallback": (VIEWS_B, 192, 512),
+                      "eye": (eye, 64, 256), "hand": (hand, 224, 256)}[case]
+    rects = torch.from_numpy(_small(views, 0.2))
+    frames = torch.from_numpy(_frames(rects.shape[0], 288, 384))
+    args = (size, size, -1.0, 1.0, m)
+    nhwc = rotated_sample_fast(frames, rects, *args)
+    planar = rotated_sample_fast(frames, rects, *args, layout="NCHW")
+    assert planar.shape == (rects.shape[0], 2, 3, size, size) and planar.is_contiguous()
+    assert torch.equal(planar, nhwc.movedim(-1, -3))
+    assert (nhwc != -1.0).any()  # the scaled views read the frame
+    mirrored = rotated_sample_fast(frames, rects, *args, layout="NCHW", mirror=(False, True))
+    assert torch.equal(mirrored[:, 0], planar[:, 0])
+    assert torch.equal(mirrored[:, 1], planar[:, 1].flip(-1))
+
+
+def test_letterbox_planar_layout_is_permuted_nhwc():
+    """The letterbox sampler's planar layout is its NHWC result permuted,
+    bit for bit: the full-frame fit and offset, scaled views partly outside
+    a 384×288 frame, at the face (128²) and palm (192²) detector sizes."""
+    frames = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (4, 288, 384, 4), dtype=np.uint8))
+    fit = _fit(288, 384)
+    rects = torch.from_numpy(np.stack([
+        fit, [115.2, 172.8, 345.6, 345.6, 0.0], [19.2, 28.8, 60.3, 57.5, 0.0], [300.0, 50.0, 400.0, 250.0, 0.0],
+    ]).astype(np.float32))
+    for size in (128, 192):
+        nhwc = letterbox_sample(frames, rects, size, size, -1.0, 1.0)
+        planar = letterbox_sample(frames, rects, size, size, -1.0, 1.0, layout="NCHW")
+        assert planar.shape == (4, 3, size, size) and planar.is_contiguous()
+        assert torch.equal(planar, nhwc.permute(0, 3, 1, 2))
+        assert (nhwc == -1.0).all(-1).any() and (nhwc != -1.0).any()
 
 
 @pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
@@ -258,3 +364,31 @@ def test_letterbox_bit_exact(hw):
             jnp.asarray(frames[b]), fit[:4], 128, 128, -1.0, 1.0, interpret=True
         )
         np.testing.assert_array_equal(got[b], np.asarray(pallas)[0].transpose(1, 2, 0))
+
+
+def test_cnn_takes_planar_views_as_it_took_nhwc():
+    """``Cnn.apply_views_fast`` and ``apply_views_letterbox`` (the planar
+    sampling the pipelines use) give the network outputs of the NHWC crops
+    through ``apply_tensor_hwc`` bit for bit: the eye network on mirrored
+    slots, Face Mesh on rotated views, BlazeFace on letterbox views."""
+    from zaru_tpu_torch.face.detection import ShortRangeNetwork
+    from zaru_tpu_torch.face.eye import EyeNetwork
+    from zaru_tpu_torch.face.landmark.mediapipe import FaceMeshV1
+
+    frames = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (2, 288, 384, 4), dtype=np.uint8))
+    rects = torch.tensor([[[190.0, 140.0, 150.0, 150.0, 0.3], [100.0, 80.0, 60.0, 60.0, -2.0]],
+                          [[300.0, 200.0, 250.0, 250.0, 1.4], [20.0, 30.0, 90.0, 90.0, 0.0]]])
+    eye = EyeNetwork(device="cpu").cnn()
+    got = eye.apply_views_fast(frames, rects, prescale_m=256, mirror=(False, True))
+    xs = eye.sample_views_fast(frames, rects, prescale_m=256)
+    want = eye.apply_tensor_hwc(torch.stack([xs[:, 0], xs[:, 1].flip(-2)], 1).reshape(4, *xs.shape[2:]))
+    lm = FaceMeshV1(device="cpu").cnn()
+    got += lm.apply_views_fast(frames, rects)
+    want += lm.apply_tensor_hwc(lm.sample_views_fast(frames, rects).reshape(4, 192, 192, 3))
+    det = ShortRangeNetwork(device="cpu").cnn()
+    fit = torch.from_numpy(np.stack([_fit(288, 384)] * 2))
+    got += det.apply_views_letterbox(frames, fit)
+    want += det.apply_tensor_hwc(det.sample_views_letterbox(frames, fit))
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -9,7 +9,11 @@ and runs the network on the batch:
 - :meth:`Cnn.sample_views_letterbox`: unrotated full-frame letterbox views
   through the letterbox kernel (``nn.py:190-193``);
 - :meth:`Cnn.apply_tensor_hwc`: the network on ``[B,h,w,3]`` inputs
-  (``nn.py:195-198``, batched instead of ``vmap``-ed).
+  (``nn.py:195-198``, batched instead of ``vmap``-ed);
+- :meth:`Cnn.apply_views_fast`, :meth:`Cnn.apply_views_letterbox`: the
+  network on views the samplers write in its own planar ``[N,3,h,w]``
+  layout, with no copy between the sampler and the network. The pipelines
+  use these.
 """
 
 from __future__ import annotations
@@ -64,17 +68,36 @@ class Cnn:
     def input_resolution(self) -> Resolution:
         return self._res
 
-    def sample_views_fast(self, frames_u8, rrects, prescale_m: int = PRESCALE_M):
-        """``[B,H,W,4] u8`` + ``[B,...,5]`` rects → ``[B,...,h,w,3] f32``,
-        through a prescale grid of side ``prescale_m``."""
+    def sample_views_fast(
+        self, frames_u8, rrects, prescale_m: int = PRESCALE_M, layout: str = "NHWC", mirror=None
+    ):
+        """``[B,H,W,4] u8`` + ``[B,...,5]`` rects → ``[B,...,h,w,3] f32``
+        (or planar ``[B,...,3,h,w]``), through a prescale grid of side
+        ``prescale_m``; ``mirror`` flips the slots it flags left to right."""
         r, m = self._res, self.mapper
-        return rotated_sample_fast(frames_u8, rrects, r.width, r.height, m.lo, m.hi, prescale_m)
+        return rotated_sample_fast(
+            frames_u8, rrects, r.width, r.height, m.lo, m.hi, prescale_m, layout, mirror
+        )
 
-    def sample_views_letterbox(self, frames_u8, rrects):
-        """``[B,H,W,4] u8`` + ``[B,5]`` unrotated rects → ``[B,h,w,3] f32``."""
+    def sample_views_letterbox(self, frames_u8, rrects, layout: str = "NHWC"):
+        """``[B,H,W,4] u8`` + ``[B,5]`` unrotated rects → ``[B,h,w,3] f32``
+        (or planar ``[B,3,h,w]``)."""
         r, m = self._res, self.mapper
-        return letterbox_sample(frames_u8, rrects, r.width, r.height, m.lo, m.hi)
+        return letterbox_sample(frames_u8, rrects, r.width, r.height, m.lo, m.hi, layout)
 
     def apply_tensor_hwc(self, t_hwc) -> list[torch.Tensor]:
         """The network on pre-sampled ``[B,h,w,3]`` f32 inputs."""
         return self.net(t_hwc.permute(0, 3, 1, 2).contiguous())
+
+    def apply_views_fast(
+        self, frames_u8, rrects, prescale_m: int = PRESCALE_M, mirror=None
+    ) -> list[torch.Tensor]:
+        """The network on the rotated views of ``rrects [B,...,5]``, sampled
+        planar: outputs over the ``N`` views flattened in rect order."""
+        xs = self.sample_views_fast(frames_u8, rrects, prescale_m, "NCHW", mirror)
+        return self.net(xs.reshape(-1, *xs.shape[-3:]))
+
+    def apply_views_letterbox(self, frames_u8, rrects) -> list[torch.Tensor]:
+        """The network on the letterbox views of ``rrects [B,5]``, sampled
+        planar."""
+        return self.net(self.sample_views_letterbox(frames_u8, rrects, "NCHW"))

@@ -2,7 +2,8 @@
 
 ``letterbox_sample`` is the detect path's sampler (``Cnn.
 sample_views_letterbox``): frames ``[B,H,W,4] u8`` and one unrotated rect per
-stream ``[B,5] f32`` → ``[B,out_h,out_w,3] f32`` NHWC, colour-mapped. On a
+stream ``[B,5] f32`` → ``[B,out_h,out_w,3] f32`` NHWC or, ``layout="NCHW"``,
+planar ``[B,3,out_h,out_w]``, colour-mapped. On a
 CUDA tensor it launches ``csrc/letterbox_sample.cu``, which replaces the TPU
 kernel ``letterbox_sample_pallas`` (zaru_tpu/ops/pallas_kernels.py:44); on a
 CPU tensor it runs the plain version, :func:`letterbox_sample_reference`
@@ -20,7 +21,7 @@ import torch
 from ._build import library
 from .sampling import color_adjust, letterbox_sample_core
 
-__all__ = ["letterbox_sample", "letterbox_sample_reference"]
+__all__ = ["letterbox_sample", "letterbox_sample_planar_reference", "letterbox_sample_reference"]
 
 letterbox_sample_reference = letterbox_sample_core
 
@@ -34,10 +35,22 @@ def _check(frames_u8, rrects):
         raise ValueError("frames and rects must be on one device")
 
 
-def letterbox_sample(frames_u8, rrects, out_w: int, out_h: int, lo: float, hi: float):
+def letterbox_sample_planar_reference(frames_u8, rrects, out_w: int, out_h: int, lo: float, hi: float):
+    """The planar layout's plain version: the NHWC one, permuted."""
+    return letterbox_sample_core(frames_u8, rrects, out_w, out_h, lo, hi).permute(0, 3, 1, 2).contiguous()
+
+
+def letterbox_sample(
+    frames_u8, rrects, out_w: int, out_h: int, lo: float, hi: float, layout: str = "NHWC"
+):
     """Letterbox sample + colour map; see the module docstring."""
     _check(frames_u8, rrects)
+    if layout not in ("NHWC", "NCHW"):
+        raise ValueError(f"layout must be NHWC or NCHW, got {layout!r}")
+    planar = layout == "NCHW"
     if frames_u8.device.type == "cpu":
+        if planar:
+            return letterbox_sample_planar_reference(frames_u8, rrects, out_w, out_h, lo, hi)
         return letterbox_sample_core(frames_u8, rrects, out_w, out_h, lo, hi)
     if frames_u8.device.type != "cuda":
         raise ValueError(f"unsupported device {frames_u8.device}")
@@ -46,13 +59,15 @@ def letterbox_sample(frames_u8, rrects, out_w: int, out_h: int, lo: float, hi: f
     B, H, W, _ = frames_u8.shape
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the kernel's grid limit of 65535")
-    out = torch.empty((B, out_h, out_w, 3), dtype=torch.float32, device=frames_u8.device)
+    shape = (B, 3, out_h, out_w) if planar else (B, out_h, out_w, 3)
+    out = torch.empty(shape, dtype=torch.float32, device=frames_u8.device)
     fn = library("letterbox_sample").zaru_letterbox_sample
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     rc = fn(
         frames_u8.data_ptr(), rrects.data_ptr(), out.data_ptr(), B, H, W, out_w, out_h,
-        color_adjust(lo, hi), float(np.float32(lo)),
+        color_adjust(lo, hi), float(np.float32(lo)), int(planar),
         torch.cuda.current_stream(frames_u8.device).cuda_stream,
     )
     if rc != 0:

@@ -4,19 +4,21 @@
 (``rotated_sample_fast``), the every-frame crop of the face cascade: frames
 ``[B,H,W,4] u8`` and view rects ``[B,...,5] f32`` → ``[B,...,out_h,out_w,3]
 f32`` NHWC, colour-mapped. The extra middle dims of the rects are slots:
-several views of one frame (rotated_fast.py:960-963).
+several views of one frame (rotated_fast.py:960-963). ``layout="NCHW"``
+gives the planar ``[B,...,3,out_h,out_w]`` the CNNs take, and ``mirror``
+flips chosen slots left to right (the iris path's right eyes).
 
 Each output pixel reads one source pixel through an integer-stride
 prescale grid of side ``prescale_m`` (``PRESCALE_M`` = 512, the JAX default;
 the eye crops of iris refinement use 256): bit-exact to the exact sampler
 for views whose rotated bounding box fits the grid, within
-``ceil(stride/2)`` source pixels beyond. The per-view coefficients are computed here with torch on
-the tensor's device, in the f32 op order of ``_prescale_geometry`` (:118),
-``_prescale_coefs`` (:366-371) and ``_sampler_coefs`` (:539-570)
-(:func:`sampler_coefs`); the per-pixel index map runs in
-``csrc/rotated_sample.cu`` (:func:`rotated_sample_launch`) on a CUDA
-tensor, or in :func:`rotated_sample_fast_reference`, the plain version, on
-a CPU tensor. The TPU kernels replaced are listed in the CUDA source.
+``ceil(stride/2)`` source pixels beyond. The per-view coefficients follow
+the f32 op order of ``_prescale_geometry`` (:118), ``_prescale_coefs``
+(:366-371) and ``_sampler_coefs`` (:539-570) (:func:`sampler_coefs`). On a
+CUDA tensor one launch of ``csrc/rotated_sample.cu``
+(:func:`rotated_sample_launch`) computes them per view and samples; on a
+CPU tensor :func:`rotated_sample_fast_reference`, the plain version, runs
+both in torch ops. The TPU kernels replaced are listed in the CUDA source.
 """
 
 from __future__ import annotations
@@ -32,10 +34,12 @@ from .sampling import color_map
 
 __all__ = [
     "PRESCALE_M",
+    "kernel_coefs",
     "rotated_sample_fast",
     "rotated_sample_fast_reference",
     "rotated_sample_launch",
     "sampler_coefs",
+    "source_index",
 ]
 
 PRESCALE_M = 512  # prescale grid side; sampling is bit-exact for bbox <= M
@@ -96,8 +100,11 @@ def _recip(n: int) -> float:
     return float(np.float32(1.0) / np.float32(n))
 
 
-def _reference(frames_u8, coefs, icoefs, out_w, out_h, lo, hi, prescale_m):
-    """The kernel's per-pixel map in torch ops: ``[N,out_h,out_w,3]``.
+def _source_index(frames_u8, coefs, icoefs, out_w, out_h, prescale_m):
+    """The kernel's per-pixel index map in torch ops: ``(lin, ok)``, each
+    ``[N,out_h,out_w]``: the source pixel's index in ``frames_u8`` viewed as
+    ``[B*H*W]`` RGBA pixels (0 where not ``ok``), and whether it is read
+    (inside the prescale grid and the frame; black otherwise).
 
     Two steps follow compiled JAX rather than its source (rotated_fast.py:
     645-652): ``j / out_w`` is ``j * f32(1/out_w)``, and ``cth*px -
@@ -123,7 +130,19 @@ def _reference(frames_u8, coefs, icoefs, out_w, out_h, lo, hi, prescale_m):
     y = ic[:, 1, None, None] + ic[:, 3, None, None] * torch.where(ok, kq, 0.0).to(torch.int64)
     ok &= (x >= 0) & (x < W) & (y >= 0) & (y < H)
     frame = (torch.arange(N, device=dev) // (N // B))[:, None, None]
-    lin = torch.where(ok, (frame * H + y) * W + x, 0)
+    return torch.where(ok, (frame * H + y) * W + x, 0), ok
+
+
+def source_index(frames_u8, rrects, out_w: int, out_h: int, prescale_m: int = PRESCALE_M):
+    """The pixels a call reads: ``(lin, ok)`` of :func:`_source_index` for
+    the views of ``rrects [B,...,5]`` flattened to ``N``."""
+    coefs, icoefs = sampler_coefs(rrects.reshape(-1, 5), prescale_m)
+    return _source_index(frames_u8, coefs, icoefs, out_w, out_h, prescale_m)
+
+
+def _reference(frames_u8, coefs, icoefs, out_w, out_h, lo, hi, prescale_m):
+    """The kernel's per-pixel map in torch ops: ``[N,out_h,out_w,3]``."""
+    lin, ok = _source_index(frames_u8, coefs, icoefs, out_w, out_h, prescale_m)
     # The frame as one int32 RGBA pixel per element (little-endian R first).
     pixels = frames_u8.reshape(-1).view(torch.int32)[lin]
     pixels = torch.where(ok, pixels, 0)
@@ -131,7 +150,7 @@ def _reference(frames_u8, coefs, icoefs, out_w, out_h, lo, hi, prescale_m):
     return color_map(rgb, *_color(lo, hi))
 
 
-def _check(frames_u8, rrects):
+def _check(frames_u8, rrects, layout, mirror):
     if frames_u8.dtype != torch.uint8 or frames_u8.ndim != 4 or frames_u8.shape[-1] != 4:
         raise ValueError(f"frames must be [B,H,W,4] uint8, got {tuple(frames_u8.shape)} {frames_u8.dtype}")
     if (rrects.dtype != torch.float32 or rrects.ndim < 2 or rrects.shape[-1] != 5
@@ -139,48 +158,75 @@ def _check(frames_u8, rrects):
         raise ValueError(f"rects must be [B,...,5] float32, got {tuple(rrects.shape)} {rrects.dtype}")
     if rrects.device != frames_u8.device:
         raise ValueError("frames and rects must be on one device")
+    if layout not in ("NHWC", "NCHW"):
+        raise ValueError(f"layout must be NHWC or NCHW, got {layout!r}")
+    slots = rrects[0, ..., 0].numel()
+    if mirror is not None and len(mirror) != slots:
+        raise ValueError(f"mirror needs one flag per slot ({slots}), got {len(mirror)}")
+
+
+def _shaped(out, rrects, out_w, out_h, layout):
+    """``[N,...]`` sampler output → ``[B,...,out_h,out_w,3]`` or, planar,
+    ``[B,...,3,out_h,out_w]``."""
+    tail = (out_h, out_w, 3) if layout == "NHWC" else (3, out_h, out_w)
+    return out.reshape(*rrects.shape[:-1], *tail)
 
 
 def rotated_sample_fast_reference(
     frames_u8, rrects, out_w: int, out_h: int, lo: float = 0.0, hi: float = 1.0,
-    prescale_m: int = PRESCALE_M,
+    prescale_m: int = PRESCALE_M, layout: str = "NHWC", mirror=None,
 ):
     """Plain PyTorch version of :func:`rotated_sample_fast` (same result bit
     for bit), on any device: the same index map with torch ops and a gather
     on the frame viewed as ``int32`` (out-of-range indices are masked before
-    the gather, because torch wraps negative ones)."""
-    _check(frames_u8, rrects)
+    the gather, because torch wraps negative ones). The planar layout is the
+    NHWC result permuted, a mirrored slot the NHWC result flipped."""
+    _check(frames_u8, rrects, layout, mirror)
     coefs, icoefs = sampler_coefs(rrects.reshape(-1, 5), prescale_m)
     out = _reference(frames_u8.contiguous(), coefs, icoefs, out_w, out_h, lo, hi, prescale_m)
-    return out.reshape(*rrects.shape[:-1], out_h, out_w, 3)
+    if mirror is not None and any(mirror):
+        flip = torch.tensor(list(mirror), device=out.device).repeat(frames_u8.shape[0])
+        out = torch.where(flip[:, None, None, None], out.flip(-2), out)
+    if layout == "NCHW":
+        out = out.permute(0, 3, 1, 2).contiguous()
+    return _shaped(out, rrects, out_w, out_h, layout)
 
 
 def rotated_sample_launch(
-    frames_u8, coefs, icoefs, out_w: int, out_h: int, lo: float, hi: float,
-    prescale_m: int = PRESCALE_M,
+    frames_u8, rects, slots: int, out_w: int, out_h: int, lo: float, hi: float,
+    prescale_m: int = PRESCALE_M, layout: str = "NHWC", mirror=None,
 ):
     """Launches ``csrc/rotated_sample.cu`` on CUDA ``frames_u8 [B,H,W,4] u8``
-    with the coefficients of :func:`sampler_coefs` (for the same
-    ``prescale_m``) for ``N`` views (``N/B`` slots per frame) →
-    ``[N,out_h,out_w,3] f32``. Counts the launch in
-    ``rotated_sample_fast.launches``."""
+    for ``rects [N,5]`` (``slots`` = N/B views per frame, view ``n`` of frame
+    ``n // slots``) → ``[N,out_h,out_w,3]`` or, ``layout="NCHW"``,
+    ``[N,3,out_h,out_w]`` f32. The kernel computes each view's coefficients
+    itself. Counts the launch in ``rotated_sample_fast.launches``."""
     B, H, W, _ = frames_u8.shape
-    N = coefs.shape[0]
+    N = rects.shape[0]
     if not (frames_u8.is_cuda and frames_u8.dtype == torch.uint8 and frames_u8.is_contiguous()):
         raise ValueError("frames must be a contiguous uint8 CUDA tensor")
-    for t, dtype, width in ((coefs, torch.float32, 12), (icoefs, torch.int32, 4)):
-        if (t.device != frames_u8.device or t.dtype != dtype or tuple(t.shape) != (N, width)
-                or not t.is_contiguous()):
-            raise ValueError(f"coefficients must be contiguous [{N},{width}] {dtype} on {frames_u8.device}")
-    if N % B or not 0 < N <= 65535:
-        raise ValueError(f"{N} views for {B} frames: need a whole number of slots, at most 65535 views")
-    out = torch.empty((N, out_h, out_w, 3), dtype=torch.float32, device=frames_u8.device)
+    if (rects.device != frames_u8.device or rects.dtype != torch.float32
+            or tuple(rects.shape) != (N, 5) or not rects.is_contiguous()):
+        raise ValueError(f"rects must be contiguous [N,5] float32 on {frames_u8.device}")
+    if N != B * slots or N == 0:
+        raise ValueError(f"{N} views for {B} frames of {slots} slots")
+    if out_w % 4 or out_w <= 0 or out_h <= 0:
+        raise ValueError(f"the kernel writes rows of 4-pixel groups: out_w={out_w} is no multiple of 4")
+    mask = 0
+    if mirror is not None:
+        if len(mirror) != slots or slots > 32:
+            raise ValueError(f"mirror takes one flag for each of at most 32 slots, got {len(mirror)} for {slots}")
+        mask = sum(1 << i for i, f in enumerate(mirror) if f)
+    planar = layout == "NCHW"
+    shape = (N, 3, out_h, out_w) if planar else (N, out_h, out_w, 3)
+    out = torch.empty(shape, dtype=torch.float32, device=frames_u8.device)
     fn = library("rotated_sample").zaru_rotated_sample
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
+                   + [ctypes.c_int, ctypes.c_uint, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     rc = fn(
-        frames_u8.data_ptr(), coefs.data_ptr(), icoefs.data_ptr(), out.data_ptr(),
-        N, N // B, H, W, prescale_m, out_w, out_h, _recip(out_w), _recip(out_h), *_color(lo, hi),
+        frames_u8.data_ptr(), rects.data_ptr(), out.data_ptr(), N, slots, H, W, prescale_m,
+        out_w, out_h, _recip(out_w), _recip(out_h), *_color(lo, hi), int(planar), mask,
         torch.cuda.current_stream(frames_u8.device).cuda_stream,
     )
     if rc != 0:
@@ -189,21 +235,46 @@ def rotated_sample_launch(
     return out
 
 
+def kernel_coefs(rects, prescale_m: int = PRESCALE_M):
+    """The kernel's own per-view coefficients for CUDA ``rects [N,5]``, in
+    the form of :func:`sampler_coefs`: what each block of the sampler
+    computes, written out by a separate small kernel of the same source, so
+    that they can be held against :func:`sampler_coefs` on the card. Not a
+    launch of the sampler: not counted."""
+    if not (rects.is_cuda and rects.dtype == torch.float32 and rects.ndim == 2
+            and rects.shape[1] == 5 and rects.is_contiguous() and rects.shape[0] > 0):
+        raise ValueError("rects must be a contiguous, non-empty [N,5] float32 CUDA tensor")
+    N = rects.shape[0]
+    coefs = torch.empty((N, 12), dtype=torch.float32, device=rects.device)
+    icoefs = torch.empty((N, 4), dtype=torch.int32, device=rects.device)
+    fn = library("rotated_sample").zaru_rotated_coefs
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(rects.data_ptr(), coefs.data_ptr(), icoefs.data_ptr(), N, prescale_m,
+            torch.cuda.current_stream(rects.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rotated_coefs kernel launch failed: CUDA error {rc}")
+    return coefs, icoefs
+
+
 def rotated_sample_fast(
     frames_u8, rrects, out_w: int, out_h: int, lo: float = 0.0, hi: float = 1.0,
-    prescale_m: int = PRESCALE_M,
+    prescale_m: int = PRESCALE_M, layout: str = "NHWC", mirror=None,
 ):
     """Rotated-view sample + colour map; see the module docstring. A CUDA
     tensor launches the kernel (or raises), a CPU tensor runs the plain
     version."""
     if frames_u8.device.type == "cpu":
-        return rotated_sample_fast_reference(frames_u8, rrects, out_w, out_h, lo, hi, prescale_m)
+        return rotated_sample_fast_reference(
+            frames_u8, rrects, out_w, out_h, lo, hi, prescale_m, layout, mirror
+        )
     if frames_u8.device.type != "cuda":
         raise ValueError(f"unsupported device {frames_u8.device}")
-    _check(frames_u8, rrects)
-    coefs, icoefs = sampler_coefs(rrects.reshape(-1, 5), prescale_m)
-    out = rotated_sample_launch(frames_u8, coefs, icoefs, out_w, out_h, lo, hi, prescale_m)
-    return out.reshape(*rrects.shape[:-1], out_h, out_w, 3)
+    _check(frames_u8, rrects, layout, mirror)
+    rects = rrects.reshape(-1, 5).contiguous()
+    slots = rects.shape[0] // frames_u8.shape[0]
+    out = rotated_sample_launch(frames_u8, rects, slots, out_w, out_h, lo, hi, prescale_m, layout, mirror)
+    return _shaped(out, rrects, out_w, out_h, layout)
 
 
 rotated_sample_fast.launches = 0

@@ -18,7 +18,9 @@ import torch
 from ..geometry import rrect_transform_out
 from ..num import div, round_half_away
 
-__all__ = ["letterbox_sample_core", "view_to_tensor_core", "color_adjust", "color_map"]
+__all__ = [
+    "letterbox_sample_core", "letterbox_source_index", "view_to_tensor_core", "color_adjust", "color_map",
+]
 
 
 def color_adjust(lo: float, hi: float) -> float:
@@ -51,13 +53,10 @@ def _gather_rgb(frames_u8, bidx, yi, xi, ok):
     return torch.where(ok[..., None], rgb, torch.zeros_like(rgb))
 
 
-def letterbox_sample_core(frames_u8, rrects, out_w: int, out_h: int, lo: float, hi: float):
-    """Exact axis-aligned view sample + colour map, batched over streams.
-
-    ``frames_u8 [B,H,W,4] u8``, ``rrects [B,5] f32`` (angle ignored: the
-    full-frame letterbox fit has angle 0) → ``[B,out_h,out_w,3] f32`` NHWC.
-    The separable index vectors follow sampling.py:135-146 op for op.
-    """
+def _letterbox_index(frames_u8, rrects, out_w: int, out_h: int):
+    """The letterbox's separable index map (sampling.py:135-146, op for op):
+    source rows ``yi [B,out_h,1]`` and columns ``xi [B,1,out_w]`` (0 where
+    outside the frame) and ``ok [B,out_h,out_w]``."""
     B, H, W, _ = frames_u8.shape
     dev = frames_u8.device
     u = div(torch.arange(out_w, dtype=torch.float32, device=dev), out_w)
@@ -74,8 +73,28 @@ def letterbox_sample_core(frames_u8, rrects, out_w: int, out_h: int, lo: float, 
     oky = (yr >= 0) & (yr < H)
     xi = torch.where(okx, xr, 0.0).to(torch.int64)[:, None, :]
     yi = torch.where(oky, yr, 0.0).to(torch.int64)[:, :, None]
-    ok = oky[:, :, None] & okx[:, None, :]
-    bidx = torch.arange(B, device=dev)[:, None, None]
+    return yi, xi, oky[:, :, None] & okx[:, None, :]
+
+
+def letterbox_source_index(frames_u8, rrects, out_w: int, out_h: int):
+    """The pixels a letterbox call reads: ``(lin, ok)``, each
+    ``[B,out_h,out_w]``: the source pixel's index in ``frames_u8`` viewed as
+    ``[B*H*W]`` RGBA pixels (0 where not ``ok``), and whether it is read."""
+    B, H, W, _ = frames_u8.shape
+    yi, xi, ok = _letterbox_index(frames_u8, rrects, out_w, out_h)
+    bidx = torch.arange(B, device=frames_u8.device)[:, None, None]
+    return torch.where(ok, (bidx * H + yi) * W + xi, 0), ok
+
+
+def letterbox_sample_core(frames_u8, rrects, out_w: int, out_h: int, lo: float, hi: float):
+    """Exact axis-aligned view sample + colour map, batched over streams.
+
+    ``frames_u8 [B,H,W,4] u8``, ``rrects [B,5] f32`` (angle ignored: the
+    full-frame letterbox fit has angle 0) → ``[B,out_h,out_w,3] f32`` NHWC.
+    The separable index vectors follow sampling.py:135-146 op for op.
+    """
+    yi, xi, ok = _letterbox_index(frames_u8, rrects, out_w, out_h)
+    bidx = torch.arange(frames_u8.shape[0], device=frames_u8.device)[:, None, None]
     rgb = _gather_rgb(frames_u8, bidx, yi, xi, ok)
     return color_map(rgb, color_adjust(lo, hi), float(np.float32(lo)))
 

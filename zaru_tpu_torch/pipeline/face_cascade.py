@@ -109,8 +109,7 @@ class FaceTracker:
         res = self.det_cnn.input_resolution()
         fit, fit_rrect = _ops.full_frame_fit(frames, res)
         b = frames.shape[0]
-        xs = self.det_cnn.sample_views_letterbox(frames, fit_rrect.expand(b, 5).contiguous())
-        outputs = self.det_cnn.apply_tensor_hwc(xs)
+        outputs = self.det_cnn.apply_views_letterbox(frames, fit_rrect.expand(b, 5).contiguous())
         boxes, conf, kps, angles = self.detector.decode_device(outputs, self.detection_threshold)
         valid, _conf, avg_box, _kp, _angle = nms_average_device(boxes, conf, kps, angles, max_out=1)
         rect = _ops.unmap_center_size(avg_box[:, 0], fit, res)
@@ -141,8 +140,7 @@ class FaceTracker:
         the eyes, with ``iris``)."""
         res = self.lm_cnn.input_resolution()
         view_rects = _ops.aspect_view_rect(rois, res)
-        xs = self.lm_cnn.sample_views_fast(frames, view_rects)
-        outputs = self.lm_cnn.apply_tensor_hwc(xs)
+        outputs = self.lm_cnn.apply_views_fast(frames, view_rects)
         new_state, out = self._track_tail(state, outputs, view_rects, seeded)
         if self.iris:
             out["eyes"] = self._iris_batch(frames, out["landmarks"])
@@ -218,13 +216,13 @@ class FaceTracker:
 
     def _iris_views(self, frames, rects):
         """Eye view rects ``[B,2,5]`` → ``[B,2,76,3]``: the eye crops through
-        the rotated-ROI kernel, right eyes mirrored, ``[B,2]`` flattened to
-        ``[2B]`` around the iris network."""
-        xs = self.eye_cnn.sample_views_fast(frames, rects, prescale_m=self.EYE_PRESCALE_M)
-        xs = torch.cat([xs[:, :1], xs[:, 1:].flip(-2)], dim=1)  # mirror right eyes
-        b = xs.shape[0]
-        outputs = self.eye_cnn.apply_tensor_hwc(xs.reshape(2 * b, *xs.shape[2:]))
-        flips = torch.tensor([False, True], device=xs.device).repeat(b)
+        the rotated-ROI kernel, right eyes mirrored by the sampler, ``[B,2]``
+        flattened to ``[2B]`` around the iris network."""
+        outputs = self.eye_cnn.apply_views_fast(
+            frames, rects, prescale_m=self.EYE_PRESCALE_M, mirror=(False, True)
+        )
+        b = rects.shape[0]
+        flips = torch.tensor([False, True], device=rects.device).repeat(b)
         eyes = self._iris_decode(outputs, rects.reshape(2 * b, 5), flips)
         return eyes.reshape(b, 2, EyeLandmarks.NUM_LANDMARKS, 3)
 

@@ -128,8 +128,8 @@ class MultiObjectTracker:
         (candidate ROIs [B,S,5], valid [B,S])."""
         res = self.det_cnn.input_resolution()
         fit, fit_rrect = _ops.full_frame_fit(frames, res)
-        xs = self.det_cnn.sample_views_letterbox(frames, fit_rrect.expand(frames.shape[0], 5).contiguous())
-        return self._detect_tail(self.det_cnn.apply_tensor_hwc(xs), fit, res)
+        rrects = fit_rrect.expand(frames.shape[0], 5).contiguous()
+        return self._detect_tail(self.det_cnn.apply_views_letterbox(frames, rrects), fit, res)
 
     def _detect_tail(self, outputs, fit, res):
         boxes, conf, kps, angles = self.detector.decode_device(outputs, self.detection_threshold)
@@ -190,9 +190,8 @@ class MultiObjectTracker:
         if self.angle_clamp is not None:
             theta = torch.clamp(view_rects[..., 4:5], -self.angle_clamp, self.angle_clamp)
             view_rects = torch.cat([view_rects[..., 0:4], theta], dim=-1)
-        xs = self.lm_cnn.sample_views_fast(frames, view_rects, prescale_m=self.prescale_m)
-        b, s = xs.shape[:2]
-        outputs = self.lm_cnn.apply_tensor_hwc(xs.reshape(b * s, *xs.shape[2:]))
+        b, s = view_rects.shape[:2]
+        outputs = self.lm_cnn.apply_views_fast(frames, view_rects, prescale_m=self.prescale_m)
         new_rois, confidence, extras, pos = self._track_slot_tail(outputs, view_rects.reshape(b * s, 5))
         unflat = lambda t: t.reshape(b, s, *t.shape[1:])  # noqa: E731
         return unflat(new_rois), unflat(confidence), tuple(map(unflat, extras)), unflat(pos)
