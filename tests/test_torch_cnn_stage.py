@@ -31,7 +31,7 @@ from zaru_tpu_torch.ops.cnn_stage import (
     KERNEL_CHANNELS, PIXELS_PER_THREAD, SMEM_LIMIT, THREADS, _tiling, blaze_blocks_reference, fused_blocks, pack_blocks,
     unpack_blocks,
 )
-from torch_threads import one_torch_thread  # noqa: F401
+from torch_port import one_torch_thread  # noqa: F401
 
 # (blocks, channels, H×W, ReLU) per chain, in graph order.
 STAGES = {

@@ -29,7 +29,7 @@ from zaru_tpu_torch import geometry as tgeom
 from zaru_tpu_torch import num as tnum
 from zaru_tpu_torch.pipeline import _ops as tops
 from zaru_tpu_torch.resolution import Resolution as TRes
-from torch_threads import one_torch_thread  # noqa: F401
+from torch_port import one_torch_thread  # noqa: F401
 
 
 def _t(x):

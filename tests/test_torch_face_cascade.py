@@ -3,8 +3,8 @@
 Both trackers run at batch 2 on the fixture photo over one step sequence:
 detect, forced redetect, stream 1's frame zeroed (loss), redetect, track.
 Both use the same weights: the port's trackers load the ONNX files JAX
-loads (``test_fixture_is_current`` holds them equal). The JAX tracker runs with
-``iris=True``, which adds the eyes and leaves the rest of the step as it
+loads (``test_fixture_is_current`` holds them equal). The JAX tracker runs
+with ``iris=True``, which adds the eyes and leaves the rest of the step as it
 is; the port runs both without and with iris.
 
 The cascade feeds each step's landmarks back into the next step's ROI and
@@ -40,17 +40,15 @@ The main sequence and the bucket sequence, with JAX's states and outputs,
 are stored in ``zaru_tpu_torch/fixtures/sad_linus_track.npz``. The port is
 held to the stored runs, here and in ``chip_smoke.py`` on the GPU, where JAX
 is absent; ``test_fixture_is_current`` runs both sequences through JAX
-again (one compile of each tracker, about 90 s of the file's time) and ties
-the stored runs, and the port's own weights, to the reference. The port's
-trackers load their weights from the same ONNX files as JAX's. Regenerate
-the fixture with::
+again, each in its own process (one compile of each tracker, most of the
+file's time), and ties the stored runs, and the port's own weights, to the
+reference. Regenerate the fixture with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_face_cascade.py
 """
 
 import os
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -61,7 +59,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_port import jax_processes, numpy_params, one_torch_thread  # noqa: E402,F401
 
 FIXTURE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -121,6 +119,13 @@ def jax_run(rgb, plan=PLAN, **kwargs):
         for out in outs:
             out["eye_rects"] = np.asarray(rects(jnp.asarray(out["landmarks"])))
     return tracker, states, outs
+
+
+def jax_run_arrays(rgb, plan=PLAN, **kwargs):
+    """:func:`jax_run` as a process returns it: (states, outputs, the
+    tracker's params as numpy)."""
+    tracker, states, outs = jax_run(rgb, plan, **kwargs)
+    return states, outs, numpy_params(tracker.params)
 
 
 def _flat(states, outs, plan=PLAN, prefix=""):
@@ -233,14 +238,14 @@ def test_fixture_is_current(stored, port_iris):
     assert np.abs(stored["rgb"].astype(int) - decoded).mean() < 1.0
     np.testing.assert_array_equal(stored["force"], [f for f, _ in PLAN])
     np.testing.assert_array_equal(stored["zero"], [z for _, z in PLAN])
-    with ThreadPoolExecutor(max_workers=2) as pool:  # XLA compiles one while Python traces the other
-        main = pool.submit(jax_run, stored["rgb"], iris=True)
-        bucket = pool.submit(jax_run, stored["rgb"], BUCKET_PLAN, redetect_bucket=1)
-        tracker, states, outs = main.result()
-        _, bstates, bouts = bucket.result()
+    with jax_processes(2) as pool:
+        main = pool.submit(jax_run_arrays, stored["rgb"], iris=True)
+        bucket = pool.submit(jax_run_arrays, stored["rgb"], BUCKET_PLAN, redetect_bucket=1)
+        states, outs, jparams = main.result()
+        bstates, bouts, _ = bucket.result()
     _assert_run_current(stored, _flat(states, outs))
     _assert_run_current(stored, _flat(bstates, bouts, BUCKET_PLAN, "bucket_"))
-    want = params_from_jax(tracker.params)
+    want = params_from_jax(jparams)
     for net, cnn in (("det", port_iris.det_cnn), ("lm", port_iris.lm_cnn), ("eye", port_iris.eye_cnn)):
         got = cnn.net.params()
         assert set(got) == set(want[net]), net

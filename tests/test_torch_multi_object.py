@@ -45,9 +45,9 @@ JAX's states and outputs are stored in
 ``sad_linus_track.npz``). The port is held to the stored runs, here and in
 ``chip_smoke.py`` on the GPU, where JAX is absent; ``test_fixture_is_current``
 runs each plan through JAX again (one compile of its tracker) and ties the
-stored run to the reference. The four JAX runs start together on threads
-(``jax_runs``), so that XLA compiles one tracker while Python traces the
-next. Regenerate it with::
+stored run to the reference. The four JAX runs and the ``angle_clamp``
+pass start together, each in its own process (``jax_runs``). Regenerate
+it with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_multi_object.py
 """
@@ -55,7 +55,6 @@ next. Regenerate it with::
 import json
 import os
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -66,7 +65,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_port import jax_processes, numpy_params, one_torch_thread  # noqa: E402,F401
 
 FIXTURES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "zaru_tpu_torch", "fixtures"
@@ -229,12 +228,36 @@ def unflat(stored, name):
     return states, outs
 
 
+def jax_run_arrays(rgb, name):
+    """:func:`jax_run` as a process returns it: (states, outputs, the
+    tracker's params as numpy)."""
+    tracker, states, outs = jax_run(rgb, name)
+    return states, outs, numpy_params(tracker.params)
+
+
+def jax_clamp_run(rgb, clamp=0.6):
+    """JAX's ``_track_slots_batch`` of a ``MultiHandTracker`` with
+    ``angle_clamp`` on the seeded slots → (its outputs, the tracker's
+    params). ``detect_interval`` is read only by the detection gates, which
+    this pass does not run."""
+    from zaru_tpu.pipeline import MultiHandTracker as JTracker
+
+    jt = JTracker(max_hands=S, detect_interval=5)
+    jt.angle_clamp = clamp
+    frames, rois = frames_for(rgb, ()), seed_state()["rois"]
+    want = jax.jit(jt._track_slots_batch)(jt.params, jnp.asarray(frames), jnp.asarray(rois))
+    return jax.tree_util.tree_map(np.asarray, want), numpy_params(jt.params)
+
+
 @pytest.fixture(scope="module")
 def jax_runs(rgb):
-    """Every run of RUNS through JAX, started together: run name → future
-    of :func:`jax_run`'s result."""
-    with ThreadPoolExecutor(max_workers=len(RUNS)) as pool:
-        yield {name: pool.submit(jax_run, rgb, name) for name in RUNS}
+    """Every run of RUNS through JAX, and the ``angle_clamp`` pass, started
+    together in their own processes: name → future of
+    :func:`jax_run_arrays`'s (or :func:`jax_clamp_run`'s) result."""
+    with jax_processes(len(RUNS) + 1) as pool:
+        runs = {name: pool.submit(jax_run_arrays, rgb, name) for name in RUNS}
+        runs["angle_clamp"] = pool.submit(jax_clamp_run, rgb)
+        yield runs
 
 
 @pytest.fixture(scope="module", params=list(RUNS))
@@ -255,14 +278,14 @@ def test_fixture_is_current(stored, live, jax_runs):
     from zaru_tpu_torch.weights import params_from_jax
 
     name, port, _, _ = live
-    tracker, states, outs = jax_runs[name].result()
+    states, outs, jparams = jax_runs[name].result()
     now = flat(name, states, outs)
     for k, v in now.items():
         if v.dtype.kind in "fc":
             np.testing.assert_allclose(stored[k], v, rtol=0, atol=1e-3, equal_nan=True, err_msg=k)
         else:
             np.testing.assert_array_equal(stored[k], v, err_msg=k)
-    want = params_from_jax(tracker.params)
+    want = params_from_jax(jparams)
     for net, cnn in (("det", port.det_cnn), ("lm", port.lm_cnn)):
         got = cnn.net.params()
         assert set(got) == set(want[net]), net
@@ -320,28 +343,24 @@ def test_plans_do_what_they_say(stored):
 
 @pytest.fixture(scope="module")
 def jax_hands():
-    """One JAX MultiHandTracker for the tests below. ``detect_interval`` is
-    read only by the detection gates, which neither test runs."""
+    """One JAX MultiHandTracker for the test below. ``detect_interval`` is
+    read only by the detection gates, which the test does not run."""
     from zaru_tpu.pipeline import MultiHandTracker as JTracker
 
     return JTracker(max_hands=S, detect_interval=5)
 
 
-def test_angle_clamp_matches_jax(rgb, jax_hands):
+def test_angle_clamp_matches_jax(rgb, jax_runs):
     """``angle_clamp`` (set by neither tracker) clamps the sampled view's
     angle and leaves the ROI's: the per-slot pass on the seeded slots against
     JAX's ``_track_slots_batch`` with the same clamp."""
     from zaru_tpu_torch.pipeline import MultiHandTracker as TTracker
     from zaru_tpu_torch.weights import params_from_jax
 
-    jt = jax_hands
-    pt = TTracker(max_hands=S, params=params_from_jax(jt.params), device="cpu")
-    jt.angle_clamp = pt.angle_clamp = 0.6
+    want, jparams = jax_runs["angle_clamp"].result()
+    pt = TTracker(max_hands=S, params=params_from_jax(jparams), device="cpu")
+    pt.angle_clamp = 0.6
     frames, rois = frames_for(rgb, ()), seed_state()["rois"]
-    try:
-        want = jax.jit(jt._track_slots_batch)(jt.params, jnp.asarray(frames), jnp.asarray(rois))
-    finally:
-        jt.angle_clamp = None
     got = pt._track_slots_batch(torch.from_numpy(frames), torch.from_numpy(rois))
     for g, w in ((got[0], want[0]), (got[3], want[3])):  # next ROIs, landmarks
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=STEP_TOL_PX)

@@ -22,7 +22,7 @@ import torch
 from zaru_tpu.assets import model_path
 from zaru_tpu.onnx import load_model as jax_load
 from zaru_tpu_torch.onnx import SUPPORTED_OPS, load_model, parse_model
-from torch_threads import one_torch_thread  # noqa: F401
+from torch_port import one_torch_thread  # noqa: F401
 
 MODELS = [
     "face_detection_short_range.onnx", "face_landmark.onnx",

@@ -67,7 +67,7 @@ from zaru_tpu.ops import rotated_fast as jax_rf
 from zaru_tpu_torch.ops.letterbox import letterbox_sample, letterbox_sample_reference
 from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast, sampler_coefs
 from zaru_tpu_torch.ops.sampling import view_to_tensor_core as view_to_tensor_reference
-from torch_threads import one_torch_thread  # noqa: F401
+from torch_port import one_torch_thread  # noqa: F401
 
 
 def coord_image(H, W):

@@ -33,7 +33,7 @@ from zaru_tpu_torch.ops.yuv import (
     rgb_to_yuv_launch,
     yuv_to_rgb,
 )
-from torch_threads import one_torch_thread  # noqa: F401
+from torch_port import one_torch_thread  # noqa: F401
 
 YUV_TOL = 2.0 ** -23  # 1.19e-7 measured, in both comparisons below
 # JAX's own 130x64 (ragged against 32-row blocks) and an odd size.
