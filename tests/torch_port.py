@@ -11,9 +11,10 @@
   reference runs. Tracing and lowering a tracker hold the interpreter lock,
   so runs on threads barely overlap; in processes they do (the four
   multi-object runs: about 92 s on threads, 54 s in processes on an 8-core
-  CPU). A worker imports the test module afresh and inherits the
-  environment ``tests/conftest.py`` set (``JAX_PLATFORMS``, ``XLA_FLAGS``);
-  ``numpy_params`` turns a tracker's params into arrays it can return.
+  CPU). A worker imports the test module afresh, inherits the environment
+  ``tests/conftest.py`` set (``JAX_PLATFORMS``, ``XLA_FLAGS``) and takes the
+  JAX settings it made (platform, compile cache); ``numpy_params`` turns a
+  tracker's params into arrays a worker can return.
 """
 
 import multiprocessing
@@ -38,7 +39,27 @@ def numpy_params(params: dict) -> dict:
     return {net: {k: np.asarray(v) for k, v in p.items()} for net, p in params.items()}
 
 
+# The JAX settings tests/conftest.py makes in the test process, which a
+# spawned worker does not inherit.
+_JAX_SETTINGS = ("jax_platforms", "jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+
+
+def _configure_jax(settings: dict) -> None:
+    import jax
+
+    for name, value in settings.items():
+        if value is not None:
+            jax.config.update(name, value)
+
+
 def jax_processes(workers: int) -> ProcessPoolExecutor:
     """A process pool (spawned, not forked: the test process has threads)
-    for ``workers`` JAX runs; use it in a ``with`` block."""
-    return ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+    for ``workers`` JAX runs, with the test process's JAX settings; use it
+    in a ``with`` block."""
+    import jax
+
+    settings = {name: getattr(jax.config, name) for name in _JAX_SETTINGS}
+    return ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_configure_jax, initargs=(settings,),
+    )
