@@ -725,6 +725,14 @@ def profile_steps(torch, step, batch, what, steps=9):
           f"{by_group}; top: {top}", flush=True)
 
 
+def _letterbox_lin(torch, frames, yi, xi, ok):
+    """The letterbox's reads as ``(lin, ok)``: each read pixel's index in
+    ``frames [B,H,W,4]`` viewed as ``[B*H*W]`` RGBA pixels (0 where not read)."""
+    B, H, W, _ = frames.shape
+    bidx = torch.arange(B, device=frames.device)[:, None, None]
+    return torch.where(ok, (bidx * H + yi) * W + xi, 0), ok
+
+
 def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=512):
     """The two samplers at a path's inputs (``lm``/``det``: its landmark and
     detector ``Cnn``; ``rois``: the ROIs of its last step), in the planar
@@ -733,15 +741,17 @@ def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=
     the host's launch cost is hidden; ``kernel_ms`` the launch alone and
     ``nhwc_ms`` the NHWC launch, both queued; ``call_ms`` a lone call, not
     queued (host time included). Beside the bound (4 B read per
-    in-frame pixel), ``sector_ms``: the distinct 32-byte sectors the plain
-    version's index map reads, × 32 B, plus the bytes written, over the
-    memory rate. ``copy_ms``: the ``permute(0,3,1,2).contiguous()`` of the
-    NHWC output that the path ran before it sampled planar."""
+    in-frame pixel), the printed line gives the sector figure: the distinct
+    32-byte sectors the plain version's index map reads, × 32 B, plus the
+    bytes written, over the memory rate (a second bound, so not in the JSON
+    line). ``copy_ms``: the ``permute(0,3,1,2).contiguous()`` of the NHWC
+    output that the path ran before it sampled planar."""
     from zaru_tpu_torch.ops.letterbox import letterbox_sample, letterbox_sample_planar_reference
     from zaru_tpu_torch.ops.rotated_fast import (
-        rotated_sample_fast, rotated_sample_fast_reference, rotated_sample_launch, source_index,
+        _source_index, rotated_sample_fast, rotated_sample_fast_reference, rotated_sample_launch,
+        sampler_coefs,
     )
-    from zaru_tpu_torch.ops.sampling import letterbox_source_index
+    from zaru_tpu_torch.ops.sampling import _letterbox_index
     from zaru_tpu_torch.pipeline import _ops
 
     lm_res, det_res = lm.input_resolution(), det.input_resolution()
@@ -759,14 +769,14 @@ def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=
          lambda: rotated_sample_fast_reference(frames, view_rects, w, h, *lm_col, prescale_m, "NCHW"),
          lambda: rotated_sample_launch(frames, flat, slots, w, h, *lm_col, prescale_m, "NCHW"),
          lambda: rotated_sample_launch(frames, flat, slots, w, h, *lm_col, prescale_m, "NHWC"),
-         lambda: source_index(frames, view_rects, w, h, prescale_m),
+         lambda: _source_index(frames, *sampler_coefs(flat, prescale_m), w, h, prescale_m),
          "zaru_tpu_torch/csrc/rotated_sample.cu", "zaru_tpu/ops/rotated_fast.py:1481", 32),
         ("letterbox_sample",
          lambda: letterbox_sample(frames, fit_rects, dw, dh, *det_col, "NCHW"),
          lambda: letterbox_sample_planar_reference(frames, fit_rects, dw, dh, *det_col),
          lambda: letterbox_sample(frames, fit_rects, dw, dh, *det_col, "NCHW"),
          lambda: letterbox_sample(frames, fit_rects, dw, dh, *det_col, "NHWC"),
-         lambda: letterbox_source_index(frames, fit_rects, dw, dh),
+         lambda: _letterbox_lin(torch, frames, *_letterbox_index(frames, fit_rects, dw, dh)),
          "zaru_tpu_torch/csrc/letterbox_sample.cu", "zaru_tpu/ops/pallas_kernels.py:112", 22),
     ):
         got, want, nhwc = call(), plain(), launch_nhwc()
@@ -795,7 +805,7 @@ def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "kernel_ms": kernel_ms, "nhwc_ms": nhwc_ms, "call_ms": call_ms,
-            "sector_ms": sector_ms, "copy_ms": copy_ms,
+            "copy_ms": copy_ms,
         })
         print(f"{name}, {what}, batch {frames.shape[0]} ({tuple(got.shape)}, planar): call {ms:.4f} ms "
               f"(kernel {kernel_ms:.4f}, NHWC kernel {nhwc_ms:.4f}, lone call not queued {call_ms:.4f}), "

@@ -39,7 +39,6 @@ __all__ = [
     "rotated_sample_fast_reference",
     "rotated_sample_launch",
     "sampler_coefs",
-    "source_index",
 ]
 
 PRESCALE_M = 512  # prescale grid side; sampling is bit-exact for bbox <= M
@@ -131,13 +130,6 @@ def _source_index(frames_u8, coefs, icoefs, out_w, out_h, prescale_m):
     ok &= (x >= 0) & (x < W) & (y >= 0) & (y < H)
     frame = (torch.arange(N, device=dev) // (N // B))[:, None, None]
     return torch.where(ok, (frame * H + y) * W + x, 0), ok
-
-
-def source_index(frames_u8, rrects, out_w: int, out_h: int, prescale_m: int = PRESCALE_M):
-    """The pixels a call reads: ``(lin, ok)`` of :func:`_source_index` for
-    the views of ``rrects [B,...,5]`` flattened to ``N``."""
-    coefs, icoefs = sampler_coefs(rrects.reshape(-1, 5), prescale_m)
-    return _source_index(frames_u8, coefs, icoefs, out_w, out_h, prescale_m)
 
 
 def _reference(frames_u8, coefs, icoefs, out_w, out_h, lo, hi, prescale_m):

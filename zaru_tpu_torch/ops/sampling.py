@@ -19,7 +19,7 @@ from ..geometry import rrect_transform_out
 from ..num import div, round_half_away
 
 __all__ = [
-    "letterbox_sample_core", "letterbox_source_index", "view_to_tensor_core", "color_adjust", "color_map",
+    "letterbox_sample_core", "view_to_tensor_core", "color_adjust", "color_map",
 ]
 
 
@@ -74,16 +74,6 @@ def _letterbox_index(frames_u8, rrects, out_w: int, out_h: int):
     xi = torch.where(okx, xr, 0.0).to(torch.int64)[:, None, :]
     yi = torch.where(oky, yr, 0.0).to(torch.int64)[:, :, None]
     return yi, xi, oky[:, :, None] & okx[:, None, :]
-
-
-def letterbox_source_index(frames_u8, rrects, out_w: int, out_h: int):
-    """The pixels a letterbox call reads: ``(lin, ok)``, each
-    ``[B,out_h,out_w]``: the source pixel's index in ``frames_u8`` viewed as
-    ``[B*H*W]`` RGBA pixels (0 where not ``ok``), and whether it is read."""
-    B, H, W, _ = frames_u8.shape
-    yi, xi, ok = _letterbox_index(frames_u8, rrects, out_w, out_h)
-    bidx = torch.arange(B, device=frames_u8.device)[:, None, None]
-    return torch.where(ok, (bidx * H + yi) * W + xi, 0), ok
 
 
 def letterbox_sample_core(frames_u8, rrects, out_w: int, out_h: int, lo: float, hi: float):
