@@ -4,7 +4,8 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases, one line of output each (any failed check exits non-zero):
+Phases, one line of output each and each phase's wall time (any failed
+check exits non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, CUDA version;
 2. build: the four kernels from ``zaru_tpu_torch/csrc``, one ``nvcc``
@@ -25,7 +26,11 @@ Phases, one line of output each (any failed check exits non-zero):
    BlazeBlock stage kernel within ``rtol = atol = 1e-4`` on
    random weights at odd sizes whose tiles have ragged edges, one for each
    channel count it is built for (with a ReLU case and a 4-block case), and
-   its refusal of 8 channels; the RGB→YUV kernel bit for bit on the fixture photo at 1920×1080 and on random
+   its refusal of 8 channels; the rotated sampler at 512×256² (Face Mesh
+   V2's crops: the stored ROIs, then random views) and the letterbox at
+   512×192² (full-range detection) bit for bit; the exact sampler (plain
+   torch on every device) on the card bit for bit against the CPU; the
+   RGB→YUV kernel bit for bit on the fixture photo at 1920×1080 and on random
    images of ragged sizes;
 4. the paths against the JAX reference stored in
    ``zaru_tpu_torch/fixtures/``: ``FaceTracker`` one step at a time from
@@ -34,7 +39,12 @@ Phases, one line of output each (any failed check exits non-zero):
    free-running (flags equal), and the same for ``redetect_bucket=1``;
    ``MultiFaceTracker`` and ``MultiHandTracker`` (``multi_track.npz``):
    detection candidates, one step at a time from JAX's state and
-   free-running flags, each within the CPU tests' tolerances;
+   free-running flags, each within the CPU tests' tolerances (``run_frame``
+   and ``run_frames`` and ``fast_sampler=False`` among them); the runs of
+   ``face_models_track.npz`` the same way (``FaceTracker`` with Face Mesh
+   V2, with the full-range detector, ``fast_sampler=False``,
+   ``run_frames``, ``run_frame`` with and without iris) and ``scan_video``
+   equal to ``run_frame``;
 5. the paths at full size on the fixture photo upscaled to 1920×1080 on
    the card, 54 steps after 9 of warm-up: ``FaceTracker.step_batch`` at
    batches 64 and 512 with detection forced every 9th step, then
@@ -47,7 +57,10 @@ Phases, one line of output each (any failed check exits non-zero):
    launched in its run. A profile of the batch-512 face runs and of the
    tracking hand run follows, and for every run a profile with shapes of a
    detect step and a tracking step that fails if a crop is copied between
-   its sampler and its network;
+   its sampler and its network; then ``FaceTracker`` with Face Mesh V2 and
+   with the full-range detector at 512 (the same cadence), and ``run_frame``
+   on one stream, which must launch the stage kernel and no sampler kernel,
+   each with its device busy share;
 6. each kernel's time at its main-path inputs (queued behind a device spin
    so the host's launch cost is hidden) beside its plain version's and its
    bound; for the samplers the whole call in the planar layout the path
@@ -58,7 +71,10 @@ Phases, one line of output each (any failed check exits non-zero):
    chain's real input and weights, checked against its plain version
    (``rtol = atol = 1e-4``), with the per-op chain it replaces timed as its
    library yardstick; the RGB→YUV kernel at 1920×1080 beside
-   ``torch.matmul``; the samplers at the hand tracker's shapes;
+   ``torch.matmul``; the samplers at the hand tracker's shapes; the rotated
+   sampler at Face Mesh V2's 512×256² and the letterbox at the full-range
+   512×192², and the stage kernel's ten chains at batch 1 (``run_frame``),
+   as further entries of the JSON line;
 7. the launch counts of phase 5, then one JSON line of per-kernel numbers,
    then the result line.
 
@@ -88,6 +104,10 @@ STAGE_TOL = 1e-4  # rtol = atol, tests/test_cnn_stage.py:42
 MULTI_STEP_TOLS = (1e-2, 1e-5)
 MULTI_SEED_TOLS = (0.25, 1e-3)
 CAND_TOL_PX, CAND_TOL_RAD = 1e-3, 1e-5
+# tests/test_torch_face_models.py: one-step tolerances of the face-model,
+# exact-sampler, ungated and single-stream runs (landmarks and ROIs in px,
+# confidence, eyes in px).
+MODEL_STEP_TOL_PX, MODEL_SCORE_TOL, MODEL_EYE_TOL_PX = 1e-2, 1e-5, 1.0
 VIEW_CASES = [  # (cx, cy, w, h, theta), tests/test_torch_samplers.py
     (960, 540, 300, 300, 0.0),
     (500, 400, 192, 192, 0.0),
@@ -333,6 +353,73 @@ def phase_kernels_vs_plain(torch, device):
         check(False, "fused_blocks launched a stage of 8 channels, which the kernel is not built for")
 
 
+def phase_slice_shapes_vs_plain(torch, np, device, rgba):
+    """The samplers at this slice's shapes against their plain versions,
+    bit for bit: the rotated kernel at 512×256² (Face Mesh V2's crops on the
+    512-pixel grid: every ROI stored in face_models_track.npz, then random
+    views at strides 1-8), the letterbox at 512×192² (full-range detection,
+    colour range [-1, 1]); and the exact sampler (plain torch on every
+    device) on the card against the same function on the CPU: the stored
+    ROIs on the photo at 192², 256² and 64² (right eyes mirrored), and
+    random views at 224² on coordinate frames."""
+    from zaru_tpu_torch.assets import fixture_path
+    from zaru_tpu_torch.ops.letterbox import letterbox_sample, letterbox_sample_reference
+    from zaru_tpu_torch.ops.letterbox import letterbox_sample_planar_reference
+    from zaru_tpu_torch.ops.sampling import view_to_tensor_core
+    from zaru_tpu_torch.pipeline import _ops
+    from zaru_tpu_torch.resolution import Resolution
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    with np.load(fixture_path("face_models_track.npz")) as f:
+        rois = torch.from_numpy(np.concatenate(
+            [f[k].reshape(-1, 5) for k in f.files if k.endswith(("state_roi", "out_roi"))]))
+    n = rois.shape[0] - rois.shape[0] % 2
+    rois = rois[:n]
+    frames = coord_frames(torch, 64, 1080, 1920, device)
+    v2 = _ops.aspect_view_rect(rois, Resolution(256, 256))
+    rects = torch.cat([v2, random_views(torch, gen, 512 - n, 512, "cpu")]).reshape(64, 8, 5).to(device)
+    check_rotated(torch, f"512 views at 256x256 ({n} stored ROIs, then random)", frames, rects, 256,
+                  -1.0, 1.0, 512)
+
+    frames512 = frames.repeat(8, 1, 1, 1)
+    _fit, fit_rrect = _ops.full_frame_fit(frames512, Resolution(192, 192))
+    rr = fit_rrect.expand(512, 5).contiguous()
+    got = letterbox_sample(frames512, rr, 192, 192, -1.0, 1.0)
+    want = letterbox_sample_reference(frames512, rr, 192, 192, -1.0, 1.0)
+    got_p = letterbox_sample(frames512, rr, 192, 192, -1.0, 1.0, layout="NCHW")
+    want_p = letterbox_sample_planar_reference(frames512, rr, 192, 192, -1.0, 1.0)
+    torch.cuda.synchronize()
+    differ, differ_p = int((got != want).sum()), int((got_p != want_p).sum())
+    print(f"letterbox_sample vs plain at the full-range shape: {tuple(got_p.shape)} from 1920x1080, "
+          f"{differ} values differ (NHWC), {differ_p} (planar)", flush=True)
+    check(differ == 0 and differ_p == 0, "letterbox_sample disagrees with its plain version at 512x192^2")
+    del frames512, got, want, got_p, want_p
+
+    photo = rgba.expand(n // 2, *rgba.shape).contiguous()
+    cases = [("stored ROIs", photo, _ops.aspect_view_rect(rois, Resolution(s, s)).reshape(-1, 2, 5), s, None)
+             for s in (192, 256)]
+    eyes = _ops.aspect_view_rect(rois * torch.tensor([1, 1, 0.35, 0.35, 1]), Resolution(64, 64))
+    cases.append(("stored ROIs as eyes", photo, eyes.reshape(-1, 2, 5), 64, (False, True)))
+    random = random_views(torch, gen, 128, 512, "cpu").reshape(64, 2, 5)
+    cases.append(("random views", frames, random, 224, None))
+    for label, fr, rects, size, mirror in cases:
+        got = view_to_tensor_core(fr, rects.to(device), size, size, -1.0, 1.0, "NCHW", mirror).cpu()
+        want = view_to_tensor_core(fr.cpu(), rects, size, size, -1.0, 1.0, "NCHW", mirror)
+        # torch's cos and sin of a view's angle on the card and on the CPU
+        # (its own library on each) can differ by an ulp and move a pixel.
+        th = rects[..., 4]
+        trig = ((torch.cos(th.to(device)).cpu() == torch.cos(th))
+                & (torch.sin(th.to(device)).cpu() == torch.sin(th)))
+        differ = (got != want).flatten(2).any(-1)  # per view
+        print(f"exact sampler on the card vs on the CPU, {label}: {tuple(got.shape)}"
+              f"{', mirror ' + str(mirror) if mirror else ''}: {int(differ.sum())} views differ; "
+              f"{int((~trig).sum())} of {trig.numel()} angles whose cos or sin differ between the devices, "
+              f"{int((differ & ~trig).sum())} views differ among them", flush=True)
+        check(not (differ & trig).any(), f"the exact sampler's CUDA output differs from its CPU output ({label})")
+        check(label == "random views" or not differ.any(),
+              f"the exact sampler's CUDA output differs from its CPU output on the {label}")
+
+
 def phase_yuv_vs_plain(torch, img, device):
     """The RGB→YUV kernel bit for bit against its plain version: the photo
     at 1920×1080 in [0, 1], and random images whose pixel counts are not a
@@ -454,6 +541,87 @@ def phase_vs_jax(torch, np, device, rgba):
     check(lm_err <= STEP_TOL_PX and roi_err <= STEP_TOL_PX, "redetect_bucket disagrees with JAX")
 
 
+def face_model_tracker(torch, kwargs, device):
+    """A FaceTracker of a stored run's keyword arguments (the networks named
+    by class)."""
+    import zaru_tpu_torch.face.detection as tdet
+    import zaru_tpu_torch.face.landmark.mediapipe as tmesh
+    from zaru_tpu_torch.pipeline import FaceTracker
+
+    kwargs = dict(kwargs)
+    if "landmarker" in kwargs:
+        kwargs["landmarker"] = getattr(tmesh, kwargs["landmarker"])(device=device)
+    if "detector" in kwargs:
+        kwargs["detector"] = getattr(tdet, kwargs["detector"])(device=device)
+    return FaceTracker(device=device, **kwargs)
+
+
+def phase_face_models_vs_jax(torch, np, device, rgba):
+    """Each run of ``face_models_track.npz`` (see
+    tests/test_torch_face_models.py): FaceMeshV2, FullRangeNetwork and
+    ``fast_sampler=False`` gated, ``run_frames``, ``run_frame`` (with iris
+    too): one step at a time from JAX's state, then free-running flags; and
+    ``scan_video`` against ``run_frame`` on the card, bit for bit."""
+    from zaru_tpu_torch.assets import fixture_path
+
+    with np.load(fixture_path("face_models_track.npz")) as f:
+        ref = {k: f[k] for k in f.files}
+    for run in sorted({k.split("__")[0] for k in ref}):
+        r = lambda k: ref[f"{run}__{k}"]  # noqa: E731
+        kwargs, entry = json.loads(str(r("kwargs"))), str(r("entry"))
+        tracker = face_model_tracker(torch, kwargs, device)
+        single = entry == "run_frame"
+        batch = 1 if single else r("state_roi").shape[1]
+
+        def frames_for(t):
+            frames = rgba.expand(max(batch, 1), *rgba.shape).clone()
+            if r("zero")[t] >= 0:
+                frames[int(r("zero")[t])] = 0
+            return frames[0] if single else frames
+
+        def state_at(t):
+            at = lambda k: torch.from_numpy(np.asarray(r(f"state_{k}")[t])).to(device)  # noqa: E731
+            return {"roi": at("roi"), "tracking": at("tracking"),
+                    "filter": {k: at(k) for k in ("x", "dx", "init")}}
+
+        def step(state, t):
+            frames, force = frames_for(t), bool(r("force")[t])
+            if entry == "gated":
+                return tracker.step_batch(state, frames, force)
+            if entry == "run_frames":
+                return tracker.run_frames(state, frames)
+            return tracker.run_frame(state, frames)
+
+        errs = {}
+        state, outs = tracker.init_state(None if single else batch), []
+        for t in range(len(r("force"))):
+            _, out = step(state_at(t), t)
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            check((out["valid"] == r("out_valid")[t]).all(), f"{run} step {t}: flags differ from JAX")
+            for k, tol in (("landmarks", MODEL_STEP_TOL_PX), ("roi", MODEL_STEP_TOL_PX),
+                           ("confidence", MODEL_SCORE_TOL), ("eyes", MODEL_EYE_TOL_PX)):
+                if k in out:
+                    err = float(np.abs(out[k] - r(f"out_{k}")[t]).max())
+                    check(err <= tol, f"{run} step {t}: {k} differs from JAX by {err} (tolerance {tol})")
+                    errs[k] = max(errs.get(k, 0.0), err)
+            state, out = step(state, t)
+            outs.append(out)
+            check((out["valid"].cpu().numpy() == r("out_valid")[t]).all(),
+                  f"{run} free-running step {t}: flags differ from JAX")
+        scan = ""
+        if single:
+            frames = torch.stack([frames_for(t) for t in range(len(r("force")))])
+            _, scanned = tracker.scan_video(tracker.init_state(), frames)
+            same = all(torch.equal(v, torch.stack([o[k] for o in outs])) for k, v in scanned.items())
+            check(same, f"{run}: scan_video differs from run_frame")
+            scan = "; scan_video equals run_frame bit for bit"
+        print(f"FaceTracker({', '.join(f'{k}={v}' for k, v in kwargs.items())}).{entry} vs JAX reference "
+              f"over {len(r('force'))} steps: one step at a time max errors "
+              f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tolerances {MODEL_STEP_TOL_PX} px, "
+              f"{MODEL_SCORE_TOL}, eyes {MODEL_EYE_TOL_PX} px); free-running flags equal at every step{scan}",
+              flush=True)
+
+
 def phase_multi_vs_jax(torch, np, device, rgba):
     """Each run of ``multi_track.npz`` (see tests/test_torch_multi_object.py):
     detection candidates on the photo, one step at a time from JAX's state,
@@ -466,8 +634,9 @@ def phase_multi_vs_jax(torch, np, device, rgba):
     for run in sorted({k.split("__")[0] for k in ref}):
         r = lambda k: ref[f"{run}__{k}"]  # noqa: E731
         cls, kwargs = str(r("tracker")), json.loads(str(r("kwargs")))
+        entry = str(r("entry")) if f"{run}__entry" in ref else "gated"
         tracker = getattr(tp, cls)(device=device, **kwargs)
-        batch = r("state_active").shape[1]
+        batch = r("zero").shape[1]
 
         def frames_for(zero):
             frames = rgba.expand(batch, *rgba.shape).clone()
@@ -475,7 +644,15 @@ def phase_multi_vs_jax(torch, np, device, rgba):
             return frames
 
         def state_at(t):
-            return {k: torch.from_numpy(r(f"state_{k}")[t]).to(device) for k in ("rois", "active", "frame")}
+            return {k: torch.from_numpy(np.asarray(r(f"state_{k}")[t])).to(device)
+                    for k in ("rois", "active", "frame")}
+
+        def step(state, frames, force):
+            if entry == "run_frame":  # stream 0's frame
+                return tracker.run_frame(state, frames[0])
+            if entry == "run_frames":
+                return tracker.run_frames(state, frames)
+            return tracker.step_batch(state, frames, force)
 
         rois, valid = tracker._detect_batch(frames_for(np.zeros(batch, bool)))
         check((valid.cpu().numpy() == r("cand_valid")).all(), f"{run}: detection flags differ from JAX")
@@ -487,7 +664,7 @@ def phase_multi_vs_jax(torch, np, device, rgba):
         for t, force in enumerate(r("force")):
             frames = frames_for(r("zero")[t])
             start = state_at(t)
-            _, out = tracker.step_batch(start, frames, bool(force))
+            _, out = step(start, frames, bool(force))
             out = {k: v.cpu().numpy() for k, v in out.items()}
             check((out["valid"] == r("out_valid")[t]).all(), f"{run} step {t}: flags differ from JAX")
             seeded = (r("out_valid")[t] & ~r("state_active")[t]).any()
@@ -500,11 +677,12 @@ def phase_multi_vs_jax(torch, np, device, rgba):
                 check(err <= tol, f"{run} step {t}: {k} differs from JAX by {err} (tolerance {tol})")
                 errs[k] = max(errs.get(k, 0.0), err)
             kind = str(r("start")[t])
-            state = tracker.init_state(batch) if kind == "init" else start if kind == "seed" else state
-            state, out = tracker.step_batch(state, frames, bool(force))
+            fresh = tracker.init_state(None if entry == "run_frame" else batch)
+            state = fresh if kind == "init" else start if kind == "seed" else state
+            state, out = step(state, frames, bool(force))
             check((out["valid"].cpu().numpy() == r("out_valid")[t]).all(),
                   f"{run} free-running step {t}: flags differ from JAX")
-        print(f"{cls}({', '.join(f'{k}={v}' for k, v in kwargs.items())}) vs JAX reference over "
+        print(f"{cls}({', '.join(f'{k}={v}' for k, v in kwargs.items())}).{entry} vs JAX reference over "
               f"{len(r('force'))} steps at batch {batch}: candidates within {cand[..., :4].max():.6f} px "
               f"and {cand[..., 4].max():.3g} rad; one step at a time max errors "
               f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tolerances {MULTI_STEP_TOLS} tracking, "
@@ -723,6 +901,64 @@ def profile_steps(torch, step, batch, what, steps=9):
           f"{wall_ms / steps:.3f} ms/step wall, device busy {busy:.3f} ms/step "
           f"({100 * busy * steps / wall_ms:.1f}%), {len(per_step)} kernels; ms/step by group: "
           f"{by_group}; top: {top}", flush=True)
+    return busy * steps / wall_ms
+
+
+def phase_slice_full_size(torch, img, device, card, batch=512):
+    """FaceTracker with Face Mesh V2 and with the full-range detector at
+    batch 512 on the main path's cadence (detection forced every 9th step),
+    and ``run_frame`` on one stream: ms/step, frames/s, launches, and the
+    device's busy share from a 9-step profile. The single-stream step must
+    run the stage kernel and no sampler kernel (its crops are exact)."""
+    from zaru_tpu_torch.face.detection import FullRangeNetwork
+    from zaru_tpu_torch.face.landmark.mediapipe import FaceMeshV2
+    from zaru_tpu_torch.pipeline import FaceTracker
+
+    frames = img.expand(batch, *img.shape).contiguous()
+    result = {}
+    for what, tr, points, crops in (
+        ("FaceTracker(landmarker=FaceMeshV2())",
+         FaceTracker(landmarker=FaceMeshV2(device=device), device=device), 478, [(256, 256), (128, 128)]),
+        ("FaceTracker(detector=FullRangeNetwork())",
+         FaceTracker(detector=FullRangeNetwork(device=device), device=device), 468, [(192, 192)]),
+    ):
+        box = {"state": tr.init_state(batch)}
+
+        def step(i, tr=tr, box=box):
+            box["state"], box["out"] = tr.step_batch(box["state"], frames, force_detect=(i % 9 == 0))
+
+        dt, launches = timed_run(torch, step, what, FACE_KERNELS)
+        out = box["out"]
+        valid, conf = bool(out["valid"].all()), float(out["confidence"].min())
+        check(tuple(out["landmarks"].shape) == (batch, points, 3),
+              f"{what}: landmarks {tuple(out['landmarks'].shape)}")
+        busy = profile_steps(torch, step, batch, what)
+        print(f"{what} at 1920x1080, batch {batch}: {STEPS} steps (detect every 9th) in {dt:.3f} s: "
+              f"{dt / STEPS * 1e3:.3f} ms/step, {batch * STEPS / dt:.1f} frames/s, device busy "
+              f"{100 * busy:.1f}%, all valid {valid}, min confidence {conf:.4f}; launches {launches} [{card}]",
+              flush=True)
+        check(valid and conf > 0.9, f"{what}: lost the face")
+        check_no_layout_copy(torch, step, crops, what)
+        result[what] = (tr, box["state"], launches)
+
+    one = FaceTracker(device=device)
+    box = {"state": one.init_state()}
+
+    def single(i):
+        box["state"], box["out"] = one.run_frame(box["state"], img)
+
+    what = "FaceTracker.run_frame, one stream"
+    dt, launches = timed_run(torch, single, what, ("blaze_stage",))
+    check(launches["rotated_sample"] == 0 and launches["letterbox_sample"] == 0,
+          f"{what}: a sampler kernel ran on the exact path: {launches}")
+    busy = profile_steps(torch, single, 1, what)
+    out = box["out"]
+    print(f"{what} at 1920x1080: {STEPS} frames in {dt:.3f} s: {dt / STEPS * 1e3:.3f} ms/frame, "
+          f"{STEPS / dt:.1f} frames/s, device busy {100 * busy:.1f}%, valid {bool(out['valid'])}, confidence "
+          f"{float(out['confidence']):.4f}; launches {launches} [{card}]", flush=True)
+    check(bool(out["valid"]) and float(out["confidence"]) > 0.9, f"{what}: lost the face")
+    result[what] = (one, box["state"], launches)
+    return frames, result
 
 
 def _letterbox_lin(torch, frames, yi, xi, ok):
@@ -733,7 +969,8 @@ def _letterbox_lin(torch, frames, yi, xi, ok):
     return torch.where(ok, (bidx * H + yi) * W + xi, 0), ok
 
 
-def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=512):
+def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=512,
+                       names=("rotated_sample", "letterbox_sample")):
     """The two samplers at a path's inputs (``lm``/``det``: its landmark and
     detector ``Cnn``; ``rois``: the ROIs of its last step), in the planar
     layout the path samples: ``ms`` is the whole call (``rotated_sample_fast``,
@@ -745,7 +982,8 @@ def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=
     32-byte sectors the plain version's index map reads, × 32 B, plus the
     bytes written, over the memory rate (a second bound, so not in the JSON
     line). ``copy_ms``: the ``permute(0,3,1,2).contiguous()`` of the NHWC
-    output that the path ran before it sampled planar."""
+    output that the path ran before it sampled planar. ``names``: the
+    samplers to time."""
     from zaru_tpu_torch.ops.letterbox import letterbox_sample, letterbox_sample_planar_reference
     from zaru_tpu_torch.ops.rotated_fast import (
         _source_index, rotated_sample_fast, rotated_sample_fast_reference, rotated_sample_launch,
@@ -779,6 +1017,8 @@ def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=
          lambda: _letterbox_lin(torch, frames, *_letterbox_index(frames, fit_rects, dw, dh)),
          "zaru_tpu_torch/csrc/letterbox_sample.cu", "zaru_tpu/ops/pallas_kernels.py:112", 22),
     ):
+        if name not in names:
+            continue
         got, want, nhwc = call(), plain(), launch_nhwc()
         err = float((got - want).abs().max())
         check(torch.equal(launch().reshape(got.shape), got), f"{name}: launch differs from the call")
@@ -805,7 +1045,7 @@ def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "kernel_ms": kernel_ms, "nhwc_ms": nhwc_ms, "call_ms": call_ms,
-            "copy_ms": copy_ms,
+            "copy_ms": copy_ms, "path": what, "shape": list(got.shape),
         })
         print(f"{name}, {what}, batch {frames.shape[0]} ({tuple(got.shape)}, planar): call {ms:.4f} ms "
               f"(kernel {kernel_ms:.4f}, NHWC kernel {nhwc_ms:.4f}, lone call not queued {call_ms:.4f}), "
@@ -848,11 +1088,11 @@ def phase_yuv_times(torch, rgb, launches):
         "replaces": "zaru_tpu/ops/pallas_kernels.py:174", "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms,
-        "library": "torch.matmul(rgb, M.T), f32",
+        "library": "torch.matmul(rgb, M.T), f32", "path": "none (1920x1080 photo)",
     }
 
 
-def phase_stage_times(torch, tracker, frames, state, launches, steps):
+def phase_stage_times(torch, tracker, frames, state, launches, steps, what="main path"):
     """The stage kernel at each BlazeBlock chain of the two face CNNs, on the
     chain's real input at batch 512 (the main path's crops and letterbox
     views) and the real weights: checked against its plain version, then
@@ -909,7 +1149,7 @@ def phase_stage_times(torch, tracker, frames, state, launches, steps):
                 nbytes = 2 * x.numel() * 4 + packed.numel() * 4
                 ops = nb * B * H * W * C * (2 * (9 + C) + 4)
                 t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-                print(f"blaze_stage {model} chain {k}: [{B},{C},{H},{W}] x {nb} blocks "
+                print(f"blaze_stage, {what}, {model} chain {k}: [{B},{C},{H},{W}] x {nb} blocks "
                       f"(tiles {_tiling(C, H, W, nb)[:2]}): {ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
                       f"({'bytes' if t_bytes >= t_ops else 'operations'}), plain {plain_ms:.4f} ms, "
                       f"per-op chain {chain_ms:.4f} ms, max abs err {err} (per-op chain vs plain "
@@ -922,17 +1162,25 @@ def phase_stage_times(torch, tracker, frames, state, launches, steps):
                 tot["err"] = max(tot["err"], err)
             del env
     t_bytes, t_ops = tot["bytes"] / HBM_BYTES_PER_S * 1e3, tot["ops"] / F32_FLOPS * 1e3
-    print(f"blaze_stage, the ten chains at batch {frames.shape[0]}, one launch each: {tot['ms']:.4f} ms, "
+    print(f"blaze_stage, {what}, the ten chains at batch {frames.shape[0]}, one launch each: {tot['ms']:.4f} ms, "
           f"bound {max(t_bytes, t_ops):.4f} ms, plain {tot['plain_ms']:.4f} ms, per-op chain "
           f"{tot['library_ms']:.4f} ms; {launches / steps:.3f} launches/step", flush=True)
     return {
         "name": "blaze_stage", "route": "cuda", "source": "zaru_tpu_torch/csrc/blaze_stage.cu",
-        "replaces": "zaru_tpu/ops/cnn_stage.py:148", "launches": launches,
+        "replaces": "zaru_tpu/ops/cnn_stage.py:148", "launches": launches, "path": what,
         "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": tot["library_ms"],
         "library": "per-op chain: F.conv2d depthwise, F.conv2d 1x1, add, torch.where PReLU or relu",
     }
+
+
+def timed_phase(what, fn, *args):
+    """``fn(*args)``, then its wall time on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {what} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -962,15 +1210,22 @@ def main() -> int:
     print(f"build: {len(_build.SOURCES)} kernels in {_build.build_all():.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})", flush=True)
 
-    phase_kernels_vs_plain(torch, device)
+    timed = timed_phase
+    timed("3, kernels vs plain", phase_kernels_vs_plain, torch, device)
     rgba, img = load_photo(torch, F, np, device)
-    rgb = phase_yuv_vs_plain(torch, img, device)
-    phase_vs_jax(torch, np, device, rgba)
-    phase_multi_vs_jax(torch, np, device, rgba)
-    tracker, runs = phase_full_size(torch, img, device, smi)
-    hands, hand_frames, seed, multi = phase_multi_full_size(torch, img, device, smi)
+    timed("3, this slice's shapes vs plain", phase_slice_shapes_vs_plain, torch, np, device, rgba)
+    rgb = timed("3, RGB to YUV vs plain", phase_yuv_vs_plain, torch, img, device)
+    timed("4, FaceTracker vs JAX", phase_vs_jax, torch, np, device, rgba)
+    timed("4, face models and entry points vs JAX", phase_face_models_vs_jax, torch, np, device, rgba)
+    timed("4, multi-object vs JAX", phase_multi_vs_jax, torch, np, device, rgba)
+    tracker, runs = timed("5, face runs", phase_full_size, torch, img, device, smi)
+    hands, hand_frames, seed, multi = timed("5, multi-object runs", phase_multi_full_size, torch, img, device, smi)
+    model_frames, models = timed("5, face models and run_frame", phase_slice_full_size, torch, img, device, smi)
     print(f"launches in the batch-512 face runs ({STEPS} steps each): {runs['launches']}", flush=True)
     print(f"launches in the batch-128 multi-object runs ({STEPS} steps each): {multi}", flush=True)
+    print(f"launches in the face-model and single-stream runs ({STEPS} steps each): "
+          f"{ {k: v[2] for k, v in models.items()} }", flush=True)
+    t0 = time.perf_counter()
     launches = runs["launches"]["main path"]
     frames, state, _ = runs["main path"]
     kernels = phase_kernel_times(torch, frames, tracker.lm_cnn, tracker.det_cnn, state["roi"], launches,
@@ -979,6 +1234,16 @@ def main() -> int:
     kernels.append(phase_yuv_times(torch, rgb, launches["rgb_to_yuv"]))
     phase_kernel_times(torch, hand_frames, hands.lm_cnn, hands.det_cnn, seed, multi["hand tracking"],
                        "hand tracking run", prescale_m=256)
+    v2, v2_state, v2_launches = models["FaceTracker(landmarker=FaceMeshV2())"]
+    kernels += phase_kernel_times(torch, model_frames, v2.lm_cnn, v2.det_cnn, v2_state["roi"], v2_launches,
+                                  "FaceMeshV2 run", names=("rotated_sample",))
+    full, full_state, full_launches = models["FaceTracker(detector=FullRangeNetwork())"]
+    kernels += phase_kernel_times(torch, model_frames, full.lm_cnn, full.det_cnn, full_state["roi"],
+                                  full_launches, "FullRange run", names=("letterbox_sample",))
+    one, one_state, one_launches = models["FaceTracker.run_frame, one stream"]
+    kernels.append(phase_stage_times(torch, one, img[None], {"roi": one_state["roi"][None]},
+                                     one_launches["blaze_stage"], STEPS, "run_frame, one stream"))
+    print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,8 @@ def test_imports_neither_jax_nor_zaru_tpu():
         "import zaru_tpu_torch.ops.cnn_stage, zaru_tpu_torch.face.eye, zaru_tpu_torch.ops.yuv\n"
         "import zaru_tpu_torch.hand.detection, zaru_tpu_torch.hand.landmark\n"
         "import zaru_tpu_torch.pipeline.multi_face, zaru_tpu_torch.pipeline.hand_cascade\n"
+        "import zaru_tpu_torch.face.detection, zaru_tpu_torch.face.landmark.mediapipe\n"
+        "import zaru_tpu_torch.ops.sampling, zaru_tpu_torch.nn\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'zaru_tpu' or m.startswith('zaru_tpu.')]\n"
         "assert not bad, bad\n"
@@ -70,9 +72,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     """No device given and no GPU: every entry point raises instead of
     running on the CPU."""
     from zaru_tpu_torch import FaceTracker, resolve_device
-    from zaru_tpu_torch.face.detection import ShortRangeNetwork
+    from zaru_tpu_torch.face.detection import FullRangeNetwork, ShortRangeNetwork
     from zaru_tpu_torch.face.eye import EyeNetwork
-    from zaru_tpu_torch.face.landmark.mediapipe import FaceMeshV1
+    from zaru_tpu_torch.face.landmark.mediapipe import FaceMeshV1, FaceMeshV2
     from zaru_tpu_torch.hand.detection import LiteNetwork as PalmLite
     from zaru_tpu_torch.hand.landmark import LiteNetwork as HandLite
     from zaru_tpu_torch.nn import Cnn, ColorMapper
@@ -82,11 +84,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for make in (
         FaceTracker,
         lambda: FaceTracker(iris=True, redetect_bucket=4),
+        lambda: FaceTracker(fast_sampler=False),
         ShortRangeNetwork,
+        FullRangeNetwork,
         EyeNetwork,
         FaceMeshV1,
+        FaceMeshV2,
         MultiFaceTracker,
         lambda: MultiHandTracker(redetect_bucket=2),
+        lambda: MultiHandTracker(fast_sampler=False),
         PalmLite,
         HandLite,
         lambda: Cnn.load("face_landmark.onnx", ColorMapper.linear(-1.0, 1.0)),

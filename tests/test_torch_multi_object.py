@@ -4,7 +4,8 @@
 Every run is batch 2 on the fixture photo (1280×720, one face, no hand),
 with the same weights in both packages (the port's trackers load the ONNX
 files JAX loads; ``test_fixture_is_current`` holds them equal), through the
-gated batch step (JAX ``_step_batch_gated``, the port's ``step_batch``).
+gated batch step (JAX ``_step_batch_gated``, the port's ``step_batch``) or,
+for the runs ENTRY names, ``run_frame`` or ``run_frames``.
 A plan step is ``(start, force_detect, zeroed streams)``: it starts from
 the previous step's state (``carry``), from ``init_state`` (``init``) or
 from the seeded state ``seed_state`` (``seed``: slots active at fixed rects
@@ -24,7 +25,16 @@ of several sizes and angles, frame 1, so no detection is due).
   the photo (scores 0.215-0.382 pass; the next is 0.181, so no score lies
   near 0.2), assigns and tracks them, redetects (forced, deduplicated),
   tracks a zeroed stream and takes the seeded step, whose two overlapping
-  slots make the newer one culled. This run holds the values.
+  slots make the newer one culled. This run holds the values;
+- ``hand_exact``: ``hand_open`` with ``fast_sampler=False``: the gated
+  step's slot crops (224², any angle, the seeded views of up to 620 px)
+  through the exact sampler;
+- ``face_single``: ``MultiFaceTracker(max_faces=3).run_frame`` (JAX's
+  single-stream ``step``, every crop exact) over one stream: detect, track,
+  a zeroed frame (lost), redetect;
+- ``face_ungated``: ``run_frames`` (JAX's ``vmap(step)``) over the face
+  plan without the forced step: stream 1 is lost and redetected on its own
+  while stream 0 keeps tracking (no interval is due).
 
 Empty slots carry the zero ROI: their view is empty and their outputs are
 masked to zero. No NaN reaches an output in either package (checked).
@@ -89,6 +99,13 @@ FACE_BUCKET_PLAN = [("init", False, ()), ("carry", False, (0, 1)), ("carry", Fal
 HAND_PLAN = [("seed", False, ()), ("init", False, ()), ("init", False, (0, 1))]
 HAND_OPEN_PLAN = [("init", False, ()), ("carry", False, ()), ("carry", True, ()),
                   ("carry", False, (1,)), ("seed", False, ())]
+# Single-stream steps use stream 0's frame.
+FACE_SINGLE_PLAN = [("init", False, ()), ("carry", False, ()), ("carry", False, (0,)),
+                    ("carry", False, ())]
+FACE_UNGATED_PLAN = [("init", False, ()), ("carry", False, ()), ("carry", False, (1,)),
+                     ("carry", False, ())]
+# The entry point of a run that does not take the gated batch step.
+ENTRY = {"face_single": "run_frame", "face_ungated": "run_frames"}
 RUNS = {  # name: (tracker class, keyword arguments, plan)
     "face": ("MultiFaceTracker", {"max_faces": S}, FACE_PLAN),
     "face_bucket": ("MultiFaceTracker", {"max_faces": S, "redetect_bucket": 1}, FACE_BUCKET_PLAN),
@@ -96,14 +113,23 @@ RUNS = {  # name: (tracker class, keyword arguments, plan)
     "hand_open": ("MultiHandTracker",
                   {"max_hands": S, "detection_threshold": 0.2, "presence_threshold": 0.0},
                   HAND_OPEN_PLAN),
+    "hand_exact": ("MultiHandTracker",
+                   {"max_hands": S, "detection_threshold": 0.2, "presence_threshold": 0.0,
+                    "fast_sampler": False},
+                   HAND_OPEN_PLAN),
+    "face_single": ("MultiFaceTracker", {"max_faces": S}, FACE_SINGLE_PLAN),
+    "face_ungated": ("MultiFaceTracker", {"max_faces": S}, FACE_UNGATED_PLAN),
 }
 
 # One-step tolerances (landmarks and ROIs in px; confidence, presence and
 # handedness), measured over every run: a step that tracks carried slots,
-# 5.5e-4 px and 1.8e-6 on the CPU (an H100 holds it too, chip_smoke.py); a
+# 7.2e-4 px and 1.9e-6 on the CPU (an H100 holds it too, chip_smoke.py); a
 # step that seeds a slot from a new detection, 0.0334 px and 1.34e-5
-# (handedness) on the CPU, up to 0.0507 px and 7.65e-5 on an H100, where
-# other crop pixels move.
+# (handedness) on the CPU with the fast sampler, up to 0.0507 px and
+# 7.65e-5 on an H100, where other crop pixels move; with the exact sampler
+# (hand_exact, full-resolution crops, so more pixels on a rounding
+# boundary) 0.142 px and 3.49e-4 on the CPU, 0.176 px and 2.96e-4 on an
+# H100.
 STEP_TOL_PX, STEP_SCORE_TOL = 1e-2, 1e-5
 SEED_TOL_PX, SEED_SCORE_TOL = 0.25, 1e-3
 # Detection candidates on the photo: 1.2e-4 px and 4.3e-6 rad (CPU),
@@ -140,17 +166,22 @@ def jax_run(rgb, name):
 
     cls, kwargs, plan = RUNS[name]
     tracker = getattr(jp, cls)(**kwargs)
+    entry = ENTRY.get(name, "gated")
     states, outs = [], []
     state = None
     for start, force, zeroed in plan:
         if start == "init":
-            state = tracker.init_state(batch=BATCH)
+            state = tracker.init_state(batch=None if entry == "run_frame" else BATCH)
         elif start == "seed":
             state = {k: jnp.asarray(v) for k, v in seed_state().items()}
         states.append({k: np.asarray(v) for k, v in state.items()})
-        state, out = tracker._step_batch_gated(
-            tracker.params, state, jnp.asarray(frames_for(rgb, zeroed)), force
-        )
+        frames = jnp.asarray(frames_for(rgb, zeroed))
+        if entry == "run_frame":
+            state, out = tracker.run_frame(state, frames[0])
+        elif entry == "run_frames":
+            state, out = tracker.run_frames(state, frames)
+        else:
+            state, out = tracker._step_batch_gated(tracker.params, state, frames, force)
         outs.append({k: np.asarray(v) for k, v in out.items()})
     cand = jax.jit(tracker._detect_batch)(tracker.params, jnp.asarray(frames_for(rgb, ())))
     outs.append({"cand_rois": np.asarray(cand[0]), "cand_valid": np.asarray(cand[1])})
@@ -163,6 +194,7 @@ def flat(name, states, outs):
     arrays = {
         "tracker": np.asarray(cls),
         "kwargs": np.asarray(json.dumps(kwargs)),
+        **({"entry": np.asarray(ENTRY[name])} if name in ENTRY else {}),
         "start": np.asarray([s for s, _, _ in plan]),
         "force": np.asarray([f for _, f, _ in plan]),
         "zero": np.asarray([[b in z for b in range(BATCH)] for _, _, z in plan]),
@@ -175,10 +207,15 @@ def flat(name, states, outs):
     return {f"{name}__{k}": v for k, v in arrays.items()}
 
 
-def regen():
+def regen(names=tuple(RUNS)):
+    """Writes the runs ``names`` into the fixture, keeping the others'
+    stored arrays."""
     rgb = photo()
     arrays = {}
-    for name in RUNS:
+    if os.path.exists(FIXTURE):
+        with np.load(FIXTURE) as f:
+            arrays = {k: f[k] for k in f.files if k.split("__")[0] not in names}
+    for name in names:
         _, states, outs = jax_run(rgb, name)
         arrays.update(flat(name, states, outs))
     np.savez_compressed(FIXTURE, **arrays)
@@ -187,6 +224,18 @@ def regen():
 
 def _torch_state(state):
     return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
+
+
+def port_step(port, name, state, frames, force):
+    """One step of run ``name``'s entry point on ``frames [BATCH,...]``
+    (a single-stream run takes stream 0's frame)."""
+    frames = torch.from_numpy(frames)
+    entry = ENTRY.get(name, "gated")
+    if entry == "run_frame":
+        return port.run_frame(state, frames[0])
+    if entry == "run_frames":
+        return port.run_frames(state, frames)
+    return port.step_batch(state, frames, force)
 
 
 def step_tols(state_active, out_valid):
@@ -298,7 +347,7 @@ def test_one_step_matches_jax(rgb, live):
     and next state."""
     name, port, states, outs = live
     for t, (_start, force, zeroed) in enumerate(RUNS[name][2]):
-        state, out = port.step_batch(_torch_state(states[t]), torch.from_numpy(frames_for(rgb, zeroed)), force)
+        state, out = port_step(port, name, _torch_state(states[t]), frames_for(rgb, zeroed), force)
         got = {k: v.numpy() for k, v in out.items()}
         assert_step_close(got, outs[t], step_tols(states[t]["active"], outs[t]["valid"]))
         np.testing.assert_array_equal(state["frame"].numpy(), states[t]["frame"] + 1)
@@ -322,10 +371,10 @@ def test_free_running_flags_match_jax(rgb, live):
     state = None
     for t, (start, force, zeroed) in enumerate(RUNS[name][2]):
         if start == "init":
-            state = port.init_state(BATCH)
+            state = port.init_state(None if ENTRY.get(name) == "run_frame" else BATCH)
         elif start == "seed":
             state = _torch_state(seed_state())
-        state, out = port.step_batch(state, torch.from_numpy(frames_for(rgb, zeroed)), force)
+        state, out = port_step(port, name, state, frames_for(rgb, zeroed), force)
         np.testing.assert_array_equal(out["valid"].numpy(), outs[t]["valid"], err_msg=f"{name} step {t}")
 
 
@@ -402,6 +451,8 @@ def test_assign_matches_jax(jax_hands):
 
 
 if __name__ == "__main__":
+    # python tests/test_torch_multi_object.py [run ...]: every run, or those
+    # named.
     os.environ["JAX_PLATFORMS"] = "cpu"
     jax.config.update("jax_platforms", "cpu")
-    regen()
+    regen(tuple(sys.argv[1:]) or tuple(RUNS))

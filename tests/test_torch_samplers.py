@@ -14,6 +14,9 @@ CPU.
   so JAX compiles its sampler once for both (about 25 s on the CPU).
 - The same at the hand tracker's geometry: 224×224 views on the 256-pixel
   grid at any angle, strides 1-3.
+- The same at Face Mesh V2's crop, 256×256 on the 512-pixel grid (views of
+  up to 836 px, strides 1-3), and the letterbox at the full-range
+  detector's 192×192.
 - Exact rotated view: ``zaru_tpu_torch.ops.sampling.view_to_tensor_core``
   against compiled ``view_to_tensor_core``.
 - The rotated sampler's per-view coefficients (``sampler_coefs``, which the
@@ -39,14 +42,21 @@ Two things XLA:CPU does when it compiles the JAX samplers, found here:
   exactly rounded emulation, ``num.fma``, in the plain version), so every
   view here is bit-exact. Before that, 110 pixels in column 56 of the
   420×360 view at -0.8 rad (56/192·420 = 122.5 exactly) and 1 pixel of the
-  320 px view at -0.55 rad read the neighbouring prescale cell.
+  320 px view at -0.55 rad read the neighbouring prescale cell. It
+  contracts ``sth*px + cth*py`` as well, into ``fma(sth, px, cth*py)``:
+  without that, one pixel each of two 256² views (760 px at 1.0 rad,
+  836 px at 0.7 rad) read the neighbouring prescale row;
+- the exact sampler and the letterbox compute ``j / n`` as
+  ``j * f32(1/n)`` too, and the exact sampler contracts both rotated
+  coordinates the same way. The port follows both: before that, 166
+  pixels of a 420 px hand view at 3.1 rad (column and row 124: 124/224·420
+  = 232.5 exactly) and one pixel of a 276 px face view read a neighbour.
 
 What remains: ``cos`` and ``sin`` of the view angle can differ by an ulp
 between the libraries (tests/test_torch_core.py), and at angles and sizes
 other than these views that can still move a pixel whose index lies on a
-rounding boundary to the neighbouring prescale cell. Whether XLA also
-contracts the ``fy`` line or the prescale map is not settled by these
-views.
+rounding boundary to the neighbouring prescale cell. Whether XLA contracts
+the prescale map is not settled by these views.
 """
 
 from functools import partial
@@ -145,6 +155,31 @@ def test_rotated_sampler_matches_jax(views):
             stride = int(np.ceil(bbox / 512))
             assert np.abs(gx - wx).max() <= stride and np.abs(gy - wy).max() <= stride
     # Black (lo) where the view leaves the frame: the corner view has some.
+    assert (got == -1.0).all(-1).any()
+
+
+# Face Mesh V2 crops, 256×256 on the 512-pixel grid: views of the sizes a
+# FaceTracker(landmarker=FaceMeshV2()) takes at 1080p (600-830 px, so
+# strides 2 and 3 at its angles), smaller ones at stride 1, and the frame
+# corner; [5,2,5] like the 192² batches.
+VIEWS_V2 = [
+    (960, 540, 620, 620, 0.0), (900, 500, 700, 700, 0.3), (1100, 560, 830, 830, -0.45),
+    (700, 450, 760, 760, 1.0), (960, 540, 300, 300, 0.25), (500, 400, 256, 256, 0.0),
+    (60, 60, 300, 300, 1.2), (1500, 700, 420, 360, -0.8), (1300, 600, 650, 650, 2.9),
+    (960, 540, 836, 836, 0.7),
+]
+
+
+def test_rotated_sampler_mesh_v2_grid_matches_jax():
+    """The Face Mesh V2 crops: 256×256 views on the 512-pixel grid, colour
+    range [-1, 1], bit for bit, strides 1-3, across the frame corner."""
+    rects = np.asarray(VIEWS_V2, np.float32).reshape(5, 2, 5)
+    frames = _frames(5)
+    want = np.asarray(jax.jit(partial(jax_rotated, out_w=256, out_h=256, lo=-1.0, hi=1.0))(
+        jnp.asarray(frames), jnp.asarray(rects)))
+    got = rotated_sample_fast(torch.from_numpy(frames), torch.from_numpy(rects), 256, 256, -1.0, 1.0).numpy()
+    assert got.shape == (5, 2, 256, 256, 3)
+    np.testing.assert_array_equal(got, want)
     assert (got == -1.0).all(-1).any()
 
 
@@ -328,6 +363,40 @@ def test_view_to_tensor_bit_exact(layout):
     assert (got == -1.0).any()  # the corner view reads outside the frame
 
 
+def test_view_to_tensor_slots_bit_exact():
+    """The exact sampler on ``[B,S,5]`` slots at the hand crop's 224×224:
+    64 random views (10-900 px, any angle, partly outside the frame) and a
+    420 px view at 3.1 rad whose column and row 124 lie on a rounding
+    boundary of ``j / 224``, against compiled ``view_to_tensor_core`` bit for
+    bit wherever torch's and XLA's ``cos`` and ``sin`` of the angle agree
+    (most views); mirrored slots are the JAX crops flipped left to right."""
+    rng = np.random.default_rng(11)
+    n = 64
+    rects = np.stack([rng.uniform(-100, 2000, n), rng.uniform(-100, 1200, n), rng.uniform(10, 900, n),
+                      rng.uniform(10, 900, n), rng.uniform(-3.2, 3.2, n)], -1).astype(np.float32)
+    rects[0] = (420, 300, 420, 420, 3.1)
+    rects = rects.reshape(4, 16, 5)
+    frames = _frames(4)
+    jit_core = jax.jit(jax.vmap(jax.vmap(
+        lambda f, r: view_to_tensor_core(f, r, 224, 224, 0.0, 1.0, "NHWC")[0], in_axes=(None, 0))))
+    want = np.array(jit_core(jnp.asarray(frames), jnp.asarray(rects)))
+    mirror = (False, True) * 8
+    got = view_to_tensor_reference(
+        torch.from_numpy(frames), torch.from_numpy(rects), 224, 224, 0.0, 1.0, "NHWC", mirror
+    ).numpy()
+    want[:, 1::2] = want[:, 1::2, :, ::-1]
+    th = rects[..., 4]
+    trig = ((torch.cos(torch.from_numpy(th)).numpy() == np.asarray(jnp.cos(th)))
+            & (torch.sin(torch.from_numpy(th)).numpy() == np.asarray(jnp.sin(th))))
+    assert trig[0, 0] and trig.sum() >= 48, trig.sum()
+    np.testing.assert_array_equal(got[trig], want[trig])
+    planar = view_to_tensor_reference(
+        torch.from_numpy(frames), torch.from_numpy(rects), 224, 224, 0.0, 1.0, "NCHW", mirror)
+    assert planar.shape == (4, 16, 3, 224, 224) and planar.is_contiguous()
+    assert torch.equal(planar, torch.from_numpy(got).movedim(-1, -3))
+    assert (got == 0.0).all(-1).any()
+
+
 def _fit(H, W):
     fit, rrect = jops.full_frame_fit(jnp.zeros((H, W, 4), jnp.uint8), Resolution(128, 128))
     return np.asarray(rrect)
@@ -366,6 +435,27 @@ def test_letterbox_bit_exact(hw):
         np.testing.assert_array_equal(got[b], np.asarray(pallas)[0].transpose(1, 2, 0))
 
 
+def test_letterbox_full_range_bit_exact():
+    """The full-range detector's letterbox: 192×192, colour range [-1, 1],
+    against compiled ``letterbox_sample_core`` and the Pallas kernel in
+    interpret mode: the full-frame fits of 1080p and 720p frames, and rects
+    whose widths put a column on a rounding boundary of ``j / 192`` (420 px:
+    j = 56 and 152; 1000 px, which XLA computes as ``j * f32(1/192)``)."""
+    rng = np.random.default_rng(192)
+    frames = rng.integers(0, 256, (4, 720, 1280, 4), dtype=np.uint8)
+    rects = np.stack([
+        _fit(1080, 1920), _fit(720, 1280),
+        [640.0, 360.0, 420.0, 420.0, 0.0], [500.0, 300.0, 1000.0, 708.0, 0.0],
+    ]).astype(np.float32)
+    jit_core = jax.jit(jax.vmap(lambda f, r: letterbox_sample_core(f, r, 192, 192, -1.0, 1.0)))
+    want = np.asarray(jit_core(jnp.asarray(frames), jnp.asarray(rects)))
+    got = letterbox_sample_reference(torch.from_numpy(frames), torch.from_numpy(rects), 192, 192, -1.0, 1.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == -1.0).all(-1).any() and (want != -1.0).any()
+    pallas = letterbox_sample_pallas(jnp.asarray(frames[1]), rects[1, :4], 192, 192, -1.0, 1.0, interpret=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(pallas)[0].transpose(1, 2, 0))
+
+
 def test_cnn_takes_planar_views_as_it_took_nhwc():
     """``Cnn.apply_views_fast`` and ``apply_views_letterbox`` (the planar
     sampling the pipelines use) give the network outputs of the NHWC crops
@@ -391,4 +481,35 @@ def test_cnn_takes_planar_views_as_it_took_nhwc():
     want += det.apply_tensor_hwc(det.sample_views_letterbox(frames, fit))
     assert len(got) == len(want) == 6
     for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_cnn_apply_on_view_is_the_exact_sampler_then_the_network():
+    """``Cnn.sample_view_hwc`` is JAX's (Face Mesh V2's 256² crops, bit for
+    bit), and ``Cnn.apply_on_view`` (the exact sampler straight into the
+    planar layout) gives the network outputs of those NHWC crops through
+    ``apply_tensor_hwc`` bit for bit: Face Mesh V2 on ``[B,S]`` slots, the
+    eye network with its second slots mirrored."""
+    from zaru_tpu.face.landmark.mediapipe import FaceMeshV2 as JMesh
+    from zaru_tpu_torch.face.eye import EyeNetwork
+    from zaru_tpu_torch.face.landmark.mediapipe import FaceMeshV2
+
+    frames = np.random.default_rng(8).integers(0, 256, (2, 288, 384, 4), dtype=np.uint8)
+    rects = np.asarray([[[190.0, 140.0, 150.0, 150.0, 0.3], [100.0, 80.0, 60.0, 60.0, -2.0]],
+                        [[300.0, 200.0, 250.0, 250.0, 1.4], [20.0, 30.0, 90.0, 90.0, 0.0]]], np.float32)
+    jcnn = JMesh().cnn()
+    want = np.asarray(jax.jit(jax.vmap(jax.vmap(jcnn.sample_view_hwc, in_axes=(None, 0))))(
+        jnp.asarray(frames), jnp.asarray(rects)))
+    mesh = FaceMeshV2(device="cpu").cnn()
+    tf, tr = torch.from_numpy(frames), torch.from_numpy(rects)
+    xs = mesh.sample_view_hwc(tf, tr)
+    assert xs.shape == (2, 2, 256, 256, 3)
+    np.testing.assert_array_equal(xs.numpy(), want)
+    got, ref = mesh.apply_on_view(tf, tr), mesh.apply_tensor_hwc(xs.reshape(4, 256, 256, 3))
+    eye = EyeNetwork(device="cpu").cnn()
+    got += eye.apply_on_view(tf, tr, mirror=(False, True))
+    es = eye.sample_view_hwc(tf, tr)
+    ref += eye.apply_tensor_hwc(torch.stack([es[:, 0], es[:, 1].flip(-2)], 1).reshape(4, 64, 64, 3))
+    assert len(got) == len(ref) == 5
+    for g, w in zip(got, ref):
         assert torch.equal(g, w)

@@ -7,10 +7,16 @@ its counterpart there. Entry points run on ``cuda`` unless the caller
 passes another ``device`` (the tests pass ``device="cpu"``); without a GPU
 they raise rather than fall back to the CPU.
 
-Ported so far: the batch-gated ``FaceTracker`` (with iris and bounded
-redetection), ``MultiFaceTracker`` and ``MultiHandTracker``, with
+Ported so far: ``FaceTracker`` with every entry point of the JAX one
+(the batch-gated ``step_batch``/``run_frames_gated``, the ungated
+``run_frames``, the single-stream ``step``/``run_frame`` and
+``scan_video``), iris, bounded redetection, the exact sampler
+(``fast_sampler=False``) and both face detectors and landmarkers
+(``face.detection.ShortRangeNetwork``/``FullRangeNetwork``,
+``face.landmark.mediapipe.FaceMeshV1``/``FaceMeshV2``);
+``MultiFaceTracker`` and ``MultiHandTracker`` with the same entry points;
 hand-written CUDA kernels for every TPU kernel of the JAX package
-(``zaru_tpu_torch/csrc``).
+(``zaru_tpu_torch/csrc``). Not ported: ``compute_dtype``.
 """
 
 from ._device import resolve_device

@@ -38,8 +38,10 @@ __device__ __forceinline__ float round_half_away(float x) {
 
 // Source index along one axis for output index i of n (sampling.py:135-146):
 // v = rha(i/n * size); f = ((v + 0.5) - c) + c + (center - c); rha(f - 0.5).
+// i/n is i * f32(1/n), as XLA compiles it (one ulp off the quotient for some
+// i when n is not a power of two).
 __device__ __forceinline__ float source_index(int i, int n, float size, float center) {
-  const float v = round_half_away(__fmul_rn(__fdiv_rn((float)i, (float)n), size));
+  const float v = round_half_away(__fmul_rn(__fmul_rn((float)i, __frcp_rn((float)n)), size));
   const float c = __fmul_rn(size, 0.5f);
   const float f = __fadd_rn(
       __fadd_rn(__fsub_rn(__fadd_rn(v, 0.5f), c), c), __fsub_rn(center, c));

@@ -33,9 +33,12 @@
 // Every multiply, add and divide of the coefficients and the index map is
 // an explicitly rounded intrinsic, and the file is built with --fmad=false:
 // the JAX index map is tuned to an exact f32 op order, and a contracted FMA
-// moves pixels. Two steps follow what XLA compiles rather than the JAX
+// moves pixels. Three steps follow what XLA compiles rather than the JAX
 // source: `j / out_w` is `j * f32(1/out_w)` (the reciprocal comes from the
-// host), and `cth*px - sth*py` is one FMA, `fma(cth, px, -(sth*py))`.
+// host), `cth*px - sth*py` is one FMA, `fma(cth, px, -(sth*py))`, and
+// `sth*px + cth*py` is one too, `fma(sth, px, cth*py)` (two views of the
+// 256x256 crops on the 512-pixel grid read the neighbouring prescale row
+// without it).
 //
 // Bound: bytes. Each output pixel does one 4-byte read and writes 12 bytes;
 // at batch 512 of 192x192 views that is about 302 MB, about 0.09 ms at
@@ -136,8 +139,7 @@ __global__ void __launch_bounds__(kThreads) rotated_sample_kernel(
       const float xv = floorf(__fadd_rn(__fmul_rn(__fmul_rn((float)j, inv_w), v.w), 0.5f));
       const float px = __fsub_rn(__fadd_rn(xv, 0.5f), v.whalf);
       const float fx = __fadd_rn(__fadd_rn(__fmaf_rn(v.cth, px, -sth_py), v.whalf), v.tlx);
-      const float fy = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(v.sth, px), cth_py), v.hhalf), v.tly);
+      const float fy = __fadd_rn(__fadd_rn(__fmaf_rn(v.sth, px, cth_py), v.hhalf), v.tly);
       const float jq = floorf(__fadd_rn(__fadd_rn(__fmul_rn(fx, v.inv_sx), v.qx0), 0.5f));
       const float kq = floorf(__fadd_rn(__fadd_rn(__fmul_rn(fy, v.inv_sy), v.qy0), 0.5f));
       idx[i] = -1;

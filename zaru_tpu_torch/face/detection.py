@@ -1,5 +1,7 @@
-"""BlazeFace short-range face detection (zaru_tpu/face/detection.py:113
-``ShortRangeNetwork``, decode :96)."""
+"""BlazeFace face detection (zaru_tpu/face/detection.py:61 ``_BlazeFace``,
+decode :96): the short-range network (:113 ``ShortRangeNetwork``, 128×128,
+896 anchors) and the full-range one (:121 ``FullRangeNetwork``, 192×192,
+2304 anchors)."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from ..detection import Anchors, LayerInfo, decode_ssd_device
 from ..geometry import signed_angle_to_x
 from ..nn import Cnn, ColorMapper
 
-__all__ = ["Keypoint", "ShortRangeNetwork"]
+__all__ = ["FullRangeNetwork", "Keypoint", "ShortRangeNetwork"]
 
 
 class Keypoint(enum.IntEnum):
@@ -26,12 +28,12 @@ class Keypoint(enum.IntEnum):
     RIGHT_EAR = 5
 
 
-class ShortRangeNetwork:
-    """BlazeFace for faces within ~3 m of the camera: 128×128 input, 896
-    anchors."""
+class _BlazeFace:
+    """A BlazeFace network: ``FILE`` (the ONNX blob) and ``LAYERS`` (its
+    anchor layers); colour range [-1, 1], six keypoints."""
 
-    FILE = "face_detection_short_range.onnx"
-    LAYERS = [LayerInfo(2, 16, 16), LayerInfo(6, 8, 8)]
+    FILE: str
+    LAYERS: list[LayerInfo]
     NUM_KEYPOINTS = 6
 
     def __init__(self, device=None):
@@ -43,9 +45,9 @@ class ShortRangeNetwork:
         return self._cnn
 
     def decode_device(self, outputs, thresh: float = 0.5):
-        """``(regressors [B,896,16], classificators [B,896,1])`` →
-        ``(boxes [B,896,4], conf [B,896], keypoints [B,896,6,2], angles
-        [B,896])`` in network-input pixels."""
+        """``(regressors [B,N,16], classificators [B,N,1])`` for ``N``
+        anchors → ``(boxes [B,N,4], conf [B,N], keypoints [B,N,6,2], angles
+        [B,N])`` in network-input pixels."""
         res = self._cnn.input_resolution()
         boxes, conf, kps = decode_ssd_device(
             res.width, res.height, self.anchors, outputs[0], outputs[1], thresh,
@@ -53,3 +55,19 @@ class ShortRangeNetwork:
         )
         ltr = kps[..., Keypoint.RIGHT_EYE, :] - kps[..., Keypoint.LEFT_EYE, :]
         return boxes, conf, kps, signed_angle_to_x(ltr)
+
+
+class ShortRangeNetwork(_BlazeFace):
+    """BlazeFace for faces within ~3 m of the camera: 128×128 input, 896
+    anchors."""
+
+    FILE = "face_detection_short_range.onnx"
+    LAYERS = [LayerInfo(2, 16, 16), LayerInfo(6, 8, 8)]
+
+
+class FullRangeNetwork(_BlazeFace):
+    """BlazeFace with the longer detection range: 192×192 input, 2304
+    anchors."""
+
+    FILE = "face_detection_full_range.onnx"
+    LAYERS = [LayerInfo(1, 48, 48)]

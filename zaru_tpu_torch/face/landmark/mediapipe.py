@@ -1,5 +1,7 @@
-"""MediaPipe Face Mesh V1 (zaru_tpu/face/landmark/mediapipe.py:166
-``FaceMeshV1``, decode :185)."""
+"""MediaPipe Face Mesh (zaru_tpu/face/landmark/mediapipe.py): V1 (:166
+``FaceMeshV1``, decode :185), 192×192 → 468 points, and V2 (:194
+``FaceMeshV2``, decode :214), 256×256 → 478 points (the mesh and 2×5 iris
+points) and a tongue-out score. Both take the colour range [-1, 1]."""
 
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ import torch
 from ..._device import resolve_device
 from ...nn import Cnn, ColorMapper
 
-__all__ = ["FaceMeshV1", "LandmarkIdx"]
+__all__ = ["FaceMeshV1", "FaceMeshV2", "LandmarkIdx"]
 
 
 class LandmarkIdx(enum.IntEnum):
@@ -50,3 +52,18 @@ class FaceMeshV1:
         in network-input pixels, confidence [B])``."""
         b = outputs[0].shape[0]
         return outputs[0].reshape(b, -1, 3), torch.sigmoid(outputs[1].reshape(b))
+
+
+class FaceMeshV2(FaceMeshV1):
+    """Face Mesh V2: 256×256 upright face crop → 478×3 landmarks, face flag
+    and tongue-out score."""
+
+    FILE = "face_landmarks_detector.onnx"
+    NUM_LANDMARKS = 478
+
+    def decode_device(self, outputs):
+        """``(coords [B,1,1,1434], flag [B,1,1,1], tongue [B,1])`` →
+        ``(positions [B,478,3], confidence [B], tongue [B])``; the model
+        applies the tongue score's sigmoid itself."""
+        b = outputs[0].shape[0]
+        return (*super().decode_device(outputs), outputs[2].reshape(b))

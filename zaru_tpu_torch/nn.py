@@ -13,7 +13,12 @@ and runs the network on the batch:
 - :meth:`Cnn.apply_views_fast`, :meth:`Cnn.apply_views_letterbox`: the
   network on views the samplers write in its own planar ``[N,3,h,w]``
   layout, with no copy between the sampler and the network. The pipelines
-  use these.
+  use these;
+- :meth:`Cnn.sample_view_hwc`, :meth:`Cnn.apply_on_view`: the exact
+  sampler (``ops/sampling.view_to_tensor_core``, ``nn.py:232,259``), which
+  JAX runs as an XLA gather outside any Pallas kernel and the port runs as
+  plain torch on every device; ``apply_on_view`` samples planar. The
+  single-stream and ungated steps and ``fast_sampler=False`` use these.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from .assets import model_path
 from .onnx import OnnxModule, load_model
 from .ops.letterbox import letterbox_sample
 from .ops.rotated_fast import PRESCALE_M, rotated_sample_fast
+from .ops.sampling import view_to_tensor_core
 from .resolution import Resolution
 
 __all__ = ["ColorMapper", "Cnn"]
@@ -101,3 +107,17 @@ class Cnn:
         """The network on the letterbox views of ``rrects [B,5]``, sampled
         planar."""
         return self.net(self.sample_views_letterbox(frames_u8, rrects, "NCHW"))
+
+    def sample_view_hwc(self, frames_u8, rrects, mirror=None):
+        """Exact rotated views: ``[B,H,W,4] u8`` + ``[B,...,5]`` rects →
+        ``[B,...,h,w,3] f32``; ``mirror`` flips the slots it flags."""
+        r, m = self._res, self.mapper
+        return view_to_tensor_core(frames_u8, rrects, r.width, r.height, m.lo, m.hi, "NHWC", mirror)
+
+    def apply_on_view(self, frames_u8, rrects, mirror=None) -> list[torch.Tensor]:
+        """The network on the exact rotated views of ``rrects [B,...,5]``,
+        sampled planar: outputs over the ``N`` views flattened in rect
+        order."""
+        r, m = self._res, self.mapper
+        xs = view_to_tensor_core(frames_u8, rrects, r.width, r.height, m.lo, m.hi, "NCHW", mirror)
+        return self.net(xs.reshape(-1, *xs.shape[-3:]))

@@ -8,9 +8,10 @@ for pixel coordinates, and division by a Python number goes through
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["round_half_away", "sigmoid", "div", "fma"]
+__all__ = ["round_half_away", "sigmoid", "div", "fma", "recip"]
 
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
@@ -36,6 +37,13 @@ def div(x: torch.Tensor, d: float) -> torch.Tensor:
     tensor on ``x``'s device takes the true division.
     """
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def recip(n: int) -> float:
+    """``f32(1/n)``: XLA compiles ``x / n`` for a constant ``n`` into
+    ``x * f32(1/n)``, which can be one ulp off the quotient when ``n`` is
+    not a power of two; the samplers' index maps follow it."""
+    return float(np.float32(1.0) / np.float32(n))
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..num import div, fma
+from ..num import div, fma, recip
 from ._build import library
 from .sampling import color_map
 
@@ -94,33 +94,29 @@ def _color(lo: float, hi: float) -> tuple[float, float]:
     return float(np.float32((hi - lo) / 255.0)), float(np.float32(lo))
 
 
-def _recip(n: int) -> float:
-    """``f32(1/n)``, the factor XLA compiles ``x / n`` into."""
-    return float(np.float32(1.0) / np.float32(n))
-
-
 def _source_index(frames_u8, coefs, icoefs, out_w, out_h, prescale_m):
     """The kernel's per-pixel index map in torch ops: ``(lin, ok)``, each
     ``[N,out_h,out_w]``: the source pixel's index in ``frames_u8`` viewed as
     ``[B*H*W]`` RGBA pixels (0 where not ``ok``), and whether it is read
     (inside the prescale grid and the frame; black otherwise).
 
-    Two steps follow compiled JAX rather than its source (rotated_fast.py:
+    Three steps follow compiled JAX rather than its source (rotated_fast.py:
     645-652): ``j / out_w`` is ``j * f32(1/out_w)``, and ``cth*px -
-    sth*py`` is one fused multiply-add, ``fma(cth, px, -(sth*py))``."""
+    sth*py`` and ``sth*px + cth*py`` are each one fused multiply-add,
+    ``fma(cth, px, -(sth*py))`` and ``fma(sth, px, cth*py)``."""
     B, H, W, _ = frames_u8.shape
     dev = frames_u8.device
     N = coefs.shape[0]
     col = lambda i: coefs[:, i, None, None]  # noqa: E731  [N,1,1]
-    jf = torch.arange(out_w, dtype=torch.float32, device=dev) * _recip(out_w)
-    kf = torch.arange(out_h, dtype=torch.float32, device=dev) * _recip(out_h)
+    jf = torch.arange(out_w, dtype=torch.float32, device=dev) * recip(out_w)
+    kf = torch.arange(out_h, dtype=torch.float32, device=dev) * recip(out_h)
     xv = torch.floor(jf[None, None, :] * col(0) + 0.5)  # [N,1,out_w]
     yv = torch.floor(kf[None, :, None] * col(1) + 0.5)  # [N,out_h,1]
     px = (xv + 0.5) - col(4)
     py = (yv + 0.5) - col(5)
     shape = (N, out_h, out_w)
     fx = (fma(col(2).expand(shape), px.expand(shape), -(col(3) * py).expand(shape)) + col(4)) + col(6)
-    fy = (col(3) * px + col(2) * py + col(5)) + col(7)
+    fy = (fma(col(3).expand(shape), px.expand(shape), (col(2) * py).expand(shape)) + col(5)) + col(7)
     jq = torch.floor(fx * col(10) + col(8) + 0.5)  # [N,out_h,out_w]
     kq = torch.floor(fy * col(11) + col(9) + 0.5)
     ok = (jq >= 0) & (jq < prescale_m) & (kq >= 0) & (kq < prescale_m)
@@ -218,7 +214,7 @@ def rotated_sample_launch(
     fn.restype = ctypes.c_int
     rc = fn(
         frames_u8.data_ptr(), rects.data_ptr(), out.data_ptr(), N, slots, H, W, prescale_m,
-        out_w, out_h, _recip(out_w), _recip(out_h), *_color(lo, hi), int(planar), mask,
+        out_w, out_h, recip(out_w), recip(out_h), *_color(lo, hi), int(planar), mask,
         torch.cuda.current_stream(frames_u8.device).cuda_stream,
     )
     if rc != 0:

@@ -4,9 +4,12 @@
 letterbox kernel in :mod:`.letterbox`; ``view_to_tensor_core`` (:88) is the
 exact rotated-view sampler the JAX package keeps beside its fast one. Both
 run batched over streams here (the JAX functions are per view and
-``vmap``-ed) and keep the JAX f32 operation order, so they are bit-exact to
-it: nearest-neighbour source pixels chosen with round-half-away, reads
-outside the frame are black (0, 0, 0, 0), and the colour map is
+``vmap``-ed) and keep the f32 operation order of the JAX functions as
+XLA:CPU compiles them (``i / n`` as ``i * f32(1/n)``, the exact sampler's
+rotation contracted into two FMAs, the colour map into one), so they are
+bit-exact to it: nearest-neighbour source pixels chosen with
+round-half-away, reads outside the frame are black (0, 0, 0, 0), and the
+colour map is
 ``c·(hi−lo)/255 + lo`` (see :func:`color_map`).
 """
 
@@ -15,8 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..geometry import rrect_transform_out
-from ..num import div, round_half_away
+from ..num import fma, recip, round_half_away
 
 __all__ = [
     "letterbox_sample_core", "view_to_tensor_core", "color_adjust", "color_map",
@@ -42,25 +44,32 @@ def color_map(rgb, adjust: float, lo: float):
     return (rgb.to(torch.float64) * adjust + lo).to(torch.float32)
 
 
-def _gather_rgb(frames_u8, bidx, yi, xi, ok):
-    """RGB of ``frames_u8 [B,H,W,4]`` at integer indices, black where not
-    ``ok`` (the indices are masked before the gather: torch indexing wraps
-    negative indices)."""
-    B, H, W, _ = frames_u8.shape
-    flat = frames_u8.reshape(B * H * W, 4)
-    lin = torch.where(ok, (bidx * H + yi) * W + xi, torch.zeros_like(xi))
-    rgb = flat[lin.reshape(-1)][:, :3].reshape(*lin.shape, 3)
-    return torch.where(ok[..., None], rgb, torch.zeros_like(rgb))
+def _gather_rgb(frames_u8, lin, ok, planar: bool = False):
+    """RGB of ``frames_u8 [B,H,W,4]`` at the pixels ``lin`` (indices into
+    the ``[B*H*W]`` RGBA pixels), black where not ``ok``: ``[..., 3]`` or,
+    ``planar``, ``[..., 3, h, w]`` for ``lin [..., h, w]``. One gather of
+    whole pixels (as 32-bit words, little-endian: R in the low byte), the
+    channels split off by shifts; indices are masked before the gather,
+    since torch indexing wraps negative ones."""
+    words = frames_u8.contiguous().view(torch.int32).reshape(-1)
+    px = words[torch.where(ok, lin, torch.zeros_like(lin))]
+    shifts = torch.tensor([0, 8, 16], dtype=torch.int32, device=px.device)
+    if planar:
+        rgb, ok = (px.unsqueeze(-3) >> shifts[:, None, None]) & 255, ok.unsqueeze(-3)
+    else:
+        rgb, ok = (px[..., None] >> shifts) & 255, ok[..., None]
+    return torch.where(ok, rgb, torch.zeros_like(rgb))
 
 
 def _letterbox_index(frames_u8, rrects, out_w: int, out_h: int):
-    """The letterbox's separable index map (sampling.py:135-146, op for op):
+    """The letterbox's separable index map (sampling.py:135-146, op for op
+    as compiled):
     source rows ``yi [B,out_h,1]`` and columns ``xi [B,1,out_w]`` (0 where
     outside the frame) and ``ok [B,out_h,out_w]``."""
     B, H, W, _ = frames_u8.shape
     dev = frames_u8.device
-    u = div(torch.arange(out_w, dtype=torch.float32, device=dev), out_w)
-    v = div(torch.arange(out_h, dtype=torch.float32, device=dev), out_h)
+    u = torch.arange(out_w, dtype=torch.float32, device=dev) * recip(out_w)
+    v = torch.arange(out_h, dtype=torch.float32, device=dev) * recip(out_h)
     xv = round_half_away(u[None, :] * rrects[:, 2:3])  # [B, out_w]
     yv = round_half_away(v[None, :] * rrects[:, 3:4])  # [B, out_h]
     wc = rrects[:, 2:3] * 0.5
@@ -83,39 +92,60 @@ def letterbox_sample_core(frames_u8, rrects, out_w: int, out_h: int, lo: float, 
     full-frame letterbox fit has angle 0) → ``[B,out_h,out_w,3] f32`` NHWC.
     The separable index vectors follow sampling.py:135-146 op for op.
     """
+    B, H, W, _ = frames_u8.shape
     yi, xi, ok = _letterbox_index(frames_u8, rrects, out_w, out_h)
-    bidx = torch.arange(frames_u8.shape[0], device=frames_u8.device)[:, None, None]
-    rgb = _gather_rgb(frames_u8, bidx, yi, xi, ok)
+    bidx = torch.arange(B, device=frames_u8.device)[:, None, None]
+    rgb = _gather_rgb(frames_u8, (bidx * H + yi) * W + xi, ok)
     return color_map(rgb, color_adjust(lo, hi), float(np.float32(lo)))
 
 
 def view_to_tensor_core(
     frames_u8, rrects, out_w: int, out_h: int, lo: float = -1.0, hi: float = 1.0,
-    layout: str = "NCHW",
+    layout: str = "NCHW", mirror=None,
 ):
-    """Exact rotated-view sample + colour map, batched over streams
-    (sampling.py:88 with ``_view_grid`` :50).
+    """Exact rotated-view sample + colour map, batched over streams and
+    slots (sampling.py:88 with ``_view_grid`` :50).
 
-    ``frames_u8 [B,H,W,4] u8``, ``rrects [B,5] f32`` → ``[B,3,out_h,out_w]``
-    (NCHW) or ``[B,out_h,out_w,3]`` (NHWC) f32.
+    ``frames_u8 [B,H,W,4] u8``, ``rrects [B,...,5] f32`` (the middle dims are
+    slots: several views of one frame) → ``[B,...,3,out_h,out_w]`` (NCHW,
+    gathered straight into the planar layout) or ``[B,...,out_h,out_w,3]``
+    (NHWC) f32. ``mirror``: one flag per slot (rects ``[B,S,5]``); a flagged
+    slot is flipped left to right, as the JAX iris path flips its right-eye
+    crops (face_cascade.py:388), by reversing its view columns.
     """
+    if layout not in ("NHWC", "NCHW"):
+        raise ValueError(f"layout must be NHWC or NCHW, got {layout!r}")
     B, H, W, _ = frames_u8.shape
     dev = frames_u8.device
-    u = div(torch.arange(out_w, dtype=torch.float32, device=dev), out_w)
-    v = div(torch.arange(out_h, dtype=torch.float32, device=dev), out_h)
-    xv = round_half_away(u[None, :] * rrects[:, 2:3])  # [B, out_w]
-    yv = round_half_away(v[None, :] * rrects[:, 3:4])  # [B, out_h]
-    gx = (xv + 0.5)[:, None, :].expand(B, out_h, out_w)
-    gy = (yv + 0.5)[:, :, None].expand(B, out_h, out_w)
-    root = rrect_transform_out(rrects[:, None, None, :], torch.stack([gx, gy], dim=-1))
-    xr = round_half_away(root[..., 0] - 0.5)
-    yr = round_half_away(root[..., 1] - 0.5)
+    lead = rrects.shape[:-1]
+    r = rrects.reshape(B, -1, 5)  # [B,S,5]
+    u = torch.arange(out_w, dtype=torch.float32, device=dev) * recip(out_w)
+    v = torch.arange(out_h, dtype=torch.float32, device=dev) * recip(out_h)
+    xv = round_half_away(u * r[..., 2:3])  # [B,S,out_w]
+    yv = round_half_away(v * r[..., 3:4])  # [B,S,out_h]
+    if mirror is not None:
+        if rrects.ndim != 3 or len(mirror) != r.shape[1]:
+            raise ValueError(f"mirror needs one flag per slot of [B,S,5] rects, got {len(mirror)} "
+                             f"for {tuple(rrects.shape)}")
+        flip = torch.tensor(mirror, dtype=torch.bool, device=dev)[:, None]
+        xv = torch.where(flip, xv.flip(-1), xv)
+    shape = (B, r.shape[1], out_h, out_w)
+    rr = r[:, :, None, None, :]
+    half_w, half_h = rr[..., 2] * 0.5, rr[..., 3] * 0.5
+    px = (xv + 0.5)[:, :, None, :] - half_w  # [B,S,1,out_w]
+    py = (yv + 0.5)[:, :, :, None] - half_h  # [B,S,out_h,1]
+    c = torch.cos(rr[..., 4]).expand(shape)
+    s = torch.sin(rr[..., 4]).expand(shape)
+    px, py = px.expand(shape), py.expand(shape)
+    # rrect_transform_out (``rotate_ccw(pt - centre) + centre + top-left``)
+    # as XLA:CPU compiles it: both rotated coordinates contracted into FMAs.
+    xr = round_half_away(fma(c, px, -(s * py)) + half_w + (rr[..., 0] - half_w) - 0.5)
+    yr = round_half_away(fma(s, px, c * py) + half_h + (rr[..., 1] - half_h) - 0.5)
     ok = (xr >= 0) & (yr >= 0) & (xr < W) & (yr < H)
     xi = torch.where(ok, xr, 0.0).to(torch.int64)
     yi = torch.where(ok, yr, 0.0).to(torch.int64)
-    bidx = torch.arange(B, device=dev)[:, None, None]
-    rgb = _gather_rgb(frames_u8, bidx, yi, xi, ok)
+    bidx = torch.arange(B, device=dev)[:, None, None, None]
+    planar = layout == "NCHW"
+    rgb = _gather_rgb(frames_u8, (bidx * H + yi) * W + xi, ok, planar)
     mapped = color_map(rgb, color_adjust(lo, hi), float(np.float32(lo)))
-    if layout == "NCHW":
-        return mapped.permute(0, 3, 1, 2)
-    return mapped
+    return mapped.reshape(*lead, *mapped.shape[2:])

@@ -1,31 +1,52 @@
-"""Batch-gated face detect → crop → landmark → smooth cascade
+"""Face detect → crop → landmark → smooth cascade
 (zaru_tpu/pipeline/face_cascade.py:62 ``FaceTracker``).
 
 One step over a batch of streams (``step_batch``, face_cascade.py:452):
 
 - **Detect**, only when some stream is lost or the caller forces it
-  (``_detect_batch`` :197): letterbox every frame to 128×128 (the letterbox
-  kernel), BlazeFace, SSD decode, weighted NMS with one output → seed ROI.
+  (``_detect_batch`` :197): letterbox every frame to the detector's input
+  (128×128 short-range, 192×192 full-range; the letterbox kernel), BlazeFace,
+  SSD decode, weighted NMS with one output → seed ROI.
 - **Track**, every step (``_track_batch`` :250, ``_track_tail`` :285):
-  aspect-fit view rect, rotated 192×192 crop (the rotated-ROI kernel), Face
-  Mesh, decode, 1€ smoothing in network coordinates, landmarks back to the
-  image, next ROI from the rotated landmark bbox plus padding.
+  aspect-fit view rect, rotated crop at the landmarker's input (192×192
+  Face Mesh V1, 256×256 V2; the rotated-ROI kernel, or with
+  ``fast_sampler=False`` the exact sampler), Face Mesh, decode, 1€
+  smoothing in network coordinates, landmarks back to the image, next ROI
+  from the rotated landmark bbox plus padding.
 - **Iris**, every step with ``iris=True`` (``_iris_batch`` :394): two eye
   rects from the landmarks, rotated 64×64 crops on a 256-pixel prescale
   grid, right eyes mirrored, the iris network on the ``2B`` crops, 76
   landmarks per eye back in the image (``eyes [B,2,76,3]``).
 
-The two CNNs' BlazeBlock chains run through the stage kernel
-(``onnx/executor.py``); the iris network's blocks are bottlenecks and run
-op by op.
+The default CNNs' BlazeBlock chains run through the stage kernel
+(``onnx/executor.py``); the iris network's, full-range BlazeFace's and Face
+Mesh V2's blocks are bottlenecks and run op by op.
 
 The batch gate: in JAX the detect-or-keep choice is a device-side
 ``lax.cond`` (face_cascade.py:509). Here it is one host read of one bool per
 step (``all streams tracking and not forced``), which waits for the previous
 step's tracking flags; capturing the two branches as CUDA graphs is left
 for later. With ``redetect_bucket=K`` an unforced detect step detects only
-the first K lost streams (``_detect_bucket`` :216). Not ported yet: the
-single-stream ``step``/``run_frame`` and ``scan_video``.
+the first K lost streams (``_detect_bucket`` :216).
+
+The ungated entry points sample every crop with the exact sampler
+(``Cnn.apply_on_view``), as JAX's ``step`` does:
+
+- ``step``/``run_frame`` (:420, :517): one stream, ``[H,W,4]`` frame,
+  unbatched state. JAX's ``lax.cond`` on the stream's tracking flag is one
+  host read here; detection runs the exact sampler too, so the path runs
+  the stage kernel at batch 1 and no sampler kernel. With ``iris`` the eye
+  crops are exact as well (``_iris_single`` :381);
+- ``run_frames`` (:521), JAX's ``vmap(step)``: each stream detects exactly
+  when it is lost and keeps its tracked ROI otherwise. Detection runs for
+  every stream when some stream is lost and is selected per stream (XLA's
+  both-branches select), through the letterbox kernel, which equals the
+  exact sampler at angle 0 (:198-202);
+- ``scan_video`` (:531): ``step`` over ``[T,H,W,4]`` frames, outputs stacked
+  on a leading T axis like ``lax.scan``.
+
+Not ported: ``compute_dtype`` and ``sampler_opts`` (the TPU sampler's
+blocking; the face tracker sets no ``prescale_m``).
 """
 
 from __future__ import annotations
@@ -46,33 +67,41 @@ __all__ = ["FaceTracker"]
 
 
 class FaceTracker:
-    """Batched face tracking cascade on ``device`` (``cuda`` unless named).
+    """Face tracking cascade on ``device`` (``cuda`` unless named).
 
-    ``params``: optional ``{"det": {...}, "lm": {...}[, "eye": {...}]}``
-    ONNX-initializer dicts (see :func:`zaru_tpu_torch.weights.params_from_jax`)
-    replacing the weights loaded from the ONNX files. ``iris``: also refine
-    both eyes every step. ``redetect_bucket``: detect at most this many lost
-    streams on an unforced detect step.
+    ``detector``/``landmarker``: the networks (``ShortRangeNetwork`` and
+    ``FaceMeshV1`` unless given; ``FullRangeNetwork``, ``FaceMeshV2``), on
+    the tracker's device. ``params``: optional ``{"det": {...}, "lm":
+    {...}[, "eye": {...}]}`` ONNX-initializer dicts (see
+    :func:`zaru_tpu_torch.weights.params_from_jax`) replacing the weights
+    loaded from the ONNX files. ``fast_sampler``: the batch-gated step
+    samples its landmark crops through the rotated-ROI kernel (else the
+    exact sampler). ``iris``: also refine both eyes every step.
+    ``redetect_bucket``: detect at most this many lost streams on an
+    unforced detect step of :meth:`step_batch`.
     """
 
     EYE_PRESCALE_M = 256  # the eye crops' prescale grid (face_cascade.py:397-402)
 
     def __init__(
         self,
+        detector=None,
+        landmarker=None,
         *,
         detection_threshold: float = 0.5,
         loss_threshold: float = 0.5,
         roi_padding: float = 0.3,
         smooth: OneEuroFilter | None = OneEuroFilter(min_cutoff=1.0, beta=0.5),
         frame_rate: float = 30.0,
+        fast_sampler: bool = True,
         iris: bool = False,
         redetect_bucket: int | None = None,
         params: dict | None = None,
         device=None,
     ):
         self.device = resolve_device(device)
-        self.detector = ShortRangeNetwork(device=self.device)
-        self.landmarker = FaceMeshV1(device=self.device)
+        self.detector = detector or ShortRangeNetwork(device=self.device)
+        self.landmarker = landmarker or FaceMeshV1(device=self.device)
         self.det_cnn = self.detector.cnn()
         self.lm_cnn = self.landmarker.cnn()
         self.iris = iris
@@ -83,38 +112,50 @@ class FaceTracker:
             self.lm_cnn.net.load_params(params["lm"])
             if iris and "eye" in params:
                 self.eye_cnn.net.load_params(params["eye"])
+        self.fast_sampler = fast_sampler
         self.redetect_bucket = redetect_bucket
         self.detection_threshold = detection_threshold
         self.loss_threshold = loss_threshold
         self.roi_padding = roi_padding
         self.smooth = smooth
         self.elapsed = 1.0 / frame_rate
-        self.num_landmarks = FaceMeshV1.NUM_LANDMARKS
+        self.num_landmarks = self.landmarker.NUM_LANDMARKS
 
-    def init_state(self, batch: int) -> dict:
-        """Fresh (not tracking) state for ``batch`` streams."""
-        dev = self.device
+    def init_state(self, batch: int | None = None) -> dict:
+        """Fresh (not tracking) state; ``batch`` gives it a leading stream
+        axis (left out: one stream, for :meth:`step`)."""
+        dev, lead = self.device, (batch,) if batch else ()
         filt = (
-            self.smooth.init_state((batch, self.num_landmarks, 3), dev) if self.smooth else {}
+            self.smooth.init_state(lead + (self.num_landmarks, 3), dev) if self.smooth else {}
         )
         return {
-            "roi": torch.zeros((batch, 5), dtype=torch.float32, device=dev),
-            "tracking": torch.zeros(batch, dtype=torch.bool, device=dev),
+            "roi": torch.zeros(lead + (5,), dtype=torch.float32, device=dev),
+            "tracking": torch.zeros(lead, dtype=torch.bool, device=dev),
             "filter": filt,
         }
 
-    def _detect_batch(self, frames):
-        """Letterbox + BlazeFace + decode + NMS for every stream → (rois
-        [B,5], founds [B])."""
+    def _detect_batch(self, frames, exact: bool = False):
+        """Letterbox (or, ``exact``, the exact sampler) + BlazeFace + decode
+        + NMS for every stream → (rois [B,5], founds [B])."""
         res = self.det_cnn.input_resolution()
         fit, fit_rrect = _ops.full_frame_fit(frames, res)
-        b = frames.shape[0]
-        outputs = self.det_cnn.apply_views_letterbox(frames, fit_rrect.expand(b, 5).contiguous())
+        rrects = fit_rrect.expand(frames.shape[0], 5).contiguous()
+        if exact:
+            outputs = self.det_cnn.apply_on_view(frames, rrects)
+        else:
+            outputs = self.det_cnn.apply_views_letterbox(frames, rrects)
         boxes, conf, kps, angles = self.detector.decode_device(outputs, self.detection_threshold)
         valid, _conf, avg_box, _kp, _angle = nms_average_device(boxes, conf, kps, angles, max_out=1)
         rect = _ops.unmap_center_size(avg_box[:, 0], fit, res)
         rois = torch.cat([rect, torch.zeros_like(rect[:, :1])], dim=-1)
         return rois, valid[:, 0]
+
+    def _detect_lost(self, state, frames, exact: bool = False):
+        """Detection for every stream; lost streams take its ROI, tracked
+        streams keep theirs → (rois [B,5], founds [B], seeded [B])."""
+        tr = state["tracking"]
+        det_rois, det_founds = self._detect_batch(frames, exact)
+        return torch.where(tr[:, None], state["roi"], det_rois), tr | det_founds, ~tr
 
     def _detect_bucket(self, state, frames):
         """Detection for the first K lost streams only (K =
@@ -135,21 +176,28 @@ class FaceTracker:
         seeded = torch.zeros_like(tr).index_copy(0, idx, sel)
         return rois, founds, seeded
 
-    def _track_batch(self, state, frames, rois, seeded):
-        """Rotated crops + Face Mesh for every stream, then the tail (and
-        the eyes, with ``iris``)."""
+    def _track_batch(self, state, frames, rois, founds, seeded, exact: bool, eyes_exact: bool):
+        """Crops (the rotated-ROI kernel, or ``exact`` the exact sampler) +
+        Face Mesh for every stream, then the tail; streams not ``founds``
+        come out lost. With ``iris`` the eyes, their crops exact when
+        ``eyes_exact``."""
         res = self.lm_cnn.input_resolution()
         view_rects = _ops.aspect_view_rect(rois, res)
-        outputs = self.lm_cnn.apply_views_fast(frames, view_rects)
+        if exact:
+            outputs = self.lm_cnn.apply_on_view(frames, view_rects)
+        else:
+            outputs = self.lm_cnn.apply_views_fast(frames, view_rects)
         new_state, out = self._track_tail(state, outputs, view_rects, seeded)
+        new_state["tracking"] = new_state["tracking"] & founds
+        out["valid"] = out["valid"] & founds
         if self.iris:
-            out["eyes"] = self._iris_batch(frames, out["landmarks"])
+            out["eyes"] = self._iris_batch(frames, out["landmarks"], eyes_exact)
         return new_state, out
 
     def _track_tail(self, state, outputs, view_rects, seeded):
         """Decode → smooth → unmap → ROI update, batched."""
         res = self.lm_cnn.input_resolution()
-        coords, conf = self.landmarker.decode_device(outputs)
+        coords, conf, *_extras = self.landmarker.decode_device(outputs)  # V2: tongue dropped
         coords = coords[:, : self.num_landmarks]
         fstate = state["filter"]
         if self.smooth:
@@ -183,8 +231,8 @@ class FaceTracker:
     EYE_GROW = 0.8
 
     def _eye_view_rects(self, pos):
-        """Landmarks ``[B,468,3]`` in image coords → aspect-fit eye view
-        rects ``[B,2,5]``, left eye first (:351)."""
+        """Landmarks ``[B,N,3]`` in image coords (the first 468 the mesh)
+        → aspect-fit eye view rects ``[B,2,5]``, left eye first (:351)."""
         res = self.eye_cnn.input_resolution()
         angle = signed_angle_to_x(
             pos[:, LandmarkIdx.RIGHT_EYE_OUTER_CORNER, :2]
@@ -210,47 +258,100 @@ class FaceTracker:
         _xy_view, pos = _ops.landmarks_to_image(coords, view_rects, res)
         return pos
 
-    def _iris_batch(self, frames, pos):
-        """Both eyes of every stream → ``[B,2,76,3]`` (:394)."""
-        return self._iris_views(frames, self._eye_view_rects(pos))
+    def _iris_batch(self, frames, pos, exact: bool = False):
+        """Both eyes of every stream → ``[B,2,76,3]`` (:394; ``exact``
+        :381)."""
+        return self._iris_views(frames, self._eye_view_rects(pos), exact)
 
-    def _iris_views(self, frames, rects):
+    def _iris_views(self, frames, rects, exact: bool = False):
         """Eye view rects ``[B,2,5]`` → ``[B,2,76,3]``: the eye crops through
-        the rotated-ROI kernel, right eyes mirrored by the sampler, ``[B,2]``
-        flattened to ``[2B]`` around the iris network."""
-        outputs = self.eye_cnn.apply_views_fast(
-            frames, rects, prescale_m=self.EYE_PRESCALE_M, mirror=(False, True)
-        )
+        the rotated-ROI kernel on the 256-pixel grid (``_iris_batch`` :394),
+        or ``exact`` the exact sampler (``_iris_single`` :381), right eyes
+        mirrored by the sampler, ``[B,2]`` flattened to ``[2B]`` around the
+        iris network."""
+        mirror = (False, True)
+        if exact:
+            outputs = self.eye_cnn.apply_on_view(frames, rects, mirror=mirror)
+        else:
+            outputs = self.eye_cnn.apply_views_fast(
+                frames, rects, prescale_m=self.EYE_PRESCALE_M, mirror=mirror
+            )
         b = rects.shape[0]
-        flips = torch.tensor([False, True], device=rects.device).repeat(b)
+        flips = torch.tensor(mirror, device=rects.device).repeat(b)
         eyes = self._iris_decode(outputs, rects.reshape(2 * b, 5), flips)
         return eyes.reshape(b, 2, EyeLandmarks.NUM_LANDMARKS, 3)
 
+    def _kept(self, state):
+        """ROI sources of a step that detects nothing: the carried ROIs."""
+        tr = state["tracking"]
+        return state["roi"], torch.ones_like(tr), torch.zeros_like(tr)
+
     @torch.inference_mode()
     def step_batch(self, state: dict, frames, force_detect: bool = False):
-        """One step for ``frames [B,H,W,4] u8`` on the tracker's device →
-        ``(new_state, outputs)``; outputs hold ``landmarks [B,468,3]`` in
-        image coords, ``confidence [B]``, ``roi [B,5]``, ``valid [B]`` and,
-        with ``iris``, ``eyes [B,2,76,3]``.
+        """One gated step for ``frames [B,H,W,4] u8`` on the tracker's device
+        → ``(new_state, outputs)``; outputs hold ``landmarks [B,N,3]`` in
+        image coords (``N`` the landmarker's), ``confidence [B]``, ``roi
+        [B,5]``, ``valid [B]`` and, with ``iris``, ``eyes [B,2,76,3]``.
 
         Detection runs for every stream when some stream is lost or
         ``force_detect`` is set (the redetect cadence); tracked streams keep
         their carried ROIs either way. With ``redetect_bucket``, a detect
-        step that is not forced detects only the first K lost streams."""
-        tr = state["tracking"]
-        if not force_detect and bool(tr.all()):
-            rois, founds, seeded = state["roi"], torch.ones_like(tr), torch.zeros_like(tr)
+        step that is not forced detects only the first K lost streams. The
+        eye crops always go through the rotated-ROI kernel, as JAX's batch
+        step samples them whatever ``fast_sampler`` says."""
+        if not force_detect and bool(state["tracking"].all()):
+            sources = self._kept(state)
         elif self.redetect_bucket and not force_detect:
-            rois, founds, seeded = self._detect_bucket(state, frames)
+            sources = self._detect_bucket(state, frames)
         else:
-            det_rois, det_founds = self._detect_batch(frames)
-            rois = torch.where(tr[:, None], state["roi"], det_rois)
-            founds, seeded = tr | det_founds, ~tr
-        new_state, out = self._track_batch(state, frames, rois, seeded)
-        new_state["tracking"] = new_state["tracking"] & founds
-        out["valid"] = out["valid"] & founds
-        return new_state, out
+            sources = self._detect_lost(state, frames)
+        return self._track_batch(state, frames, *sources, exact=not self.fast_sampler, eyes_exact=False)
 
     def run_frames_gated(self, state: dict, frames):
         """The serving step: :meth:`step_batch` without forced detection."""
         return self.step_batch(state, frames)
+
+    def _ungated(self, state, frames, exact_detect: bool):
+        """JAX's ``step`` for every stream of ``frames [B,...]``: lost streams
+        take a detection (one host read: is any lost?), every crop exact."""
+        if bool(state["tracking"].all()):
+            sources = self._kept(state)
+        else:
+            sources = self._detect_lost(state, frames, exact_detect)
+        return self._track_batch(state, frames, *sources, exact=True, eyes_exact=True)
+
+    @torch.inference_mode()
+    def run_frames(self, state: dict, frames):
+        """The ungated batch step, JAX's ``vmap(step)``: the same outputs as
+        :meth:`step` for each stream of ``frames [B,H,W,4]``. Every crop is
+        exact; a step with a lost stream detects every stream (letterbox
+        kernel) and only lost streams take the detection."""
+        return self._ungated(state, frames, exact_detect=False)
+
+    @torch.inference_mode()
+    def step(self, state: dict, frame):
+        """One frame ``[H,W,4] u8`` of one stream, state from
+        ``init_state()`` → ``(new_state, outputs)``, the outputs of
+        :meth:`step_batch` without the stream axis. Detects when the stream
+        is lost (one host read of its flag), every crop exact."""
+        new_state, out = self._ungated(_map_state(lambda t: t[None], state), frame[None], exact_detect=True)
+        return _map_state(lambda t: t[0], new_state), {k: v[0] for k, v in out.items()}
+
+    def run_frame(self, state: dict, frame):
+        """The single-stream step, :meth:`step`."""
+        return self.step(state, frame)
+
+    def scan_video(self, state: dict, frames):
+        """:meth:`step` over ``frames [T,H,W,4]`` of one stream → (the final
+        state, outputs stacked on a leading ``T`` axis), like JAX's
+        ``lax.scan``."""
+        outs = []
+        for frame in frames:
+            state, out = self.step(state, frame)
+            outs.append(out)
+        return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def _map_state(fn, state: dict) -> dict:
+    """``fn`` on every tensor of a tracker state (the filter's included)."""
+    return {k: _map_state(fn, v) if isinstance(v, dict) else fn(v) for k, v in state.items()}

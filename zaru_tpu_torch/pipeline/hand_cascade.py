@@ -4,9 +4,10 @@ detection → 21-point hand landmarks.
 
 The palm box is grown 1.5× into the hand ROI, the landmark bbox is padded
 by 0.4, the residual angle is the wrist → middle-finger MCP rotation against
-fingers-up, and the 224×224 crops go through the rotated-ROI kernel on the
-256-pixel grid at any angle (hands turn ±180°): bit-exact for views whose
-rotated bbox fits 256 px, integer stride beyond. The outputs name the
+fingers-up, and the gated step's 224×224 crops go through the rotated-ROI
+kernel on the 256-pixel grid at any angle (hands turn ±180°): bit-exact for
+views whose rotated bbox fits 256 px, integer stride beyond; with
+``fast_sampler=False`` through the exact sampler. The outputs name the
 confidence ``presence`` and the landmarker's extra ``handedness``.
 
 Not ported yet: ``compute_dtype`` (a bf16 knob of the JAX package, off by
@@ -50,6 +51,7 @@ class MultiHandTracker(MultiObjectTracker):
         detection_threshold: float = 0.5,
         presence_threshold: float = 0.5,
         iou_thresh: float = 0.3,
+        fast_sampler: bool = True,
         redetect_bucket: int | None = None,
         params: dict | None = None,
         device=None,
@@ -66,6 +68,7 @@ class MultiHandTracker(MultiObjectTracker):
             detection_threshold=detection_threshold,
             presence_threshold=presence_threshold,
             iou_thresh=iou_thresh,
+            fast_sampler=fast_sampler,
             prescale_m=PRESCALE_M,
             redetect_bucket=redetect_bucket,
             params=params,

@@ -4,9 +4,9 @@ short-range → Face Mesh V1.
 
 The detection box is the ROI as it is (``grow_by=0.0``), the landmark
 bbox is padded by 0.3, the residual angle comes from the outer eye corners,
-and the 192×192 crops go through the rotated-ROI kernel on the 512-pixel
-grid at any angle. Both CNNs' BlazeBlock chains run through the stage
-kernel.
+and the gated step's 192×192 crops go through the rotated-ROI kernel on the
+512-pixel grid at any angle. Both CNNs' BlazeBlock chains run through the
+stage kernel.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ class MultiFaceTracker(MultiObjectTracker):
             detection_threshold=detection_threshold,
             presence_threshold=loss_threshold,
             iou_thresh=iou_thresh,
+            fast_sampler=True,
             redetect_bucket=redetect_bucket,
             params=params,
             device=device,

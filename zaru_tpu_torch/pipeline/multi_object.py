@@ -31,13 +31,25 @@ With ``redetect_bucket=K`` a step of kind 1 detects only the first K lost
 streams (:348-370); due and forced steps detect every stream, so no
 stream's periodic redetect is skipped.
 
-The port always samples through the rotated-ROI kernel (JAX's
-``fast_sampler=True``, the default of both trackers). Of JAX's
-``sampler_opts`` only ``prescale_m`` changes the function; ``band_p``,
-``col_split``, ``square_views`` and ``rows_per_block`` choose the TPU
-kernel's blocking and are not ported. ``angle_clamp`` clamps the sampled
-view's angle, as in JAX. Not ported yet: the ungated per-stream ``step``,
-``run_frame`` and ``run_frames``, and ``fast_sampler=False``.
+With ``fast_sampler`` (on in both trackers; off in this base class, as in
+JAX) the gated step samples its slot crops through the rotated-ROI kernel;
+without it through the exact sampler (``Cnn.apply_on_view``, :231-248).
+Of JAX's ``sampler_opts`` only ``prescale_m`` changes the function;
+``band_p``, ``col_split``, ``square_views`` and ``rows_per_block`` choose
+the TPU kernel's blocking and are not ported. ``angle_clamp`` clamps the
+angle of a view the fast sampler takes, as in JAX.
+
+The ungated entry points sample every crop with the exact sampler, as
+JAX's ``step`` (:301) does:
+
+- ``step``/``run_frame`` (:392): one stream, ``[H,W,4]`` frame, unbatched
+  state; JAX's ``lax.cond`` (``_roi_phase`` :255) is one host read of the
+  stream's detect flag, and detection samples exactly too (``_detect``
+  :111), so the path runs no sampler kernel;
+- ``run_frames`` (:395), JAX's ``vmap(step)``: every stream that is lost or
+  due takes a detection, the others keep their slots; a step where some
+  stream is lost or due detects every stream through the letterbox kernel
+  (equal to the exact sampler at angle 0) and assigns where due.
 """
 
 from __future__ import annotations
@@ -65,6 +77,9 @@ class MultiObjectTracker:
     growth; ``roi_padding``: relative padding of the landmark bbox.
     ``params``: optional ``{"det": {...}, "lm": {...}}`` ONNX-initializer
     dicts (see :func:`zaru_tpu_torch.weights.params_from_jax`).
+    ``fast_sampler``: the gated step samples through the rotated-ROI kernel
+    (on a prescale grid of side ``prescale_m``, the view angle clamped to
+    ``angle_clamp``), else through the exact sampler.
     """
 
     def __init__(
@@ -80,6 +95,7 @@ class MultiObjectTracker:
         detection_threshold: float = 0.5,
         presence_threshold: float = 0.5,
         iou_thresh: float = 0.3,
+        fast_sampler: bool = False,
         angle_clamp: float | None = None,
         prescale_m: int = PRESCALE_M,
         redetect_bucket: int | None = None,
@@ -102,6 +118,7 @@ class MultiObjectTracker:
         self.detection_threshold = detection_threshold
         self.presence_threshold = presence_threshold
         self.iou_thresh = iou_thresh
+        self.fast_sampler = fast_sampler
         self.angle_clamp = angle_clamp
         self.prescale_m = prescale_m
         self.redetect_bucket = redetect_bucket
@@ -112,24 +129,29 @@ class MultiObjectTracker:
         float initializers by ONNX name."""
         return {"det": self.det_cnn.net.params(), "lm": self.lm_cnn.net.params()}
 
-    def init_state(self, batch: int) -> dict:
-        """Fresh state for ``batch`` streams: no active slot, frame 0."""
-        s, dev = self.max_objects, self.device
+    def init_state(self, batch: int | None = None) -> dict:
+        """Fresh state, no active slot, frame 0: for ``batch`` streams, or
+        left out, for one (:meth:`step`)."""
+        s, dev, lead = self.max_objects, self.device, (batch,) if batch else ()
         return {
-            "rois": torch.zeros((batch, s, 5), dtype=torch.float32, device=dev),
-            "active": torch.zeros((batch, s), dtype=torch.bool, device=dev),
-            "frame": torch.zeros(batch, dtype=torch.int32, device=dev),
+            "rois": torch.zeros(lead + (s, 5), dtype=torch.float32, device=dev),
+            "active": torch.zeros(lead + (s,), dtype=torch.bool, device=dev),
+            "frame": torch.zeros(lead, dtype=torch.int32, device=dev),
         }
 
     # --- detection and slot assignment ---------------------------------
 
-    def _detect_batch(self, frames):
-        """Letterbox + detector + decode + NMS for every stream →
-        (candidate ROIs [B,S,5], valid [B,S])."""
+    def _detect_batch(self, frames, exact: bool = False):
+        """Letterbox (or, ``exact``, the exact sampler) + detector + decode +
+        NMS for every stream → (candidate ROIs [B,S,5], valid [B,S])."""
         res = self.det_cnn.input_resolution()
         fit, fit_rrect = _ops.full_frame_fit(frames, res)
         rrects = fit_rrect.expand(frames.shape[0], 5).contiguous()
-        return self._detect_tail(self.det_cnn.apply_views_letterbox(frames, rrects), fit, res)
+        if exact:
+            outputs = self.det_cnn.apply_on_view(frames, rrects)
+        else:
+            outputs = self.det_cnn.apply_views_letterbox(frames, rrects)
+        return self._detect_tail(outputs, fit, res)
 
     def _detect_tail(self, outputs, fit, res):
         boxes, conf, kps, angles = self.detector.decode_device(outputs, self.detection_threshold)
@@ -160,10 +182,10 @@ class MultiObjectTracker:
             active = active | put
         return rois, active
 
-    def _detect_assign(self, state, frames, do):
+    def _detect_assign(self, state, frames, do, exact: bool = False):
         """Detection on ``frames [B',...]`` and assignment into the slots of
         ``state`` (already cut to those ``B'`` streams) where ``do [B']``."""
-        cand_rois, cand_valid = self._detect_batch(frames)
+        cand_rois, cand_valid = self._detect_batch(frames, exact)
         rois, active = self._assign(state["rois"], state["active"], cand_rois, cand_valid)
         return (torch.where(do[:, None, None], rois, state["rois"]),
                 torch.where(do[:, None], active, state["active"]))
@@ -181,17 +203,22 @@ class MultiObjectTracker:
 
     # --- per-slot tracking -----------------------------------------------
 
-    def _track_slots_batch(self, frames, rois):
+    def _track_slots_batch(self, frames, rois, exact: bool = False):
         """Every slot of every stream in one landmark pass: ``frames
         [B,H,W,4]``, ``rois [B,S,5]`` → (new ROIs [B,S,5], confidence [B,S],
-        extras (each [B,S,...]), positions [B,S,K,3])."""
+        extras (each [B,S,...]), positions [B,S,K,3]). The crops go through
+        the rotated-ROI kernel, or ``exact`` the exact sampler (no angle
+        clamp)."""
         res = self.lm_cnn.input_resolution()
         view_rects = _ops.aspect_view_rect(rois, res)
-        if self.angle_clamp is not None:
-            theta = torch.clamp(view_rects[..., 4:5], -self.angle_clamp, self.angle_clamp)
-            view_rects = torch.cat([view_rects[..., 0:4], theta], dim=-1)
         b, s = view_rects.shape[:2]
-        outputs = self.lm_cnn.apply_views_fast(frames, view_rects, prescale_m=self.prescale_m)
+        if exact:
+            outputs = self.lm_cnn.apply_on_view(frames, view_rects)
+        else:
+            if self.angle_clamp is not None:
+                theta = torch.clamp(view_rects[..., 4:5], -self.angle_clamp, self.angle_clamp)
+                view_rects = torch.cat([view_rects[..., 0:4], theta], dim=-1)
+            outputs = self.lm_cnn.apply_views_fast(frames, view_rects, prescale_m=self.prescale_m)
         new_rois, confidence, extras, pos = self._track_slot_tail(outputs, view_rects.reshape(b * s, 5))
         unflat = lambda t: t.reshape(b, s, *t.shape[1:])  # noqa: E731
         return unflat(new_rois), unflat(confidence), tuple(map(unflat, extras)), unflat(pos)
@@ -237,8 +264,8 @@ class MultiObjectTracker:
 
     @torch.inference_mode()
     def step_batch(self, state: dict, frames, force_detect: bool = False):
-        """One step for ``frames [B,H,W,4] u8`` on the tracker's device →
-        ``(new_state, outputs)``; outputs hold ``landmarks [B,S,K,3]`` in
+        """One gated step for ``frames [B,H,W,4] u8`` on the tracker's device
+        → ``(new_state, outputs)``; outputs hold ``landmarks [B,S,K,3]`` in
         image coords, ``confidence [B,S]``, ``rois [B,S,5]``, ``valid
         [B,S]`` and the landmarker's extras (see the module docstring)."""
         lost = ~state["active"].any(-1)
@@ -254,9 +281,39 @@ class MultiObjectTracker:
             rois, active = self._detect_bucket(state, frames, lost)
         else:
             rois, active = self._detect_assign(state, frames, do)
-        new_rois, confidence, extras, pos = self._track_slots_batch(frames, rois)
+        new_rois, confidence, extras, pos = self._track_slots_batch(frames, rois, not self.fast_sampler)
         return self._post(state, rois, active, new_rois, confidence, extras, pos)
 
     def run_frames_gated(self, state: dict, frames):
         """The serving step: :meth:`step_batch` without forced detection."""
         return self.step_batch(state, frames)
+
+    def _ungated(self, state, frames, exact_detect: bool):
+        """JAX's ``step`` for every stream of ``frames [B,...]``: streams
+        lost or due take a detection (one host read: does any?), every crop
+        exact."""
+        do = ~state["active"].any(-1) | (state["frame"] % self.detect_interval == 0)
+        if bool(do.any()):
+            rois, active = self._detect_assign(state, frames, do, exact_detect)
+        else:
+            rois, active = state["rois"], state["active"]
+        new_rois, confidence, extras, pos = self._track_slots_batch(frames, rois, exact=True)
+        return self._post(state, rois, active, new_rois, confidence, extras, pos)
+
+    @torch.inference_mode()
+    def run_frames(self, state: dict, frames):
+        """The ungated batch step, JAX's ``vmap(step)``: the same outputs as
+        :meth:`step` for each stream of ``frames [B,H,W,4]``."""
+        return self._ungated(state, frames, exact_detect=False)
+
+    @torch.inference_mode()
+    def step(self, state: dict, frame):
+        """One frame ``[H,W,4] u8`` of one stream, state from
+        ``init_state()`` → ``(new_state, outputs)``, the outputs of
+        :meth:`step_batch` without the stream axis; every crop exact."""
+        new_state, out = self._ungated({k: v[None] for k, v in state.items()}, frame[None], exact_detect=True)
+        return {k: v[0] for k, v in new_state.items()}, {k: v[0] for k, v in out.items()}
+
+    def run_frame(self, state: dict, frame):
+        """The single-stream step, :meth:`step`."""
+        return self.step(state, frame)
