@@ -29,9 +29,13 @@ check exits non-zero):
    its refusal of 8 channels; the rotated sampler at 512×256² (Face Mesh
    V2's crops: the stored ROIs, then random views) and the letterbox at
    512×192² (full-range detection) bit for bit; the exact sampler (plain
-   torch on every device) on the card bit for bit against the CPU; the
-   RGB→YUV kernel bit for bit on the fixture photo at 1920×1080 and on random
-   images of ragged sizes;
+   torch on every device) on the card bit for bit against the CPU; at
+   BodyTracker's shapes, the rotated sampler on 64 square 256×256 views of
+   150-900 px at any angle, partly outside the frame, on the 256-pixel grid
+   (and on the views stored from JAX in ``body_track.npz``, against JAX's
+   output), and the letterbox at 224², colour range [-1, 1], on 1080p and
+   720p frames; the RGB→YUV kernel bit for bit on the fixture photo at
+   1920×1080 and on random images of ragged sizes;
 4. the paths against the JAX reference stored in
    ``zaru_tpu_torch/fixtures/``: ``FaceTracker`` one step at a time from
    JAX's state (flags equal, landmarks and ROI within the CPU test's
@@ -44,7 +48,11 @@ check exits non-zero):
    ``face_models_track.npz`` the same way (``FaceTracker`` with Face Mesh
    V2, with the full-range detector, ``fast_sampler=False``,
    ``run_frames``, ``run_frame`` with and without iris) and ``scan_video``
-   equal to ``run_frame``;
+   equal to ``run_frame``; ``BodyTracker`` on the stub pose models
+   (``body_track.npz``: the blobs, written to a temporary directory that
+   ``ZARU_TPU_MODELS`` names, and JAX's runs): network outputs, decoders,
+   candidates, then gated, ``run_frame`` and ``run_frames`` one step at a
+   time and free-running, within the CPU tests' tolerances;
 5. the paths at full size on the fixture photo upscaled to 1920×1080 on
    the card, 54 steps after 9 of warm-up: ``FaceTracker.step_batch`` at
    batches 64 and 512 with detection forced every 9th step, then
@@ -60,7 +68,19 @@ check exits non-zero):
    its sampler and its network; then ``FaceTracker`` with Face Mesh V2 and
    with the full-range detector at 512 (the same cadence), and ``run_frame``
    on one stream, which must launch the stage kernel and no sampler kernel,
-   each with its device busy share;
+   each with its device busy share; ``BodyTracker`` at 512 (detection every
+   9th step, both sampler kernels launched, busy share); then serving
+   (``zaru_tpu_torch.serve.serve_loop`` and ``pipeline.ingest``) with 64
+   in-memory sources of host 1080p frames (the photo, shifted a few pixels
+   a stream): ``measure_ingest_bandwidth``, the uploader's batches against
+   the staged frames by device checksums over 16 flushes with no host read
+   between them, the loop bit-equal to ``run_frames_gated`` for 9 steps,
+   its fresh frames/s end to end, p50/p95 ms/step, drops, host time staging
+   and flushing and a 9-step profile over 54 steps after 9, beside the
+   tiled main path at 64; a join's slot reset to a fresh state; one stream
+   in ms/frame beside ``run_frame``. The card's machine has no image
+   decoder (cv2, PIL), so file decoding is not run here: the CPU tests
+   (tests/test_torch_serve.py) cover the CLI's inputs;
 6. each kernel's time at its main-path inputs (queued behind a device spin
    so the host's launch cost is hidden) beside its plain version's and its
    bound; for the samplers the whole call in the planar layout the path
@@ -73,7 +93,8 @@ check exits non-zero):
    library yardstick; the RGB→YUV kernel at 1920×1080 beside
    ``torch.matmul``; the samplers at the hand tracker's shapes; the rotated
    sampler at Face Mesh V2's 512×256² and the letterbox at the full-range
-   512×192², and the stage kernel's ten chains at batch 1 (``run_frame``),
+   512×192², the stage kernel's ten chains at batch 1 (``run_frame``), and
+   both samplers at BodyTracker's 512×256² (256-pixel grid) and 512×224²,
    as further entries of the JSON line;
 7. the launch counts of phase 5, then one JSON line of per-kernel numbers,
    then the result line.
@@ -86,8 +107,10 @@ JAX is not used.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -108,6 +131,12 @@ CAND_TOL_PX, CAND_TOL_RAD = 1e-3, 1e-5
 # exact-sampler, ungated and single-stream runs (landmarks and ROIs in px,
 # confidence, eyes in px).
 MODEL_STEP_TOL_PX, MODEL_SCORE_TOL, MODEL_EYE_TOL_PX = 1e-2, 1e-5, 1.0
+# tests/test_torch_body.py: BodyTracker's one-step tolerances (landmarks and
+# ROIs in px, scores) and the candidate ROIs on random keypoints (px).
+BODY_TOL_PX, BODY_SCORE_TOL, BODY_NORM_TOL_PX = 1e-3, 1e-6, 1e-4
+BODY_BLOBS = {"blob_pose_detection": ("pose_detection.onnx",),
+              "blob_pose_landmark": ("pose_landmark_lite.onnx", "pose_landmark_full.onnx")}
+SERVE_STREAMS = 64  # streams of the serving runs (2 staging buffers: 1.06 GB pinned)
 VIEW_CASES = [  # (cx, cy, w, h, theta), tests/test_torch_samplers.py
     (960, 540, 300, 300, 0.0),
     (500, 400, 192, 192, 0.0),
@@ -742,6 +771,7 @@ def phase_full_size(torch, img, device, card):
             box["state"], box["out"] = tr.step_batch(box["state"], frames, force_detect=(i % 9 == 0))
 
         dt, launches = timed_run(torch, step, what, FACE_KERNELS)
+        result.setdefault("ms", {})[(what, batch)] = dt / STEPS * 1e3
         out = box["out"]
         valid = bool(out["valid"].all())
         conf = float(out["confidence"].min())
@@ -958,7 +988,7 @@ def phase_slice_full_size(torch, img, device, card, batch=512):
           f"{float(out['confidence']):.4f}; launches {launches} [{card}]", flush=True)
     check(bool(out["valid"]) and float(out["confidence"]) > 0.9, f"{what}: lost the face")
     result[what] = (one, box["state"], launches)
-    return frames, result
+    return frames, result, dt / STEPS * 1e3
 
 
 def _letterbox_lin(torch, frames, yi, xi, ok):
@@ -1175,6 +1205,377 @@ def phase_stage_times(torch, tracker, frames, state, launches, steps, what="main
     }
 
 
+def body_photo(torch, np, device):
+    """tests/test_torch_body.py ``photo()``: the fixture photo subsampled to
+    320×180, RGBA u8 on the card."""
+    from zaru_tpu_torch.assets import fixture_path
+
+    with np.load(fixture_path("sad_linus_track.npz")) as f:
+        rgb = f["rgb"][::4, ::4]
+    rgba = np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], -1)
+    return torch.from_numpy(np.ascontiguousarray(rgba)).to(device)
+
+
+def unmap_u8(torch, np, c):
+    """tests/test_torch_body.py ``unmap_u8``: the [0, 1] colour map of u8
+    channels, ``c * f32(1/255)`` rounded once."""
+    return (torch.from_numpy(c).double() * float(np.float32(1.0) / np.float32(255.0))).float()
+
+
+def phase_body_shapes_vs_plain(torch, np, device):
+    """The samplers at BodyTracker's shapes against their plain versions, bit
+    for bit: the rotated kernel on 64 square 256×256 views of 150-900 px at
+    any angle, partly outside the frame, on the 256-pixel grid, colour range
+    [0, 1] (planar and NHWC); the views stored from JAX in body_track.npz
+    against JAX's output; the letterbox at 224², colour range [-1, 1], on
+    1080p and 720p frames (the full-frame fit and offset, scaled rects)."""
+    from zaru_tpu_torch.assets import fixture_path
+    from zaru_tpu_torch.ops.letterbox import letterbox_sample, letterbox_sample_planar_reference
+    from zaru_tpu_torch.ops.letterbox import letterbox_sample_reference
+    from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast
+    from zaru_tpu_torch.pipeline import _ops
+    from zaru_tpu_torch.resolution import Resolution
+
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    B = 64
+    frames = coord_frames(torch, B, 1080, 1920, device)
+    u = lambda lo, hi: lo + torch.rand(B, generator=gen) * (hi - lo)  # noqa: E731
+    size = u(150, 900)
+    body = torch.stack([u(-150, 2070), u(-150, 1230), size, size, u(-3.15, 3.15)], -1).reshape(B, 1, 5)
+    got = check_rotated(torch, "body views (150-900 px, any angle, partly outside)", frames, body.to(device),
+                        256, 0.0, 1.0, 256)
+    check(bool((got == 0.0).all(-1).any()), "no body view reads outside the frame")
+    with np.load(fixture_path("body_track.npz")) as f:
+        rects, want = torch.from_numpy(f["views_rects"]).to(device), unmap_u8(torch, np, f["views_u8"])
+    got = rotated_sample_fast(frames[: rects.shape[0]], rects, 256, 256, 0.0, 1.0, 256).cpu()
+    differ = int((got != want).sum())
+    print(f"rotated_sample kernel vs JAX's stored run at the body shape: {tuple(got.shape)} on the 256-px grid "
+          f"(square views, strides 1-5): {differ} values differ", flush=True)
+    check(differ == 0, "rotated_sample kernel differs from JAX's stored body views")
+
+    for H, W in ((1080, 1920), (720, 1280)):
+        fr = torch.randint(0, 256, (8, H, W, 4), generator=gen, dtype=torch.uint8).to(device)
+        _fit, fit_rrect = _ops.full_frame_fit(fr, Resolution(224, 224))
+        rr = fit_rrect.expand(8, 5).clone()
+        rr[4:, 0] += torch.tensor([-300.0, 200.0, 31.3, 700.0], device=device)
+        rr[4:, 2:4] *= torch.tensor([[0.61], [0.61], [420 / float(rr[0, 2])], [0.61]], device=device)
+        got = letterbox_sample(fr, rr, 224, 224, -1.0, 1.0)
+        want = letterbox_sample_reference(fr, rr, 224, 224, -1.0, 1.0)
+        got_p = letterbox_sample(fr, rr, 224, 224, -1.0, 1.0, layout="NCHW")
+        want_p = letterbox_sample_planar_reference(fr, rr, 224, 224, -1.0, 1.0)
+        torch.cuda.synchronize()
+        differ, differ_p = int((got != want).sum()), int((got_p != want_p).sum())
+        print(f"letterbox_sample vs plain at the pose detector's shape, {W}x{H}: {tuple(got.shape)}, range "
+              f"[-1, 1], {differ} values differ (NHWC), {differ_p} (planar)", flush=True)
+        check(differ == 0 and differ_p == 0, "letterbox_sample kernel disagrees with its plain version at 224^2")
+
+
+def write_body_stubs(np, directory):
+    """The stub pose blobs stored in body_track.npz, written into
+    ``directory`` under the model names BodyTracker loads."""
+    from zaru_tpu_torch.assets import fixture_path
+
+    with np.load(fixture_path("body_track.npz")) as f:
+        for key, names in BODY_BLOBS.items():
+            for name in names:
+                (Path(directory) / name).write_bytes(f[key].tobytes())
+
+
+def phase_body_vs_jax(torch, np, device):
+    """BodyTracker on the stub models against body_track.npz (see
+    tests/test_torch_body.py): the networks' raw outputs and the port's
+    decode of JAX's, the detection candidates and ``_candidate_rois`` on
+    random keypoints, then each run (gated, ``run_frame``, ``run_frames``)
+    one step at a time from JAX's state and free-running by its flags."""
+    from zaru_tpu_torch.assets import fixture_path
+    from zaru_tpu_torch.pipeline import BodyTracker, _ops
+
+    with np.load(fixture_path("body_track.npz")) as f:
+        ref = {k: f[k] for k in f.files}
+    tracker = BodyTracker(max_bodies=2, device=device)
+    frame = body_photo(torch, np, device)
+    dev = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
+    _fit, fit_rrect = _ops.full_frame_fit(frame, tracker.det_cnn.input_resolution())
+    det = tracker.det_cnn.apply_views_letterbox(frame[None], fit_rrect[None])
+    lm = tracker.lm_cnn.apply_on_view(frame[None], dev(ref["lm_view"])[None])
+    raw_err = max(float((o.cpu() - torch.from_numpy(ref[k])).abs().max())
+                  for o, k in zip(det + lm, ("det_out0", "det_out1", "lm_out0", "lm_out1")))
+    check(len(lm) == 2 and raw_err <= 1e-6, f"body networks' outputs differ from JAX by {raw_err}")
+    dec = [t[0].cpu().numpy() for t in tracker.detector.decode_device(
+        [dev(ref["det_out0"]), dev(ref["det_out1"])], tracker.detection_threshold)]
+    dec += [t[0].cpu().numpy() for t in tracker.landmarker.decode_device([dev(ref["lm_out0"]), dev(ref["lm_out1"])])]
+    keys = ("det_boxes", "det_conf", "det_kps", "det_angles", "lm_coords", "lm_flag", "lm_vis", "lm_pres")
+    dec_err = max(float(np.abs(d - ref[k]).max()) for d, k in zip(dec, keys))
+    check(dec_err <= BODY_SCORE_TOL, f"body decoders differ from JAX by {dec_err}")
+    rois, valid = tracker._detect_batch(frame.expand(2, *frame.shape).contiguous())
+    cand_err = float(np.abs(rois.cpu().numpy() - ref["cand_rois"]).max())
+    check((valid.cpu().numpy() == ref["cand_valid"]).all() and cand_err <= BODY_TOL_PX,
+          f"body detection candidates differ from JAX by {cand_err}")
+    rng = np.random.default_rng(9)  # tests/test_torch_body.py norm_inputs()
+    box, kps, ang = (rng.uniform(0, 224, (8, 2, 4)).astype(np.float32),
+                     rng.uniform(0, 224, (8, 2, 4, 2)).astype(np.float32),
+                     rng.uniform(-3, 3, (8, 2)).astype(np.float32))
+    fit, _ = _ops.full_frame_fit(frame, tracker.det_cnn.input_resolution())
+    norm = tracker._candidate_rois(dev(box), dev(kps), dev(ang), fit, tracker.det_cnn.input_resolution())
+    norm_err = float(np.abs(norm.cpu().numpy() - ref["norm_rois"]).max())
+    check(norm_err <= BODY_NORM_TOL_PX, f"body _candidate_rois differ from JAX by {norm_err}")
+
+    errs = {}
+    for run in ("gated", "single", "ungated"):
+        r = lambda k: ref[f"{run}__{k}"]  # noqa: E731
+        entry = str(r("entry"))
+
+        def step(state, t):
+            frames = frame.expand(2, *frame.shape).clone()
+            frames[torch.from_numpy(r("zero")[t]).to(device)] = 0
+            if entry == "run_frame":
+                return tracker.run_frame(state, frames[0])
+            if entry == "run_frames":
+                return tracker.run_frames(state, frames)
+            return tracker.step_batch(state, frames, bool(r("force")[t]))
+
+        state = None
+        for t in range(len(r("force"))):
+            start = {k: dev(r(f"state_{k}")[t]) for k in ("rois", "active", "frame")}
+            _, out = step(start, t)
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            check((out["valid"] == r("out_valid")[t]).all(), f"body {run} step {t}: flags differ from JAX")
+            for k in ("landmarks", "pose_landmarks", "rois", "pose_flag", "visibility", "presence"):
+                err = float(np.abs(out[k] - r(f"out_{k}")[t]).max())
+                tol = BODY_TOL_PX if "landmarks" in k or k == "rois" else BODY_SCORE_TOL
+                check(err <= tol, f"body {run} step {t}: {k} differs from JAX by {err} (tolerance {tol})")
+                errs[k] = max(errs.get(k, 0.0), err)
+            kind = str(r("start")[t])
+            fresh = tracker.init_state(None if entry == "run_frame" else 2)
+            state = fresh if kind == "init" else start if kind == "seed" else state
+            state, out = step(state, t)
+            check((out["valid"].cpu().numpy() == r("out_valid")[t]).all(),
+                  f"body {run} free-running step {t}: flags differ from JAX")
+    print(f"BodyTracker(max_bodies=2) on the stub models vs JAX reference: raw network outputs within {raw_err:.3g}, "
+          f"decoders within {dec_err:.3g}, candidates within {cand_err:.3g} px, _candidate_rois on random "
+          f"keypoints within {norm_err:.3g} px; gated, run_frame and run_frames one step at a time max errors "
+          f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tolerances {BODY_TOL_PX} px, {BODY_SCORE_TOL}); "
+          f"free-running flags equal at every step", flush=True)
+
+
+def phase_body_full_size(torch, img, device, card, batch=512):
+    """BodyTracker (one body a stream, stub models) at batch 512 on the
+    1080p photo, 54 steps after 9, detection forced every 9th step: ms/step,
+    frames/s, the device's busy share, and both sampler kernels launched."""
+    import numpy as np
+
+    from zaru_tpu_torch.pipeline import BodyTracker
+
+    tracker = BodyTracker(device=device)
+    frames = img.expand(batch, *img.shape).contiguous()
+    box = {"state": tracker.init_state(batch)}
+
+    def step(i):
+        box["state"], box["out"] = tracker.step_batch(box["state"], frames, force_detect=(i % 9 == 0))
+
+    what = "BodyTracker (stub pose models)"
+    dt, launches = timed_run(torch, step, what, HAND_KERNELS)
+    out = box["out"]
+    check(tuple(out["landmarks"].shape) == (batch, 1, 39, 3) and bool(torch.isfinite(out["landmarks"]).all())
+          and bool(out["valid"].all()), f"{what}: landmarks {tuple(out['landmarks'].shape)}, valid "
+          f"{int(out['valid'].sum())} of {batch}")
+    check(launches["letterbox_sample"] == STEPS // 9 and launches["rotated_sample"] == STEPS,
+          f"{what}: launches {launches}")
+    busy = profile_steps(torch, step, batch, what)
+    view = float(box["state"]["rois"][0, 0, 2])
+    print(f"{what} at 1920x1080, batch {batch}: {STEPS} steps (detect every 9th) in {dt:.3f} s: "
+          f"{dt / STEPS * 1e3:.3f} ms/step, {batch * STEPS / dt:.1f} frames/s, device busy {100 * busy:.1f}%, "
+          f"tracked ROI {view:.1f} px (stride {int(np.ceil((view + 2) / 256))} on the 256-px grid), "
+          f"all valid; launches {launches} [{card}]", flush=True)
+    check_no_layout_copy(torch, step, [(256, 256), (224, 224)], what)
+    return tracker, frames, box["state"], launches
+
+
+def memory_factory(frame, name, n=None):
+    """A source of ``frame`` (host numpy), ``n`` times or forever."""
+    def factory():
+        i = 0
+        while n is None or i < n:
+            i += 1
+            yield frame
+
+    factory.name = name
+    return factory
+
+
+def profile_serve(torch, run, steps):
+    """torch.profiler over ``run()`` (``steps`` serve steps): device kernel
+    time and host→device copy time per step, and their shares of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernel = copy = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        if "Memcpy HtoD" in e.key:
+            copy += ms
+        elif "Memcpy" not in e.key and "Memset" not in e.key:
+            kernel += ms
+    return wall / steps, kernel / steps, copy / steps
+
+
+class RecordingTracker:
+    """A tracker whose gated step records the state it starts from."""
+
+    def __init__(self, tracker):
+        self.tracker, self.states = tracker, []
+
+    def init_state(self, batch=None):
+        return self.tracker.init_state(batch)
+
+    def run_frames_gated(self, state, frames):
+        self.states.append(state)
+        return self.tracker.run_frames_gated(state, frames)
+
+
+def phase_serve(torch, np, img, device, card, tracker, tiled_ms, run_frame_ms):
+    """The serving entry points on the card, with in-memory sources of host
+    1080p RGBA frames (the photo, each stream's shifted a few pixels):
+    ``measure_ingest_bandwidth`` at 64; the uploader's device batches
+    against the staged frames over 16 flushes (device checksums, read once
+    at the end); ``serve_loop`` at 64 streams bit-equal to
+    ``run_frames_gated`` on the same frames uploaded at once (9 steps); the
+    loop's figures over 54 steps after 9 (fresh frames/s end to end, p50/p95
+    ms/step, drops, host time staging and issuing the upload) and a 9-step
+    profile; a join's slot reset to a fresh state; one stream in ms/frame.
+    Frames are in memory: the card's machine has no image decoder, so file
+    decoding is left to the CPU tests."""
+    from zaru_tpu_torch.pipeline.ingest import FrameUploader, measure_ingest_bandwidth
+    from zaru_tpu_torch.serve import StreamSet, serve_loop
+
+    B = SERVE_STREAMS
+    host = img.cpu().numpy()
+    frames = [np.ascontiguousarray(np.roll(host, (s % 8, 3 * (s // 8)), axis=(0, 1))) for s in range(B)]
+    bw = measure_ingest_bandwidth(batch=B, shape=host.shape, iters=20, device=device)
+    print(f"ingest at batch {B}, 1920x1080 RGBA u8 from page-locked memory: {bw['gbytes_per_s']:.3f} GB/s, "
+          f"{bw['frames_per_s']:.1f} frames/s [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    up = FrameUploader(B, host.shape, device)
+    pin_s = time.perf_counter() - t0
+    want = [int(f.view(np.int32).sum(dtype=np.int64)) for f in frames]
+    sums = []
+    for n in range(16):
+        for s in range(B):
+            up.stage(s, frames[(s + n) % B])
+        dev = up.flush()
+        sums.append(dev.view(torch.int32).sum(dim=(1, 2, 3), dtype=torch.int64))
+    got = torch.stack(sums).cpu().numpy()
+    bad = int(sum(got[n][s] != want[(s + n) % B] for n in range(16) for s in range(B)))
+    print(f"FrameUploader at batch {B}: two page-locked staging buffers of {B * host.nbytes / 1e9:.2f} GB "
+          f"allocated in {pin_s:.2f} s; 16 flushes with the slots' frames rotated each time and no host read "
+          f"between them: {bad} of {16 * B} device checksums differ from the staged frames", flush=True)
+    check(bad == 0, "an uploaded batch differs from the frames staged for it")
+
+    def streams_of():
+        return StreamSet([memory_factory(frames[s], f"memory{s}") for s in range(B)])
+
+    streams = streams_of()
+    streams.prime()
+    outs = []
+    serve_loop(tracker, streams, up, single=False, steps=9,
+               emit=lambda rec, out: outs.append({k: out[k].clone() for k in ("valid", "landmarks")}))
+    streams.close()
+    direct = torch.from_numpy(np.stack(frames)).to(device)
+    state = tracker.init_state(B)
+    for t in range(9):
+        state, out = tracker.run_frames_gated(state, direct)
+        check(torch.equal(outs[t]["valid"], out["valid"]) and torch.equal(outs[t]["landmarks"], out["landmarks"]),
+              f"serve_loop step {t} differs from run_frames_gated on the same frames")
+    check(bool(out["valid"].all()), "serve_loop: lost the face")
+    print(f"serve_loop at {B} streams: 9 steps bit-equal to run_frames_gated on the same frames uploaded at once "
+          "(valid, landmarks)", flush=True)
+    del direct
+
+    def timed(single, steps, streams, up):
+        stage0, flush0 = up.stage_seconds, up.flush_seconds
+        for fn in launch_counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        stats = serve_loop(tracker, streams, up, single=single, steps=steps, emit=lambda rec, out: None)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in launch_counters().items()}
+        return dt, stats, launches, (up.stage_seconds - stage0) / steps, (up.flush_seconds - flush0) / steps
+
+    for n in (WARMUP, STEPS):  # warm-up, then the timed run; each starts from a fresh state
+        streams = streams_of()
+        streams.prime()
+        dt, stats, launches, stage_s, flush_s = timed(False, n, streams, up)
+        streams.close()
+    check(all(launches[k] > 0 for k in FACE_KERNELS), f"serving: a kernel of the path was never launched: {launches}")
+    fps = stats.frames / dt
+    p50, p95 = stats._pct(50) * 1e3, stats._pct(95) * 1e3
+    drops = sum(streams.drops)
+    streams = streams_of()
+    streams.prime()
+    wall, kernel, copy = profile_serve(torch, lambda: serve_loop(
+        tracker, streams, up, single=False, steps=9, emit=lambda rec, out: None), 9)
+    streams.close()
+    print(f"serving (serve_loop, FaceTracker.run_frames_gated) at {B} streams of in-memory 1920x1080 frames: "
+          f"{STEPS} steps in {dt:.3f} s: {stats.frames} fresh frames, {fps:.1f} frames/s end to end, step p50 "
+          f"{p50:.3f} ms / p95 {p95:.3f} ms, drops {drops}; host time a step staging {stage_s * 1e3:.3f} ms, "
+          f"issuing the upload {flush_s * 1e3:.3f} ms; PCIe at the measured rate "
+          f"{B * host.nbytes / bw['gbytes_per_s'] / 1e6:.3f} ms a batch; 9-step profile: {wall:.3f} ms/step wall, "
+          f"device kernels {kernel:.3f} ms/step ({100 * kernel / wall:.1f}%), host-to-device copies "
+          f"{copy:.3f} ms/step ({100 * copy / wall:.1f}%); launches {launches} [{card}]", flush=True)
+    print(f"serving beside the tiled run at batch {B}: serve_loop {dt / STEPS * 1e3:.3f} ms/step ({fps:.1f} "
+          f"frames/s, ingest included) against the main path on frames tiled on the card {tiled_ms:.3f} ms/step "
+          f"({B / tiled_ms * 1e3:.1f} frames/s): ingest and the loop cost "
+          f"{dt / STEPS * 1e3 - tiled_ms:.3f} ms/step", flush=True)
+
+    recorder = RecordingTracker(tracker)
+    streams = StreamSet([memory_factory(frames[0], "finite0", n=2)] +
+                        [memory_factory(frames[s], f"memory{s}") for s in range(1, B)],
+                        pending=[memory_factory(frames[1], "joiner")])
+    streams.prime()
+    lines, recs = [], []
+    serve_loop(recorder, streams, up, single=False, steps=5, no_loop=True, log=lines.append,
+               emit=lambda rec, out: recs.append(rec))
+    streams.close()
+    joined = next(i for i, r in enumerate(recs) if i > 0 and r.get("active", [False])[0])
+    fresh = tracker.init_state(B)
+    start = recorder.states[joined]
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            yield from leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
+
+    fresh_leaves = dict(leaves(fresh))
+    reset_ok = all(torch.equal(v[0], fresh_leaves[k][0]) for k, v in leaves(start))
+    carried = bool(start["tracking"][1:].all())
+    print(f"serve_loop join at {B} streams: {[ln for ln in lines if 'slot 0' in ln]}; at step {joined} slot 0 "
+          f"starts from a fresh state {reset_ok}, the other slots keep tracking {carried}, slot 0 valid after "
+          f"the step {recs[joined]['valid'][0]}", flush=True)
+    check("stream slot 0: leave" in lines and "stream slot 0: join (joiner)" in lines and reset_ok and carried
+          and recs[joined]["valid"][0], "serve_loop: the joined slot was not reset to a fresh state")
+
+    one = FrameUploader(1, host.shape, device)
+    for n in (WARMUP, STEPS):
+        streams = StreamSet([memory_factory(frames[0], "memory0")])
+        streams.prime()
+        dt1, stats1, launches1, stage1, _ = timed(True, n, streams, one)
+        streams.close()
+    check(launches1["blaze_stage"] > 0 and launches1["rotated_sample"] == 0,
+          f"serve_loop, one stream: launches {launches1}")
+    print(f"serving one stream (serve_loop, run_frame): {STEPS} frames in {dt1:.3f} s: {dt1 / STEPS * 1e3:.3f} "
+          f"ms/frame, {stats1.frames / dt1:.1f} frames/s, staging {stage1 * 1e3:.3f} ms/frame; beside phase 5's "
+          f"run_frame on a frame on the card {run_frame_ms:.3f} ms/frame; launches {launches1} [{card}]", flush=True)
+    return launches
+
+
 def timed_phase(what, fn, *args):
     """``fn(*args)``, then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -1210,21 +1611,45 @@ def main() -> int:
     print(f"build: {len(_build.SOURCES)} kernels in {_build.build_all():.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})", flush=True)
 
+    # The pose models BodyTracker loads: the stub blobs stored in
+    # body_track.npz (the real ones are missing upstream).
+    with tempfile.TemporaryDirectory() as stubs:
+        write_body_stubs(np, stubs)
+        os.environ["ZARU_TPU_MODELS"] = stubs
+        run_phases(torch, np, F, device, smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def run_phases(torch, np, F, device, smi):
+    """Phases 3-7 (see the module docstring)."""
     timed = timed_phase
     timed("3, kernels vs plain", phase_kernels_vs_plain, torch, device)
     rgba, img = load_photo(torch, F, np, device)
     timed("3, this slice's shapes vs plain", phase_slice_shapes_vs_plain, torch, np, device, rgba)
+    timed("3, BodyTracker's shapes vs plain", phase_body_shapes_vs_plain, torch, np, device)
     rgb = timed("3, RGB to YUV vs plain", phase_yuv_vs_plain, torch, img, device)
     timed("4, FaceTracker vs JAX", phase_vs_jax, torch, np, device, rgba)
     timed("4, face models and entry points vs JAX", phase_face_models_vs_jax, torch, np, device, rgba)
     timed("4, multi-object vs JAX", phase_multi_vs_jax, torch, np, device, rgba)
+    timed("4, BodyTracker vs JAX", phase_body_vs_jax, torch, np, device)
     tracker, runs = timed("5, face runs", phase_full_size, torch, img, device, smi)
     hands, hand_frames, seed, multi = timed("5, multi-object runs", phase_multi_full_size, torch, img, device, smi)
-    model_frames, models = timed("5, face models and run_frame", phase_slice_full_size, torch, img, device, smi)
+    model_frames, models, run_frame_ms = timed("5, face models and run_frame", phase_slice_full_size, torch, img,
+                                               device, smi)
+    body, body_frames, body_state, body_launches = timed("5, BodyTracker", phase_body_full_size, torch, img,
+                                                         device, smi)
+    serve_launches = timed("5, serving", phase_serve, torch, np, img, device, smi, tracker,
+                           runs["ms"][("main path", SERVE_STREAMS)], run_frame_ms)
     print(f"launches in the batch-512 face runs ({STEPS} steps each): {runs['launches']}", flush=True)
     print(f"launches in the batch-128 multi-object runs ({STEPS} steps each): {multi}", flush=True)
     print(f"launches in the face-model and single-stream runs ({STEPS} steps each): "
           f"{ {k: v[2] for k, v in models.items()} }", flush=True)
+    print(f"launches in the BodyTracker run at 512 ({STEPS} steps): {body_launches}; in the serving run at "
+          f"{SERVE_STREAMS} streams ({STEPS} steps): {serve_launches}", flush=True)
     t0 = time.perf_counter()
     launches = runs["launches"]["main path"]
     frames, state, _ = runs["main path"]
@@ -1243,14 +1668,11 @@ def main() -> int:
     one, one_state, one_launches = models["FaceTracker.run_frame, one stream"]
     kernels.append(phase_stage_times(torch, one, img[None], {"roi": one_state["roi"][None]},
                                      one_launches["blaze_stage"], STEPS, "run_frame, one stream"))
+    kernels += phase_kernel_times(torch, body_frames, body.lm_cnn, body.det_cnn, body_state["rois"], body_launches,
+                                  "BodyTracker run", prescale_m=256)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

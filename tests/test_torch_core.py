@@ -61,6 +61,11 @@ def test_imports_neither_jax_nor_zaru_tpu():
         "import zaru_tpu_torch.pipeline.multi_face, zaru_tpu_torch.pipeline.hand_cascade\n"
         "import zaru_tpu_torch.face.detection, zaru_tpu_torch.face.landmark.mediapipe\n"
         "import zaru_tpu_torch.ops.sampling, zaru_tpu_torch.nn\n"
+        "import zaru_tpu_torch.serve, zaru_tpu_torch.pipeline.ingest, zaru_tpu_torch.__main__\n"
+        "import zaru_tpu_torch.body.detection, zaru_tpu_torch.body.landmark\n"
+        "import zaru_tpu_torch.pipeline.body_cascade, zaru_tpu_torch.color, zaru_tpu_torch.rect\n"
+        "import zaru_tpu_torch.image, zaru_tpu_torch.image.decode, zaru_tpu_torch.image.draw\n"
+        "import zaru_tpu_torch.video.anim, zaru_tpu_torch.video.file, zaru_tpu_torch.timer\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'zaru_tpu' or m.startswith('zaru_tpu.')]\n"
         "assert not bad, bad\n"
@@ -78,7 +83,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from zaru_tpu_torch.hand.detection import LiteNetwork as PalmLite
     from zaru_tpu_torch.hand.landmark import LiteNetwork as HandLite
     from zaru_tpu_torch.nn import Cnn, ColorMapper
-    from zaru_tpu_torch.pipeline import MultiFaceTracker, MultiHandTracker
+    from zaru_tpu_torch.body.detection import PoseNetwork
+    from zaru_tpu_torch.body.landmark import FullNetwork as PoseFull, LiteNetwork as PoseLite
+    from zaru_tpu_torch.image import Image
+    from zaru_tpu_torch.pipeline import BodyTracker, MultiFaceTracker, MultiHandTracker
+    from zaru_tpu_torch.pipeline.ingest import FrameUploader, measure_ingest_bandwidth
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (
@@ -96,6 +105,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         PalmLite,
         HandLite,
         lambda: Cnn.load("face_landmark.onnx", ColorMapper.linear(-1.0, 1.0)),
+        BodyTracker,
+        PoseNetwork,
+        PoseLite,
+        PoseFull,
+        lambda: FrameUploader(2, (4, 4, 4)),
+        lambda: measure_ingest_bandwidth(2, (4, 4, 4), 1),
+        lambda: Image.new(4, 4),
         resolve_device,
         lambda: resolve_device("cuda"),
     ):

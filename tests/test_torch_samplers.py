@@ -45,7 +45,12 @@ Two things XLA:CPU does when it compiles the JAX samplers, found here:
   320 px view at -0.55 rad read the neighbouring prescale cell. It
   contracts ``sth*px + cth*py`` as well, into ``fma(sth, px, cth*py)``:
   without that, one pixel each of two 256² views (760 px at 1.0 rad,
-  836 px at 0.7 rad) read the neighbouring prescale row;
+  836 px at 0.7 rad) read the neighbouring prescale row. And it contracts
+  the map into the prescale grid, ``fx * inv_sx + qx0`` (likewise y), into
+  ``fma(fx, inv_sx, qx0)``: without that, one pixel of a 900 px body view
+  on the 256-pixel grid read the neighbouring prescale row, and so did
+  pixels of each of the views of ``VIEWS_PRESCALE_FMA``, found by a search
+  for views where the two forms differ, on the 512-pixel grid;
 - the exact sampler and the letterbox compute ``j / n`` as
   ``j * f32(1/n)`` too, and the exact sampler contracts both rotated
   coordinates the same way. The port follows both: before that, 166
@@ -55,8 +60,7 @@ Two things XLA:CPU does when it compiles the JAX samplers, found here:
 What remains: ``cos`` and ``sin`` of the view angle can differ by an ulp
 between the libraries (tests/test_torch_core.py), and at angles and sizes
 other than these views that can still move a pixel whose index lies on a
-rounding boundary to the neighbouring prescale cell. Whether XLA contracts
-the prescale map is not settled by these views.
+rounding boundary to the neighbouring prescale cell.
 """
 
 from functools import partial
@@ -156,6 +160,36 @@ def test_rotated_sampler_matches_jax(views):
             assert np.abs(gx - wx).max() <= stride and np.abs(gy - wy).max() <= stride
     # Black (lo) where the view leaves the frame: the corner view has some.
     assert (got == -1.0).all(-1).any()
+
+
+# Face crops, 192×192 on the 512-pixel grid (strides 2 and 3), each with
+# pixels whose prescale-grid index differs between ``fx * inv_sx + qx0``
+# rounded twice and its FMA (a search over random views at angles where
+# XLA's and torch's cos and sin agree).
+VIEWS_PRESCALE_FMA = [
+    (705.380859375, 524.2680053710938, 952.0814819335938, 952.0814819335938, 2.50960636138916),
+    (1275.47412109375, 848.763671875, 799.2994384765625, 799.2994384765625, -0.6397162079811096),
+    (1242.2269287109375, 264.4622802734375, 1052.534423828125, 1052.534423828125, -2.4242894649505615),
+    (1323.22607421875, 520.6557006835938, 900.53466796875, 900.53466796875, -2.858391284942627),
+    (495.6822814941406, 648.0073852539062, 931.3646850585938, 931.3646850585938, -1.9777787923812866),
+    (1374.8729248046875, 398.2197265625, 1047.052978515625, 1047.052978515625, 2.1990137100219727),
+    (1299.0721435546875, 764.4442749023438, 888.4882202148438, 888.4882202148438, 2.184288740158081),
+    (860.5947875976562, 636.1656494140625, 984.6622924804688, 984.6622924804688, -1.202706217765808),
+    (1401.097900390625, 445.7167053222656, 844.6909790039062, 844.6909790039062, 2.0155282020568848),
+    (1272.683349609375, 808.9071655273438, 776.810546875, 776.810546875, -0.83737713098526),
+]
+
+
+def test_rotated_sampler_prescale_map_is_fma():
+    """The views of VIEWS_PRESCALE_FMA at 192×192 on the 512-pixel grid, bit
+    for bit against JAX (the batch has VIEWS_A's shape, so JAX's sampler is
+    compiled once for both); the twice-rounded prescale map would read the
+    neighbouring prescale cell at some pixel of each."""
+    rects = np.asarray(VIEWS_PRESCALE_FMA, np.float32).reshape(5, 2, 5)
+    frames = _frames(5)
+    want = np.asarray(jax_rotated_192(jnp.asarray(frames), jnp.asarray(rects)))
+    got = rotated_sample_fast(torch.from_numpy(frames), torch.from_numpy(rects), 192, 192, -1.0, 1.0).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 # Face Mesh V2 crops, 256×256 on the 512-pixel grid: views of the sizes a
@@ -513,3 +547,82 @@ def test_cnn_apply_on_view_is_the_exact_sampler_then_the_network():
     assert len(got) == len(ref) == 5
     for g, w in zip(got, ref):
         assert torch.equal(g, w)
+
+
+def test_rotated_sampler_body_grid_matches_jax():
+    """The body crops of BodyTracker: 256×256 square views of 150-900 px on
+    the 256-pixel grid (strides 1 to 4) at any angle, one partly outside the
+    frame, against JAX's ``rotated_sample_fast(..., prescale_m=256,
+    band_p=256, col_split=1, square_views=True)`` bit for bit, through the
+    run stored in ``body_track.npz`` (its [0, 1] colour map stored as the u8
+    channels it maps; tests/test_torch_body.py checks that the stored run
+    is current and round-trips exactly)."""
+    from test_torch_body import FIXTURE, unmap_u8
+
+    with np.load(FIXTURE) as f:
+        rects, want = f["views_rects"], unmap_u8(f["views_u8"])
+    frames = torch.from_numpy(_frames(rects.shape[0]))
+    got = rotated_sample_fast(frames, torch.from_numpy(rects), 256, 256, 0.0, 1.0, prescale_m=256)
+    assert got.shape == (4, 2, 256, 256, 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == 0.0).all(-1).any() and (want != 0.0).any()  # a view reads outside the frame
+    planar = rotated_sample_fast(frames, torch.from_numpy(rects), 256, 256, 0.0, 1.0, prescale_m=256,
+                                 layout="NCHW")
+    assert torch.equal(planar, got.movedim(-1, -3))
+
+
+def test_letterbox_body_detector_bit_exact():
+    """The pose detector's letterbox: 224×224, colour range [-1, 1], against
+    compiled ``letterbox_sample_core`` and the Pallas kernel in interpret
+    mode: the full-frame fits of 1080p and 720p frames, and rects whose
+    widths put columns on rounding boundaries of ``j / 224`` (420 px:
+    j·1.875 is a half for every j ≡ 4 mod 8; 1000 px)."""
+    rng = np.random.default_rng(224)
+    frames = rng.integers(0, 256, (4, 720, 1280, 4), dtype=np.uint8)
+    fit = lambda H, W: np.asarray(  # noqa: E731
+        jops.full_frame_fit(jnp.zeros((H, W, 4), jnp.uint8), Resolution(224, 224))[1])
+    rects = np.stack([
+        fit(1080, 1920), fit(720, 1280),
+        [640.0, 360.0, 420.0, 420.0, 0.0], [500.0, 300.0, 1000.0, 708.0, 0.0],
+    ]).astype(np.float32)
+    jit_core = jax.jit(jax.vmap(lambda f, r: letterbox_sample_core(f, r, 224, 224, -1.0, 1.0)))
+    want = np.asarray(jit_core(jnp.asarray(frames), jnp.asarray(rects)))
+    got = letterbox_sample_reference(torch.from_numpy(frames), torch.from_numpy(rects), 224, 224, -1.0, 1.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == -1.0).all(-1).any() and (want != -1.0).any()
+    pallas = letterbox_sample_pallas(jnp.asarray(frames[1]), rects[1, :4], 224, 224, -1.0, 1.0, interpret=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(pallas)[0].transpose(1, 2, 0))
+
+
+def test_sample_view_matches_jax():
+    """``sample_view`` (a view materialised at its own size) and
+    ``sample_view_rgba`` (scaled to an output size) against JAX's, compiled,
+    bit for bit, on upright, tilted and out-of-frame views; and the port's
+    ``ImageView.to_image``/``get`` against JAX's on the same view."""
+    from zaru_tpu.geometry import Rect as JRect, RotatedRect as JRR
+    from zaru_tpu.image import Image as JImage
+    from zaru_tpu.ops.sampling import sample_view as jsv, sample_view_rgba as jsvr
+    from zaru_tpu_torch.image import Image
+    from zaru_tpu_torch.ops.sampling import sample_view, sample_view_rgba
+    from zaru_tpu_torch.rect import Rect, RotatedRect
+
+    img = np.random.default_rng(6).integers(0, 256, (90, 120, 4), dtype=np.uint8)
+    rects = [(60.0, 45.0, 33.0, 21.0, 0.0), (50.0, 40.0, 40.0, 30.0, 0.35), (10.0, 80.0, 31.0, 27.0, -2.3),
+             (100.0, 20.0, 45.0, 45.0, 1.1)]
+    for r in rects:
+        rr = np.asarray(r, np.float32)
+        w, h = int(np.ceil(r[2])), int(np.ceil(r[3]))
+        want = np.asarray(jax.jit(jsv, static_argnums=(2, 3))(jnp.asarray(img), jnp.asarray(rr), w, h))
+        got = sample_view(torch.from_numpy(img), torch.from_numpy(rr), w, h).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=str(r))
+        want = np.asarray(jax.jit(jsvr, static_argnums=(2, 3))(jnp.asarray(img), jnp.asarray(rr), 24, 16))
+        got = sample_view_rgba(torch.from_numpy(img), torch.from_numpy(rr), 24, 16).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=str(r))
+    sub = (JRect.from_top_left(7.0, 5.0, 40.0, 30.0), Rect.from_top_left(7.0, 5.0, 40.0, 30.0))
+    jview = JImage(img).view(JRR.new(JRect.from_center(60.0, 45.0, 80.0, 60.0), 0.4)).view(sub[0])
+    view = Image(img, "cpu").view(RotatedRect.new(Rect.from_center(60.0, 45.0, 80.0, 60.0), 0.4)).view(sub[1])
+    np.testing.assert_array_equal(view.view_rect.array, jview.view_rect.array)
+    np.testing.assert_array_equal(view.to_image().to_numpy(), jview.to_image().to_numpy())
+    for x, y in ((3, 4), (30, 20), (0, 0)):
+        got, want = view.get(x, y), jview.get(x, y)
+        assert (got.r, got.g, got.b, got.a) == (want.r, want.g, want.b, want.a), (x, y)

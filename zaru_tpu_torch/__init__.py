@@ -14,12 +14,16 @@ Ported so far: ``FaceTracker`` with every entry point of the JAX one
 (``fast_sampler=False``) and both face detectors and landmarkers
 (``face.detection.ShortRangeNetwork``/``FullRangeNetwork``,
 ``face.landmark.mediapipe.FaceMeshV1``/``FaceMeshV2``);
-``MultiFaceTracker`` and ``MultiHandTracker`` with the same entry points;
-hand-written CUDA kernels for every TPU kernel of the JAX package
-(``zaru_tpu_torch/csrc``). Not ported: ``compute_dtype``.
+``MultiFaceTracker``, ``MultiHandTracker`` and ``BodyTracker`` with the same
+entry points; hand-written CUDA kernels for every TPU kernel of the JAX
+package (``zaru_tpu_torch/csrc``); the serving entry points: the multi-stream
+serve loop (:mod:`zaru_tpu_torch.serve`), the double-buffered frame upload
+(:mod:`zaru_tpu_torch.pipeline.ingest`) and ``python -m zaru_tpu_torch
+track|serve|info``. Not ported: ``compute_dtype``, ``serve --shard`` and the
+``export``/``run-exported``/``eval`` subcommands.
 """
 
 from ._device import resolve_device
-from .pipeline import FaceTracker, MultiFaceTracker, MultiHandTracker
+from .pipeline import BodyTracker, FaceTracker, MultiFaceTracker, MultiHandTracker
 
-__all__ = ["FaceTracker", "MultiFaceTracker", "MultiHandTracker", "resolve_device"]
+__all__ = ["BodyTracker", "FaceTracker", "MultiFaceTracker", "MultiHandTracker", "resolve_device"]

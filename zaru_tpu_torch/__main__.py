@@ -1,0 +1,344 @@
+"""Command-line interface of the port (zaru_tpu/__main__.py): offline
+tracking, the multi-stream serving loop and the asset inventory, on the GPU.
+
+    python -m zaru_tpu_torch info
+    python -m zaru_tpu_torch track INPUT [--pipeline face|hand|body] [--iris]
+        [--out out.jsonl] [--annotate DIR] [--max-frames N] [--slots K]
+        [--device cuda]
+    python -m zaru_tpu_torch serve INPUT... --streams N [--pipeline ...]
+        [--steps N | --soak SECONDS] [--out out.jsonl] [--landmarks]
+        [--no-loop] [--decode-wait MS] [--batch-program] [--device cuda]
+
+``track`` reads INPUT (video file, GIF/APNG animation, single image, or a
+directory of images), runs the chosen cascade one stream at a time
+(``run_frame``), and writes one JSON line per frame (landmarks in image
+coordinates). ``serve`` is the multi-stream serving loop
+(:func:`zaru_tpu_torch.serve.serve_loop`): N streams fed round-robin from
+the INPUT sources (each looped when exhausted, or with ``--no-loop``
+finite, joining as slots free), decoded on a host thread pool, uploaded
+double-buffered (``pipeline.ingest.FrameUploader``) and stepped through the
+batch-gated cascade, one JSON line per step. ``info`` reports the runtime
+(torch and CUDA versions, the card) and which model blobs resolve through
+the ``ZARU_TPU_MODELS`` search chain.
+
+``--device`` (``cuda`` unless named) is the port's counterpart of
+``JAX_PLATFORMS``: without a GPU the default raises instead of running on
+the CPU; ``--device cpu`` runs the kernels' plain versions. Not ported:
+``serve --shard`` (it exits naming the missing ``ShardedTracker``) and the
+``export``, ``run-exported`` and ``eval`` subcommands.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+_IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
+_ANIM_EXTS = {".gif", ".apng"}
+
+# Every model blob the domain wrappers can load, in wrapper order
+# (zaru_tpu/__main__.py:52-68). `info` reports found/missing for each.
+_KNOWN_MODELS = (
+    ("face.detection.ShortRangeNetwork", "face_detection_short_range.onnx"),
+    ("face.detection.FullRangeNetwork", "face_detection_full_range.onnx"),
+    ("face.landmark.mediapipe.FaceMeshV1", "face_landmark.onnx"),
+    ("face.landmark.mediapipe.FaceMeshV2", "face_landmarks_detector.onnx"),
+    ("face.landmark.multipie68.PeppaFacialLandmark", "slim_160_latest.onnx"),
+    ("face.landmark.multipie68.FaceOnnx", "landmarks_68_pfld.onnx"),
+    ("face.eye.EyeNetwork", "iris_landmark.onnx"),
+    ("face.recognition.Embedder", "mobilefacenet.onnx"),
+    ("hand.detection.LiteNetwork", "palm_detection_lite.onnx"),
+    ("hand.detection.FullNetwork", "palm_detection_full.onnx"),
+    ("hand.landmark.LiteNetwork", "hand_landmark_lite.onnx"),
+    ("hand.landmark.FullNetwork", "hand_landmark_full.onnx"),
+    ("body.detection.PoseNetwork", "pose_detection.onnx"),
+    ("body.landmark.LiteNetwork", "pose_landmark_lite.onnx"),
+    ("body.landmark.FullNetwork", "pose_landmark_full.onnx"),
+)
+
+
+def _iter_frames(path: Path, device):
+    """Yields `Image` frames on ``device`` from a video / animation / image
+    / directory."""
+    from .image import Image
+
+    if path.is_dir():
+        files = sorted(p for p in path.iterdir() if p.suffix.lower() in _IMAGE_EXTS)
+        if not files:
+            raise SystemExit(f"no images ({sorted(_IMAGE_EXTS)}) in {path}")
+        for f in files:
+            yield Image.load(f, device)
+    elif path.suffix.lower() in _ANIM_EXTS:
+        from .video.anim import Animation
+
+        for fr in Animation.from_path(path, device).frames():
+            yield fr.image_view()
+    elif path.suffix.lower() in _IMAGE_EXTS:
+        yield Image.load(path, device)
+    else:
+        from .video.file import VideoFile
+
+        video = VideoFile(path, device)
+        while True:
+            frame = video.read()
+            if frame is None:
+                return
+            yield frame
+
+
+def _build_tracker(name: str, *, iris: bool, slots: int, device):
+    from . import pipeline
+
+    if name == "face":
+        return pipeline.FaceTracker(iris=iris, device=device)
+    if iris:
+        raise SystemExit("--iris only applies to --pipeline face")
+    if name == "hand":
+        return pipeline.MultiHandTracker(max_hands=slots, device=device)
+    if name == "body":
+        return pipeline.BodyTracker(device=device)
+    raise SystemExit(f"unknown pipeline {name!r}")
+
+
+def _to_jsonable(out: dict) -> dict:
+    from .serve import _host
+
+    rec = {}
+    for key, val in out.items():
+        arr = _host(val)
+        rec[key] = arr.item() if arr.ndim == 0 else arr.tolist()
+    return rec
+
+
+def _annotate(image, out, path: Path):
+    import cv2
+    import numpy as np
+
+    from .image.draw import Canvas, marker
+    from .serve import _host
+
+    canvas = Canvas(image)
+    landmarks = _host(out["landmarks"])
+    valid = np.atleast_1d(_host(out["valid"]))
+    slot_lms = landmarks[None] if landmarks.ndim == 2 else landmarks
+    for ok, lms in zip(valid, slot_lms):
+        if bool(ok):
+            for p in lms:
+                marker(canvas, p[:2], size=2)
+    rgba = canvas.flush().to_numpy()
+    cv2.imwrite(str(path), cv2.cvtColor(rgba, cv2.COLOR_RGBA2BGR))
+
+
+def cmd_track(args) -> int:
+    from .serve import _host
+
+    tracker = _build_tracker(args.pipeline, iris=args.iris, slots=args.slots, device=args.device)
+    state = tracker.init_state()
+    sink = open(args.out, "w") if args.out else sys.stdout
+    annotate_dir = None
+    if args.annotate:
+        annotate_dir = Path(args.annotate)
+        annotate_dir.mkdir(parents=True, exist_ok=True)
+
+    shape = None
+    n_valid = 0
+    try:
+        for idx, image in enumerate(_iter_frames(Path(args.input), tracker.device)):
+            if args.max_frames is not None and idx >= args.max_frames:
+                break
+            if shape is not None and tuple(image.data.shape) != shape:
+                print(f"frame {idx}: shape {tuple(image.data.shape)} != {shape} "
+                      "(recompiles the step program)", file=sys.stderr)
+            shape = tuple(image.data.shape)
+            state, out = tracker.run_frame(state, image.data)
+            rec = _to_jsonable(out)
+            rec["frame"] = idx
+            rec.pop("rois", None)  # internal tracking state, not a result
+            print(json.dumps(rec), file=sink, flush=sink is sys.stdout)
+            n_valid += int(_host(out["valid"]).sum())
+            if annotate_dir is not None:
+                _annotate(image, out, annotate_dir / f"frame_{idx:05d}.jpg")
+    finally:
+        if sink is not sys.stdout:
+            sink.close()
+    frames = idx + 1 if shape is not None else 0
+    print(f"{frames} frames, {n_valid} valid detections", file=sys.stderr)
+    return 0
+
+
+def _looping_frames(path: Path, device):
+    """Like :func:`_iter_frames` but restarts the source when exhausted —
+    a serving stream never ends."""
+    while True:
+        yielded = False
+        for image in _iter_frames(path, device):
+            yielded = True
+            yield image
+        if not yielded:
+            raise SystemExit(f"source {path} produced no frames")
+
+
+def cmd_serve(args) -> int:
+    """The multi-stream serving loop (:func:`zaru_tpu_torch.serve.serve_loop`
+    and its policies, zaru_tpu/__main__.py:195-391): join/leave with
+    ``--no-loop`` (the joined slot's state reset, so it re-detects), drops
+    (a decode that misses ``--decode-wait`` ms re-serves the previous frame),
+    a stats line every ``--report-every`` steps and a summary, ``--soak``
+    seconds instead of ``--steps``, and at ``--streams 1`` the tracker's
+    single-stream ``run_frame`` (``--batch-program`` restores the gated
+    batch step). Frames decode on the host and reach the device through the
+    double-buffered uploader."""
+    from .pipeline.ingest import FrameUploader
+    from .serve import StreamSet, serve_loop
+
+    if args.shard:
+        raise SystemExit(
+            "--shard needs ShardedTracker (zaru_tpu/parallel/mesh.py), which the port does not "
+            "have yet; serve on one device without --shard"
+        )
+    tracker = _build_tracker(args.pipeline, iris=args.iris, slots=args.slots, device=args.device)
+
+    def make_factory(path: Path):
+        def factory():
+            frames = _iter_frames(path, "cpu") if args.no_loop else _looping_frames(path, "cpu")
+            for image in frames:
+                yield image.to_numpy()
+
+        factory.name = str(path)
+        return factory
+
+    if args.no_loop:
+        # Finite sources: the first --streams inputs fill the slots, the
+        # rest queue up and join as slots free (leave -> join).
+        initial = [make_factory(Path(p)) for p in args.inputs[: args.streams]]
+        initial += [None] * (args.streams - len(initial))
+        pending = [make_factory(Path(p)) for p in args.inputs[args.streams:]]
+    else:
+        initial = [make_factory(Path(args.inputs[i % len(args.inputs)])) for i in range(args.streams)]
+        pending = []
+
+    streams = StreamSet(initial, pending)
+    sink = None
+    try:
+        try:
+            prime_events = streams.prime()
+        except RuntimeError as e:
+            raise SystemExit(str(e))
+        for ev in prime_events:
+            src = f" ({ev.source})" if ev.source else ""
+            print(f"stream slot {ev.slot}: {ev.kind}{src}", file=sys.stderr)
+        uploader = FrameUploader(batch=args.streams, shape=streams.frames[0].shape, device=tracker.device)
+        sink = open(args.out, "w") if args.out else sys.stdout
+
+        def emit(rec, _out):
+            print(json.dumps(rec), file=sink, flush=sink is sys.stdout)
+
+        stats = serve_loop(
+            tracker, streams, uploader,
+            single=args.streams == 1 and not args.batch_program,
+            steps=args.steps, emit=emit, soak=args.soak, decode_wait=args.decode_wait / 1e3,
+            report_every=args.report_every, landmarks=args.landmarks, no_loop=args.no_loop,
+            log=lambda line: print(line, file=sys.stderr),
+        )
+    finally:
+        streams.close()
+        if sink is not None and sink is not sys.stdout:
+            sink.close()
+    print(stats.summary(streams), file=sys.stderr)
+    return 0
+
+
+def cmd_info(args) -> int:
+    import torch
+
+    from .assets import MISSING_MODELS, ModelMissingError, model_path
+
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if torch.cuda.is_available():
+        names = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+        print(f"devices: {names}")
+    else:
+        print("devices: no CUDA device (torch.cuda.is_available() is False)")
+    print("models (search chain: $ZARU_TPU_MODELS, then bundled assets/onnx):")
+    for wrapper, blob in _KNOWN_MODELS:
+        try:
+            where = model_path(blob)
+            status = f"ok       {where}"
+        except ModelMissingError:
+            status = (
+                "MISSING  (absent upstream too; drop into assets/onnx/)"
+                if blob in MISSING_MODELS
+                else "MISSING"
+            )
+        print(f"  {wrapper:45s} {blob:35s} {status}")
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="python -m zaru_tpu_torch", description=__doc__.split("\n\n")[0])
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    def device_arg(p):
+        p.add_argument(
+            "--device", default="cuda",
+            help="torch device to run on (default cuda; without a GPU it raises rather than use the CPU)",
+        )
+
+    p_track = sub.add_parser("track", help="run a pipeline over an offline input")
+    p_track.add_argument("input", help="video / GIF / image / image directory")
+    p_track.add_argument("--pipeline", default="face", choices=("face", "hand", "body"))
+    p_track.add_argument("--iris", action="store_true", help="add iris refinement (face only)")
+    p_track.add_argument("--slots", type=int, default=4, help="max hands (hand pipeline)")
+    p_track.add_argument("--out", help="output JSONL path (default stdout)")
+    p_track.add_argument("--annotate", help="directory for annotated JPEGs")
+    p_track.add_argument("--max-frames", type=int, default=None)
+    device_arg(p_track)
+    p_track.set_defaults(fn=cmd_track)
+
+    p_serve = sub.add_parser("serve", help="multi-stream serving loop (batch-gated cascade)")
+    p_serve.add_argument("inputs", nargs="+", help="sources assigned to streams round-robin, each looped")
+    p_serve.add_argument("--streams", type=int, default=8)
+    p_serve.add_argument("--pipeline", default="face", choices=("face", "hand", "body"))
+    p_serve.add_argument("--iris", action="store_true")
+    p_serve.add_argument("--slots", type=int, default=4)
+    p_serve.add_argument("--steps", type=int, default=100)
+    p_serve.add_argument("--out", help="output JSONL path (default stdout)")
+    p_serve.add_argument("--landmarks", action="store_true", help="include landmark arrays in the JSONL (large)")
+    p_serve.add_argument("--report-every", type=int, default=10)
+    p_serve.add_argument(
+        "--shard", action="store_true",
+        help="shard the streams over all available devices (not in the port yet: exits)",
+    )
+    p_serve.add_argument(
+        "--no-loop", action="store_true",
+        help="sources are finite: a stream whose source ends frees its slot and the next pending input "
+        "joins (slot state reset); default loops every source forever",
+    )
+    p_serve.add_argument(
+        "--soak", type=float, default=0.0, metavar="SECONDS",
+        help="run for a wall-clock duration instead of --steps",
+    )
+    p_serve.add_argument(
+        "--decode-wait", type=float, default=1000.0, metavar="MS",
+        help="per-step decode deadline; a stream missing it re-serves its previous frame and counts a "
+        "drop (default 1000 ms)",
+    )
+    p_serve.add_argument(
+        "--batch-program", action="store_true",
+        help="use the gated batch step even at --streams 1 (default: a single stream takes the "
+        "tracker's run_frame)",
+    )
+    device_arg(p_serve)
+    p_serve.set_defaults(fn=cmd_serve)
+
+    p_info = sub.add_parser("info", help="runtime + model-asset inventory")
+    p_info.set_defaults(fn=cmd_info)
+
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

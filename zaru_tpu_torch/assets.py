@@ -1,5 +1,5 @@
-"""Model and fixture paths: the port's own copy of ``model_path`` and
-``fixture_path`` (zaru_tpu/assets.py:48-68).
+"""Model and fixture paths: the port's own copy of ``model_path``,
+``fixture_path`` and ``MISSING_MODELS`` (zaru_tpu/assets.py:23-68).
 
 Models are searched in ``$ZARU_TPU_MODELS`` (colon-separated directories),
 then in the repository's ``assets/onnx``. Fixtures are searched in the
@@ -11,7 +11,19 @@ from __future__ import annotations
 import os
 from pathlib import Path
 
-__all__ = ["model_path", "fixture_path", "ModelMissingError"]
+__all__ = ["model_path", "fixture_path", "ModelMissingError", "MISSING_MODELS"]
+
+# Blobs absent from the reference checkout itself
+# (reference: 3rdparty/onnx/.MISSING_LARGE_BLOBS).
+MISSING_MODELS = frozenset(
+    {
+        "hand_landmark_full.onnx",
+        "palm_detection_full.onnx",
+        "pose_detection.onnx",
+        "pose_landmark_full.onnx",
+        "pose_landmark_lite.onnx",
+    }
+)
 
 _PACKAGE_DIR = Path(__file__).resolve().parent
 _REPO_ROOT = _PACKAGE_DIR.parent

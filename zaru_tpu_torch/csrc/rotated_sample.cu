@@ -33,12 +33,14 @@
 // Every multiply, add and divide of the coefficients and the index map is
 // an explicitly rounded intrinsic, and the file is built with --fmad=false:
 // the JAX index map is tuned to an exact f32 op order, and a contracted FMA
-// moves pixels. Three steps follow what XLA compiles rather than the JAX
+// moves pixels. Four steps follow what XLA compiles rather than the JAX
 // source: `j / out_w` is `j * f32(1/out_w)` (the reciprocal comes from the
-// host), `cth*px - sth*py` is one FMA, `fma(cth, px, -(sth*py))`, and
+// host), `cth*px - sth*py` is one FMA, `fma(cth, px, -(sth*py))`,
 // `sth*px + cth*py` is one too, `fma(sth, px, cth*py)` (two views of the
 // 256x256 crops on the 512-pixel grid read the neighbouring prescale row
-// without it).
+// without it), and the map into the prescale grid, `fx * inv_sx + qx0`, is
+// `fma(fx, inv_sx, qx0)` (likewise y; a 900 px body view on the 256-pixel
+// grid read the neighbouring prescale row without it).
 //
 // Bound: bytes. Each output pixel does one 4-byte read and writes 12 bytes;
 // at batch 512 of 192x192 views that is about 302 MB, about 0.09 ms at
@@ -140,8 +142,8 @@ __global__ void __launch_bounds__(kThreads) rotated_sample_kernel(
       const float px = __fsub_rn(__fadd_rn(xv, 0.5f), v.whalf);
       const float fx = __fadd_rn(__fadd_rn(__fmaf_rn(v.cth, px, -sth_py), v.whalf), v.tlx);
       const float fy = __fadd_rn(__fadd_rn(__fmaf_rn(v.sth, px, cth_py), v.hhalf), v.tly);
-      const float jq = floorf(__fadd_rn(__fadd_rn(__fmul_rn(fx, v.inv_sx), v.qx0), 0.5f));
-      const float kq = floorf(__fadd_rn(__fadd_rn(__fmul_rn(fy, v.inv_sy), v.qy0), 0.5f));
+      const float jq = floorf(__fadd_rn(__fmaf_rn(fx, v.inv_sx, v.qx0), 0.5f));
+      const float kq = floorf(__fadd_rn(__fmaf_rn(fy, v.inv_sy, v.qy0), 0.5f));
       idx[i] = -1;
       if (jq >= 0.0f && jq < (float)m && kq >= 0.0f && kq < (float)m) {
         const int x = v.lx + v.sx * (int)jq;

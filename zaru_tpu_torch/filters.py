@@ -1,16 +1,58 @@
-"""The 1€ filter on tensors (zaru_tpu/filters.py:125-175, ``OneEuroFilter``
-``init_state`` :145 and ``apply`` :152)."""
+"""Filters: the 1€ filter on tensors (zaru_tpu/filters.py:125-175,
+``OneEuroFilter`` ``init_state`` :145 and ``apply`` :152) for the trackers,
+and the host-side ``Ema`` (:53) and ``SimpleFilter`` (:189) that
+:class:`~zaru_tpu_torch.timer.Timer` smooths its spans with (numpy)."""
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .num import div
 
-__all__ = ["OneEuroFilter"]
+__all__ = ["Ema", "OneEuroFilter", "SimpleFilter"]
+
+
+@dataclass(frozen=True)
+class Ema:
+    """Exponential moving average on the host (reference filter/ema.rs:7-51).
+
+    ``alpha`` near 1.0 favours recent values.
+    """
+
+    alpha: float
+
+    def __post_init__(self):
+        if not 0.0 <= self.alpha <= 1.0:
+            raise ValueError(f"EMA alpha {self.alpha} is outside [0, 1]")
+
+    def init_state(self, shape=(), dtype=np.float32):
+        return {"last": np.zeros(shape, dtype), "init": np.zeros(shape, bool)}
+
+    def apply(self, state, value):
+        avg = self.alpha * value + (1.0 - self.alpha) * state["last"]
+        out = np.where(state["init"], avg, value)
+        return {"last": out, "init": np.ones_like(state["init"])}, out
+
+
+class SimpleFilter:
+    """Filter + state bundle for a single variable (reference
+    filter.rs:117-151)."""
+
+    def __init__(self, params, shape=(), dtype=np.float32):
+        self.params = params
+        self._shape, self._dtype = shape, dtype
+        self.state = params.init_state(shape, dtype)
+
+    def filter(self, value):
+        self.state, out = self.params.apply(self.state, value)
+        return out
+
+    def reset_state(self) -> None:
+        self.state = self.params.init_state(self._shape, self._dtype)
 
 
 def _smoothing_factor(t_e: float, cutoff):

@@ -66,10 +66,12 @@ class Cnn:
         self._res = Resolution(shape[3], shape[2])
 
     @staticmethod
-    def load(filename: str, color_mapper: ColorMapper, device=None) -> "Cnn":
+    def load(filename: str, color_mapper: ColorMapper, device=None, output_subset=None) -> "Cnn":
         """Loads ``filename`` from the model directories onto ``device``
-        (``cuda`` unless named)."""
-        return Cnn(load_model(model_path(filename), resolve_device(device)), color_mapper)
+        (``cuda`` unless named); ``output_subset`` selects the network's
+        outputs by name or position (zaru_tpu/nn.py:126
+        ``with_output_selection_by_index``)."""
+        return Cnn(load_model(model_path(filename), resolve_device(device), output_subset), color_mapper)
 
     def input_resolution(self) -> Resolution:
         return self._res

@@ -12,11 +12,14 @@ from .proto import OnnxModel, parse_model
 __all__ = ["OnnxModel", "OnnxModule", "SUPPORTED_OPS", "load_model", "parse_model"]
 
 
-def load_model(path_or_bytes: str | Path | bytes, device: torch.device) -> OnnxModule:
+def load_model(
+    path_or_bytes: str | Path | bytes, device: torch.device, output_subset=None
+) -> OnnxModule:
     """Parses an ONNX file (or its bytes) into an :class:`OnnxModule` whose
-    parameters live on ``device``."""
+    parameters live on ``device``; ``output_subset`` selects its outputs by
+    name or position."""
     if isinstance(path_or_bytes, (bytes, bytearray)):
         data = bytes(path_or_bytes)
     else:
         data = Path(path_or_bytes).read_bytes()
-    return OnnxModule(parse_model(data), device)
+    return OnnxModule(parse_model(data), device, output_subset)

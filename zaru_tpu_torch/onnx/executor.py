@@ -386,11 +386,26 @@ def find_stages(model: OnnxModel) -> list[Stage]:
     return stages
 
 
+def _live_nodes(nodes, outputs) -> set[int]:
+    """Indices of the nodes that ``outputs`` depend on."""
+    needed, live = set(outputs), set()
+    for i in range(len(nodes) - 1, -1, -1):
+        if any(o in needed for o in nodes[i].outputs):
+            live.add(i)
+            needed.update(n for n in nodes[i].inputs if n)
+    return live
+
+
 class OnnxModule(nn.Module):
     """An ONNX graph as a module: ``forward(*inputs) -> list`` of the graph's
-    outputs, NCHW like the ONNX contract."""
+    outputs, NCHW like the ONNX contract.
 
-    def __init__(self, model: OnnxModel, device: torch.device):
+    ``output_subset``: the outputs to return, by name or position, in that
+    order (zaru_tpu/onnx/importer.py:140-151, the reference Loader's output
+    selection); nodes that only feed the others are not run. The parameters
+    stay those of the whole graph."""
+
+    def __init__(self, model: OnnxModel, device: torch.device, output_subset=None):
         super().__init__()
         g = model.graph
         unsupported = sorted({n.op_type for n in g.nodes} - SUPPORTED_OPS)
@@ -412,6 +427,15 @@ class OnnxModule(nn.Module):
                 self._static[name] = arr
         self.input_info = [vi for vi in g.inputs if vi.name not in g.initializers]
         self.output_names = [vi.name for vi in g.outputs]
+        if output_subset is not None:
+            by_name = set(self.output_names)
+            for sel in output_subset:
+                if not isinstance(sel, int) and sel not in by_name:
+                    raise ValueError(f"unknown output {sel!r}; have {self.output_names}")
+            self.output_names = [
+                g.outputs[sel].name if isinstance(sel, int) else sel for sel in output_subset
+            ]
+        self._live = _live_nodes(g.nodes, self.output_names)
         self.stages = find_stages(model)
         self._stage_at = {st.nodes[0]: st for st in self.stages}
         self._in_stage = {i for st in self.stages for i in st.nodes}
@@ -449,8 +473,8 @@ class OnnxModule(nn.Module):
         self._pack_stages()
 
     def activations(self, *inputs: torch.Tensor) -> dict:
-        """Every value of the graph by name (a chain's inner values are not
-        computed), for ``inputs``."""
+        """Every value the selected outputs depend on, by name (a chain's
+        inner values are not computed), for ``inputs``."""
         if len(inputs) != len(self.input_info):
             raise ValueError(f"expected {len(self.input_info)} inputs, got {len(inputs)}")
         env: dict = dict(self._static)
@@ -458,6 +482,8 @@ class OnnxModule(nn.Module):
         env.update((vi.name, x) for vi, x in zip(self.input_info, inputs))
         with _full_f32():
             for i, node in enumerate(self.nodes):
+                if i not in self._live:
+                    continue
                 st = self._stage_at.get(i)
                 if st is not None:
                     x = env[st.input]

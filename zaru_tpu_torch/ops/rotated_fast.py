@@ -100,10 +100,11 @@ def _source_index(frames_u8, coefs, icoefs, out_w, out_h, prescale_m):
     ``[B*H*W]`` RGBA pixels (0 where not ``ok``), and whether it is read
     (inside the prescale grid and the frame; black otherwise).
 
-    Three steps follow compiled JAX rather than its source (rotated_fast.py:
-    645-652): ``j / out_w`` is ``j * f32(1/out_w)``, and ``cth*px -
-    sth*py`` and ``sth*px + cth*py`` are each one fused multiply-add,
-    ``fma(cth, px, -(sth*py))`` and ``fma(sth, px, cth*py)``."""
+    Four steps follow compiled JAX rather than its source (rotated_fast.py:
+    645-653): ``j / out_w`` is ``j * f32(1/out_w)``; ``cth*px - sth*py``
+    and ``sth*px + cth*py`` are each one fused multiply-add, ``fma(cth, px,
+    -(sth*py))`` and ``fma(sth, px, cth*py)``; and so is the map into the
+    prescale grid, ``fma(fx, inv_sx, qx0)`` and ``fma(fy, inv_sy, qy0)``."""
     B, H, W, _ = frames_u8.shape
     dev = frames_u8.device
     N = coefs.shape[0]
@@ -117,8 +118,8 @@ def _source_index(frames_u8, coefs, icoefs, out_w, out_h, prescale_m):
     shape = (N, out_h, out_w)
     fx = (fma(col(2).expand(shape), px.expand(shape), -(col(3) * py).expand(shape)) + col(4)) + col(6)
     fy = (fma(col(3).expand(shape), px.expand(shape), (col(2) * py).expand(shape)) + col(5)) + col(7)
-    jq = torch.floor(fx * col(10) + col(8) + 0.5)  # [N,out_h,out_w]
-    kq = torch.floor(fy * col(11) + col(9) + 0.5)
+    jq = torch.floor(fma(fx, col(10).expand(shape), col(8).expand(shape)) + 0.5)  # [N,out_h,out_w]
+    kq = torch.floor(fma(fy, col(11).expand(shape), col(9).expand(shape)) + 0.5)
     ok = (jq >= 0) & (jq < prescale_m) & (kq >= 0) & (kq < prescale_m)
     ic = icoefs.to(torch.int64)
     x = ic[:, 0, None, None] + ic[:, 2, None, None] * torch.where(ok, jq, 0.0).to(torch.int64)

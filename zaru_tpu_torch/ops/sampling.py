@@ -2,7 +2,9 @@
 
 ``letterbox_sample_core`` (sampling.py:120) is the plain version of the
 letterbox kernel in :mod:`.letterbox`; ``view_to_tensor_core`` (:88) is the
-exact rotated-view sampler the JAX package keeps beside its fast one. Both
+exact rotated-view sampler the JAX package keeps beside its fast one, and
+``sample_view_rgba`` (:73) and ``sample_view`` (:164) are its RGBA form for
+one view, which image views materialise through. Both
 run batched over streams here (the JAX functions are per view and
 ``vmap``-ed) and keep the f32 operation order of the JAX functions as
 XLA:CPU compiles them (``i / n`` as ``i * f32(1/n)``, the exact sampler's
@@ -22,6 +24,7 @@ from ..num import fma, recip, round_half_away
 
 __all__ = [
     "letterbox_sample_core", "view_to_tensor_core", "color_adjust", "color_map",
+    "sample_view", "sample_view_rgba",
 ]
 
 
@@ -99,34 +102,28 @@ def letterbox_sample_core(frames_u8, rrects, out_w: int, out_h: int, lo: float, 
     return color_map(rgb, color_adjust(lo, hi), float(np.float32(lo)))
 
 
-def view_to_tensor_core(
-    frames_u8, rrects, out_w: int, out_h: int, lo: float = -1.0, hi: float = 1.0,
-    layout: str = "NCHW", mirror=None,
-):
-    """Exact rotated-view sample + colour map, batched over streams and
-    slots (sampling.py:88 with ``_view_grid`` :50).
-
-    ``frames_u8 [B,H,W,4] u8``, ``rrects [B,...,5] f32`` (the middle dims are
-    slots: several views of one frame) → ``[B,...,3,out_h,out_w]`` (NCHW,
-    gathered straight into the planar layout) or ``[B,...,out_h,out_w,3]``
-    (NHWC) f32. ``mirror``: one flag per slot (rects ``[B,S,5]``); a flagged
-    slot is flipped left to right, as the JAX iris path flips its right-eye
-    crops (face_cascade.py:388), by reversing its view columns.
-    """
-    if layout not in ("NHWC", "NCHW"):
-        raise ValueError(f"layout must be NHWC or NCHW, got {layout!r}")
+def _view_index(frames_u8, r, out_w: int, out_h: int, mirror=None, scale_to_view: bool = True):
+    """The rotated views' nearest-neighbour source pixels (``_view_grid``
+    :50 as XLA:CPU compiles it): for ``frames_u8 [B,H,W,4]`` and rects ``r
+    [B,S,5]`` → ``(lin, ok)``, each ``[B,S,out_h,out_w]``: the source
+    pixel's index into the ``[B*H*W]`` RGBA pixels (0 where it lies outside
+    the frame) and whether it lies inside. ``scale_to_view``: output pixel
+    ``j`` reads view pixel ``round(j/n · size)`` (a CNN input); else view
+    pixel ``j`` itself (a view materialised at its own size)."""
     B, H, W, _ = frames_u8.shape
     dev = frames_u8.device
-    lead = rrects.shape[:-1]
-    r = rrects.reshape(B, -1, 5)  # [B,S,5]
-    u = torch.arange(out_w, dtype=torch.float32, device=dev) * recip(out_w)
-    v = torch.arange(out_h, dtype=torch.float32, device=dev) * recip(out_h)
-    xv = round_half_away(u * r[..., 2:3])  # [B,S,out_w]
-    yv = round_half_away(v * r[..., 3:4])  # [B,S,out_h]
+    u = torch.arange(out_w, dtype=torch.float32, device=dev)
+    v = torch.arange(out_h, dtype=torch.float32, device=dev)
+    if scale_to_view:
+        xv = round_half_away(u * recip(out_w) * r[..., 2:3])  # [B,S,out_w]
+        yv = round_half_away(v * recip(out_h) * r[..., 3:4])  # [B,S,out_h]
+    else:
+        xv = u.expand(*r.shape[:2], out_w)
+        yv = v.expand(*r.shape[:2], out_h)
     if mirror is not None:
-        if rrects.ndim != 3 or len(mirror) != r.shape[1]:
+        if len(mirror) != r.shape[1]:
             raise ValueError(f"mirror needs one flag per slot of [B,S,5] rects, got {len(mirror)} "
-                             f"for {tuple(rrects.shape)}")
+                             f"for {r.shape[1]} slots")
         flip = torch.tensor(mirror, dtype=torch.bool, device=dev)[:, None]
         xv = torch.where(flip, xv.flip(-1), xv)
     shape = (B, r.shape[1], out_h, out_w)
@@ -145,7 +142,49 @@ def view_to_tensor_core(
     xi = torch.where(ok, xr, 0.0).to(torch.int64)
     yi = torch.where(ok, yr, 0.0).to(torch.int64)
     bidx = torch.arange(B, device=dev)[:, None, None, None]
-    planar = layout == "NCHW"
-    rgb = _gather_rgb(frames_u8, (bidx * H + yi) * W + xi, ok, planar)
+    return (bidx * H + yi) * W + xi, ok
+
+
+def view_to_tensor_core(
+    frames_u8, rrects, out_w: int, out_h: int, lo: float = -1.0, hi: float = 1.0,
+    layout: str = "NCHW", mirror=None,
+):
+    """Exact rotated-view sample + colour map, batched over streams and
+    slots (sampling.py:88 with ``_view_grid`` :50).
+
+    ``frames_u8 [B,H,W,4] u8``, ``rrects [B,...,5] f32`` (the middle dims are
+    slots: several views of one frame) → ``[B,...,3,out_h,out_w]`` (NCHW,
+    gathered straight into the planar layout) or ``[B,...,out_h,out_w,3]``
+    (NHWC) f32. ``mirror``: one flag per slot (rects ``[B,S,5]``); a flagged
+    slot is flipped left to right, as the JAX iris path flips its right-eye
+    crops (face_cascade.py:388), by reversing its view columns.
+    """
+    if layout not in ("NHWC", "NCHW"):
+        raise ValueError(f"layout must be NHWC or NCHW, got {layout!r}")
+    if mirror is not None and rrects.ndim != 3:
+        raise ValueError(f"mirror needs [B,S,5] rects, got {tuple(rrects.shape)}")
+    B = frames_u8.shape[0]
+    lead = rrects.shape[:-1]
+    lin, ok = _view_index(frames_u8, rrects.reshape(B, -1, 5), out_w, out_h, mirror)
+    rgb = _gather_rgb(frames_u8, lin, ok, layout == "NCHW")
     mapped = color_map(rgb, color_adjust(lo, hi), float(np.float32(lo)))
     return mapped.reshape(*lead, *mapped.shape[2:])
+
+
+def sample_view_rgba(image_u8, rrect, out_w: int, out_h: int, *, scale_to_view: bool = True):
+    """RGBA u8 ``[out_h, out_w, 4]`` of the rotated view ``rrect [5]`` of
+    ``image_u8 [H, W, 4]`` (sampling.py:73, as ``jax.jit`` compiles it);
+    pixels outside the image are (0, 0, 0, 0). ``scale_to_view``: the view
+    scaled to ``out_w×out_h`` as a CNN samples it; else its pixels at their
+    own size from (0, 0) (``ImageView::to_image``)."""
+    H, W, _ = image_u8.shape
+    lin, ok = _view_index(image_u8[None], rrect.reshape(1, 1, 5), out_w, out_h, None, scale_to_view)
+    words = image_u8.contiguous().view(torch.int32).reshape(-1)
+    px = torch.where(ok, words[lin], torch.zeros_like(lin, dtype=torch.int32))
+    return px[0, 0].contiguous().view(torch.uint8).reshape(out_h, out_w, 4)
+
+
+def sample_view(image_u8, rrect, out_w: int, out_h: int):
+    """The rotated view ``rrect [5]`` materialised as a new RGBA image
+    ``[out_h, out_w, 4] u8`` (sampling.py:164, ``ImageView::to_image``)."""
+    return sample_view_rgba(image_u8, rrect, out_w, out_h, scale_to_view=False)
