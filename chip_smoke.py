@@ -52,7 +52,17 @@ check exits non-zero):
    (``body_track.npz``: the blobs, written to a temporary directory that
    ``ZARU_TPU_MODELS`` names, and JAX's runs): network outputs, decoders,
    candidates, then gated, ``run_frame`` and ``run_frames`` one step at a
-   time and free-running, within the CPU tests' tolerances;
+   time and free-running, within the CPU tests' tolerances; the host
+   engines and the eval sweep (``host_eval.npz``, tests/test_torch_host.py
+   and tests/test_torch_eval.py): the executor's op graphs (ReduceMean,
+   AveragePool, Constant) and four models at batch 1, ``Detector.detect``
+   (short-range face, palm), ``Estimator.estimate`` (Face Mesh V1, both
+   68-point networks), ``LandmarkTracker.track`` from JAX's ROIs and
+   free-running, the loss on a blank frame, and each eval runner's reduced
+   sweep on the 535×535 photo, within the CPU tests' tolerances; then the
+   full sweep (8 transforms, both photos, six runners) with every identity
+   row exact, the stage kernel launched by every face runner and no plain
+   version of a kernel called with a CUDA tensor;
 5. the paths at full size on the fixture photo upscaled to 1920×1080 on
    the card, 54 steps after 9 of warm-up: ``FaceTracker.step_batch`` at
    batches 64 and 512 with detection forced every 9th step, then
@@ -78,7 +88,11 @@ check exits non-zero):
    its fresh frames/s end to end, p50/p95 ms/step, drops, host time staging
    and flushing and a 9-step profile over 54 steps after 9, beside the
    tiled main path at 64; a join's slot reset to a fresh state; one stream
-   in ms/frame beside ``run_frame``. The card's machine has no image
+   in ms/frame beside ``run_frame``; the host engines per call (host clock,
+   50 calls after 5, each ending in its host read: ``Detector.detect``,
+   ``Estimator.estimate``, ``LandmarkTracker.track`` on the 1280×720
+   photo, each of which must launch the stage kernel) and the full sweep's
+   wall time per runner. The card's machine has no image
    decoder (cv2, PIL), so file decoding is not run here: the CPU tests
    (tests/test_torch_serve.py) cover the CLI's inputs;
 6. each kernel's time at its main-path inputs (queued behind a device spin
@@ -95,7 +109,8 @@ check exits non-zero):
    sampler at Face Mesh V2's 512×256² and the letterbox at the full-range
    512×192², the stage kernel's ten chains at batch 1 (``run_frame``), and
    both samplers at BodyTracker's 512×256² (256-pixel grid) and 512×224²,
-   as further entries of the JSON line;
+   and the stage kernel's ten chains at batch 1 for the host engines'
+   launches, as further entries of the JSON line;
 7. the launch counts of phase 5, then one JSON line of per-kernel numbers,
    then the result line.
 
@@ -113,6 +128,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -736,6 +752,15 @@ def launch_counters():
             "blaze_stage": fused_blocks, "rgb_to_yuv": rgb_to_yuv_fast}
 
 
+def zero_launches():
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
 def timed_run(torch, step, what, kernels):
     """``step(i)`` for WARMUP steps, then STEPS steps timed on the host
     clock with the launch counts zeroed just before and read just after;
@@ -744,14 +769,13 @@ def timed_run(torch, step, what, kernels):
     for i in range(WARMUP):
         step(i)
     torch.cuda.synchronize()
-    for fn in launch_counters().values():
-        fn.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     for i in range(STEPS):
         step(i)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in launch_counters().items()}
+    launches = read_launches()
     check(all(launches[k] > 0 for k in kernels), f"{what}: a kernel of the path was never launched: {launches}")
     return dt, launches
 
@@ -1576,6 +1600,290 @@ def phase_serve(torch, np, img, device, card, tracker, tiled_ms, run_frame_ms):
     return launches
 
 
+# tests/test_torch_host.py: inputs and tolerances of the host engines'
+# comparisons with JAX (op graphs, models at batch 1, Detector, Estimator,
+# LandmarkTracker).
+HOST_OP_TOL = 1e-6
+HOST_DET_TOL_PX, HOST_SCORE_TOL, HOST_ANGLE_TOL = 1e-3, 1e-5, 1e-5
+HOST_LM_TOL_PX, HOST_TRACK_FREE_TOL_PX = 1e-2, 0.25
+HOST_PALM_THRESHOLD = 0.1
+HOST_FACE_VIEW = (699.0, 405.0, 400.0, 440.0, 0.12)
+HOST_SEED_ROI = (698.8, 420.7, 300.0, 300.0, 0.05)
+HOST_OP_SHAPE = (2, 3, 11, 9)
+HOST_MODELS = ["slim_160_latest.onnx", "landmarks_68_pfld.onnx", "mobilefacenet.onnx",
+               "face_detection_short_range.onnx"]
+# tests/test_torch_eval.py: the reduced sweep's transforms and each runner's
+# tolerance against JAX's rows (px).
+EVAL_REDUCED = [("identity", 0.0, 1.0), ("rot+10", 10.0, 1.0), ("scale0.85", 0.0, 0.85)]
+EVAL_SWEEP_TOL_PX = {"face_mesh": 0.25, "face_mesh_v2": 0.25, "iris": 0.5, "multipie68_peppa": 1e-3,
+                     "multipie68_onnx": 1e-3, "hand": 0.0}
+# The runners whose networks hold BlazeBlock chains (every face runner
+# detects with short-range BlazeFace); the hand runner has none.
+EVAL_STAGE_RUNNERS = ("face_mesh", "face_mesh_v2", "iris", "multipie68_peppa", "multipie68_onnx")
+HOST_CALLS = 50
+
+
+class PlainWatch:
+    """Counts, while active, the calls of the kernels' plain versions that
+    are given a CUDA tensor (their wrappers call them for CPU tensors only)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = {}
+
+    def __enter__(self):
+        from zaru_tpu_torch.ops import cnn_stage, letterbox, rotated_fast, yuv
+
+        self._saved = []
+        for mod, name in ((cnn_stage, "blaze_blocks_reference"), (rotated_fast, "rotated_sample_fast_reference"),
+                          (letterbox, "letterbox_sample_planar_reference"), (letterbox, "letterbox_sample_core"),
+                          (yuv, "rgb_to_yuv_fast_reference")):
+            fn = getattr(mod, name)
+
+            def counted(*args, _fn=fn, _name=name, **kwargs):
+                if any(isinstance(a, self.torch.Tensor) and a.is_cuda for a in args):
+                    self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _fn(*args, **kwargs)
+
+            setattr(mod, name, counted)
+            self._saved.append((mod, name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def host_fixture(np):
+    from zaru_tpu_torch.assets import fixture_path
+
+    with np.load(fixture_path("host_eval.npz")) as f:
+        return ({k[6:]: f[k] for k in f.files if k.startswith("host__")},
+                {k[6:]: f[k] for k in f.files if k.startswith("eval__")})
+
+
+def detections_arrays(np, dets):
+    """tests/test_torch_host.py ``detections_arrays``: conf, rect, kps,
+    angle of a ``Detections``."""
+    dets = list(dets)
+    return {
+        "conf": np.asarray([d.confidence() for d in dets], np.float32),
+        "rect": np.asarray([d.bounding_rect().array for d in dets], np.float32).reshape(-1, 4),
+        "kps": np.asarray([np.stack(d.keypoints()) for d in dets], np.float32),
+        "angle": np.asarray([d.angle() for d in dets], np.float32),
+    }
+
+
+def eval_transforms():
+    from zaru_tpu_torch import eval as ev
+
+    return [ev.Transform(n, angle_deg=a, scale=s) for n, a, s in EVAL_REDUCED]
+
+
+def rows_error(np, rows, ref, name):
+    """Max deviation of a runner's rows from JAX's stored rows; fails on a
+    different transform list, flag or missing value."""
+    names = [r["transform"] for r in rows]
+    check(names == ref[f"sweep/{name}/names"].tolist(), f"eval {name}: rows {names}")
+    check([r["valid"] for r in rows] == ref[f"sweep/{name}/valid"].tolist(), f"eval {name}: flags differ from JAX")
+    got = np.asarray([[r.get(k, np.nan) for k in ("mean_px", "p95_px", "max_px")] for r in rows], np.float64)
+    want = ref[f"sweep/{name}/px"]
+    check((np.isnan(got) == np.isnan(want)).all(), f"eval {name}: rows with values differ from JAX")
+    return float(np.nan_to_num(np.abs(got - want)).max()) if got.size else 0.0
+
+
+def phase_host_vs_jax(torch, np, device, rgba):
+    """The host engines and the eval sweep against host_eval.npz (see
+    tests/test_torch_host.py and tests/test_torch_eval.py), on the card: the
+    op graphs and four models at batch 1, ``Detector.detect`` (short-range
+    face, palm at threshold 0.1), ``Estimator.estimate`` (Face Mesh V1 and
+    both 68-point networks), two ``LandmarkTracker.track`` steps from JAX's
+    ROIs and free-running, the loss on a blank frame, each runner's reduced
+    sweep on the 535×535 photo; then the full sweep (8 transforms, both
+    photos, 6 runners) with the identity rows exact. No plain version of a
+    kernel runs on the card."""
+    from zaru_tpu_torch import eval as ev
+    from zaru_tpu_torch.assets import model_path
+    from zaru_tpu_torch.detection import Detector
+    from zaru_tpu_torch.face.detection import ShortRangeNetwork
+    from zaru_tpu_torch.face.landmark.mediapipe import FaceMeshV1
+    from zaru_tpu_torch.face.landmark.multipie68 import FaceOnnx, PeppaFacialLandmark
+    from zaru_tpu_torch.hand.detection import LiteNetwork as Palm
+    from zaru_tpu_torch.image import Image
+    from zaru_tpu_torch.landmark import Estimator, LandmarkTracker
+    from zaru_tpu_torch.onnx import load_model
+    from zaru_tpu_torch.rect import RotatedRect
+
+    host, ref = host_fixture(np)
+    errs = {}
+    with PlainWatch(torch) as watch, torch.inference_mode():
+        x = torch.from_numpy(np.random.default_rng(11).normal(size=HOST_OP_SHAPE).astype(np.float32)).to(device)
+        for key in sorted(k for k in host if k.startswith("graph/")):
+            name = key[len("graph/"):]
+            out = load_model(host[key].tobytes(), device)(x[:1] if name == "const" else x)[0].cpu().numpy()
+            want = host[f"op/{name}"]
+            check(out.shape == want.shape, f"op graph {name}: shape {out.shape}, JAX {want.shape}")
+            err = float(np.abs(out - want).max())
+            check(err <= (0.0 if name == "const" else HOST_OP_TOL), f"op graph {name} differs from JAX by {err}")
+            errs["ops"] = max(errs.get("ops", 0.0), err)
+        for name in HOST_MODELS:
+            m = load_model(model_path(name), device)
+            shape = [d if isinstance(d, int) else 1 for d in m.input_info[0].shape]
+            inp = np.random.default_rng(12).uniform(-1, 1, shape).astype(np.float32)
+            for i, o in enumerate(m(torch.from_numpy(inp).to(device))):
+                want = host[f"model/{name}/{i}"]
+                got = o.cpu().numpy()
+                tol = 1e-3 * max(1.0, float(np.abs(want).max()))
+                check(bool((np.abs(got - want) <= tol + 2e-3 * np.abs(want)).all()),
+                      f"{name} output {i} outside the CNN bar of JAX's")
+                errs["models"] = max(errs.get("models", 0.0), float(np.abs(got - want).max()))
+
+    nets = {"face": ShortRangeNetwork(device=device), "palm": Palm(device=device), "v1": FaceMeshV1(device=device),
+            "peppa": PeppaFacialLandmark(device=device), "pfld": FaceOnnx(device=device)}
+    image = Image(rgba, device)
+    with PlainWatch(torch) as watch2:
+        for key, threshold in (("face", 0.5), ("palm", HOST_PALM_THRESHOLD)):
+            det = Detector(nets[key])
+            det.set_threshold(threshold)
+            got = detections_arrays(np, det.detect(image))
+            for k, tol in (("conf", HOST_SCORE_TOL), ("rect", HOST_DET_TOL_PX), ("kps", HOST_DET_TOL_PX),
+                           ("angle", HOST_ANGLE_TOL)):
+                want = host[f"det_{key}_{k}"]
+                check(got[k].shape == want.shape, f"Detector({key}): {k} {got[k].shape}, JAX {want.shape}")
+                err = float(np.abs(got[k] - want).max())
+                check(err <= tol, f"Detector({key}): {k} differs from JAX by {err} (tolerance {tol})")
+                errs[f"detect {key} {k}"] = err
+        view = image.view(RotatedRect(np.asarray(HOST_FACE_VIEW, np.float32)))
+        for key in ("v1", "peppa", "pfld"):
+            est = Estimator(nets[key]).estimate(view)
+            err = float(np.abs(est.landmarks_mut().positions() - host[f"est_{key}_pos"]).max())
+            check(err <= HOST_LM_TOL_PX, f"Estimator({key}) differs from JAX by {err} px")
+            errs[f"estimate {key}"] = err
+        tracker = LandmarkTracker(Estimator(nets["v1"]))
+        for t, roi in enumerate([np.asarray(HOST_SEED_ROI, np.float32), host["track0_roi"]]):
+            tracker.set_roi(RotatedRect(roi))
+            r = tracker.track(image)
+            check(r is not None, f"LandmarkTracker step {t} lost the face")
+            err = float(np.abs(r.estimate().landmarks_mut().positions() - host[f"track{t}_pos"]).max())
+            roi_err = float(np.abs(tracker.roi().array[:4] - host[f"track{t}_roi"][:4]).max())
+            check(err <= HOST_LM_TOL_PX and roi_err <= HOST_LM_TOL_PX,
+                  f"LandmarkTracker step {t} from JAX's ROI differs by {err} px (ROI {roi_err} px)")
+            errs[f"track {t}"] = max(err, roi_err)
+        tracker.set_roi(RotatedRect(np.asarray(HOST_SEED_ROI, np.float32)))
+        for t in range(2):
+            err = float(np.abs(tracker.track(image).estimate().landmarks_mut().positions()
+                               - host[f"track{t}_pos"]).max())
+            check(err <= HOST_TRACK_FREE_TOL_PX, f"LandmarkTracker free-running step {t} differs by {err} px")
+            errs[f"track free {t}"] = err
+        blank = LandmarkTracker(Estimator(nets["v1"]))
+        blank.set_roi(RotatedRect(np.asarray(HOST_SEED_ROI, np.float32)))
+        check(blank.track(Image(torch.zeros_like(rgba), device)) is None and blank.roi() is None
+              and bool(host["blank_lost"]), "LandmarkTracker kept tracking a blank frame")
+
+        cropped = ref["cropped"]
+        for name in ev.RUNNERS:
+            rows = ev.evaluate_runner(ev.RUNNERS[name](device=device), cropped, eval_transforms(), device=device)
+            err = rows_error(np, rows, ref, name)
+            check(err <= EVAL_SWEEP_TOL_PX[name],
+                  f"eval {name}: reduced sweep differs from JAX by {err} px (tolerance {EVAL_SWEEP_TOL_PX[name]})")
+            errs[f"sweep {name}"] = err
+    for w in (watch, watch2):
+        check(not w.calls, f"a plain version of a kernel ran on the card: {w.calls}")
+    print("host engines vs JAX reference on the card: max errors "
+          f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (ops {HOST_OP_TOL}, models the CNN bar, detections "
+          f"{HOST_DET_TOL_PX} px / {HOST_SCORE_TOL} / {HOST_ANGLE_TOL} rad, landmarks {HOST_LM_TOL_PX} px, free "
+          f"tracking {HOST_TRACK_FREE_TOL_PX} px, sweeps {EVAL_SWEEP_TOL_PX}); a blank frame loses tracking; no plain "
+          f"kernel version ran on the card", flush=True)
+    return nets, image, cropped
+
+
+def full_sweep(torch, np, device, cropped, rgba, card, what):
+    """The full sweep (DEFAULT_TRANSFORMS, both photos) for every runner:
+    identity rows exact, the face runners valid everywhere, the hand runner
+    n/a; each runner's wall time and launches (zeroed just before, read
+    just after), the stage kernel launched by every face runner and no
+    plain kernel version on the card. → {runner: (seconds, launches,
+    summaries)}."""
+    from zaru_tpu_torch import eval as ev
+
+    photos = {"sad_linus.jpg": rgba.cpu().numpy(), "sad_linus_cropped.jpg": cropped}
+    result = {}
+    for name in ev.RUNNERS:
+        run = ev.RUNNERS[name](device=device)
+        torch.cuda.synchronize()
+        zero_launches()
+        with PlainWatch(torch) as watch:
+            t0 = time.perf_counter()
+            sweeps = {label: ev.evaluate_runner(run, frame, device=device) for label, frame in photos.items()}
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = read_launches()
+        check(not watch.calls, f"eval {name}: a plain version of a kernel ran on the card: {watch.calls}")
+        for label, rows in sweeps.items():
+            if name == "hand":
+                check(rows == [{"transform": "base", "valid": False}], f"eval hand on {label}: {rows}")
+                continue
+            check(len(rows) == 8 and all(r["valid"] for r in rows), f"eval {name} on {label}: {rows}")
+            check(rows[0]["transform"] == "identity" and rows[0]["max_px"] == 0.0,
+                  f"eval {name} on {label}: identity row {rows[0]}")
+        stage = name in EVAL_STAGE_RUNNERS
+        check((launches["blaze_stage"] > 0) == stage, f"eval {name}: stage kernel launches {launches}")
+        check(launches["rotated_sample"] == 0 and launches["letterbox_sample"] == 0 or name == "hand",
+              f"eval {name}: a sampler kernel ran on an exact path: {launches}")
+        summaries = {label: ev.summarize(rows) for label, rows in sweeps.items()}
+        result[name] = (dt, launches, summaries)
+        print(f"eval {name} ({what}), 8 transforms x 2 photos: {dt:.3f} s wall, launches {launches}; "
+              + "; ".join(f"{label}: " + (f"mean {s['mean_px']:.3f} px, p95 {s['p95_px']:.3f} px, max "
+                                         f"{s['max_px']:.3f} px" if s.get("valid_transforms") else "n/a")
+                          for label, s in summaries.items()) + f" [{card}]", flush=True)
+    return result
+
+
+def phase_host_full_size(torch, np, device, nets, image, cropped, rgba, card):
+    """Per-call host time of ``Detector.detect`` (short-range face),
+    ``Estimator.estimate`` (Face Mesh V1 on the fixed face view) and
+    ``LandmarkTracker.track`` (Face Mesh V1, tracking the photo's face) on
+    the 1280×720 photo, HOST_CALLS calls after 5 of warm-up, each ending in
+    its host read; the stage kernel must launch in each; then the full
+    sweep's wall time per runner."""
+    from zaru_tpu_torch.detection import Detector
+    from zaru_tpu_torch.landmark import Estimator, LandmarkTracker
+    from zaru_tpu_torch.rect import RotatedRect
+
+    detector = Detector(nets["face"])
+    estimator = Estimator(nets["v1"])
+    view = image.view(RotatedRect(np.asarray(HOST_FACE_VIEW, np.float32)))
+    tracker = LandmarkTracker(Estimator(nets["v1"]))
+    tracker.set_roi(RotatedRect(np.asarray(HOST_SEED_ROI, np.float32)))
+    calls = {
+        "Detector.detect (short range)": lambda: detector.detect(image),
+        "Estimator.estimate (Face Mesh V1)": lambda: estimator.estimate(view),
+        "LandmarkTracker.track (Face Mesh V1)": lambda: check(tracker.track(image) is not None,
+                                                              "LandmarkTracker lost the face"),
+    }
+    per_call = {}
+    for what, fn in calls.items():
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        zero_launches()
+        with PlainWatch(torch) as watch:
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            dt = time.perf_counter() - t0
+        launches = read_launches()
+        check(not watch.calls, f"{what}: a plain version of a kernel ran on the card: {watch.calls}")
+        check(launches["blaze_stage"] > 0, f"{what}: the stage kernel never launched: {launches}")
+        per_call[what] = (dt / HOST_CALLS * 1e3, launches)
+        print(f"{what} on the 1280x720 photo: {HOST_CALLS} calls in {dt:.3f} s, {dt / HOST_CALLS * 1e3:.3f} "
+              f"ms/call (host clock, host read included); launches {launches} "
+              f"({launches['blaze_stage'] / HOST_CALLS:.1f} stage chains a call) [{card}]", flush=True)
+    sweeps = full_sweep(torch, np, device, cropped, rgba, card, "timed")
+    return per_call, sweeps
+
+
 def timed_phase(what, fn, *args):
     """``fn(*args)``, then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -1636,6 +1944,8 @@ def run_phases(torch, np, F, device, smi):
     timed("4, face models and entry points vs JAX", phase_face_models_vs_jax, torch, np, device, rgba)
     timed("4, multi-object vs JAX", phase_multi_vs_jax, torch, np, device, rgba)
     timed("4, BodyTracker vs JAX", phase_body_vs_jax, torch, np, device)
+    nets, image, cropped = timed("4, host engines and eval vs JAX", phase_host_vs_jax, torch, np, device, rgba)
+    timed("4, host engines and eval: the full sweep", full_sweep, torch, np, device, cropped, rgba, smi, "first")
     tracker, runs = timed("5, face runs", phase_full_size, torch, img, device, smi)
     hands, hand_frames, seed, multi = timed("5, multi-object runs", phase_multi_full_size, torch, img, device, smi)
     model_frames, models, run_frame_ms = timed("5, face models and run_frame", phase_slice_full_size, torch, img,
@@ -1644,12 +1954,17 @@ def run_phases(torch, np, F, device, smi):
                                                          device, smi)
     serve_launches = timed("5, serving", phase_serve, torch, np, img, device, smi, tracker,
                            runs["ms"][("main path", SERVE_STREAMS)], run_frame_ms)
+    host_calls, sweeps = timed("5, host engines and eval", phase_host_full_size, torch, np, device, nets, image,
+                               cropped, rgba, smi)
     print(f"launches in the batch-512 face runs ({STEPS} steps each): {runs['launches']}", flush=True)
     print(f"launches in the batch-128 multi-object runs ({STEPS} steps each): {multi}", flush=True)
     print(f"launches in the face-model and single-stream runs ({STEPS} steps each): "
           f"{ {k: v[2] for k, v in models.items()} }", flush=True)
     print(f"launches in the BodyTracker run at 512 ({STEPS} steps): {body_launches}; in the serving run at "
           f"{SERVE_STREAMS} streams ({STEPS} steps): {serve_launches}", flush=True)
+    print(f"launches in the host engines' runs ({HOST_CALLS} calls each): "
+          f"{ {k: v[1]['blaze_stage'] for k, v in host_calls.items()} } stage chains; in the timed sweep: "
+          f"{ {k: v[1]['blaze_stage'] for k, v in sweeps.items()} }", flush=True)
     t0 = time.perf_counter()
     launches = runs["launches"]["main path"]
     frames, state, _ = runs["main path"]
@@ -1670,6 +1985,11 @@ def run_phases(torch, np, F, device, smi):
                                      one_launches["blaze_stage"], STEPS, "run_frame, one stream"))
     kernels += phase_kernel_times(torch, body_frames, body.lm_cnn, body.det_cnn, body_state["rois"], body_launches,
                                   "BodyTracker run", prescale_m=256)
+    host_cnns = SimpleNamespace(lm_cnn=nets["v1"].cnn(), det_cnn=nets["face"].cnn())
+    host_roi = torch.tensor([HOST_SEED_ROI], dtype=torch.float32, device=device)
+    kernels.append(phase_stage_times(torch, host_cnns, rgba[None], {"roi": host_roi},
+                                     sum(v[1]["blaze_stage"] for v in host_calls.values()), 3 * HOST_CALLS,
+                                     "host engines, batch 1"))
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

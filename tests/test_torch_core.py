@@ -66,6 +66,14 @@ def test_imports_neither_jax_nor_zaru_tpu():
         "import zaru_tpu_torch.pipeline.body_cascade, zaru_tpu_torch.color, zaru_tpu_torch.rect\n"
         "import zaru_tpu_torch.image, zaru_tpu_torch.image.decode, zaru_tpu_torch.image.draw\n"
         "import zaru_tpu_torch.video.anim, zaru_tpu_torch.video.file, zaru_tpu_torch.timer\n"
+        "import zaru_tpu_torch.detection, zaru_tpu_torch.landmark, zaru_tpu_torch.filters\n"
+        "import zaru_tpu_torch.face.landmark.multipie68, zaru_tpu_torch.face.landmark.canonical_face\n"
+        "import zaru_tpu_torch.hand.tracking, zaru_tpu_torch.eval\n"
+        "from zaru_tpu_torch.detection import Detector\n"
+        "from zaru_tpu_torch.landmark import Estimator, LandmarkTracker\n"
+        "from zaru_tpu_torch.hand.tracking import HandTracker\n"
+        "from zaru_tpu_torch.face.landmark.multipie68 import reference_positions\n"
+        "assert reference_positions().shape == (68, 3)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'zaru_tpu' or m.startswith('zaru_tpu.')]\n"
         "assert not bad, bad\n"
@@ -88,6 +96,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from zaru_tpu_torch.image import Image
     from zaru_tpu_torch.pipeline import BodyTracker, MultiFaceTracker, MultiHandTracker
     from zaru_tpu_torch.pipeline.ingest import FrameUploader, measure_ingest_bandwidth
+    from zaru_tpu_torch import eval as ev
+    from zaru_tpu_torch.face.landmark.multipie68 import FaceOnnx, PeppaFacialLandmark
+    from zaru_tpu_torch.hand.tracking import HandTracker
+    from zaru_tpu_torch.nn import Loader, NeuralNetwork
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (
@@ -112,6 +124,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: FrameUploader(2, (4, 4, 4)),
         lambda: measure_ingest_bandwidth(2, (4, 4, 4), 1),
         lambda: Image.new(4, 4),
+        PeppaFacialLandmark,
+        FaceOnnx,
+        HandTracker,
+        lambda: NeuralNetwork.load("assets/onnx/slim_160_latest.onnx"),
+        lambda: Loader("assets/onnx/slim_160_latest.onnx").load(),
+        *(lambda name=name: ev.RUNNERS[name]() for name in ev.RUNNERS),
         resolve_device,
         lambda: resolve_device("cuda"),
     ):
@@ -242,8 +260,8 @@ def test_palm_decode_matches_jax():
 
     rng = np.random.default_rng(5)
     jnet, tnet = JPalm(), TPalm(device="cpu")
-    assert tnet.anchors.shape == (2016, 2)
-    np.testing.assert_array_equal(tnet.anchors.numpy(), jnet.anchors.centers)
+    assert tnet.anchors.centers.shape == (2016, 2)
+    np.testing.assert_array_equal(tnet.anchors.centers, jnet.anchors.centers)
     B, N = 2, 2016
     boxes_raw = rng.normal(0, 20, (B, N, 18)).astype(np.float32)
     conf_raw = rng.normal(-3, 3, (B, N, 1)).astype(np.float32)

@@ -19,8 +19,13 @@ entry points; hand-written CUDA kernels for every TPU kernel of the JAX
 package (``zaru_tpu_torch/csrc``); the serving entry points: the multi-stream
 serve loop (:mod:`zaru_tpu_torch.serve`), the double-buffered frame upload
 (:mod:`zaru_tpu_torch.pipeline.ingest`) and ``python -m zaru_tpu_torch
-track|serve|info``. Not ported: ``compute_dtype``, ``serve --shard`` and the
-``export``/``run-exported``/``eval`` subcommands.
+track|serve|info``; the host engines (``nn.NeuralNetwork``/``Loader``,
+``detection.Detector``, ``landmark.Estimator``/``LandmarkTracker``,
+``hand.tracking.HandTracker``) with every network's host decode and the
+68-point landmarkers (``face.landmark.multipie68``); the equivariance sweep
+(:mod:`zaru_tpu_torch.eval`, ``python -m zaru_tpu_torch eval``). Not
+ported: ``compute_dtype``, ``serve --shard`` and the
+``export``/``run-exported`` subcommands (ROADMAP Queue 1).
 """
 
 from ._device import resolve_device

@@ -1,7 +1,10 @@
 """Command-line interface of the port (zaru_tpu/__main__.py): offline
-tracking, the multi-stream serving loop and the asset inventory, on the GPU.
+tracking, the multi-stream serving loop, the equivariance sweep and the
+asset inventory, on the GPU.
 
     python -m zaru_tpu_torch info
+    python -m zaru_tpu_torch eval [--models face_mesh,...] [--input PHOTO]
+        [--json OUT] [--device cuda]
     python -m zaru_tpu_torch track INPUT [--pipeline face|hand|body] [--iris]
         [--out out.jsonl] [--annotate DIR] [--max-frames N] [--slots K]
         [--device cuda]
@@ -17,20 +20,23 @@ coordinates). ``serve`` is the multi-stream serving loop
 the INPUT sources (each looped when exhausted, or with ``--no-loop``
 finite, joining as slots free), decoded on a host thread pool, uploaded
 double-buffered (``pipeline.ingest.FrameUploader``) and stepped through the
-batch-gated cascade, one JSON line per step. ``info`` reports the runtime
-(torch and CUDA versions, the card) and which model blobs resolve through
-the ``ZARU_TPU_MODELS`` search chain.
+batch-gated cascade, one JSON line per step. ``eval`` forwards its
+arguments to :func:`zaru_tpu_torch.eval.main`, the equivariance sweep.
+``info`` reports the runtime (torch and CUDA versions, the card), which
+model blobs resolve through the ``ZARU_TPU_MODELS`` search chain, and which
+of their wrappers the port lacks.
 
 ``--device`` (``cuda`` unless named) is the port's counterpart of
 ``JAX_PLATFORMS``: without a GPU the default raises instead of running on
 the CPU; ``--device cpu`` runs the kernels' plain versions. Not ported:
 ``serve --shard`` (it exits naming the missing ``ShardedTracker``) and the
-``export``, ``run-exported`` and ``eval`` subcommands.
+``export`` and ``run-exported`` subcommands.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 from pathlib import Path
@@ -250,6 +256,16 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _ported(wrapper: str) -> bool:
+    """Whether the port has the wrapper class ``wrapper`` (a path below the
+    package)."""
+    module, _, cls = wrapper.rpartition(".")
+    try:
+        return hasattr(importlib.import_module(f"{__package__}.{module}"), cls)
+    except ImportError:
+        return False
+
+
 def cmd_info(args) -> int:
     import torch
 
@@ -272,6 +288,8 @@ def cmd_info(args) -> int:
                 if blob in MISSING_MODELS
                 else "MISSING"
             )
+        if not _ported(wrapper):
+            status += "  (wrapper not ported)"
         print(f"  {wrapper:45s} {blob:35s} {status}")
     return 0
 
@@ -336,7 +354,14 @@ def main(argv=None) -> int:
     p_info = sub.add_parser("info", help="runtime + model-asset inventory")
     p_info.set_defaults(fn=cmd_info)
 
-    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    sub.add_parser("eval", add_help=False, help="equivariance accuracy sweep (zaru_tpu_torch.eval; args forwarded)")
+
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["eval"]:
+        from .eval import main as eval_main
+
+        return eval_main(argv[1:])
+    args = parser.parse_args(argv)
     return args.fn(args)
 
 

@@ -38,7 +38,8 @@ class PoseNetwork:
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self._cnn = Cnn.load(self.FILE, ColorMapper.linear(-1.0, 1.0), self.device)
-        self.anchors = torch.from_numpy(Anchors.calculate(self.LAYERS).centers).to(self.device)
+        self.anchors = Anchors.calculate(self.LAYERS)
+        self._anchor_centers = torch.from_numpy(self.anchors.centers).to(self.device)
 
     def cnn(self) -> Cnn:
         return self._cnn
@@ -50,7 +51,7 @@ class PoseNetwork:
         rel.y)`` of ``rel = hips - scale point``."""
         res = self._cnn.input_resolution()
         boxes, conf, kps = decode_ssd_device(
-            res.width, res.height, self.anchors, outputs[0], outputs[1], thresh,
+            res.width, res.height, self._anchor_centers, outputs[0], outputs[1], thresh,
             self.NUM_KEYPOINTS,
         )
         rel = kps[..., Keypoint.HIPS, :] - kps[..., Keypoint.SCALE_POINT, :]

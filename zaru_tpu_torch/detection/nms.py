@@ -1,15 +1,87 @@
-"""Fixed-shape weighted-average NMS on tensors
-(zaru_tpu/detection/nms.py:108 ``nms_average_device``)."""
+"""Non-maximum suppression (zaru_tpu/detection/nms.py).
+
+- :class:`NonMaxSuppression` (nms.py:33): the host algorithm on lists of
+  :class:`~zaru_tpu_torch.detection.Detection` (numpy), for the host
+  ``Detector``: sort by confidence in totalOrder, pop seeds from the top,
+  remove or confidence-weight-average the detections that overlap them;
+- :func:`nms_average_device` (:108): the fixed-shape weighted average on
+  tensors, for the trackers.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..geometry import rect_iou
+from ..num import total_f32_key
+from ..rect import Rect
 
-__all__ = ["nms_average_device", "DEFAULT_IOU_THRESH"]
+__all__ = ["SuppressionMode", "NonMaxSuppression", "nms_average_device", "DEFAULT_IOU_THRESH"]
 
 DEFAULT_IOU_THRESH = 0.3
+
+
+class SuppressionMode:
+    """How overlapping detections are handled (nms.py:25)."""
+
+    Remove = "remove"
+    Average = "average"
+
+
+class NonMaxSuppression:
+    """Host NMS with the reference's semantics (nms.py:33-106)."""
+
+    def __init__(self):
+        self.iou_thresh = DEFAULT_IOU_THRESH
+        self.mode = SuppressionMode.Average
+
+    def set_iou_thresh(self, iou_thresh: float) -> None:
+        self.iou_thresh = iou_thresh
+
+    def set_mode(self, mode: str) -> None:
+        self.mode = mode
+
+    def process(self, detections: list) -> list:
+        from . import Detection
+
+        out = []
+        # Ascending by confidence (totalOrder), seeds popped from the back.
+        pending = sorted(detections, key=lambda d: total_f32_key(d.confidence()))
+        while pending:
+            seed = pending.pop()
+            seed_rect = seed.bounding_rect()
+            overlapping, kept = [seed], []
+            for other in pending:
+                (overlapping if seed_rect.iou(other.bounding_rect()) >= self.iou_thresh else kept).append(other)
+            pending = kept
+            if self.mode == SuppressionMode.Remove:
+                out.append(seed)
+                continue
+            # Confidence-weighted average of box, keypoints and angle; the
+            # seed's confidence.
+            divisor = np.float32(0.0)
+            acc_rect = np.zeros(4, np.float32)
+            acc_angle = np.float32(0.0)
+            nkp = max((len(d.keypoints()) for d in overlapping), default=0)
+            acc_kp = np.zeros((nkp, 2), np.float32)
+            for det in overlapping:
+                kps = det.keypoints()
+                if len(kps) not in (0, nkp):
+                    raise ValueError("detections to average have different keypoint counts")
+                factor = np.float32(det.confidence())
+                divisor += factor
+                r = det.bounding_rect()
+                acc_rect += np.concatenate([r.center(), [r.width(), r.height()]]) * factor
+                acc_angle += np.float32(det.angle()) * factor
+                for i, kp in enumerate(kps):
+                    acc_kp[i] += kp * factor
+            acc_rect /= divisor
+            acc_kp /= divisor
+            acc_angle /= divisor
+            out.append(Detection(seed.confidence(), Rect.from_center(*acc_rect),
+                                 keypoints=[acc_kp[i] for i in range(nkp)], angle=float(acc_angle)))
+        return out
 
 
 def nms_average_device(

@@ -1,16 +1,19 @@
-"""BlazeFace face detection (zaru_tpu/face/detection.py:61 ``_BlazeFace``,
-decode :96): the short-range network (:113 ``ShortRangeNetwork``, 128×128,
-896 anchors) and the full-range one (:121 ``FullRangeNetwork``, 192×192,
-2304 anchors)."""
+"""BlazeFace face detection (zaru_tpu/face/detection.py:61 ``_BlazeFace``):
+the short-range network (:113 ``ShortRangeNetwork``, 128×128, 896
+anchors) and the full-range one (:121 ``FullRangeNetwork``, 192×192, 2304
+anchors). ``decode_device`` (:96) decodes on tensors for the trackers,
+``extract`` (:77) on the host for :class:`~zaru_tpu_torch.detection.Detector`;
+the angle of a detection is that of its eyes (:44 ``_face_angle``)."""
 
 from __future__ import annotations
 
 import enum
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..detection import Anchors, LayerInfo, decode_ssd_device
+from ..detection import Anchors, DetectionNetwork, Detections, LayerInfo, decode_ssd, decode_ssd_device
 from ..geometry import signed_angle_to_x
 from ..nn import Cnn, ColorMapper
 
@@ -28,7 +31,14 @@ class Keypoint(enum.IntEnum):
     RIGHT_EAR = 5
 
 
-class _BlazeFace:
+def _face_angle(det) -> float:
+    """Clockwise rotation of the left → right eye vector, ``atan2(y, x)`` in
+    image coordinates (Y down)."""
+    ltr = det.keypoint(Keypoint.RIGHT_EYE) - det.keypoint(Keypoint.LEFT_EYE)
+    return float(np.arctan2(ltr[1], ltr[0]))
+
+
+class _BlazeFace(DetectionNetwork):
     """A BlazeFace network: ``FILE`` (the ONNX blob) and ``LAYERS`` (its
     anchor layers); colour range [-1, 1], six keypoints."""
 
@@ -39,10 +49,21 @@ class _BlazeFace:
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self._cnn = Cnn.load(self.FILE, ColorMapper.linear(-1.0, 1.0), self.device)
-        self.anchors = torch.from_numpy(Anchors.calculate(self.LAYERS).centers).to(self.device)
+        self.anchors = Anchors.calculate(self.LAYERS)
+        self._anchor_centers = torch.from_numpy(self.anchors.centers).to(self.device)
 
     def cnn(self) -> Cnn:
         return self._cnn
+
+    def extract(self, outputs, threshold: float, detections: Detections) -> None:
+        """Host decode of ``(boxes [1,N,16], confidences [1,N,1])`` into
+        ``detections``, in network-input pixels."""
+        res = self._cnn.input_resolution()
+        n = len(self.anchors)
+        if outputs[0].shape != (1, n, 16) or outputs[1].shape != (1, n, 1):
+            raise ValueError(f"BlazeFace outputs {outputs[0].shape}, {outputs[1].shape} for {n} anchors")
+        decode_ssd(res.width, res.height, self.anchors, outputs[0], outputs[1], threshold, detections,
+                   num_keypoints=self.NUM_KEYPOINTS, angle_fn=_face_angle)
 
     def decode_device(self, outputs, thresh: float = 0.5):
         """``(regressors [B,N,16], classificators [B,N,1])`` for ``N``
@@ -50,7 +71,7 @@ class _BlazeFace:
         [B,N])`` in network-input pixels."""
         res = self._cnn.input_resolution()
         boxes, conf, kps = decode_ssd_device(
-            res.width, res.height, self.anchors, outputs[0], outputs[1], thresh,
+            res.width, res.height, self._anchor_centers, outputs[0], outputs[1], thresh,
             self.NUM_KEYPOINTS,
         )
         ltr = kps[..., Keypoint.RIGHT_EYE, :] - kps[..., Keypoint.LEFT_EYE, :]

@@ -1,2 +1,2 @@
-"""Hand perception: palm detection and 21-point hand landmarks
-(zaru_tpu/hand)."""
+"""Hand perception: palm detection, 21-point hand landmarks and the host
+multi-hand tracker (zaru_tpu/hand)."""

@@ -1,19 +1,22 @@
-"""Palm detection (zaru_tpu/hand/detection.py ``LiteNetwork``, decode
-:100-113).
+"""Palm detection (zaru_tpu/hand/detection.py ``_Palm`` :63, ``LiteNetwork``
+:115).
 
 The detection angle orients the hand fingers-up: the wrist → middle-finger
-MCP vector against the Y axis. ``FullNetwork`` is a missing blob in the JAX
-package too and is not ported.
+MCP vector against the Y axis (:48 ``_palm_angle``). ``decode_device``
+(:100) decodes on tensors for the trackers, ``extract`` (:83) on the host
+for :class:`~zaru_tpu_torch.detection.Detector`. ``FullNetwork`` is a
+missing blob in the JAX package too and is not ported.
 """
 
 from __future__ import annotations
 
 import enum
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..detection import Anchors, LayerInfo, decode_ssd_device
+from ..detection import Anchors, DetectionNetwork, Detections, LayerInfo, decode_ssd, decode_ssd_device
 from ..nn import Cnn, ColorMapper
 
 __all__ = ["Keypoint", "LiteNetwork"]
@@ -31,7 +34,16 @@ class Keypoint(enum.IntEnum):
     THUMB_MCP = 6
 
 
-class LiteNetwork:
+
+def _palm_angle(det) -> float:
+    """Clockwise rotation of the wrist → middle-finger MCP vector against
+    +Y, Y-up convention: ``atan2(-rel.x, rel.y)`` of ``rel = wrist -
+    middle MCP``."""
+    rel = det.keypoint(Keypoint.WRIST) - det.keypoint(Keypoint.MIDDLE_FINGER_MCP)
+    return float(np.arctan2(-rel[0], rel[1]))
+
+
+class LiteNetwork(DetectionNetwork):
     """The lite palm detector: 192×192 input, colour range [0, 1], 2016
     anchors, 7 keypoints."""
 
@@ -42,10 +54,21 @@ class LiteNetwork:
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self._cnn = Cnn.load(self.FILE, ColorMapper.linear(0.0, 1.0), self.device)
-        self.anchors = torch.from_numpy(Anchors.calculate(self.LAYERS).centers).to(self.device)
+        self.anchors = Anchors.calculate(self.LAYERS)
+        self._anchor_centers = torch.from_numpy(self.anchors.centers).to(self.device)
 
     def cnn(self) -> Cnn:
         return self._cnn
+
+    def extract(self, outputs, threshold: float, detections: Detections) -> None:
+        """Host decode of ``(boxes [1,2016,18], confidences [1,2016,1])``
+        into ``detections``, in network-input pixels."""
+        res = self._cnn.input_resolution()
+        n = len(self.anchors)
+        if outputs[0].shape != (1, n, 18) or outputs[1].shape != (1, n, 1):
+            raise ValueError(f"palm outputs {outputs[0].shape}, {outputs[1].shape} for {n} anchors")
+        decode_ssd(res.width, res.height, self.anchors, outputs[0], outputs[1], threshold, detections,
+                   num_keypoints=self.NUM_KEYPOINTS, angle_fn=_palm_angle)
 
     def decode_device(self, outputs, thresh: float = 0.5):
         """``(regressors [B,2016,18], classificators [B,2016,1])`` →
@@ -54,7 +77,7 @@ class LiteNetwork:
         rel.y)`` of ``rel = wrist - middle-finger MCP``."""
         res = self._cnn.input_resolution()
         boxes, conf, kps = decode_ssd_device(
-            res.width, res.height, self.anchors, outputs[0], outputs[1], thresh,
+            res.width, res.height, self._anchor_centers, outputs[0], outputs[1], thresh,
             self.NUM_KEYPOINTS,
         )
         rel = kps[..., Keypoint.WRIST, :] - kps[..., Keypoint.MIDDLE_FINGER_MCP, :]

@@ -1,18 +1,28 @@
-"""21-point hand landmarks (zaru_tpu/hand/landmark.py ``LiteNetwork``,
-decode :168-173).
+"""21-point hand landmarks (zaru_tpu/hand/landmark.py).
 
-The host-side ``LandmarkResult`` (handedness enum, palm helpers) is not
-ported yet.
+``LiteNetwork`` decodes on tensors for the trackers (``decode_device``,
+:168-173) and on the host for :class:`~zaru_tpu_torch.landmark.Estimator`
+(``extract`` :160) into a :class:`LandmarkResult` (:96: presence,
+handedness, the palm helpers and the rotation). ``FullNetwork`` is a
+missing blob in the JAX package too and is not ported.
 """
 
 from __future__ import annotations
 
 import enum
 
+import numpy as np
+
 from .._device import resolve_device
+from ..landmark import LandmarkNetwork, Landmarks
 from ..nn import Cnn, ColorMapper
 
-__all__ = ["LandmarkIdx", "LiteNetwork"]
+__all__ = ["CONNECTIVITY", "Handedness", "LandmarkIdx", "LandmarkResult", "LiteNetwork", "PALM_LANDMARKS"]
+
+
+class Handedness(enum.Enum):
+    LEFT = "left"
+    RIGHT = "right"
 
 
 class LandmarkIdx(enum.IntEnum):
@@ -41,7 +51,85 @@ class LandmarkIdx(enum.IntEnum):
     PINKY_TIP = 20
 
 
-class LiteNetwork:
+PALM_LANDMARKS = [
+    LandmarkIdx.WRIST,
+    LandmarkIdx.THUMB_CMC,
+    LandmarkIdx.INDEX_FINGER_MCP,
+    LandmarkIdx.MIDDLE_FINGER_MCP,
+    LandmarkIdx.RING_FINGER_MCP,
+    LandmarkIdx.PINKY_MCP,
+]
+
+_I = LandmarkIdx
+CONNECTIVITY = [
+    # Palm outline:
+    (_I.WRIST, _I.THUMB_CMC),
+    (_I.THUMB_CMC, _I.INDEX_FINGER_MCP),
+    (_I.INDEX_FINGER_MCP, _I.MIDDLE_FINGER_MCP),
+    (_I.MIDDLE_FINGER_MCP, _I.RING_FINGER_MCP),
+    (_I.RING_FINGER_MCP, _I.PINKY_MCP),
+    (_I.PINKY_MCP, _I.WRIST),
+    # Fingers:
+    (_I.THUMB_CMC, _I.THUMB_MCP),
+    (_I.THUMB_MCP, _I.THUMB_IP),
+    (_I.THUMB_IP, _I.THUMB_TIP),
+    (_I.INDEX_FINGER_MCP, _I.INDEX_FINGER_PIP),
+    (_I.INDEX_FINGER_PIP, _I.INDEX_FINGER_DIP),
+    (_I.INDEX_FINGER_DIP, _I.INDEX_FINGER_TIP),
+    (_I.MIDDLE_FINGER_MCP, _I.MIDDLE_FINGER_PIP),
+    (_I.MIDDLE_FINGER_PIP, _I.MIDDLE_FINGER_DIP),
+    (_I.MIDDLE_FINGER_DIP, _I.MIDDLE_FINGER_TIP),
+    (_I.RING_FINGER_MCP, _I.RING_FINGER_PIP),
+    (_I.RING_FINGER_PIP, _I.RING_FINGER_DIP),
+    (_I.RING_FINGER_DIP, _I.RING_FINGER_TIP),
+    (_I.PINKY_MCP, _I.PINKY_PIP),
+    (_I.PINKY_PIP, _I.PINKY_DIP),
+    (_I.PINKY_DIP, _I.PINKY_TIP),
+]
+
+
+class LandmarkResult:
+    """21 3-D landmarks, presence and handedness."""
+
+    NUM_LANDMARKS = 21
+
+    def __init__(self):
+        self.landmarks = Landmarks(self.NUM_LANDMARKS)
+        self.presence = 0.0
+        self.raw_handedness = 0.0
+
+    def landmarks_mut(self) -> Landmarks:
+        return self.landmarks
+
+    def confidence(self) -> float:
+        """The presence score (the model applies its sigmoid), which the
+        tracker reads."""
+        return self.presence
+
+    def landmark_position(self, index: int) -> np.ndarray:
+        return self.landmarks.positions()[index]
+
+    def palm_landmarks(self) -> np.ndarray:
+        return self.landmarks.positions()[[int(i) for i in PALM_LANDMARKS]]
+
+    def palm_center(self) -> np.ndarray:
+        return self.palm_landmarks().mean(axis=0)
+
+    def rotation_radians(self) -> float:
+        """Clockwise palm rotation against fingers-up."""
+        finger = self.landmark_position(LandmarkIdx.MIDDLE_FINGER_MCP)[:2]
+        wrist = self.landmark_position(LandmarkIdx.WRIST)[:2]
+        rel = wrist - finger
+        return float(np.arctan2(-rel[0], rel[1]))
+
+    def angle_radians(self) -> float:
+        return self.rotation_radians()
+
+    def handedness(self) -> Handedness:
+        return Handedness.RIGHT if self.raw_handedness > 0.5 else Handedness.LEFT
+
+
+class LiteNetwork(LandmarkNetwork):
     """The lite hand landmarker: 224×224 crop, colour range [0, 1] → 21×3
     landmarks, presence and handedness (both sigmoids inside the model)."""
 
@@ -54,6 +142,16 @@ class LiteNetwork:
 
     def cnn(self) -> Cnn:
         return self._cnn
+
+    def init_estimate(self) -> LandmarkResult:
+        return LandmarkResult()
+
+    def extract(self, outputs, estimate: LandmarkResult) -> None:
+        """Host decode of (landmarks [1,63], presence [1,1], handedness
+        [1,1], world landmarks [1,63])."""
+        estimate.presence = float(outputs[1].reshape(()))
+        estimate.raw_handedness = float(outputs[2].reshape(()))
+        estimate.landmarks.set_positions(outputs[0].reshape(self.NUM_LANDMARKS, 3))
 
     def decode_device(self, outputs):
         """``(landmarks [B,63], presence [B,1], handedness [B,1], world

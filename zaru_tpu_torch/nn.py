@@ -1,8 +1,13 @@
-"""CNNs on image views (zaru_tpu/nn.py:153-262, ``Cnn``).
+"""Networks and CNNs on image views (zaru_tpu/nn.py).
 
-A :class:`Cnn` is an ONNX network plus its input resolution and colour
-mapper. It samples its inputs from batched frames with the port's samplers
-and runs the network on the batch:
+A :class:`NeuralNetwork` (nn.py:59) is a loaded ONNX graph on a device
+that runs raw tensors (:meth:`NeuralNetwork.estimate`); :class:`Loader`
+(:113) builds one with an output selection. A :class:`Cnn` (:153) is a
+network plus its input layout (:class:`CnnInputShape`), resolution and
+colour mapper. :meth:`Cnn.estimate` runs it on one image or view through
+the exact sampler, stretching on an aspect mismatch as JAX does (:264);
+the pipelines sample their inputs from batched frames with the port's
+samplers and run the network on the batch:
 
 - :meth:`Cnn.sample_views_fast`: rotated views through the rotated-ROI
   kernel (``nn.py:182-185``);
@@ -23,19 +28,30 @@ and runs the network on the batch:
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
+from typing import Sequence
 
 import torch
 
 from ._device import resolve_device
 from .assets import model_path
+from .image import as_view
 from .onnx import OnnxModule, load_model
 from .ops.letterbox import letterbox_sample
 from .ops.rotated_fast import PRESCALE_M, rotated_sample_fast
 from .ops.sampling import view_to_tensor_core
 from .resolution import Resolution
 
-__all__ = ["ColorMapper", "Cnn"]
+__all__ = ["CnnInputShape", "ColorMapper", "Cnn", "NeuralNetwork", "Loader"]
+
+
+class CnnInputShape(enum.Enum):
+    """A CNN's input layout: ``[1,3,h,w]`` or ``[1,h,w,3]``
+    (zaru_tpu/nn.py:35)."""
+
+    NCHW = "NCHW"
+    NHWC = "NHWC"
 
 
 @dataclass(frozen=True)
@@ -52,29 +68,127 @@ class ColorMapper:
         return ColorMapper(lo, hi)
 
 
-class Cnn:
-    """A CNN operating on image views, with an NCHW ``[1,3,h,w]`` input."""
+class NeuralNetwork:
+    """A loaded ONNX network on a device (zaru_tpu/nn.py:59): the graph's
+    inputs and outputs, its parameters by ONNX initializer name, and
+    :meth:`estimate` on raw tensors."""
 
-    def __init__(self, net: OnnxModule, color_mapper: ColorMapper):
-        self.net = net
+    def __init__(self, module: OnnxModule):
+        self.module = module
+
+    @staticmethod
+    def load(path_or_bytes, *, output_subset=None, device=None) -> "NeuralNetwork":
+        """Parses an ONNX file (or its bytes) onto ``device`` (``cuda``
+        unless named); ``output_subset`` selects the outputs by name or
+        position."""
+        return NeuralNetwork(load_model(path_or_bytes, resolve_device(device), output_subset))
+
+    @property
+    def device(self) -> torch.device:
+        return self.module.device
+
+    @property
+    def params(self) -> dict[str, torch.Tensor]:
+        """The float initializers by ONNX name."""
+        return self.module.params()
+
+    def load_params(self, params: dict) -> None:
+        """Replaces the weights with ``{onnx name: array}`` (for instance
+        :func:`zaru_tpu_torch.weights.network_params_from_jax` of a JAX
+        ``NeuralNetwork.params``)."""
+        self.module.load_params(params)
+
+    def num_inputs(self) -> int:
+        return len(self.module.input_info)
+
+    def num_outputs(self) -> int:
+        return len(self.module.output_names)
+
+    def inputs(self) -> list:
+        return list(self.module.input_info)
+
+    def outputs(self) -> list:
+        return list(self.module.output_info)
+
+    def estimate(self, *tensors) -> list[torch.Tensor]:
+        """The outputs for raw input tensors, on the network's device."""
+        with torch.inference_mode():
+            return self.module(*(torch.as_tensor(t, device=self.device) for t in tensors))
+
+
+class Loader:
+    """Builder of a :class:`NeuralNetwork` (zaru_tpu/nn.py:113)."""
+
+    def __init__(self, path_or_bytes, device=None):
+        self._src = path_or_bytes
+        self._device = device
+        self._output_subset = None
+
+    def with_output_selection(self, names: Sequence[str]) -> "Loader":
+        self._output_subset = list(names)
+        return self
+
+    def with_output_selection_by_index(self, indices: Sequence[int]) -> "Loader":
+        self._output_subset = [int(i) for i in indices]
+        return self
+
+    def with_bf16(self) -> "Loader":
+        raise NotImplementedError("bf16 compute is not ported (ROADMAP Queue 1: compute_dtype)")
+
+    def with_layout(self, layout: str) -> "Loader":
+        """Only ``"NCHW"``, the ONNX layout, runs here."""
+        if layout != "NCHW":
+            raise NotImplementedError(
+                f"layout {layout!r} is not ported (ROADMAP Queue 1: the NHWC layout and the other ONNX ops)"
+            )
+        return self
+
+    def load(self) -> NeuralNetwork:
+        return NeuralNetwork.load(self._src, output_subset=self._output_subset, device=self._device)
+
+
+class Cnn:
+    """A CNN operating on image views (zaru_tpu/nn.py:153): a network with
+    one ``[1,3,h,w]`` (NCHW) or ``[1,h,w,3]`` (NHWC) input, and the colour
+    mapper its inputs take."""
+
+    def __init__(self, nn: NeuralNetwork, shape: CnnInputShape, color_mapper: ColorMapper):
+        self.nn = nn
+        self.net = nn.module
+        self.shape = shape
         self.mapper = color_mapper
-        if len(net.input_info) != 1:
-            raise ValueError(f"a CNN takes exactly 1 input, this one takes {len(net.input_info)}")
-        shape = [d if isinstance(d, int) else 1 for d in net.input_info[0].shape]
-        if len(shape) != 4 or shape[0] != 1 or shape[1] != 3:
-            raise ValueError(f"invalid NCHW model input shape {shape}")
-        self._res = Resolution(shape[3], shape[2])
+        if nn.num_inputs() != 1:
+            raise ValueError(f"a CNN takes exactly 1 input, this one takes {nn.num_inputs()}")
+        t = [d if isinstance(d, int) else 1 for d in nn.inputs()[0].shape]
+        if shape == CnnInputShape.NCHW and len(t) == 4 and t[0] == 1 and t[1] == 3:
+            self._res = Resolution(t[3], t[2])
+        elif shape == CnnInputShape.NHWC and len(t) == 4 and t[0] == 1 and t[3] == 3:
+            self._res = Resolution(t[2], t[1])
+        else:
+            raise ValueError(f"invalid model input shape for {shape}: {t}")
+        self._layout = shape.value
 
     @staticmethod
     def load(filename: str, color_mapper: ColorMapper, device=None, output_subset=None) -> "Cnn":
-        """Loads ``filename`` from the model directories onto ``device``
-        (``cuda`` unless named); ``output_subset`` selects the network's
-        outputs by name or position (zaru_tpu/nn.py:126
+        """Loads the NCHW network ``filename`` from the model directories
+        onto ``device`` (``cuda`` unless named); ``output_subset`` selects
+        its outputs by name or position (zaru_tpu/nn.py:126
         ``with_output_selection_by_index``)."""
-        return Cnn(load_model(model_path(filename), resolve_device(device), output_subset), color_mapper)
+        nn = NeuralNetwork.load(model_path(filename), output_subset=output_subset, device=device)
+        return Cnn(nn, CnnInputShape.NCHW, color_mapper)
 
     def input_resolution(self) -> Resolution:
         return self._res
+
+    def estimate(self, image) -> list[torch.Tensor]:
+        """The network on one image or view (zaru_tpu/nn.py:264), sampled by
+        the exact sampler at batch 1 on the network's device; an aspect
+        mismatch stretches the view, as in the reference."""
+        view = as_view(image)
+        dev = self.nn.device
+        rect = torch.from_numpy(view.view_rect.array.copy()).to(dev)
+        with torch.inference_mode():
+            return self.apply_on_view(view.image.data.to(dev)[None], rect[None])
 
     def sample_views_fast(
         self, frames_u8, rrects, prescale_m: int = PRESCALE_M, layout: str = "NHWC", mirror=None
@@ -95,20 +209,23 @@ class Cnn:
 
     def apply_tensor_hwc(self, t_hwc) -> list[torch.Tensor]:
         """The network on pre-sampled ``[B,h,w,3]`` f32 inputs."""
+        if self.shape == CnnInputShape.NHWC:
+            return self.net(t_hwc)
         return self.net(t_hwc.permute(0, 3, 1, 2).contiguous())
 
     def apply_views_fast(
         self, frames_u8, rrects, prescale_m: int = PRESCALE_M, mirror=None
     ) -> list[torch.Tensor]:
         """The network on the rotated views of ``rrects [B,...,5]``, sampled
-        planar: outputs over the ``N`` views flattened in rect order."""
-        xs = self.sample_views_fast(frames_u8, rrects, prescale_m, "NCHW", mirror)
+        planar (in the network's own layout): outputs over the ``N`` views
+        flattened in rect order."""
+        xs = self.sample_views_fast(frames_u8, rrects, prescale_m, self._layout, mirror)
         return self.net(xs.reshape(-1, *xs.shape[-3:]))
 
     def apply_views_letterbox(self, frames_u8, rrects) -> list[torch.Tensor]:
         """The network on the letterbox views of ``rrects [B,5]``, sampled
         planar."""
-        return self.net(self.sample_views_letterbox(frames_u8, rrects, "NCHW"))
+        return self.net(self.sample_views_letterbox(frames_u8, rrects, self._layout))
 
     def sample_view_hwc(self, frames_u8, rrects, mirror=None):
         """Exact rotated views: ``[B,H,W,4] u8`` + ``[B,...,5]`` rects →
@@ -121,5 +238,5 @@ class Cnn:
         sampled planar: outputs over the ``N`` views flattened in rect
         order."""
         r, m = self._res, self.mapper
-        xs = view_to_tensor_core(frames_u8, rrects, r.width, r.height, m.lo, m.hi, "NCHW", mirror)
+        xs = view_to_tensor_core(frames_u8, rrects, r.width, r.height, m.lo, m.hi, self._layout, mirror)
         return self.net(xs.reshape(-1, *xs.shape[-3:]))

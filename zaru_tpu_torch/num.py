@@ -1,9 +1,11 @@
-"""Small numeric helpers (zaru_tpu/num.py:23-40).
+"""Small numeric helpers (zaru_tpu/num.py:23-60).
 
 All of them keep the f32 results of the JAX package bit for bit where the
 arithmetic is IEEE: ``torch.round`` rounds half to even and is never used
 for pixel coordinates, and division by a Python number goes through
-:func:`div`.
+:func:`div`. :func:`sigmoid_np` and :func:`total_f32_key` serve the host
+engines (numpy), as the JAX package's numpy branch of ``sigmoid`` and its
+``total_f32_key`` do.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["round_half_away", "sigmoid", "div", "fma", "recip"]
+__all__ = ["round_half_away", "sigmoid", "sigmoid_np", "div", "fma", "recip", "total_f32_key"]
 
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
@@ -27,6 +29,25 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.where(
         x >= 0, 1.0 / (1.0 + torch.exp(-pos)), torch.exp(neg) / (1.0 + torch.exp(neg))
     )
+
+
+def sigmoid_np(x: np.ndarray) -> np.ndarray:
+    """:func:`sigmoid` on the host, in numpy (zaru_tpu/num.py:23 on a numpy
+    array)."""
+    pos = np.where(x >= 0, x, 0.0)
+    neg = np.where(x < 0, x, 0.0)
+    return np.where(x >= 0, 1.0 / (1.0 + np.exp(-pos)), np.exp(neg) / (1.0 + np.exp(neg)))
+
+
+def total_f32_key(x: float) -> int:
+    """Sort key of IEEE 754 totalOrder on f32, the reference's ``TotalF32``
+    (zaru_tpu/num.py:43): -NaN < -inf < … < -0.0 < +0.0 < … < +inf < +NaN.
+    The bits as an unsigned integer, all but the sign flipped for negatives
+    and the sign set for the others."""
+    bits = int(np.float32(x).view(np.uint32))
+    if bits & 0x8000_0000:
+        return 0xFFFF_FFFF - bits
+    return bits | 0x1_0000_0000
 
 
 def div(x: torch.Tensor, d: float) -> torch.Tensor:

@@ -1,23 +1,31 @@
 """Runs a parsed ONNX graph as an ``nn.Module``.
 
-The counterpart of zaru_tpu/onnx/importer.py (``import_model``) for the 15
-ops the face and hand cascades' models use: Conv, Relu, PRelu, Add, Pad,
-MaxPool, Transpose, Reshape and Concat (the face models), Resize (palm
-detection), Clip, GlobalAveragePool, Squeeze, Gemm and Sigmoid (hand
-landmarks). Each op follows the JAX package's semantics in
-zaru_tpu/onnx/ops.py: ``_conv`` :219 with ``_conv_pads`` :205 (explicit
-pads, SAME_UPPER, SAME_LOWER and VALID), ``_max_pool`` :328 with
-``_pool_pads`` :268, ``_pad`` :420, ``_prelu`` :72, ``_reshape`` :440,
+The counterpart of zaru_tpu/onnx/importer.py (``import_model``) for the 18
+ops the shipped models use: Conv, Relu, PRelu, Add, Pad, MaxPool,
+Transpose, Reshape and Concat (the face models), Resize (palm detection),
+Clip, GlobalAveragePool, Squeeze, Gemm and Sigmoid (hand landmarks),
+ReduceMean (``slim_160_latest.onnx``), AveragePool
+(``landmarks_68_pfld.onnx``) and Constant (``mobilefacenet.onnx``). Each op
+follows the JAX package's semantics in zaru_tpu/onnx/ops.py: ``_conv`` :219
+with ``_conv_pads`` :205 (explicit pads, SAME_UPPER, SAME_LOWER and VALID),
+``_max_pool`` :328 and ``_avg_pool`` :342 with ``_pool_pads`` :268 and
+``_pool_output`` :289, ``_pad`` :420, ``_prelu`` :72, ``_reshape`` :440,
 ``_transpose`` :463, ``_concat`` :472, ``_sigmoid`` :78, ``_clip`` :115,
-``_global_avg_pool`` :355, ``_squeeze`` :480, ``_resize`` :573 (its two
-exact configurations) and ``_gemm`` :656. A graph with any other op is
-refused when it is loaded.
+``_global_avg_pool`` :355, ``_reduce_mean`` :407 with ``_reduce`` :360,
+``_squeeze`` :480, ``_constant`` :565, ``_resize`` :573 (its two exact
+configurations) and ``_gemm`` :656. A graph with any other op is refused
+when it is loaded.
 
 The parameters are the graph's float initializers, keyed by their ONNX
 names exactly as zaru_tpu/onnx/importer.py:109-136 keys them: a float
 initializer read only by a structural input slot (Resize ``roi`` and
 ``scales``, Upsample ``scales``, Pad ``constant_value``) is no parameter,
-and other initializers (shape vectors) stay numpy constants as well. The
+and other initializers (shape vectors) stay numpy constants as well. A
+Constant node is evaluated when the module is built: an integer value, or
+a float value read only through a slot that takes a static value (a shape,
+pads, a Clip bound), joins the numpy constants as an initializer would; any
+other float value becomes a device tensor that is no parameter (JAX keeps
+Constant outputs out of its params as well). The
 graphs are exported at batch 1 and run here at batch B: a Reshape's leading
 1 is read as the batch axis, as the JAX cascade's ``vmap`` over streams has
 it, a Resize keeps the batch and takes only the spatial sizes, and a
@@ -100,15 +108,12 @@ def _conv(node, vals):
     )
 
 
-def _max_pool(node, vals):
-    x = vals[0]
-    kernel = node.attrs["kernel_shape"]
-    strides = node.attrs.get("strides", [1, 1])
-    dilations = node.attrs.get("dilations", [1, 1])
+def _pool_pad_pairs(node, x, kernel, strides, dilations) -> tuple[int, int, int, int]:
+    """``(top, bottom, left, right)`` padding of a pool; with ``ceil_mode``
+    the end padding grows so that the floor division gives the ceil output
+    size (ops.py:298-304)."""
     (pt, pb), (pl, pr) = _pad_pairs(node, x, kernel, strides, dilations)
     if node.attrs.get("ceil_mode", 0):
-        # Extend the end padding so the floor division gives the ceil
-        # output size (ops.py:298-304).
         keh = dilations[0] * (kernel[0] - 1) + 1
         kew = dilations[1] * (kernel[1] - 1) + 1
         h, w = x.shape[2], x.shape[3]
@@ -116,9 +121,61 @@ def _max_pool(node, vals):
         out_w = -(-(w + pl + pr - kew) // strides[1]) + 1
         pb = (out_h - 1) * strides[0] + keh - h - pt
         pr = (out_w - 1) * strides[1] + kew - w - pl
+    return pt, pb, pl, pr
+
+
+def _max_pool(node, vals):
+    x = vals[0]
+    kernel = node.attrs["kernel_shape"]
+    strides = node.attrs.get("strides", [1, 1])
+    dilations = node.attrs.get("dilations", [1, 1])
+    pt, pb, pl, pr = _pool_pad_pairs(node, x, kernel, strides, dilations)
     if pt or pb or pl or pr:
         x = F.pad(x, (pl, pr, pt, pb), value=float("-inf"))
     return F.max_pool2d(x, kernel, strides, 0, dilations)
+
+
+def _avg_pool(node, vals):
+    """Window sums over the zero-padded input, divided by the window's size
+    (``count_include_pad``) or else by the count of input pixels it covers
+    (ops.py:316-324); ``F.avg_pool2d`` pads only symmetrically, so the pads
+    are explicit and the divisor is computed here."""
+    x = vals[0]
+    kernel = node.attrs["kernel_shape"]
+    strides = node.attrs.get("strides", [1, 1])
+    pt, pb, pl, pr = _pool_pad_pairs(node, x, kernel, strides, [1, 1])
+    padded = F.pad(x, (pl, pr, pt, pb))
+    sums = F.avg_pool2d(padded, kernel, strides, 0, divisor_override=1)
+    if node.attrs.get("count_include_pad", 0):
+        return sums / float(kernel[0] * kernel[1])
+    ones = F.pad(torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device), (pl, pr, pt, pb))
+    counts = F.avg_pool2d(ones, kernel, strides, 0, divisor_override=1)
+    return (1.0 / counts) * sums
+
+
+def _reduce_mean(node, vals):
+    """Means over ``axes`` (an attribute before opset 18, an input from opset
+    18; none or an empty input: every axis, or with ``noop_with_empty_axes``
+    the input itself), one axis at a time in ascending order as ops.py:360
+    reduces them; ``keepdims`` (default 1). The batch axis is never
+    reduced: the graphs run batched."""
+    x = vals[0]
+    axes = node.attrs.get("axes")
+    if axes is None and len(vals) > 1 and vals[1] is not None:
+        axes = np.asarray(vals[1]).tolist()
+    if axes is not None and len(axes) == 0:
+        if node.attrs.get("noop_with_empty_axes", 0):
+            return x
+        axes = None
+    axes = sorted({int(a) % x.ndim for a in (range(x.ndim) if axes is None else axes)})
+    if 0 in axes:
+        raise NotImplementedError(f"ReduceMean node {node.name!r}: reduces the batch axis")
+    out = x
+    for ax in axes:
+        out = out.mean(dim=ax, keepdim=True)
+    if not node.attrs.get("keepdims", 1):
+        out = out.reshape([s for i, s in enumerate(out.shape) if i not in axes])
+    return out
 
 
 def _pad(node, vals):
@@ -171,7 +228,7 @@ def _clip(node, vals):
         lo = vals[1]
     if hi is None and len(vals) > 2:
         hi = vals[2]
-    bounds = [float(np.asarray(v)) if isinstance(v, np.ndarray) else v for v in (lo, hi)]
+    bounds = [float(v.item()) if isinstance(v, np.ndarray) else v for v in (lo, hi)]
     if all(v is None for v in bounds):
         return x
     if any(isinstance(v, torch.Tensor) for v in bounds):  # torch.clamp takes two tensors or two numbers
@@ -250,11 +307,26 @@ _OPS = {
     "Squeeze": _squeeze,
     "Gemm": _gemm,
     "Sigmoid": lambda node, vals: torch.sigmoid(vals[0]),
+    "AveragePool": _avg_pool,
+    "ReduceMean": _reduce_mean,
 }
-SUPPORTED_OPS = frozenset(_OPS)
+SUPPORTED_OPS = frozenset(_OPS) | {"Constant"}
 # Input slots whose float initializer is structural, never a parameter
 # (zaru_tpu/onnx/importer.py:109-123).
 _FLOAT_STATIC_SLOTS = frozenset({("Resize", 1), ("Resize", 2), ("Upsample", 1), ("Pad", 2)})
+# Input slots whose value an op reads on the host (a shape, pads, a bound,
+# axes): a float Constant read only through these stays numpy.
+_HOST_SLOTS = _FLOAT_STATIC_SLOTS | {
+    ("Reshape", 1), ("Pad", 1), ("Clip", 1), ("Clip", 2), ("Squeeze", 1), ("ReduceMean", 1), ("Resize", 3),
+}
+
+
+def _constant_value(node) -> np.ndarray:
+    """A Constant node's value (ops.py:565)."""
+    for key in ("value", "value_float", "value_int", "value_floats", "value_ints"):
+        if key in node.attrs:
+            return np.asarray(node.attrs[key])
+    raise ValueError(f"Constant node {node.name!r} without value")
 
 
 def _float_static_names(nodes) -> set[str]:
@@ -407,6 +479,7 @@ class OnnxModule(nn.Module):
 
     def __init__(self, model: OnnxModel, device: torch.device, output_subset=None):
         super().__init__()
+        self.device = device
         g = model.graph
         unsupported = sorted({n.op_type for n in g.nodes} - SUPPORTED_OPS)
         if unsupported:
@@ -425,6 +498,21 @@ class OnnxModule(nn.Module):
                 self.register_parameter(attr, nn.Parameter(t, requires_grad=False))
             else:
                 self._static[name] = arr
+        host_reads: dict[str, bool] = {}
+        for n in g.nodes:
+            for idx, name in enumerate(n.inputs):
+                if name:
+                    host_reads[name] = host_reads.get(name, True) and (n.op_type, idx) in _HOST_SLOTS
+        self._const_attr: dict[str, str] = {}
+        for i, n in enumerate(g.nodes):
+            if n.op_type == "Constant":
+                arr = _constant_value(n)
+                if arr.dtype.kind == "f" and not host_reads.get(n.outputs[0], True):
+                    self._const_attr[n.outputs[0]] = f"c{i}"
+                    self.register_buffer(f"c{i}", torch.tensor(arr, dtype=torch.float32, device=device),
+                                         persistent=False)
+                else:
+                    self._static[n.outputs[0]] = arr
         self.input_info = [vi for vi in g.inputs if vi.name not in g.initializers]
         self.output_names = [vi.name for vi in g.outputs]
         if output_subset is not None:
@@ -435,6 +523,8 @@ class OnnxModule(nn.Module):
             self.output_names = [
                 g.outputs[sel].name if isinstance(sel, int) else sel for sel in output_subset
             ]
+        info = {vi.name: vi for vi in g.outputs}
+        self.output_info = [info[n] for n in self.output_names]
         self._live = _live_nodes(g.nodes, self.output_names)
         self.stages = find_stages(model)
         self._stage_at = {st.nodes[0]: st for st in self.stages}
@@ -479,6 +569,7 @@ class OnnxModule(nn.Module):
             raise ValueError(f"expected {len(self.input_info)} inputs, got {len(inputs)}")
         env: dict = dict(self._static)
         env.update(self.params())
+        env.update((name, getattr(self, attr)) for name, attr in self._const_attr.items())
         env.update((vi.name, x) for vi, x in zip(self.input_info, inputs))
         with _full_f32():
             for i, node in enumerate(self.nodes):
@@ -490,7 +581,7 @@ class OnnxModule(nn.Module):
                     env[st.output] = cnn_stage.fused_blocks(
                         x, self._packed[i], x.shape[2], x.shape[3], st.channels
                     )
-                elif i not in self._in_stage:
+                elif i not in self._in_stage and node.op_type != "Constant":
                     vals = [env[n] if n else None for n in node.inputs]
                     env[node.outputs[0]] = _OPS[node.op_type](node, vals)
         return env
