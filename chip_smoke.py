@@ -62,7 +62,15 @@ check exits non-zero):
    sweep on the 535×535 photo, within the CPU tests' tolerances; then the
    full sweep (8 transforms, both photos, six runners) with every identity
    row exact, the stage kernel launched by every face runner and no plain
-   version of a kernel called with a CUDA tensor;
+   version of a kernel called with a CUDA tensor; the body host API on the
+   stub pose models (``Detector(PoseNetwork())``,
+   ``Estimator(LiteNetwork())``) and ``nms_remove_device`` (bit for bit)
+   against ``host_eval.npz``; bf16 network bodies (``bf16_models.npz``,
+   tests/test_torch_bf16.py): every network the bf16 trackers load at
+   batches 1 and 512 against JAX's bf16 run and the port's bf16 run on the
+   CPU within the test's bounds in bf16 ulps, no stage kernel launched, then
+   bf16 ``FaceTracker``, ``MultiHandTracker`` and ``BodyTracker`` (stubs)
+   one step at a time from JAX's state, flags equal;
 5. the paths at full size on the fixture photo upscaled to 1920×1080 on
    the card, 54 steps after 9 of warm-up: ``FaceTracker.step_batch`` at
    batches 64 and 512 with detection forced every 9th step, then
@@ -92,7 +100,10 @@ check exits non-zero):
    50 calls after 5, each ending in its host read: ``Detector.detect``,
    ``Estimator.estimate``, ``LandmarkTracker.track`` on the 1280×720
    photo, each of which must launch the stage kernel) and the full sweep's
-   wall time per runner. The card's machine has no image
+   wall time per runner; bf16 against f32 in turns (f32, bf16, bf16, f32):
+   the main path at 64 and 512, hand tracking at 128 and ``run_frame``,
+   each bf16 run with a 9-step profile, no stage launch and the samplers'
+   launches of the f32 run. The card's machine has no image
    decoder (cv2, PIL), so file decoding is not run here: the CPU tests
    (tests/test_torch_serve.py) cover the CLI's inputs;
 6. each kernel's time at its main-path inputs (queued behind a device spin
@@ -153,6 +164,29 @@ BODY_TOL_PX, BODY_SCORE_TOL, BODY_NORM_TOL_PX = 1e-3, 1e-6, 1e-4
 BODY_BLOBS = {"blob_pose_detection": ("pose_detection.onnx",),
               "blob_pose_landmark": ("pose_landmark_lite.onnx", "pose_landmark_full.onnx")}
 SERVE_STREAMS = 64  # streams of the serving runs (2 staging buffers: 1.06 GB pinned)
+# tests/test_torch_bf16.py: each network the bf16 trackers load (ONNX file,
+# colour range, output selection), the seed of its inputs, its tolerance in
+# bf16 ulps of max(1, |out|max) against JAX's bf16 run, and the trackers'
+# one-step tolerances (px: a tracking step, a step seeding a slot from a
+# detection; scores).
+BF16_NETS = {
+    "short_range": ("face_detection_short_range.onnx", (-1.0, 1.0), None),
+    "full_range": ("face_detection_full_range.onnx", (-1.0, 1.0), None),
+    "face_mesh_v1": ("face_landmark.onnx", (-1.0, 1.0), None),
+    "face_mesh_v2": ("face_landmarks_detector.onnx", (-1.0, 1.0), None),
+    "palm_lite": ("palm_detection_lite.onnx", (0.0, 1.0), None),
+    "hand_lite": ("hand_landmark_lite.onnx", (0.0, 1.0), None),
+    "pose_detection_stub": ("pose_detection.onnx", (-1.0, 1.0), None),
+    "pose_landmark_stub": ("pose_landmark_lite.onnx", (0.0, 1.0), [0, 1]),
+}
+BF16_NET_SEED = 21
+BF16_NET_TOL_ULPS = {"short_range": 4, "full_range": 4, "face_mesh_v1": 4, "face_mesh_v2": 24,
+                     "palm_lite": 4, "hand_lite": 4, "pose_detection_stub": 0, "pose_landmark_stub": 0}
+BF16_TRACK_TOL_PX = {"face": (4.0, 4.0), "hand": (8.0, 40.0), "body": (1e-3, 1e-3)}
+BF16_TRACK_SCORE_TOL = 0.05
+BF16_VALUE_KEYS = ("landmarks", "roi", "rois", "confidence", "presence", "handedness", "pose_flag", "visibility")
+# Rows of the batch-512 network runs compared with the port on the CPU.
+BF16_CPU_ROWS = [0, 1, 2, 3, 137, 300, 511]
 VIEW_CASES = [  # (cx, cy, w, h, theta), tests/test_torch_samplers.py
     (960, 540, 300, 300, 0.0),
     (500, 400, 192, 192, 0.0),
@@ -586,19 +620,19 @@ def phase_vs_jax(torch, np, device, rgba):
     check(lm_err <= STEP_TOL_PX and roi_err <= STEP_TOL_PX, "redetect_bucket disagrees with JAX")
 
 
-def face_model_tracker(torch, kwargs, device):
-    """A FaceTracker of a stored run's keyword arguments (the networks named
-    by class)."""
+def stored_tracker(cls, kwargs, device):
+    """Tracker ``cls`` of a stored run's keyword arguments (the networks
+    named by class)."""
     import zaru_tpu_torch.face.detection as tdet
     import zaru_tpu_torch.face.landmark.mediapipe as tmesh
-    from zaru_tpu_torch.pipeline import FaceTracker
+    import zaru_tpu_torch.pipeline as tp
 
     kwargs = dict(kwargs)
     if "landmarker" in kwargs:
         kwargs["landmarker"] = getattr(tmesh, kwargs["landmarker"])(device=device)
     if "detector" in kwargs:
         kwargs["detector"] = getattr(tdet, kwargs["detector"])(device=device)
-    return FaceTracker(device=device, **kwargs)
+    return getattr(tp, cls)(device=device, **kwargs)
 
 
 def phase_face_models_vs_jax(torch, np, device, rgba):
@@ -614,7 +648,7 @@ def phase_face_models_vs_jax(torch, np, device, rgba):
     for run in sorted({k.split("__")[0] for k in ref}):
         r = lambda k: ref[f"{run}__{k}"]  # noqa: E731
         kwargs, entry = json.loads(str(r("kwargs"))), str(r("entry"))
-        tracker = face_model_tracker(torch, kwargs, device)
+        tracker = stored_tracker("FaceTracker", kwargs, device)
         single = entry == "run_frame"
         batch = 1 if single else r("state_roi").shape[1]
 
@@ -668,10 +702,11 @@ def phase_face_models_vs_jax(torch, np, device, rgba):
 
 
 def phase_multi_vs_jax(torch, np, device, rgba):
-    """Each run of ``multi_track.npz`` (see tests/test_torch_multi_object.py):
-    detection candidates on the photo, one step at a time from JAX's state,
-    and free-running flags."""
-    import zaru_tpu_torch.pipeline as tp
+    """Each run of ``multi_track.npz`` (see tests/test_torch_multi_object.py;
+    ``MultiFaceTracker`` with Face Mesh V2, whose tongue score is ``extra0``,
+    and with the full-range detector among them): detection candidates on
+    the photo, one step at a time from JAX's state, and free-running
+    flags."""
     from zaru_tpu_torch.assets import fixture_path
 
     with np.load(fixture_path("multi_track.npz")) as f:
@@ -680,7 +715,7 @@ def phase_multi_vs_jax(torch, np, device, rgba):
         r = lambda k: ref[f"{run}__{k}"]  # noqa: E731
         cls, kwargs = str(r("tracker")), json.loads(str(r("kwargs")))
         entry = str(r("entry")) if f"{run}__entry" in ref else "gated"
-        tracker = getattr(tp, cls)(device=device, **kwargs)
+        tracker = stored_tracker(cls, kwargs, device)
         batch = r("zero").shape[1]
 
         def frames_for(zero):
@@ -1884,6 +1919,232 @@ def phase_host_full_size(torch, np, device, nets, image, cropped, rgba, card):
     return per_call, sweeps
 
 
+def bf16_ulps(np, got, want):
+    """The largest error of ``got`` against ``want`` in bf16 ulps of
+    ``max(1, |want|max)`` (tests/test_torch_bf16.py ``ulp_of_max``)."""
+    ulp = 2.0 ** (np.floor(np.log2(max(1.0, float(np.abs(want).max())))) - 7)
+    return float(np.abs(got - want).max()) / ulp
+
+
+def unflatten(flat, prefix):
+    """tests/test_torch_bf16.py ``unflatten``: ``{prefix + "a/b": array}`` as a
+    nested dict."""
+    tree = {}
+    for k, v in flat.items():
+        if k.startswith(prefix):
+            *path, leaf = k[len(prefix):].split("/")
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = v
+    return tree
+
+
+def phase_bf16_vs_jax(torch, np, device, rgba, batch=512):
+    """bf16 network bodies (``compute_dtype=torch.bfloat16``) against
+    ``bf16_models.npz`` (tests/test_torch_bf16.py) and the port's bf16 run on
+    the CPU: every network the bf16 trackers load at batch 1 and 512 (seeded
+    inputs, rows 0-3 as the test's; the batch-512 run's rows BF16_CPU_ROWS
+    against the CPU), each output within its bound in bf16
+    ulps of max(1, |out|max); no stage kernel launched; then bf16
+    ``FaceTracker``, ``MultiHandTracker`` and ``BodyTracker`` (stubs) one
+    gated step at a time from JAX's state, flags equal, within the test's
+    pixel and score tolerances."""
+    import zaru_tpu_torch.pipeline as tp
+    from zaru_tpu_torch.assets import fixture_path, model_path
+    from zaru_tpu_torch.onnx import load_model
+
+    with np.load(fixture_path("bf16_models.npz")) as f:
+        ref = {k: f[k] for k in f.files}
+    bf16, cpu = torch.bfloat16, torch.device("cpu")
+    zero_launches()
+    lines = []
+    with torch.inference_mode():
+        for name, (file, (lo, hi), subset) in BF16_NETS.items():
+            card = load_model(model_path(file), device, subset, bf16)
+            host = load_model(model_path(file), cpu, subset, bf16)
+            check(card.stages == [], f"{name}: a bf16 module built a stage plan")
+            h, w = card.input_info[0].shape[2:]
+            x = np.random.default_rng(BF16_NET_SEED).uniform(lo, hi, (4, 3, h, w)).astype(np.float32)
+            gen = torch.Generator(device=device).manual_seed(BF16_NET_SEED)
+            rows = [r for r in BF16_CPU_ROWS if r < batch]
+            x512 = torch.cat([torch.from_numpy(x).to(device),
+                              lo + (hi - lo) * torch.rand((batch - 4, 3, h, w), generator=gen, device=device)])
+            one, full = card(x512[:1]), card(x512)
+            cpu_one = host(x512[:1].cpu())
+            cpu_rows = host(x512[rows].cpu())
+            err = {"jax 1": 0.0, "jax 512": 0.0, "cpu 1": 0.0, "cpu 512": 0.0}
+            for i, (o1, o512, c1, crows) in enumerate(zip(one, full, cpu_one, cpu_rows, strict=True)):
+                want = ref[f"net/{name}/{i}"]
+                check(o512.dtype == torch.float32 and tuple(o512.shape[1:]) == want.shape[1:],
+                      f"{name} output {i}: {o512.dtype} {tuple(o512.shape)}")
+                o1, o512, c1, crows = (t.cpu().numpy() for t in (o1, o512, c1, crows))
+                err["jax 1"] = max(err["jax 1"], bf16_ulps(np, o1, want[:1]))
+                err["jax 512"] = max(err["jax 512"], bf16_ulps(np, o512[:4], want))
+                err["cpu 1"] = max(err["cpu 1"], bf16_ulps(np, o1, c1))
+                err["cpu 512"] = max(err["cpu 512"], bf16_ulps(np, o512[rows], crows))
+            tol = BF16_NET_TOL_ULPS[name]
+            check(all(v <= tol for v in err.values()),
+                  f"bf16 {name}: {err} ulps from JAX's and the CPU's bf16 runs (tolerance {tol})")
+            lines.append(f"{name} " + ", ".join(f"{k} {v:.2f}" for k, v in err.items()))
+    launches = read_launches()
+    check(launches["blaze_stage"] == 0, f"a bf16 network launched the stage kernel: {launches}")
+    print(f"bf16 networks on the card (batch 1 and 512) vs JAX's bf16 run and the port's on the CPU, max errors "
+          f"in bf16 ulps of max(1, |out|max) (tolerances {BF16_NET_TOL_ULPS}): {'; '.join(lines)}; stage kernel "
+          f"launches {launches['blaze_stage']}", flush=True)
+
+    frames_of = {"face": rgba, "hand": rgba, "body": body_photo(torch, np, device)}
+    for name, frame in frames_of.items():
+        r = lambda k: ref[f"track/{name}/{k}"]  # noqa: E731
+        kwargs = json.loads(str(r("kwargs")))
+        cls = {"face": "FaceTracker", "hand": "MultiHandTracker", "body": "BodyTracker"}[name]
+        tracker = getattr(tp, cls)(compute_dtype=bf16, device=device, **kwargs)
+        errs = {}
+        for t, force in enumerate(r("force")):
+            frames = frame.expand(r("zero").shape[1], *frame.shape).clone()
+            frames[torch.from_numpy(r("zero")[t]).to(device)] = 0
+            state = unflatten(ref, f"track/{name}/{t}/state/")
+            want = unflatten(ref, f"track/{name}/{t}/out/")
+            dev = {k: ({kk: torch.from_numpy(vv).to(device) for kk, vv in v.items()} if isinstance(v, dict)
+                       else torch.from_numpy(v).to(device)) for k, v in state.items()}
+            _, out = tracker.step_batch(dev, frames, bool(force))
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            check((out["valid"] == want["valid"]).all(), f"bf16 {cls} step {t}: flags differ from JAX")
+            seeded = bool((want["valid"] & ~state.get("active", state.get("tracking"))).any())
+            for k in BF16_VALUE_KEYS:
+                if k in want and want[k].size:
+                    err = float(np.abs(out[k] - want[k]).max())
+                    tol = BF16_TRACK_TOL_PX[name][seeded] if k in ("landmarks", "roi", "rois") else BF16_TRACK_SCORE_TOL
+                    check(err <= tol, f"bf16 {cls} step {t}: {k} differs from JAX by {err} (tolerance {tol})")
+                    errs[k] = max(errs.get(k, 0.0), err)
+        args = ", ".join([f"{k}={v}" for k, v in kwargs.items()] + ["compute_dtype=bfloat16"])
+        print(f"{cls}({args}).step_batch vs JAX's "
+              f"bf16 run over {len(r('force'))} steps at batch {r('zero').shape[1]}: one step at a time max errors "
+              f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tolerances {BF16_TRACK_TOL_PX[name]} px "
+              f"tracking / seeding, {BF16_TRACK_SCORE_TOL}); flags equal at every step", flush=True)
+
+
+def phase_host_remainders_vs_jax(torch, np, device, rgba):
+    """The body host API on the stub pose models and ``nms_remove_device``
+    against host_eval.npz (tests/test_torch_host.py): ``Detector(
+    PoseNetwork())`` on the 1280×720 photo, ``Estimator(LiteNetwork())`` on
+    the rotated face view, ``nms_remove_device`` on the stored inputs, bit for
+    bit."""
+    from zaru_tpu_torch.body.detection import PoseNetwork
+    from zaru_tpu_torch.body.landmark import LiteNetwork as PoseLite
+    from zaru_tpu_torch.detection import Detector, nms_remove_device
+    from zaru_tpu_torch.image import Image
+    from zaru_tpu_torch.landmark import Estimator
+    from zaru_tpu_torch.rect import RotatedRect
+
+    host, _ = host_fixture(np)
+    image = Image(rgba, device)
+    errs = {}
+    got = detections_arrays(np, Detector(PoseNetwork(device=device)).detect(image))
+    for k, tol in (("conf", HOST_SCORE_TOL), ("rect", HOST_DET_TOL_PX), ("kps", HOST_DET_TOL_PX), ("angle", 0.0)):
+        want = host[f"det_pose_{k}"]
+        check(got[k].shape == want.shape, f"Detector(PoseNetwork()): {k} {got[k].shape}, JAX {want.shape}")
+        errs[f"detect {k}"] = float(np.abs(got[k] - want).max())
+        check(errs[f"detect {k}"] <= tol, f"Detector(PoseNetwork()): {k} differs from JAX by {errs[f'detect {k}']}")
+    est = Estimator(PoseLite(device=device)).estimate(image.view(RotatedRect(np.asarray(HOST_FACE_VIEW, np.float32))))
+    lms = est.landmarks_mut()
+    for k, v, tol in (("pos", lms.positions(), HOST_LM_TOL_PX), ("vis", lms.visibility, HOST_SCORE_TOL),
+                      ("pres", lms.presence, HOST_SCORE_TOL), ("conf", est.confidence(), HOST_SCORE_TOL)):
+        errs[f"estimate {k}"] = float(np.abs(np.asarray(v) - host[f"est_pose_{k}"]).max())
+        check(errs[f"estimate {k}"] <= tol, f"Estimator(LiteNetwork()): {k} differs from JAX by "
+              f"{errs[f'estimate {k}']}")
+    cases = sorted({k.split("/")[1] for k in host if k.startswith("nms_remove/")})
+    for case in cases:
+        args = [torch.from_numpy(host[f"nms_remove/{case}/in{i}"]).to(device) for i in range(4)]
+        for i, o in enumerate(nms_remove_device(*args)):
+            check(np.array_equal(o.cpu().numpy(), host[f"nms_remove/{case}/{i}"]),
+                  f"nms_remove_device ({case}) output {i} differs from JAX")
+    print(f"body host API on the stub pose models vs JAX reference on the card: max errors "
+          f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (detections {HOST_DET_TOL_PX} px / {HOST_SCORE_TOL}, "
+          f"landmarks {HOST_LM_TOL_PX} px); nms_remove_device bit for bit on {cases}", flush=True)
+
+
+def phase_bf16_full_size(torch, img, device, card, tracker, hands, seed, batches=(64, 512), hand_batch=MULTI_BATCH):
+    """bf16 against f32 in turns (f32, bf16, bf16, f32), each run 54 steps
+    after 9: the main path at batches 64 and 512, ``MultiHandTracker`` at
+    128 tracking four seeded hands a stream, and ``run_frame`` on one
+    stream; a 9-step profile of each bf16 run. The bf16 runs launch no
+    stage kernel and the samplers as the f32 runs do (``run_frame``: no
+    kernel at all). → {(run, batch): (ms/step by dtype, launches by dtype)}."""
+    from zaru_tpu_torch.pipeline import FaceTracker, MultiHandTracker
+
+    bf16 = torch.bfloat16
+    result = {}
+
+    def abba(what, steps, kernels, batch):
+        """f32, bf16, bf16, f32 runs of ``steps[dtype](i)``; fails unless
+        each run launched ``kernels[dtype]`` and the bf16 runs no stage
+        kernel and the samplers as often as the f32 runs."""
+        ms, launches = {"f32": [], "bf16": []}, {}
+        for dtype in ("f32", "bf16", "bf16", "f32"):
+            dt, launches[dtype] = timed_run(torch, steps[dtype], f"{what}, batch {batch} ({dtype})", kernels[dtype])
+            ms[dtype].append(dt / STEPS * 1e3)
+        check(launches["bf16"]["blaze_stage"] == 0, f"{what}: the bf16 run launched the stage kernel")
+        for k in ("rotated_sample", "letterbox_sample"):
+            check(launches["bf16"][k] == launches["f32"][k], f"{what}: bf16 sampler launches {launches}")
+        busy = profile_steps(torch, steps["bf16"], batch, f"{what} in bf16")
+        print(f"{what} at 1920x1080, batch {batch}: f32 against bf16 in turns (f32, bf16, bf16, f32), {STEPS} steps each: f32 "
+              f"{ms['f32'][0]:.3f} / {ms['f32'][1]:.3f} ms/step, bf16 {ms['bf16'][0]:.3f} / {ms['bf16'][1]:.3f} "
+              f"ms/step; bf16 device busy {100 * busy:.1f}%; launches f32 {launches['f32']}, bf16 {launches['bf16']} "
+              f"[{card}]", flush=True)
+        result[(what, batch)] = (ms, launches)
+
+    face16 = FaceTracker(compute_dtype=bf16, device=device)
+    for batch in batches:
+        frames = img.expand(batch, *img.shape).contiguous()
+        steps, boxes = {}, {}
+        for dtype, tr in (("f32", tracker), ("bf16", face16)):
+            box = boxes[dtype] = {"state": tr.init_state(batch)}
+
+            def step(i, tr=tr, box=box):
+                box["state"], box["out"] = tr.step_batch(box["state"], frames, force_detect=(i % 9 == 0))
+
+            steps[dtype] = step
+        abba("main path", steps, {"f32": FACE_KERNELS, "bf16": HAND_KERNELS}, batch)
+        out = boxes["bf16"]["out"]
+        conf = float(out["confidence"].min())
+        check(bool(out["valid"].all()) and conf > 0.9, f"bf16 main path, batch {batch}: lost the face ({conf})")
+
+    batch = hand_batch
+    frames = img.expand(batch, *img.shape).contiguous()
+    active = torch.ones((batch, 4), dtype=torch.bool, device=device)
+    steps, boxes = {}, {}
+    for dtype, tr in (("f32", hands), ("bf16", MultiHandTracker(max_hands=4, compute_dtype=bf16, device=device))):
+        box = boxes[dtype] = {}
+
+        def hand_step(i, tr=tr, box=box):
+            state = {"rois": seed, "active": active,
+                     "frame": torch.full((batch,), i, dtype=torch.int32, device=device)}
+            box["state"], box["out"] = tr.step_batch(state, frames)
+
+        steps[dtype] = hand_step
+    abba("MultiHandTracker(max_hands=4), tracking 4 seeded hands per stream", steps,
+         {"f32": HAND_KERNELS, "bf16": HAND_KERNELS}, batch)
+    lm = boxes["bf16"]["out"]["landmarks"]
+    check(tuple(lm.shape) == (batch, 4, 21, 3) and bool(torch.isfinite(lm).all()),
+          f"bf16 hand tracking: landmarks {tuple(lm.shape)}")
+
+    steps, boxes = {}, {}
+    for dtype, tr in (("f32", FaceTracker(device=device)), ("bf16", FaceTracker(compute_dtype=bf16, device=device))):
+        box = boxes[dtype] = {"state": tr.init_state()}
+
+        def single(i, tr=tr, box=box):
+            box["state"], box["out"] = tr.run_frame(box["state"], img)
+
+        steps[dtype] = single
+    what = "FaceTracker.run_frame, one stream"
+    abba(what, steps, {"f32": ("blaze_stage",), "bf16": ()}, 1)
+    bf16_launches = result[(what, 1)][1]["bf16"]
+    check(not any(bf16_launches.values()), f"bf16 run_frame launched a kernel: {bf16_launches}")
+    out = boxes["bf16"]["out"]
+    check(bool(out["valid"]) and float(out["confidence"]) > 0.9, "bf16 run_frame lost the face")
+    return result
+
 def timed_phase(what, fn, *args):
     """``fn(*args)``, then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -1945,6 +2206,8 @@ def run_phases(torch, np, F, device, smi):
     timed("4, multi-object vs JAX", phase_multi_vs_jax, torch, np, device, rgba)
     timed("4, BodyTracker vs JAX", phase_body_vs_jax, torch, np, device)
     nets, image, cropped = timed("4, host engines and eval vs JAX", phase_host_vs_jax, torch, np, device, rgba)
+    timed("4, body host API and nms_remove_device vs JAX", phase_host_remainders_vs_jax, torch, np, device, rgba)
+    timed("4, bf16 networks and trackers vs JAX", phase_bf16_vs_jax, torch, np, device, rgba)
     timed("4, host engines and eval: the full sweep", full_sweep, torch, np, device, cropped, rgba, smi, "first")
     tracker, runs = timed("5, face runs", phase_full_size, torch, img, device, smi)
     hands, hand_frames, seed, multi = timed("5, multi-object runs", phase_multi_full_size, torch, img, device, smi)
@@ -1956,6 +2219,7 @@ def run_phases(torch, np, F, device, smi):
                            runs["ms"][("main path", SERVE_STREAMS)], run_frame_ms)
     host_calls, sweeps = timed("5, host engines and eval", phase_host_full_size, torch, np, device, nets, image,
                                cropped, rgba, smi)
+    timed("5, bf16 against f32", phase_bf16_full_size, torch, img, device, smi, tracker, hands, seed)
     print(f"launches in the batch-512 face runs ({STEPS} steps each): {runs['launches']}", flush=True)
     print(f"launches in the batch-128 multi-object runs ({STEPS} steps each): {multi}", flush=True)
     print(f"launches in the face-model and single-stream runs ({STEPS} steps each): "

@@ -129,6 +129,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         HandTracker,
         lambda: NeuralNetwork.load("assets/onnx/slim_160_latest.onnx"),
         lambda: Loader("assets/onnx/slim_160_latest.onnx").load(),
+        lambda: Loader("assets/onnx/slim_160_latest.onnx").with_bf16().load(),
+        lambda: FaceTracker(compute_dtype=torch.bfloat16),
+        lambda: MultiHandTracker(compute_dtype=torch.bfloat16),
+        lambda: BodyTracker(compute_dtype=torch.bfloat16),
         *(lambda name=name: ev.RUNNERS[name]() for name in ev.RUNNERS),
         resolve_device,
         lambda: resolve_device("cuda"),

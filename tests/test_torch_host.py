@@ -26,6 +26,13 @@ JAX loads (``test_fixture_is_current`` holds its parameters equal to JAX's
 - **HandTracker's scheduling** with the detector and trackers replaced by
   scripted stand-ins, as tests/test_hand_body.py drives JAX's: the same
   script gives both packages the same hands and IDs.
+- **The body host API** on the stub pose models of tests/stub_models.py
+  (the real blobs are missing upstream; ``ZARU_TPU_MODELS`` names a
+  temporary directory they are written to): ``Detector(PoseNetwork())`` on
+  the photo and ``Estimator(LiteNetwork())`` on a rotated view, within the
+  tolerances above; ``nms_remove_device`` (the fixed-shape classic NMS) on
+  seeded boxes, bit for bit; ``DecodePool`` against ``decode_jpeg`` on the
+  repository's photos.
 
 JAX's results are stored in ``zaru_tpu_torch/fixtures/host_eval.npz`` (keys
 ``host__*``; tests/test_torch_eval.py owns the ``eval__*`` keys). Only
@@ -284,13 +291,76 @@ def jax_engines():
     return out
 
 
-def jax_now(pool):
-    return pool.submit(jax_graphs), pool.submit(jax_engines)
+def nms_remove_cases():
+    """name: (boxes, conf, keypoints, angles) for ``nms_remove_device``: the
+    40 clustered detections of :func:`nms_inputs` (16 slots, so some stay
+    empty), and two streams of them, the second reversed with a third of its
+    confidences zeroed (below the detection threshold)."""
+    conf, rects, kps, angles = nms_inputs()
+    flip = lambda a: a[::-1].copy()  # noqa: E731
+    conf2 = flip(conf)
+    conf2[::3] = 0.0
+    return {
+        "clusters": (rects, conf, kps, angles),
+        "two streams": (np.stack([rects, flip(rects)]), np.stack([conf, conf2]),
+                        np.stack([kps, flip(kps)]), np.stack([angles, flip(angles)])),
+    }
+
+
+def write_pose_stubs(directory):
+    """The stub pose blobs (tests/stub_models.py) as the files the pose
+    networks load."""
+    import stub_models
+
+    blobs = {"pose_detection.onnx": stub_models.build_pose_detection_stub(),
+             "pose_landmark_lite.onnx": stub_models.build_pose_landmark_stub()}
+    for name, blob in blobs.items():
+        with open(os.path.join(directory, name), "wb") as f:
+            f.write(blob)
+
+
+def jax_remainders(model_dir):
+    """JAX's ``Detector(PoseNetwork())`` on the photo and
+    ``Estimator(LiteNetwork())`` on FACE_VIEW (the stubs in ``model_dir``),
+    and ``nms_remove_device`` on :func:`nms_remove_cases`."""
+    import jax
+
+    os.environ["ZARU_TPU_MODELS"] = model_dir
+    from zaru_tpu.body.detection import PoseNetwork
+    from zaru_tpu.body.landmark import LiteNetwork as PoseLite
+    from zaru_tpu.detection import Detector
+    from zaru_tpu.detection.nms import nms_remove_device
+    from zaru_tpu.geometry import RotatedRect
+    from zaru_tpu.image import Image
+    from zaru_tpu.landmark import Estimator
+
+    img = Image(photo_rgba())
+    out = detections_arrays(Detector(PoseNetwork()).detect(img), "det_pose")
+    est = Estimator(PoseLite()).estimate(img.view(RotatedRect(np.asarray(FACE_VIEW, np.float32))))
+    lms = est.landmarks_mut()
+    out.update({"est_pose_pos": lms.positions().copy(), "est_pose_vis": np.asarray(lms.visibility),
+                "est_pose_pres": np.asarray(lms.presence),
+                "est_pose_conf": np.asarray(est.confidence(), np.float32)})
+    for name, args in nms_remove_cases().items():
+        fn = jax.jit(nms_remove_device if args[1].ndim == 1 else jax.vmap(nms_remove_device))
+        for i, o in enumerate(fn(*args)):
+            out[f"nms_remove/{name}/{i}"] = np.asarray(o)
+        for i, a in enumerate(args):  # the inputs, which chip_smoke.py replays
+            out[f"nms_remove/{name}/in{i}"] = a
+    return out
+
+
+def jax_now(pool, model_dir):
+    return pool.submit(jax_graphs), pool.submit(jax_engines), pool.submit(jax_remainders, model_dir)
 
 
 def regen():
+    import tempfile
+
     graphs, _params = jax_graphs()
-    arrays = {**graphs, **jax_engines()}
+    with tempfile.TemporaryDirectory() as d:
+        write_pose_stubs(d)
+        arrays = {**graphs, **jax_engines(), **jax_remainders(d)}
     keep = {}
     if os.path.exists(FIXTURE):
         with np.load(FIXTURE) as f:
@@ -319,17 +389,35 @@ def _run(data, batch=X_SHAPE[0]):
         return _load(data)(torch.from_numpy(op_input(batch)))[0].numpy()
 
 
-def test_fixture_is_current(stored):
+@pytest.fixture(scope="module")
+def stub_dir(tmp_path_factory):
+    """The stub pose blobs in a temporary directory that ``ZARU_TPU_MODELS``
+    names, for the module."""
+    d = str(tmp_path_factory.mktemp("stub_onnx"))
+    write_pose_stubs(d)
+    old = os.environ.get("ZARU_TPU_MODELS")
+    os.environ["ZARU_TPU_MODELS"] = d
+    try:
+        yield d
+    finally:
+        if old is None:
+            os.environ.pop("ZARU_TPU_MODELS", None)
+        else:
+            os.environ["ZARU_TPU_MODELS"] = old
+
+
+def test_fixture_is_current(stored, stub_dir):
     """The stored JAX results are what zaru_tpu computes now (1e-3, the
     regen machine's own rounding), and the port's networks hold JAX's
     weights bit for bit."""
     from zaru_tpu_torch.nn import NeuralNetwork
     from zaru_tpu_torch.weights import network_params_from_jax
 
-    with jax_processes(2) as pool:
-        graphs, engines = jax_now(pool)
+    with jax_processes(3) as pool:
+        graphs, engines, remainders = jax_now(pool, stub_dir)
         now, params = graphs.result()
         now.update(engines.result())
+        now.update(remainders.result())
     assert set(now) == set(stored)
     for k, v in now.items():
         if v.dtype.kind == "f":
@@ -408,10 +496,11 @@ def test_every_model_loads_and_four_match_jax(stored):
 
 def test_network_api():
     """``NeuralNetwork``/``Loader``: inputs, outputs, output selection by
-    name and position, ``estimate`` on raw tensors; bf16 and the NHWC
-    layout are refused, naming the ROADMAP item; ``Cnn`` takes
-    ``(NeuralNetwork, CnnInputShape, ColorMapper)`` and refuses a shape
-    that does not fit."""
+    name and position, ``estimate`` on raw tensors; ``with_bf16`` loads a
+    network whose body runs in bf16 and whose outputs are f32, near the f32
+    ones; the NHWC layout is refused, naming the ROADMAP item; ``Cnn``
+    takes ``(NeuralNetwork, CnnInputShape, ColorMapper)`` and refuses a
+    shape that does not fit."""
     from zaru_tpu_torch.assets import model_path
     from zaru_tpu_torch.nn import Cnn, CnnInputShape, ColorMapper, Loader, NeuralNetwork
 
@@ -429,8 +518,13 @@ def test_network_api():
         got = sel.estimate(torch.from_numpy(x))
         np.testing.assert_array_equal(got[0].numpy(), full[2].numpy())
         np.testing.assert_array_equal(got[1].numpy(), full[0].numpy())
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        Loader(path).with_bf16()
+    bf16 = Loader(path, device="cpu").with_bf16().load()
+    assert bf16.module.compute_dtype == torch.bfloat16 and bf16.module.stages == []
+    assert all(p.dtype == torch.float32 for p in bf16.params.values())
+    for got, want in zip(bf16.estimate(x), full, strict=True):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        bound = 0.05 * max(1.0, float(want.abs().max()))  # the landmarks: 1.3 px of 224 measured
+        assert float((got - want).abs().max()) <= bound
     with pytest.raises(NotImplementedError, match="NHWC"):
         Loader(path).with_layout("NHWC")
     cnn = Cnn(net, CnnInputShape.NCHW, ColorMapper.linear(0.0, 1.0))
@@ -582,6 +676,73 @@ def test_tracker_loses_a_blank_image(stored, nets):
     lost = tracker.track(Image(np.zeros_like(photo_rgba()), device="cpu")) is None and tracker.roi() is None
     assert lost and bool(stored["blank_lost"])
     assert tracker.track(None) is None
+
+
+def test_pose_detector_matches_jax(stored, stub_dir, image):
+    """``Detector(PoseNetwork())`` (the stub, which fires on one anchor) on
+    the photo: its box, keypoints and score within the measured tolerances,
+    no angle, as in JAX."""
+    from zaru_tpu_torch.body.detection import PoseNetwork
+    from zaru_tpu_torch.detection import Detector
+
+    got = detections_arrays(Detector(PoseNetwork(device="cpu")).detect(image), "d")
+    assert len(got["d_conf"]) == len(stored["det_pose_conf"]) == 1
+    np.testing.assert_allclose(got["d_conf"], stored["det_pose_conf"], rtol=0, atol=SCORE_TOL)
+    for k in ("rect", "kps"):
+        np.testing.assert_allclose(got[f"d_{k}"], stored[f"det_pose_{k}"], rtol=0, atol=DET_TOL_PX, err_msg=k)
+    np.testing.assert_array_equal(got["d_angle"], stored["det_pose_angle"])
+
+
+def test_pose_estimator_matches_jax(stored, stub_dir, image):
+    """``Estimator(LiteNetwork())`` (the pose stub) on a rotated view: the 39
+    positions, visibility and presence, and the pose flag."""
+    from zaru_tpu_torch.body.landmark import NUM_POSE, LandmarkResult, LiteNetwork as PoseLite
+    from zaru_tpu_torch.landmark import Estimator
+    from zaru_tpu_torch.rect import RotatedRect
+
+    net = PoseLite(device="cpu")
+    assert isinstance(net.init_estimate(), LandmarkResult)
+    est = Estimator(net).estimate(image.view(RotatedRect(np.asarray(FACE_VIEW, np.float32))))
+    lms = est.landmarks_mut()
+    np.testing.assert_allclose(lms.positions(), stored["est_pose_pos"], rtol=0, atol=LM_TOL_PX)
+    np.testing.assert_allclose(lms.visibility, stored["est_pose_vis"], rtol=0, atol=SCORE_TOL)
+    np.testing.assert_allclose(lms.presence, stored["est_pose_pres"], rtol=0, atol=SCORE_TOL)
+    np.testing.assert_allclose(est.confidence(), stored["est_pose_conf"], rtol=0, atol=SCORE_TOL)
+    assert est.pose_landmarks().shape == (NUM_POSE, 3) and est.aux_landmarks().shape == (6, 3)
+
+
+@pytest.mark.parametrize("case", list(nms_remove_cases()))
+def test_nms_remove_device_matches_jax(stored, case):
+    """``nms_remove_device`` (batched over leading dims) gives JAX's slots
+    bit for bit: flags, the seeds' confidences, boxes, keypoints and
+    angles."""
+    from zaru_tpu_torch.detection import nms_remove_device
+
+    got = nms_remove_device(*(torch.from_numpy(a) for a in nms_remove_cases()[case]))
+    assert len(got) == 5
+    for i, g in enumerate(got):
+        np.testing.assert_array_equal(g.numpy(), stored[f"nms_remove/{case}/{i}"], err_msg=str(i))
+    assert 0 < int(got[0].sum()) < got[0].numel()  # some slots empty
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_decode_pool_matches_decode_jpeg(threads):
+    """``DecodePool.decode_batch`` returns ``decode_jpeg``'s arrays in input
+    order, and ``submit`` each one's future."""
+    from zaru_tpu_torch.image.decode import DecodePool, decode_jpeg
+
+    img_dir = os.path.join(ROOT, "assets", "img")
+    blobs = [open(os.path.join(img_dir, n), "rb").read() for n in sorted(os.listdir(img_dir)) if n.endswith(".jpg")]
+    blobs = (blobs + blobs[::-1]) * 2
+    pool = DecodePool(threads)
+    try:
+        got = pool.decode_batch(blobs)
+        assert len(got) == len(blobs) >= 8
+        for blob, arr in zip(blobs, got):
+            np.testing.assert_array_equal(arr, decode_jpeg(blob))
+        np.testing.assert_array_equal(pool.submit(blobs[1]).result(), decode_jpeg(blobs[1]))
+    finally:
+        pool.close()
 
 
 # --- HandTracker's scheduling ------------------------------------------------------

@@ -34,7 +34,14 @@ of several sizes and angles, frame 1, so no detection is due).
   a zeroed frame (lost), redetect;
 - ``face_ungated``: ``run_frames`` (JAX's ``vmap(step)``) over the face
   plan without the forced step: stream 1 is lost and redetected on its own
-  while stream 0 keeps tracking (no interval is due).
+  while stream 0 keeps tracking (no interval is due);
+- ``face_v2``: ``MultiFaceTracker(landmarker=FaceMeshV2())`` over the face
+  plan: 256² crops, 478 landmarks, its tongue score as ``extra0``;
+- ``face_full``: ``MultiFaceTracker(detector=FullRangeNetwork())`` over the
+  face plan: 192² letterbox detection, 2304 anchors.
+
+A run's keyword arguments name its networks by class (``landmarker``,
+``detector``); :func:`make_tracker` builds them in either package.
 
 Empty slots carry the zero ROI: their view is empty and their outputs are
 masked to zero. No NaN reaches an output in either package (checked).
@@ -119,6 +126,8 @@ RUNS = {  # name: (tracker class, keyword arguments, plan)
                    HAND_OPEN_PLAN),
     "face_single": ("MultiFaceTracker", {"max_faces": S}, FACE_SINGLE_PLAN),
     "face_ungated": ("MultiFaceTracker", {"max_faces": S}, FACE_UNGATED_PLAN),
+    "face_v2": ("MultiFaceTracker", {"max_faces": S, "landmarker": "FaceMeshV2"}, FACE_PLAN),
+    "face_full": ("MultiFaceTracker", {"max_faces": S, "detector": "FullRangeNetwork"}, FACE_PLAN),
 }
 
 # One-step tolerances (landmarks and ROIs in px; confidence, presence and
@@ -135,7 +144,7 @@ SEED_TOL_PX, SEED_SCORE_TOL = 0.25, 1e-3
 # Detection candidates on the photo: 1.2e-4 px and 4.3e-6 rad (CPU),
 # 3.4e-4 px and 4.0e-6 rad (H100) measured.
 CAND_TOL_PX, CAND_TOL_RAD = 1e-3, 1e-5
-VALUE_KEYS = {"landmarks", "rois", "confidence", "presence", "handedness"}
+VALUE_KEYS = {"landmarks", "rois", "confidence", "presence", "handedness", "extra0"}
 
 
 def seed_state():
@@ -158,14 +167,25 @@ def frames_for(rgb, zeroed):
     return frames
 
 
+def make_tracker(pkg, cls, kwargs, **extra):
+    """Tracker ``cls`` of package ``pkg`` (``zaru_tpu`` or ``zaru_tpu_torch``)
+    with ``kwargs``, its networks named by class built with ``extra`` (the
+    port's ``device``) as well."""
+    import importlib
+
+    kwargs = dict(kwargs)
+    for key, module in (("landmarker", "face.landmark.mediapipe"), ("detector", "face.detection")):
+        if key in kwargs:
+            kwargs[key] = getattr(importlib.import_module(f"{pkg}.{module}"), kwargs[key])(**extra)
+    return getattr(importlib.import_module(f"{pkg}.pipeline"), cls)(**kwargs, **extra)
+
+
 def jax_run(rgb, name):
     """zaru_tpu's tracker of run ``name`` over its plan: pre-step states and
     outputs per step, as numpy, with the detection candidates on the photo
     as the last "step" of ``outs`` (``cand_rois``, ``cand_valid``)."""
-    import zaru_tpu.pipeline as jp
-
     cls, kwargs, plan = RUNS[name]
-    tracker = getattr(jp, cls)(**kwargs)
+    tracker = make_tracker("zaru_tpu", cls, kwargs)
     entry = ENTRY.get(name, "gated")
     states, outs = [], []
     state = None
@@ -312,11 +332,9 @@ def jax_runs(rgb):
 @pytest.fixture(scope="module", params=list(RUNS))
 def live(request, stored):
     """One stored JAX run and the port's tracker for it (its own weights)."""
-    import zaru_tpu_torch.pipeline as tp
-
     name = request.param
     cls, kwargs, _ = RUNS[name]
-    port = getattr(tp, cls)(device="cpu", **kwargs)
+    port = make_tracker("zaru_tpu_torch", cls, kwargs, device="cpu")
     return name, port, *unflat(stored, name)
 
 

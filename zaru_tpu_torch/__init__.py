@@ -23,9 +23,11 @@ track|serve|info``; the host engines (``nn.NeuralNetwork``/``Loader``,
 ``detection.Detector``, ``landmark.Estimator``/``LandmarkTracker``,
 ``hand.tracking.HandTracker``) with every network's host decode and the
 68-point landmarkers (``face.landmark.multipie68``); the equivariance sweep
-(:mod:`zaru_tpu_torch.eval`, ``python -m zaru_tpu_torch eval``). Not
-ported: ``compute_dtype``, ``serve --shard`` and the
-``export``/``run-exported`` subcommands (ROADMAP Queue 1).
+(:mod:`zaru_tpu_torch.eval`, ``python -m zaru_tpu_torch eval``);
+``compute_dtype=torch.bfloat16`` (bf16 network bodies) on every network
+and on ``FaceTracker``, ``MultiHandTracker`` and ``BodyTracker``. Not
+ported: ``serve --shard`` and the ``export``/``run-exported`` subcommands
+(ROADMAP Queue 1).
 """
 
 from ._device import resolve_device

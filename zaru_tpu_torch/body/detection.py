@@ -1,9 +1,11 @@
-"""Pose detection (zaru_tpu/body/detection.py:46 ``PoseNetwork``, decode
-:83).
+"""Pose detection (zaru_tpu/body/detection.py:46 ``PoseNetwork``, host
+decode :67, device decode :83).
 
-The detection angle aligns the hips → scale-point vector with +Y, the
-hand and face convention. The host-side ``extract`` waits for the port's
-``detection.Detections``.
+``PoseNetwork`` is a ``DetectionNetwork``: ``Detector(PoseNetwork())`` runs
+it on the host as the face and palm detectors run (``extract``, no angle,
+as in JAX), and the trackers decode on tensors (``decode_device``), where
+the detection angle aligns the hips → scale-point vector with +Y, the hand
+and face convention.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import enum
 import torch
 
 from .._device import resolve_device
-from ..detection import Anchors, LayerInfo, decode_ssd_device
+from ..detection import Anchors, DetectionNetwork, Detections, LayerInfo, decode_ssd, decode_ssd_device
 from ..nn import Cnn, ColorMapper
 
 __all__ = ["Keypoint", "PoseNetwork"]
@@ -27,7 +29,7 @@ class Keypoint(enum.IntEnum):
     SCALE_POINT = 1
 
 
-class PoseNetwork:
+class PoseNetwork(DetectionNetwork):
     """The pose detector: 224×224 input, colour range [-1, 1], 2254 anchors,
     12 box parameters (the box and 4 keypoints)."""
 
@@ -35,14 +37,25 @@ class PoseNetwork:
     LAYERS = [LayerInfo(2, 28, 28), LayerInfo(2, 14, 14), LayerInfo(6, 7, 7)]
     NUM_KEYPOINTS = 4
 
-    def __init__(self, device=None):
+    def __init__(self, compute_dtype=None, device=None):
+        """``compute_dtype=torch.bfloat16`` runs the network body in bf16."""
         self.device = resolve_device(device)
-        self._cnn = Cnn.load(self.FILE, ColorMapper.linear(-1.0, 1.0), self.device)
+        self._cnn = Cnn.load(self.FILE, ColorMapper.linear(-1.0, 1.0), self.device, compute_dtype=compute_dtype)
         self.anchors = Anchors.calculate(self.LAYERS)
         self._anchor_centers = torch.from_numpy(self.anchors.centers).to(self.device)
 
     def cnn(self) -> Cnn:
         return self._cnn
+
+    def extract(self, outputs, threshold: float, detections: Detections) -> None:
+        """Host decode of ``(boxes [1,2254,12], confidences [1,2254,1])``
+        into ``detections``, in network-input pixels."""
+        res = self._cnn.input_resolution()
+        n = len(self.anchors)
+        if outputs[0].shape != (1, n, 12) or outputs[1].shape != (1, n, 1):
+            raise ValueError(f"pose outputs {outputs[0].shape}, {outputs[1].shape} for {n} anchors")
+        decode_ssd(res.width, res.height, self.anchors, outputs[0], outputs[1], threshold, detections,
+                   num_keypoints=self.NUM_KEYPOINTS)
 
     def decode_device(self, outputs, thresh: float = 0.5):
         """``(regressors [B,2254,12], classificators [B,2254,1])`` →

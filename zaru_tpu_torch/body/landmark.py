@@ -5,19 +5,32 @@ The networks output 39 landmarks (33 pose + 6 auxiliary), each with (x, y,
 z, visibility, presence); visibility and presence pass through a sigmoid.
 The segmentation, heatmap and world-landmark heads are not run: the
 networks load with outputs 0 and 1 selected (body/landmark.rs:149,175).
-The host-side ``LandmarkResult`` is not ported.
+The trackers decode on tensors (``decode_device``);
+:class:`~zaru_tpu_torch.landmark.Estimator` decodes on the host
+(``extract`` :138) into a :class:`LandmarkResult` (:91).
 """
 
 from __future__ import annotations
 
 import enum
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..landmark import LandmarkNetwork, Landmarks
 from ..nn import Cnn, ColorMapper
+from ..num import sigmoid_np
 
-__all__ = ["LandmarkIdx", "LiteNetwork", "FullNetwork", "NUM_POSE", "NUM_TOTAL", "COARSE_CONNECTIVITY"]
+__all__ = [
+    "COARSE_CONNECTIVITY",
+    "FullNetwork",
+    "LandmarkIdx",
+    "LandmarkResult",
+    "LiteNetwork",
+    "NUM_POSE",
+    "NUM_TOTAL",
+]
 
 NUM_POSE = 33
 NUM_AUX = 6
@@ -80,18 +93,58 @@ COARSE_CONNECTIVITY = [
 ]
 
 
-class _PoseLandmark:
+class LandmarkResult:
+    """39 landmarks (33 pose + 6 auxiliary) and the pose presence."""
+
+    def __init__(self):
+        self.landmarks = Landmarks(NUM_TOTAL)
+        self.pose_presence = 0.0
+
+    def landmarks_mut(self) -> Landmarks:
+        return self.landmarks
+
+    def confidence(self) -> float:
+        return self.pose_presence
+
+    def presence(self) -> float:
+        return self.pose_presence
+
+    def pose_landmarks(self) -> np.ndarray:
+        return self.landmarks.positions()[:NUM_POSE]
+
+    def aux_landmarks(self) -> np.ndarray:
+        return self.landmarks.positions()[NUM_POSE:]
+
+    def get(self, idx: LandmarkIdx):
+        return self.landmarks.get(int(idx))
+
+
+class _PoseLandmark(LandmarkNetwork):
     """A pose landmarker: ``FILE`` (the ONNX blob), 256×256 input, colour
     range [0, 1]."""
 
     FILE: str
 
-    def __init__(self, device=None):
+    def __init__(self, compute_dtype=None, device=None):
+        """``compute_dtype=torch.bfloat16`` runs the network body in bf16."""
         self.device = resolve_device(device)
-        self._cnn = Cnn.load(self.FILE, ColorMapper.linear(0.0, 1.0), self.device, output_subset=[0, 1])
+        self._cnn = Cnn.load(self.FILE, ColorMapper.linear(0.0, 1.0), self.device, output_subset=[0, 1],
+                             compute_dtype=compute_dtype)
 
     def cnn(self) -> Cnn:
         return self._cnn
+
+    def init_estimate(self) -> LandmarkResult:
+        return LandmarkResult()
+
+    def extract(self, outputs, estimate: LandmarkResult) -> None:
+        """Host decode of ``(landmarks [1,195], pose flag [1,1])``: positions
+        in network-input pixels, the sigmoids of visibility and presence."""
+        screen = outputs[0].reshape(NUM_TOTAL, 5)
+        estimate.pose_presence = float(outputs[1].reshape(()))
+        estimate.landmarks.set_positions(screen[:, 0:3].astype(np.float32))
+        estimate.landmarks.set_visibility(sigmoid_np(screen[:, 3]))
+        estimate.landmarks.set_presence(sigmoid_np(screen[:, 4]))
 
     def decode_device(self, outputs):
         """``(landmarks [B,195], pose flag [B,1])`` → ``(positions [B,39,3]

@@ -6,7 +6,8 @@ image's aspect-fit view → the network on it at batch 1 (``Cnn.estimate``,
 the exact sampler) → one host read of the outputs → the network's
 ``extract`` (the host SSD decode :func:`decode_ssd`, numpy) → host NMS →
 coordinates back in the image. The trackers keep detection on the device
-with :func:`decode_ssd_device` and :func:`nms_average_device`.
+with :func:`decode_ssd_device` and :func:`nms_average_device`
+(:func:`nms_remove_device` is its classic, fixed-shape form).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from ..image import as_view
 from ..num import sigmoid_np
 from ..rect import Rect
 from ..timer import Timer
-from .nms import NonMaxSuppression, SuppressionMode, nms_average_device
+from .nms import NonMaxSuppression, SuppressionMode, nms_average_device, nms_remove_device
 from .ssd import Anchors, LayerInfo
 
 __all__ = [
@@ -35,6 +36,7 @@ __all__ = [
     "decode_ssd",
     "decode_ssd_device",
     "nms_average_device",
+    "nms_remove_device",
 ]
 
 

@@ -5,7 +5,8 @@
   ``Detector``: sort by confidence in totalOrder, pop seeds from the top,
   remove or confidence-weight-average the detections that overlap them;
 - :func:`nms_average_device` (:108): the fixed-shape weighted average on
-  tensors, for the trackers.
+  tensors, for the trackers;
+- :func:`nms_remove_device` (:149): the fixed-shape classic form.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from ..geometry import rect_iou
 from ..num import total_f32_key
 from ..rect import Rect
 
-__all__ = ["SuppressionMode", "NonMaxSuppression", "nms_average_device", "DEFAULT_IOU_THRESH"]
+__all__ = ["SuppressionMode", "NonMaxSuppression", "nms_average_device", "nms_remove_device", "DEFAULT_IOU_THRESH"]
 
 DEFAULT_IOU_THRESH = 0.3
 
@@ -115,4 +116,29 @@ def nms_average_device(
         z = valid.to(conf.dtype)
         outs.append((valid, seed_conf * z, avg_box * z[..., None],
                      avg_kp * z[..., None, None], avg_angle * z))
+    return tuple(torch.stack(parts, dim=valid.ndim) for parts in zip(*outs))
+
+
+def nms_remove_device(
+    boxes, conf, keypoints, angles, iou_thresh: float = DEFAULT_IOU_THRESH, max_out: int = 16
+):
+    """Classic NMS (SuppressionMode::Remove, zaru_tpu/detection/nms.py:149)
+    as a fixed-length loop of ``max_out`` slots, batched over leading dims:
+    each slot keeps its seed as it is and drops every remaining detection
+    that overlaps it. Shapes as :func:`nms_average_device`."""
+    remaining = conf
+    outs = []
+    for _ in range(max_out):
+        seed = torch.argmax(remaining, dim=-1, keepdim=True)  # [...,1]
+        seed_conf = torch.gather(remaining, -1, seed)[..., 0]
+        valid = seed_conf > 0.0
+        seed_box = torch.gather(boxes, -2, seed[..., None].expand(*seed.shape, 4))  # [...,1,4]
+        seed_kp = torch.gather(keypoints, -3, seed[..., None, None].expand(*seed.shape, *keypoints.shape[-2:]))
+        iou = rect_iou(seed_box, boxes)
+        over = (iou >= iou_thresh) & (remaining > 0.0)
+        remaining = torch.where(over, 0.0, remaining)
+        z = valid.to(conf.dtype)
+        outs.append((valid, seed_conf * z, seed_box[..., 0, :] * z[..., None],
+                     seed_kp[..., 0, :, :] * z[..., None, None],
+                     torch.gather(angles, -1, seed)[..., 0] * z))
     return tuple(torch.stack(parts, dim=valid.ndim) for parts in zip(*outs))

@@ -46,9 +46,10 @@ class _BlazeFace(DetectionNetwork):
     LAYERS: list[LayerInfo]
     NUM_KEYPOINTS = 6
 
-    def __init__(self, device=None):
+    def __init__(self, compute_dtype=None, device=None):
+        """``compute_dtype=torch.bfloat16`` runs the network body in bf16."""
         self.device = resolve_device(device)
-        self._cnn = Cnn.load(self.FILE, ColorMapper.linear(-1.0, 1.0), self.device)
+        self._cnn = Cnn.load(self.FILE, ColorMapper.linear(-1.0, 1.0), self.device, compute_dtype=compute_dtype)
         self.anchors = Anchors.calculate(self.LAYERS)
         self._anchor_centers = torch.from_numpy(self.anchors.centers).to(self.device)
 

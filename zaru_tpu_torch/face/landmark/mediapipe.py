@@ -130,9 +130,10 @@ class FaceMeshV1(LandmarkNetwork):
     NUM_LANDMARKS = 468
     Result = LandmarkResultV1
 
-    def __init__(self, device=None):
+    def __init__(self, compute_dtype=None, device=None):
+        """``compute_dtype=torch.bfloat16`` runs the network body in bf16."""
         self.device = resolve_device(device)
-        self._cnn = Cnn.load(self.FILE, ColorMapper.linear(-1.0, 1.0), self.device)
+        self._cnn = Cnn.load(self.FILE, ColorMapper.linear(-1.0, 1.0), self.device, compute_dtype=compute_dtype)
 
     def cnn(self) -> Cnn:
         return self._cnn

@@ -51,9 +51,10 @@ class LiteNetwork(DetectionNetwork):
     LAYERS = [LayerInfo(2, 24, 24), LayerInfo(6, 12, 12)]
     NUM_KEYPOINTS = 7
 
-    def __init__(self, device=None):
+    def __init__(self, compute_dtype=None, device=None):
+        """``compute_dtype=torch.bfloat16`` runs the network body in bf16."""
         self.device = resolve_device(device)
-        self._cnn = Cnn.load(self.FILE, ColorMapper.linear(0.0, 1.0), self.device)
+        self._cnn = Cnn.load(self.FILE, ColorMapper.linear(0.0, 1.0), self.device, compute_dtype=compute_dtype)
         self.anchors = Anchors.calculate(self.LAYERS)
         self._anchor_centers = torch.from_numpy(self.anchors.centers).to(self.device)
 

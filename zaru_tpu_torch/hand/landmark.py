@@ -136,9 +136,12 @@ class LiteNetwork(LandmarkNetwork):
     FILE = "hand_landmark_lite.onnx"
     NUM_LANDMARKS = 21
 
-    def __init__(self, device=None):
+    def __init__(self, compute_dtype=None, device=None):
+        """``compute_dtype=torch.bfloat16`` runs the network body in bf16;
+        JAX measured it to move landmarks by up to ~21 px on crops unlike
+        the training data (zaru_tpu/hand/landmark.py:147-151)."""
         self.device = resolve_device(device)
-        self._cnn = Cnn.load(self.FILE, ColorMapper.linear(0.0, 1.0), self.device)
+        self._cnn = Cnn.load(self.FILE, ColorMapper.linear(0.0, 1.0), self.device, compute_dtype=compute_dtype)
 
     def cnn(self) -> Cnn:
         return self._cnn

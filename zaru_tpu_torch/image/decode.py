@@ -11,6 +11,7 @@ decoder hit 4K30): backends here are selected with ``ZARU_TPU_JPEG_BACKEND``:
 Both are imported when a frame is decoded, not when this module is. The JAX
 package's ``native`` backend (its C++ bridge, zaru_tpu/native) is not
 ported; asking for it raises. PNG/GIF/APNG go through PIL regardless.
+:class:`DecodePool` decodes frames on a thread pool.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import numpy as np
 
 log = logging.getLogger(__name__)
 
-__all__ = ["decode_jpeg", "load_image", "jpeg_backend"]
+__all__ = ["DecodePool", "decode_jpeg", "load_image", "jpeg_backend"]
 
 
 def jpeg_backend() -> str:
@@ -84,3 +85,26 @@ def load_image(path: str | Path) -> np.ndarray:
     if img.mode in ("RGBA", "LA", "P"):
         return np.asarray(img.convert("RGBA"))
     return np.asarray(img.convert("RGB"))
+
+
+class DecodePool:
+    """A thread pool of :func:`decode_jpeg` (zaru_tpu/image/decode.py:95):
+    cv2 (libjpeg-turbo) releases the interpreter lock while it decodes, so
+    frames decode in parallel on the host's cores."""
+
+    def __init__(self, threads: int = 8):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._pool = ThreadPoolExecutor(max_workers=threads)
+        self.threads = threads
+
+    def decode_batch(self, blobs) -> list[np.ndarray]:
+        """Decodes JPEG blobs concurrently: RGB arrays in input order."""
+        return list(self._pool.map(decode_jpeg, blobs))
+
+    def submit(self, blob: bytes):
+        """One frame's decode, as a ``Future`` of its RGB array."""
+        return self._pool.submit(decode_jpeg, blob)
+
+    def close(self):
+        self._pool.shutdown(wait=False)

@@ -77,11 +77,12 @@ class NeuralNetwork:
         self.module = module
 
     @staticmethod
-    def load(path_or_bytes, *, output_subset=None, device=None) -> "NeuralNetwork":
+    def load(path_or_bytes, *, output_subset=None, compute_dtype=None, device=None) -> "NeuralNetwork":
         """Parses an ONNX file (or its bytes) onto ``device`` (``cuda``
         unless named); ``output_subset`` selects the outputs by name or
-        position."""
-        return NeuralNetwork(load_model(path_or_bytes, resolve_device(device), output_subset))
+        position; ``compute_dtype=torch.bfloat16`` runs the body in bf16
+        (the outputs stay f32; None is f32)."""
+        return NeuralNetwork(load_model(path_or_bytes, resolve_device(device), output_subset, compute_dtype))
 
     @property
     def device(self) -> torch.device:
@@ -123,6 +124,7 @@ class Loader:
         self._src = path_or_bytes
         self._device = device
         self._output_subset = None
+        self._compute_dtype = None
 
     def with_output_selection(self, names: Sequence[str]) -> "Loader":
         self._output_subset = list(names)
@@ -133,7 +135,9 @@ class Loader:
         return self
 
     def with_bf16(self) -> "Loader":
-        raise NotImplementedError("bf16 compute is not ported (ROADMAP Queue 1: compute_dtype)")
+        """Runs the network body in bf16 (zaru_tpu/nn.py:132)."""
+        self._compute_dtype = torch.bfloat16
+        return self
 
     def with_layout(self, layout: str) -> "Loader":
         """Only ``"NCHW"``, the ONNX layout, runs here."""
@@ -144,7 +148,9 @@ class Loader:
         return self
 
     def load(self) -> NeuralNetwork:
-        return NeuralNetwork.load(self._src, output_subset=self._output_subset, device=self._device)
+        return NeuralNetwork.load(
+            self._src, output_subset=self._output_subset, compute_dtype=self._compute_dtype, device=self._device
+        )
 
 
 class Cnn:
@@ -169,12 +175,17 @@ class Cnn:
         self._layout = shape.value
 
     @staticmethod
-    def load(filename: str, color_mapper: ColorMapper, device=None, output_subset=None) -> "Cnn":
+    def load(
+        filename: str, color_mapper: ColorMapper, device=None, output_subset=None, compute_dtype=None
+    ) -> "Cnn":
         """Loads the NCHW network ``filename`` from the model directories
         onto ``device`` (``cuda`` unless named); ``output_subset`` selects
         its outputs by name or position (zaru_tpu/nn.py:126
-        ``with_output_selection_by_index``)."""
-        nn = NeuralNetwork.load(model_path(filename), output_subset=output_subset, device=device)
+        ``with_output_selection_by_index``), ``compute_dtype`` the dtype of
+        its body (:meth:`NeuralNetwork.load`)."""
+        nn = NeuralNetwork.load(
+            model_path(filename), output_subset=output_subset, compute_dtype=compute_dtype, device=device
+        )
         return Cnn(nn, CnnInputShape.NCHW, color_mapper)
 
     def input_resolution(self) -> Resolution:

@@ -47,6 +47,32 @@ which keeps about three decimal digits and breaks the repo's CNN bar
 (``atol = 1e-3·max(1,|out|max)``, ``rtol = 2e-3``), so :meth:`forward`
 turns TF32 off around them, and pins f32 matrix products (Gemm) to full
 f32 whatever ``torch.set_float32_matmul_precision`` the caller set.
+
+**Compute dtype.** ``compute_dtype=torch.bfloat16`` runs the network body
+in bf16, as ``compute_dtype=jnp.bfloat16`` does in the JAX importer
+(importer.py:178-184, :223-228): float graph inputs and a cast copy of the
+parameters enter in bf16, every op runs in its input's dtype, and outputs
+of that dtype leave as f32. The parameters themselves stay f32 (so
+:meth:`OnnxModule.params`, :meth:`OnnxModule.load_params` and
+``weights.params_from_jax`` are those of an f32 module); the cast copy is
+made when the module is built and again by :meth:`OnnxModule.load_params`.
+A float Constant stays f32 as JAX's numpy constant does, so what it meets
+is promoted to f32 as in JAX. Two ops follow JAX's rounding in bf16 only:
+
+- Conv adds its bias after the convolution, rounded to bf16 first
+  (ops.py:260-264); ``F.conv2d`` with the bias would add it before its one
+  rounding, which differs from JAX in a quarter of the outputs. In f32 the
+  bias stays fused, so f32 modules are unchanged bit for bit;
+- Gemm's product is rounded before ``alpha`` and ``beta · c`` (ops.py:665,
+  as in f32), accumulated in f32: :meth:`forward` turns cuBLAS's reduced-
+  precision bf16 reduction off around it (JAX asks for f32 accumulation)
+  and restores the caller's setting afterwards.
+
+A bf16 module builds no stage plan: the stage kernel
+(``csrc/blaze_stage.cu``) is f32 by design, and JAX's bf16 path runs its
+convolutions in XLA (``cnn_stage.fused_blocks`` has no caller in
+``zaru_tpu/``). The choice is made once, when the module is built; an f32
+module on CUDA launches the stage kernel or raises, as before.
 """
 
 from __future__ import annotations
@@ -102,10 +128,12 @@ def _conv(node, vals):
     else:
         x = F.pad(x, (pl, pr, pt, pb))
         padding = 0
-    return F.conv2d(
-        x, w, b, stride=strides, padding=padding, dilation=dilations,
+    bias_after = b is not None and x.dtype != torch.float32  # bf16: JAX rounds the convolution first
+    out = F.conv2d(
+        x, w, None if bias_after else b, stride=strides, padding=padding, dilation=dilations,
         groups=node.attrs.get("group", 1),
     )
+    return out + b[:, None, None] if bias_after else out
 
 
 def _pool_pad_pairs(node, x, kernel, strides, dilations) -> tuple[int, int, int, int]:
@@ -275,6 +303,15 @@ def _resize(node, vals):
     # per output pixel over every image and channel, which is slow at a
     # small spatial size and a large batch.
     x = x.contiguous(memory_format=torch.channels_last)
+    h, w = x.shape[2:]
+    H, W = sizes[2:]
+    if x.dtype != torch.float32 and (h, w) != (H, W):
+        # jax.image.resize contracts one axis at a time (one einsum, in the
+        # order of least work, the height first on a tie) and rounds to bf16
+        # in between; F.interpolate computes both axes before its one
+        # rounding.
+        x = F.interpolate(x, size=(H, w) if H * w * (h + W) <= h * W * (w + H) else (h, W),
+                          mode="bilinear", align_corners=False)
     return F.interpolate(x, size=sizes[2:], mode="bilinear", align_corners=False).contiguous()
 
 
@@ -340,16 +377,20 @@ def _float_static_names(nodes) -> set[str]:
 
 
 @contextlib.contextmanager
-def _full_f32():
-    """cuDNN convolutions without TF32, and f32 matrix products at full f32
-    precision, restoring the caller's setting afterwards."""
-    prev = torch.get_float32_matmul_precision()
+def _full_precision():
+    """cuDNN convolutions without TF32, f32 matrix products at full f32
+    precision and bf16 products accumulated in f32, restoring the caller's
+    settings afterwards."""
+    matmul = torch.backends.cuda.matmul
+    prev = torch.get_float32_matmul_precision(), matmul.allow_bf16_reduced_precision_reduction
     torch.set_float32_matmul_precision("highest")
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             yield
     finally:
-        torch.set_float32_matmul_precision(prev)
+        torch.set_float32_matmul_precision(prev[0])
+        matmul.allow_bf16_reduced_precision_reduction = prev[1]
 
 
 @dataclass(frozen=True)
@@ -475,11 +516,17 @@ class OnnxModule(nn.Module):
     ``output_subset``: the outputs to return, by name or position, in that
     order (zaru_tpu/onnx/importer.py:140-151, the reference Loader's output
     selection); nodes that only feed the others are not run. The parameters
-    stay those of the whole graph."""
+    stay those of the whole graph.
 
-    def __init__(self, model: OnnxModel, device: torch.device, output_subset=None):
+    ``compute_dtype``: ``torch.bfloat16`` runs the body in bf16 (see the
+    module docstring); None is f32."""
+
+    def __init__(self, model: OnnxModel, device: torch.device, output_subset=None, compute_dtype=None):
         super().__init__()
         self.device = device
+        if compute_dtype not in (None, torch.bfloat16):
+            raise NotImplementedError(f"compute_dtype {compute_dtype}: only torch.bfloat16 or None (f32)")
+        self.compute_dtype = compute_dtype
         g = model.graph
         unsupported = sorted({n.op_type for n in g.nodes} - SUPPORTED_OPS)
         if unsupported:
@@ -526,14 +573,19 @@ class OnnxModule(nn.Module):
         info = {vi.name: vi for vi in g.outputs}
         self.output_info = [info[n] for n in self.output_names]
         self._live = _live_nodes(g.nodes, self.output_names)
-        self.stages = find_stages(model)
+        self.stages = [] if compute_dtype else find_stages(model)
         self._stage_at = {st.nodes[0]: st for st in self.stages}
         self._in_stage = {i for st in self.stages for i in st.nodes}
-        self._pack_stages()
+        self._derive_weights()
 
     @torch.no_grad()
-    def _pack_stages(self) -> None:
+    def _derive_weights(self) -> None:
+        """The stage kernel's packed weights and, in bf16, the parameters'
+        cast copy, from the current parameters."""
         params = self.params()
+        self._compute_params = (
+            {k: v.to(self.compute_dtype) for k, v in params.items()} if self.compute_dtype else params
+        )
         self._packed = {
             st.nodes[0]: cnn_stage.pack_blocks(
                 [{k: None if v is None else params[v] for k, v in b.items()} for b in st.blocks],
@@ -560,18 +612,21 @@ class OnnxModule(nn.Module):
             if tuple(v.shape) != tuple(p.shape):
                 raise ValueError(f"parameter {name!r}: shape {tuple(v.shape)}, want {tuple(p.shape)}")
             p.copy_(v)
-        self._pack_stages()
+        self._derive_weights()
 
     def activations(self, *inputs: torch.Tensor) -> dict:
         """Every value the selected outputs depend on, by name (a chain's
         inner values are not computed), for ``inputs``."""
         if len(inputs) != len(self.input_info):
             raise ValueError(f"expected {len(self.input_info)} inputs, got {len(inputs)}")
+        dtype = self.compute_dtype
+        if dtype:
+            inputs = [x.to(dtype) if x.is_floating_point() else x for x in inputs]
         env: dict = dict(self._static)
-        env.update(self.params())
+        env.update(self._compute_params)
         env.update((name, getattr(self, attr)) for name, attr in self._const_attr.items())
         env.update((vi.name, x) for vi, x in zip(self.input_info, inputs))
-        with _full_f32():
+        with _full_precision():
             for i, node in enumerate(self.nodes):
                 if i not in self._live:
                     continue
@@ -588,4 +643,7 @@ class OnnxModule(nn.Module):
 
     def forward(self, *inputs: torch.Tensor) -> list[torch.Tensor]:
         env = self.activations(*inputs)
-        return [env[n] for n in self.output_names]
+        outs = [env[n] for n in self.output_names]
+        if self.compute_dtype:
+            outs = [o.float() if o.dtype == self.compute_dtype else o for o in outs]
+        return outs

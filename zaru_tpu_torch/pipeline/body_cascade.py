@@ -14,8 +14,8 @@ sampler is bit-exact to JAX's at these shapes, tests/test_torch_samplers.py),
 and the detector's 224×224 input through the letterbox kernel. The outputs
 name the confidence ``pose_flag`` and the extras ``visibility`` and
 ``presence``, and add ``pose_landmarks`` (the first 33 points).
-
-Not ported: ``compute_dtype``.
+``compute_dtype=torch.bfloat16`` runs both default networks' bodies in
+bf16.
 """
 
 from __future__ import annotations
@@ -60,14 +60,15 @@ class BodyTracker(MultiObjectTracker):
         detection_threshold: float = 0.5,
         presence_threshold: float = 0.5,
         iou_thresh: float = 0.3,
+        compute_dtype=None,
         redetect_bucket: int | None = None,
         params: dict | None = None,
         device=None,
     ):
         device = resolve_device(device)
         super().__init__(
-            detector or PoseNetwork(device=device),
-            landmarker or PoseLite(device=device),
+            detector or PoseNetwork(compute_dtype, device=device),
+            landmarker or PoseLite(compute_dtype, device=device),
             residual_angle=_pose_residual_angle,
             grow_by=GROW_BY,
             roi_padding=ROI_PADDING,

@@ -45,8 +45,13 @@ The ungated entry points sample every crop with the exact sampler
 - ``scan_video`` (:531): ``step`` over ``[T,H,W,4]`` frames, outputs stacked
   on a leading T axis like ``lax.scan``.
 
-Not ported: ``compute_dtype`` and ``sampler_opts`` (the TPU sampler's
-blocking; the face tracker sets no ``prescale_m``).
+``compute_dtype=torch.bfloat16`` runs the default detector's and
+landmarker's bodies in bf16 (the iris network stays f32, as in JAX): the
+same entry points and sampler kernels, f32 crops cast on the networks'
+entry, no stage kernel (``onnx/executor.py``).
+
+Not ported: ``sampler_opts`` (the TPU sampler's blocking; the face tracker
+sets no ``prescale_m``).
 """
 
 from __future__ import annotations
@@ -78,7 +83,9 @@ class FaceTracker:
     samples its landmark crops through the rotated-ROI kernel (else the
     exact sampler). ``iris``: also refine both eyes every step.
     ``redetect_bucket``: detect at most this many lost streams on an
-    unforced detect step of :meth:`step_batch`.
+    unforced detect step of :meth:`step_batch`. ``compute_dtype``:
+    ``torch.bfloat16`` runs the default networks' bodies in bf16 (None:
+    f32).
     """
 
     EYE_PRESCALE_M = 256  # the eye crops' prescale grid (face_cascade.py:397-402)
@@ -93,6 +100,7 @@ class FaceTracker:
         roi_padding: float = 0.3,
         smooth: OneEuroFilter | None = OneEuroFilter(min_cutoff=1.0, beta=0.5),
         frame_rate: float = 30.0,
+        compute_dtype=None,
         fast_sampler: bool = True,
         iris: bool = False,
         redetect_bucket: int | None = None,
@@ -100,8 +108,8 @@ class FaceTracker:
         device=None,
     ):
         self.device = resolve_device(device)
-        self.detector = detector or ShortRangeNetwork(device=self.device)
-        self.landmarker = landmarker or FaceMeshV1(device=self.device)
+        self.detector = detector or ShortRangeNetwork(compute_dtype, device=self.device)
+        self.landmarker = landmarker or FaceMeshV1(compute_dtype, device=self.device)
         self.det_cnn = self.detector.cnn()
         self.lm_cnn = self.landmarker.cnn()
         self.iris = iris

@@ -10,8 +10,8 @@ views whose rotated bbox fits 256 px, integer stride beyond; with
 ``fast_sampler=False`` through the exact sampler. The outputs name the
 confidence ``presence`` and the landmarker's extra ``handedness``.
 
-Not ported yet: ``compute_dtype`` (a bf16 knob of the JAX package, off by
-default).
+``compute_dtype=torch.bfloat16`` runs both default networks' bodies in
+bf16 (see ``MultiHandTracker``).
 """
 
 from __future__ import annotations
@@ -39,7 +39,13 @@ def _palm_residual_angle(xy_view):
 
 class MultiHandTracker(MultiObjectTracker):
     """Up to ``max_hands`` hands per stream, on ``device`` (``cuda`` unless
-    named)."""
+    named).
+
+    ``compute_dtype=torch.bfloat16`` runs the default palm detector's and
+    hand landmarker's bodies in bf16. Caution (zaru_tpu/pipeline/
+    hand_cascade.py:59-63): JAX measured the landmarks up to ~21 px from
+    f32 on crops unlike the training data (presence up to 0.04); the default
+    stays f32, so validate on real hands before turning it on."""
 
     def __init__(
         self,
@@ -52,14 +58,15 @@ class MultiHandTracker(MultiObjectTracker):
         presence_threshold: float = 0.5,
         iou_thresh: float = 0.3,
         fast_sampler: bool = True,
+        compute_dtype=None,
         redetect_bucket: int | None = None,
         params: dict | None = None,
         device=None,
     ):
         device = resolve_device(device)
         super().__init__(
-            detector or PalmLite(device=device),
-            landmarker or HandLite(device=device),
+            detector or PalmLite(compute_dtype, device=device),
+            landmarker or HandLite(compute_dtype, device=device),
             residual_angle=_palm_residual_angle,
             grow_by=GROW_BY,
             roi_padding=ROI_PADDING,
