@@ -34,8 +34,12 @@ check exits non-zero):
    150-900 px at any angle, partly outside the frame, on the 256-pixel grid
    (and on the views stored from JAX in ``body_track.npz``, against JAX's
    output), and the letterbox at 224², colour range [-1, 1], on 1080p and
-   720p frames; the RGB→YUV kernel bit for bit on the fixture photo at
-   1920×1080 and on random images of ragged sizes;
+   720p frames; the rotated sampler at StreamIdentifier's 112² crop,
+   planar and NHWC, on angle-0 views of 150-900 px and at strides 1-8 on
+   both grids, partly outside the frame, and on the crop rects stored from
+   JAX's run (``identify.npz``), against the plain version and JAX's crops;
+   the RGB→YUV kernel bit for bit on the fixture photo at 1920×1080 and on
+   random images of ragged sizes;
 4. the paths against the JAX reference stored in
    ``zaru_tpu_torch/fixtures/``: ``FaceTracker`` one step at a time from
    JAX's state (flags equal, landmarks and ROI within the CPU test's
@@ -70,7 +74,14 @@ check exits non-zero):
    batches 1 and 512 against JAX's bf16 run and the port's bf16 run on the
    CPU within the test's bounds in bf16 ulps, no stage kernel launched, then
    bf16 ``FaceTracker``, ``MultiHandTracker`` and ``BodyTracker`` (stubs)
-   one step at a time from JAX's state, flags equal;
+   one step at a time from JAX's state, flags equal; identification
+   (``identify.npz``, tests/test_torch_identify.py): ``Embedder.embed`` and
+   ``FaceIdentifier`` enrolling the cropped photo and identifying the full
+   one, ``StreamIdentifier`` one step at a time from JAX's state (flags and
+   identities equal) and free-running, no plain kernel version on the card;
+   blend, quat, Procrustes, Dlt and approx on CUDA tensors against the
+   port's CPU run, and the head pose's yaw (Face Mesh V1 on the cropped
+   photo → ``ProcrustesAnalyzer``) against JAX's;
 5. the paths at full size on the fixture photo upscaled to 1920×1080 on
    the card, 54 steps after 9 of warm-up: ``FaceTracker.step_batch`` at
    batches 64 and 512 with detection forced every 9th step, then
@@ -103,7 +114,11 @@ check exits non-zero):
    wall time per runner; bf16 against f32 in turns (f32, bf16, bf16, f32):
    the main path at 64 and 512, hand tracking at 128 and ``run_frame``,
    each bf16 run with a 9-step profile, no stage launch and the samplers'
-   launches of the f32 run. The card's machine has no image
+   launches of the f32 run; ``StreamIdentifier.run_frames`` in turns with
+   the main path (FaceTracker, StreamIdentifier, StreamIdentifier,
+   FaceTracker) at 64 and 512, two rotated-sampler launches a step, every
+   stream identified, with a profile of the step and of its embedding pass
+   at 512, and ``FaceIdentifier.enroll``/``identify`` per call. The card's machine has no image
    decoder (cv2, PIL), so file decoding is not run here: the CPU tests
    (tests/test_torch_serve.py) cover the CLI's inputs;
 6. each kernel's time at its main-path inputs (queued behind a device spin
@@ -120,8 +135,9 @@ check exits non-zero):
    sampler at Face Mesh V2's 512×256² and the letterbox at the full-range
    512×192², the stage kernel's ten chains at batch 1 (``run_frame``), and
    both samplers at BodyTracker's 512×256² (256-pixel grid) and 512×224²,
-   and the stage kernel's ten chains at batch 1 for the host engines'
-   launches, as further entries of the JSON line;
+   the stage kernel's ten chains at batch 1 for the host engines'
+   launches, and the rotated sampler at StreamIdentifier's 512×112², as
+   further entries of the JSON line;
 7. the launch counts of phase 5, then one JSON line of per-kernel numbers,
    then the result line.
 
@@ -187,6 +203,12 @@ BF16_TRACK_SCORE_TOL = 0.05
 BF16_VALUE_KEYS = ("landmarks", "roi", "rois", "confidence", "presence", "handedness", "pose_flag", "visibility")
 # Rows of the batch-512 network runs compared with the port on the CPU.
 BF16_CPU_ROWS = [0, 1, 2, 3, 137, 300, 511]
+# tests/test_torch_identify.py: unit-sphere distances, crop rects from
+# JAX's ROIs (px); tests/test_torch_pose3d.py: blend against the CPU (u8
+# steps), quaternions and Kabsch rotations against the CPU, the head pose's
+# yaw against JAX's (degrees).
+ID_DIST_TOL, ID_CROP_RECT_TOL_PX = 1e-3, 1e-3
+POSE_BLEND_MAX_STEP, POSE_QUAT_TOL, POSE_ROT_TOL, POSE_YAW_TOL_DEG = 1, 1e-5, 1e-4, 1e-2
 VIEW_CASES = [  # (cx, cy, w, h, theta), tests/test_torch_samplers.py
     (960, 540, 300, 300, 0.0),
     (500, 400, 192, 192, 0.0),
@@ -1059,10 +1081,11 @@ def _letterbox_lin(torch, frames, yi, xi, ok):
 
 
 def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=512,
-                       names=("rotated_sample", "letterbox_sample")):
+                       names=("rotated_sample", "letterbox_sample"), view_rects=None):
     """The two samplers at a path's inputs (``lm``/``det``: its landmark and
     detector ``Cnn``; ``rois``: the ROIs of its last step), in the planar
-    layout the path samples: ``ms`` is the whole call (``rotated_sample_fast``,
+    layout the path samples (``view_rects``: the rotated views, if not the
+    landmark crops of ``rois``): ``ms`` is the whole call (``rotated_sample_fast``,
     ``letterbox_sample``: one kernel each), queued behind a device spin so
     the host's launch cost is hidden; ``kernel_ms`` the launch alone and
     ``nhwc_ms`` the NHWC launch, both queued; ``call_ms`` a lone call, not
@@ -1082,7 +1105,7 @@ def phase_kernel_times(torch, frames, lm, det, rois, launches, what, prescale_m=
     from zaru_tpu_torch.pipeline import _ops
 
     lm_res, det_res = lm.input_resolution(), det.input_resolution()
-    view_rects = _ops.aspect_view_rect(rois, lm_res)
+    view_rects = _ops.aspect_view_rect(rois, lm_res) if view_rects is None else view_rects
     flat = view_rects.reshape(-1, 5).contiguous()
     slots = flat.shape[0] // frames.shape[0]
     _fit, fit_rrect = _ops.full_frame_fit(frames, det_res)
@@ -2145,6 +2168,334 @@ def phase_bf16_full_size(torch, img, device, card, tracker, hands, seed, batches
     check(bool(out["valid"]) and float(out["confidence"]) > 0.9, "bf16 run_frame lost the face")
     return result
 
+# --- identification (face.recognition, face.identify) and the head-pose math ---
+
+
+def identify_fixture(np):
+    from zaru_tpu_torch.assets import fixture_path
+
+    with np.load(fixture_path("identify.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def stored_stream_steps(torch, np, ref, rgba, device):
+    """tests/test_torch_identify.py ``steps``: the stored StreamIdentifier
+    run as (frames, JAX's pre-step state, JAX's outputs) per step, on the
+    card."""
+    batch = ref["stream_state_roi"].shape[1]
+    for t, zero in enumerate(ref["stream_zero"]):
+        frames = rgba.expand(batch, *rgba.shape).clone()
+        if zero >= 0:
+            frames[int(zero)] = 0
+        st = {k[len("stream_state_"):]: v[t] for k, v in ref.items() if k.startswith("stream_state_")}
+        state = {"roi": torch.from_numpy(st["roi"]).to(device), "tracking": torch.from_numpy(st["tracking"]).to(device),
+                 "filter": {k[2:]: torch.from_numpy(v).to(device) for k, v in st.items() if k.startswith("f_")}}
+        yield frames, state, {k[len("stream_out_"):]: v[t] for k, v in ref.items() if k.startswith("stream_out_")}
+
+
+def phase_identify_shapes_vs_plain(torch, np, device, rgba):
+    """The rotated kernel at the identification crop, ``[B,3,112,112]``
+    planar and NHWC, bit for bit against its plain version: 512 views at
+    angle 0 on coordinate-encoded 1080p frames (square, 150-900 px, then
+    random sizes at strides 1-8 of each grid), centres partly outside the
+    frame, on the 512- and the 256-pixel grid; then the crop rects stored
+    from JAX's StreamIdentifier run (identify.npz) on the photo, against the
+    plain version and against JAX's crops."""
+    from zaru_tpu_torch.ops.rotated_fast import _color
+    from zaru_tpu_torch.ops.sampling import color_map
+
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    frames = coord_frames(torch, 64, 1080, 1920, device)
+    n = 256
+    size = 150 + torch.rand(n, generator=gen) * 750
+    square = torch.stack([torch.rand(n, generator=gen) * 2300 - 200, torch.rand(n, generator=gen) * 1400 - 160,
+                          size, size, torch.zeros(n)], -1)
+    for m in (512, 256):
+        views = random_views(torch, gen, n, m, "cpu")
+        views[:, 4] = 0.0
+        rects = torch.cat([square, views]).reshape(64, 8, 5).to(device)
+        got = check_rotated(torch, "identity crops at angle 0 (150-900 px, then strides 1-8)", frames, rects, 112,
+                            -1.0, 1.0, m)
+        check(bool((got == -1.0).all(-1).any()), "no identity view reads outside the frame")
+    ref = identify_fixture(np)
+    steps = list(stored_stream_steps(torch, np, ref, rgba, device))
+    frames = torch.cat([s[0] for s in steps])
+    rects = torch.from_numpy(ref["stream_out_crop_rects"]).reshape(-1, 5).to(device)
+    got = check_rotated(torch, f"the crop rects of JAX's StreamIdentifier run ({len(steps)} steps)", frames, rects,
+                        112, -1.0, 1.0, 512)
+    want = color_map(torch.from_numpy(ref["stream_out_crop_codes"].reshape(got.shape).astype(np.int32)),
+                     *_color(-1.0, 1.0))
+    differ = int((got.cpu() != want).sum())
+    print(f"rotated_sample on JAX's crop rects vs JAX's crops: {differ} values differ", flush=True)
+    check(differ == 0, "the 112x112 crops from JAX's rects differ from JAX's crops")
+
+
+def cnn_error(np, got, want, what):
+    """The largest error of a CNN output against JAX's; fails outside the
+    repo's CNN bar (tests/test_onnx_importer.py:63-66)."""
+    tol = 1e-3 * max(1.0, float(np.abs(want).max()))
+    check(got.shape == want.shape and bool((np.abs(got - want) <= tol + 2e-3 * np.abs(want)).all()),
+          f"{what} outside the CNN bar of JAX's")
+    return float(np.abs(got - want).max())
+
+
+def phase_identify_vs_jax(torch, np, device, rgba, cropped):
+    """Identification against identify.npz (tests/test_torch_identify.py),
+    on the card: ``Embedder.embed`` on the cropped photo, ``FaceIdentifier``
+    enrolling it and identifying the full photo, ``StreamIdentifier`` one
+    step at a time from JAX's state (flags and identities equal, distances,
+    tracker outputs and embeddings within the CPU test's tolerances, the
+    crop rects from JAX's ROIs within theirs), then free-running (flags and
+    identities equal). No plain version of a kernel runs on the card. →
+    the enrolled ``FaceIdentifier``."""
+    from zaru_tpu_torch.face.identify import FaceIdentifier, StreamIdentifier
+    from zaru_tpu_torch.face.recognition import Embedder
+    from zaru_tpu_torch.image import Image
+
+    ref = identify_fixture(np)
+    full, crop = Image(rgba, device), Image(cropped, device)
+    errs = {}
+    with PlainWatch(torch) as watch:
+        embedder = Embedder(device)
+        errs["embed"] = cnn_error(np, embedder.embed(crop), ref["embed_cropped"], "Embedder.embed")
+        ident = FaceIdentifier(embedder=embedder, device=device)
+        check(ident.identify(full) is None and ident.enroll("linus", crop), "FaceIdentifier.enroll found no face")
+        errs["enrolled"] = cnn_error(np, ident.gallery[0].cpu().numpy(), ref["enrolled"], "the enrolled row")
+        errs["query"] = cnn_error(np, ident._embed_face(full), ref["query"], "the query embedding")
+        match = ident.identify(full)
+        check(match is not None and match.name == str(ref["identify_name"]), f"FaceIdentifier.identify: {match}")
+        errs["identify distance"] = abs(match.distance - float(ref["identify_distance"]))
+        check(errs["identify distance"] <= ID_DIST_TOL, f"FaceIdentifier distance {match.distance}")
+
+        sid = StreamIdentifier(embedder=embedder, device=device)
+        gallery = torch.from_numpy(ref["stream_gallery"]).to(device)
+        steps = list(stored_stream_steps(torch, np, ref, rgba, device))
+        for t, (frames, state, want) in enumerate(steps):
+            _, out = sid.step(state, frames, gallery)
+            got = {k: v.cpu().numpy() for k, v in out.items()}
+            check((got["valid"] == want["valid"]).all() and (got["identity"] == want["identity"]).all(),
+                  f"StreamIdentifier step {t}: flags or identities differ from JAX")
+            inf = np.isinf(want["identity_distance"])
+            check((np.isinf(got["identity_distance"]) == inf).all(), f"StreamIdentifier step {t}: inf differs")
+            for key, value, tol in (
+                ("distance", np.abs(got["identity_distance"][~inf] - want["identity_distance"][~inf]).max(),
+                 ID_DIST_TOL),
+                ("landmarks", np.abs(got["landmarks"] - want["landmarks"]).max(), STEP_TOL_PX),
+                ("roi", np.abs(got["roi"] - want["roi"]).max(), STEP_TOL_PX),
+                ("norm", np.abs(np.linalg.norm(got["embedding"], axis=-1) - 1.0).max(), 1e-5),
+                ("crop rects", np.abs(sid._crop_rects(torch.from_numpy(want["roi"]).to(device)).cpu().numpy()
+                                      - want["crop_rects"]).max(), ID_CROP_RECT_TOL_PX),
+            ):
+                errs[f"stream {key}"] = max(errs.get(f"stream {key}", 0.0), float(value))
+                check(value <= tol, f"StreamIdentifier step {t}: {key} differs from JAX by {value} (tolerance {tol})")
+            errs["stream embedding"] = max(errs.get("stream embedding", 0.0),
+                                           cnn_error(np, got["embedding"], want["embedding"], f"step {t} embeddings"))
+        sid.set_gallery(["random", "linus"], gallery)
+        state = sid.init_state(len(steps[0][0]))
+        for t, (frames, _state, want) in enumerate(steps):
+            state, out = sid.run_frames(state, frames)
+            check((out["valid"].cpu().numpy() == want["valid"]).all()
+                  and (out["identity"].cpu().numpy() == want["identity"]).all(),
+                  f"StreamIdentifier free-running step {t}: flags or identities differ from JAX")
+    check(not watch.calls, f"a plain version of a kernel ran on the card: {watch.calls}")
+    print(f"identification vs JAX reference on the card: max errors { {k: float(f'{v:.3g}') for k, v in errs.items()} } "
+          f"(CNN bar for embeddings, distances {ID_DIST_TOL}, tracker {STEP_TOL_PX} px, crop rects "
+          f"{ID_CROP_RECT_TOL_PX} px); identities {ref['stream_out_identity'].tolist()} equal one step at a time and "
+          f"free-running; no plain kernel version ran on the card", flush=True)
+    return ident
+
+
+def phase_pose3d_vs_cpu(torch, np, device, cropped):
+    """blend, quat, Procrustes, Dlt and approx on CUDA tensors against the
+    port's CPU run on the same seeded inputs (tests/test_torch_pose3d.py):
+    blend within one u8 step, quaternions within POSE_QUAT_TOL, Kabsch
+    rotations (180° about each axis among them: the SVD's signs on the card)
+    within POSE_ROT_TOL, Dlt and approx equal; then the head pose, Face Mesh
+    V1 on the cropped photo → ProcrustesAnalyzer → yaw, against JAX's stored
+    yaw."""
+    import math
+
+    from zaru_tpu_torch import approx, procrustes, quat
+    from zaru_tpu_torch.face.landmark.mediapipe import FaceMeshV1, reference_positions
+    from zaru_tpu_torch.image import Image
+    from zaru_tpu_torch.image.blend import blend
+    from zaru_tpu_torch.landmark import Estimator
+    from zaru_tpu_torch.pnp import Dlt
+    from zaru_tpu_torch.rect import RotatedRect
+
+    rng = np.random.default_rng(6)
+    errs, differing, total = {}, 0, 0
+    for i in range(6):
+        H, W, h, w = (int(v) for v in rng.integers(40, 400, 4))
+        dest, src = (rng.integers(0, 256, s, np.uint8) for s in ((H, W, 4), (h, w, 4)))
+        dr = np.asarray([*rng.uniform(0, [W, H]), *rng.uniform(8, [W, H]), rng.uniform(-3, 3)], np.float32)
+        sr = np.asarray([*rng.uniform(0, [w, h]), *rng.uniform(4, [w, h]), rng.uniform(-1, 1) * (i % 2)], np.float32)
+        want, got = (blend(Image(dest, dev).view(RotatedRect(dr)), Image(src, dev).view(RotatedRect(sr)))
+                     for dev in ("cpu", device))
+        check(got.device.type == "cuda", "blend() left the card")
+        step = np.abs(got.to_numpy().astype(int) - want.to_numpy().astype(int))
+        check(step.max() <= POSE_BLEND_MAX_STEP, f"blend on the card: {step.max()} u8 steps from the CPU")
+        differing, total = differing + int((step > 0).sum()), total + step.size
+
+    q = rng.normal(size=(64, 4)).astype(np.float32)
+    args = {"q": q / np.linalg.norm(q, axis=-1, keepdims=True), "v": rng.normal(size=(64, 3)).astype(np.float32),
+            "a": rng.uniform(-3, 3, 64).astype(np.float32)}
+    calls = {
+        "multiply": lambda x: quat.multiply(x["q"], x["q"].flip(0)), "rotate_vec": lambda x: quat.rotate_vec(x["q"], x["v"]),
+        "from_euler": lambda x: quat.from_euler(x["a"], -x["a"], x["a"] * 0.5),
+        "to_euler": lambda x: torch.stack(quat.to_euler(x["q"]), -1),
+        "to_rotation_matrix": lambda x: quat.to_rotation_matrix(x["q"]),
+        "from_axis_angle": lambda x: quat.from_axis_angle(x["v"][0], x["a"][0]),
+        "normalize": lambda x: quat.normalize(x["q"] * 3.0),
+    }
+    for name, fn in calls.items():
+        cpu = fn({k: torch.from_numpy(v) for k, v in args.items()})
+        gpu = fn({k: torch.from_numpy(v).to(device) for k, v in args.items()})
+        check(gpu.device.type == "cuda", f"quat.{name} left the card")
+        errs["quat"] = max(errs.get("quat", 0.0), float((gpu.cpu() - cpu).abs().max()))
+    check(errs["quat"] <= POSE_QUAT_TOL, f"quat on the card differs from the CPU by {errs['quat']}")
+
+    cloud = rng.uniform(-1, 1, (40, 3)).astype(np.float32)
+    rots = [np.eye(3, dtype=np.float32)]
+    for axis in range(3):
+        for angle in (math.pi, math.radians(179.0), 0.7):
+            c, s = math.cos(angle), math.sin(angle)
+            m = np.eye(3)
+            i, j = [k for k in range(3) if k != axis]
+            m[i, i], m[i, j], m[j, i], m[j, j] = c, -s, s, c
+            rots.append(m.astype(np.float32))
+    data = np.stack([cloud @ r.T * np.float32(1.3) + np.float32(0.2) for r in rots])
+    want = procrustes.procrustes_align(torch.from_numpy(cloud), torch.from_numpy(data))
+    got = procrustes.procrustes_align(torch.from_numpy(cloud).to(device), torch.from_numpy(data).to(device))
+    errs["procrustes rotation"] = float((got[0].cpu() - want[0]).abs().max())
+    errs["procrustes vs truth"] = float(np.abs(got[0].cpu().numpy() - np.stack(rots)).max())
+    check(errs["procrustes rotation"] <= POSE_ROT_TOL and errs["procrustes vs truth"] <= POSE_ROT_TOL,
+          f"procrustes_align on the card: rotations off by {errs['procrustes rotation']} (CPU), "
+          f"{errs['procrustes vs truth']} (truth)")
+    res = procrustes.ProcrustesAnalyzer(cloud).analyze(torch.from_numpy(data[1]).to(device))
+    check(np.allclose(res.rotation_matrix(), rots[1], atol=POSE_ROT_TOL), "ProcrustesAnalyzer on CUDA tensors")
+
+    pts = rng.uniform(-1, 1, (12, 3)).astype(np.float32)
+    pts[:, 2] += 5.0
+    uv = (pts @ rots[3].T + np.float32([0.2, -0.1, 1.0]))
+    uv = (uv[:, :2] / uv[:, 2:3]).astype(np.float32)
+    a, b = Dlt(pts).solve(uv), Dlt(torch.from_numpy(pts).to(device)).solve(torch.from_numpy(uv).to(device))
+    check(np.array_equal(a.rotation(), b.rotation()) and np.array_equal(a.translation, b.translation),
+          "Dlt on CUDA tensors differs from numpy")
+    x = rng.normal(size=50).astype(np.float32)
+    y = x + np.float32(1e-6)
+    for fn in (approx.abs_diff_eq, approx.rel_diff_eq):
+        check(fn(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device), 1e-6) == fn(x, y, 1e-6),
+              f"approx.{fn.__name__} on CUDA tensors")
+    check(approx.ulps_diff_eq(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device), 64)
+          == approx.ulps_diff_eq(x, y, 64), "approx.ulps_diff_eq on CUDA tensors")
+
+    res = Estimator(FaceMeshV1(device=device)).estimate(Image(cropped, device))
+    ref = reference_positions().copy()
+    ref[:, 1] *= -1.0
+    w, qx, qy, qz = procrustes.ProcrustesAnalyzer(ref).analyze(res.landmarks_mut().positions()).rotation_quaternion()
+    yaw = math.degrees(math.atan2(2 * (w * qy + qx * qz), 1 - 2 * (qy * qy + qz * qz)))
+    stored = identify_fixture(np)
+    errs["landmarks"] = float(np.abs(res.landmarks_mut().positions() - stored["pose_landmarks"]).max())
+    errs["yaw"] = abs(yaw - float(stored["pose_yaw"]))
+    check(errs["landmarks"] <= HOST_LM_TOL_PX and errs["yaw"] <= POSE_YAW_TOL_DEG,
+          f"head pose on the card: landmarks {errs['landmarks']} px, yaw {yaw} against JAX's {stored['pose_yaw']}")
+    print(f"blend, quat, Procrustes, Dlt, approx on the card vs the port on the CPU, and the head pose vs JAX: "
+          f"blend {differing} of {total} u8 values differ by one step; max errors "
+          f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (quat {POSE_QUAT_TOL}, rotations {POSE_ROT_TOL}, "
+          f"landmarks {HOST_LM_TOL_PX} px, yaw {POSE_YAW_TOL_DEG} deg); yaw {yaw:.4f} deg (JAX "
+          f"{float(stored['pose_yaw']):.4f}); Dlt and approx equal", flush=True)
+
+
+def phase_identify_full_size(torch, np, img, device, card, tracker, ident, rgba, cropped, batches=(64, 512)):
+    """``StreamIdentifier.run_frames`` on the tiled 1080p photo at batches 64
+    and 512, 54 steps after 9 with detection forced every 9th step, in turns
+    with the plain main path (FaceTracker, StreamIdentifier,
+    StreamIdentifier, FaceTracker): ms/step and frames/s of both; the
+    rotated kernel launched twice a step, the stage kernel as on the main
+    path, the letterbox on detect steps, no plain kernel version; every
+    stream identified as the enrolled face. At 512: a 9-step profile of the step and one of the
+    embedding pass alone (the 112² sampler and MobileFaceNet), and no
+    crop-shaped copy between a sampler and its network. Then
+    ``FaceIdentifier.enroll``/``identify`` per call on the host clock. →
+    (the identifier, its frames, state and launches at 512)."""
+    from zaru_tpu_torch.face.identify import FaceIdentifier, StreamIdentifier
+    from zaru_tpu_torch.image import Image
+
+    sid = StreamIdentifier(tracker, ident._embedder, device=device)
+    sid.adopt(ident)
+    result = {}
+    for batch in batches:
+        frames = img.expand(batch, *img.shape).contiguous()
+        boxes = {"FaceTracker": {"state": tracker.init_state(batch)}, "StreamIdentifier": {"state": sid.init_state(batch)}}
+
+        def ft_step(i, box=boxes["FaceTracker"], frames=frames):
+            box["state"], box["out"] = tracker.step_batch(box["state"], frames, force_detect=(i % 9 == 0))
+
+        def sid_step(i, box=boxes["StreamIdentifier"], frames=frames):
+            box["state"], box["out"] = sid.run_frames(box["state"], frames, force_detect=(i % 9 == 0))
+
+        ms, launches = {"FaceTracker": [], "StreamIdentifier": []}, {}
+        with PlainWatch(torch) as watch:
+            for what, step in (("FaceTracker", ft_step), ("StreamIdentifier", sid_step),
+                               ("StreamIdentifier", sid_step), ("FaceTracker", ft_step)):
+                dt, launches[what] = timed_run(torch, step, f"{what}, batch {batch}", FACE_KERNELS)
+                ms[what].append(dt / STEPS * 1e3)
+        check(not watch.calls, f"StreamIdentifier, batch {batch}: a plain kernel version ran on the card: {watch.calls}")
+        got, main = launches["StreamIdentifier"], launches["FaceTracker"]
+        check(got["rotated_sample"] == 2 * STEPS and main["rotated_sample"] == STEPS
+              and got["letterbox_sample"] == main["letterbox_sample"] == STEPS // 9
+              and got["blaze_stage"] == main["blaze_stage"],
+              f"StreamIdentifier launches {got}, main path {main}")
+        out = boxes["StreamIdentifier"]["out"]
+        dist = out["identity_distance"]
+        check(bool(out["valid"].all()) and bool((out["identity"] == 0).all()) and float(dist.max()) < 1.0,
+              f"StreamIdentifier, batch {batch}: identities {out['identity'].unique().tolist()}, "
+              f"max distance {float(dist.max())}")
+        print(f"StreamIdentifier at 1920x1080, batch {batch}, in turns with the main path (FaceTracker, "
+              f"StreamIdentifier, StreamIdentifier, FaceTracker), {STEPS} steps each (detect every 9th): main path "
+              f"{ms['FaceTracker'][0]:.3f} / {ms['FaceTracker'][1]:.3f} ms/step, StreamIdentifier "
+              f"{ms['StreamIdentifier'][0]:.3f} / {ms['StreamIdentifier'][1]:.3f} ms/step "
+              f"({batch * 1e3 / ms['StreamIdentifier'][0]:.1f} / {batch * 1e3 / ms['StreamIdentifier'][1]:.1f} "
+              f"frames/s); every stream identified "
+              f"as '{sid.names[0]}', distance {float(dist.min()):.4f}-{float(dist.max()):.4f}; launches "
+              f"StreamIdentifier {got}, main path {main} [{card}]", flush=True)
+        result[batch] = (ms, launches)
+        if batch == max(batches):
+            profile_steps(torch, sid_step, batch, "StreamIdentifier")
+            rois = boxes["StreamIdentifier"]["state"]["roi"]
+            profile_steps(torch, lambda i: sid._embed_batch(frames, rois), batch,
+                          "StreamIdentifier's embedding pass alone (112x112 sampler + MobileFaceNet)")
+            check_no_layout_copy(torch, sid_step, [(192, 192), (128, 128), (112, 112)], "StreamIdentifier")
+            kept = (frames, boxes["StreamIdentifier"]["state"], got)
+
+    full, crop = Image(rgba, device), Image(cropped, device)
+    enroller = FaceIdentifier(embedder=ident._embedder, device=device)
+    calls = {"FaceIdentifier.enroll": lambda: check(enroller.enroll("linus", crop), "enroll found no face"),
+             "FaceIdentifier.identify": lambda: check(ident.identify(full) is not None, "identify found no match")}
+    per_call = {}
+    for what, fn in calls.items():
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        zero_launches()
+        with PlainWatch(torch) as watch:
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            dt = time.perf_counter() - t0
+        launches = read_launches()
+        check(not watch.calls, f"{what}: a plain version of a kernel ran on the card: {watch.calls}")
+        check(launches["blaze_stage"] == 2 * HOST_CALLS and launches["rotated_sample"] == 0
+              and launches["letterbox_sample"] == 0, f"{what}: launches {launches}")
+        per_call[what] = dt / HOST_CALLS * 1e3
+        print(f"{what} (detect + embed, {'cropped 535x535' if 'enroll' in what else '1280x720'} photo): "
+              f"{HOST_CALLS} calls in {dt:.3f} s, {per_call[what]:.3f} ms/call (host clock, host read included); "
+              f"launches {launches} ({launches['blaze_stage'] / HOST_CALLS:.0f} stage chains a call) [{card}]",
+              flush=True)
+    return sid, kept, result
+
+
 def timed_phase(what, fn, *args):
     """``fn(*args)``, then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -2200,6 +2551,7 @@ def run_phases(torch, np, F, device, smi):
     rgba, img = load_photo(torch, F, np, device)
     timed("3, this slice's shapes vs plain", phase_slice_shapes_vs_plain, torch, np, device, rgba)
     timed("3, BodyTracker's shapes vs plain", phase_body_shapes_vs_plain, torch, np, device)
+    timed("3, StreamIdentifier's 112x112 crops vs plain", phase_identify_shapes_vs_plain, torch, np, device, rgba)
     rgb = timed("3, RGB to YUV vs plain", phase_yuv_vs_plain, torch, img, device)
     timed("4, FaceTracker vs JAX", phase_vs_jax, torch, np, device, rgba)
     timed("4, face models and entry points vs JAX", phase_face_models_vs_jax, torch, np, device, rgba)
@@ -2209,7 +2561,12 @@ def run_phases(torch, np, F, device, smi):
     timed("4, body host API and nms_remove_device vs JAX", phase_host_remainders_vs_jax, torch, np, device, rgba)
     timed("4, bf16 networks and trackers vs JAX", phase_bf16_vs_jax, torch, np, device, rgba)
     timed("4, host engines and eval: the full sweep", full_sweep, torch, np, device, cropped, rgba, smi, "first")
+    ident = timed("4, identification vs JAX", phase_identify_vs_jax, torch, np, device, rgba, cropped)
+    timed("4, blend, quat, Procrustes, Dlt, approx and the head pose", phase_pose3d_vs_cpu, torch, np, device, cropped)
     tracker, runs = timed("5, face runs", phase_full_size, torch, img, device, smi)
+    sid, (sid_frames, sid_state, sid_launches), _ = timed(
+        "5, StreamIdentifier in turns with the main path", phase_identify_full_size, torch, np, img, device, smi,
+        tracker, ident, rgba, cropped)
     hands, hand_frames, seed, multi = timed("5, multi-object runs", phase_multi_full_size, torch, img, device, smi)
     model_frames, models, run_frame_ms = timed("5, face models and run_frame", phase_slice_full_size, torch, img,
                                                device, smi)
@@ -2226,6 +2583,7 @@ def run_phases(torch, np, F, device, smi):
           f"{ {k: v[2] for k, v in models.items()} }", flush=True)
     print(f"launches in the BodyTracker run at 512 ({STEPS} steps): {body_launches}; in the serving run at "
           f"{SERVE_STREAMS} streams ({STEPS} steps): {serve_launches}", flush=True)
+    print(f"launches in the StreamIdentifier run at 512 ({STEPS} steps): {sid_launches}", flush=True)
     print(f"launches in the host engines' runs ({HOST_CALLS} calls each): "
           f"{ {k: v[1]['blaze_stage'] for k, v in host_calls.items()} } stage chains; in the timed sweep: "
           f"{ {k: v[1]['blaze_stage'] for k, v in sweeps.items()} }", flush=True)
@@ -2254,6 +2612,9 @@ def run_phases(torch, np, F, device, smi):
     kernels.append(phase_stage_times(torch, host_cnns, rgba[None], {"roi": host_roi},
                                      sum(v[1]["blaze_stage"] for v in host_calls.values()), 3 * HOST_CALLS,
                                      "host engines, batch 1"))
+    kernels += phase_kernel_times(torch, sid_frames, sid.embedder.cnn(), tracker.det_cnn, sid_state["roi"],
+                                  sid_launches, "StreamIdentifier run, 112x112 identity crops",
+                                  names=("rotated_sample",), view_rects=sid._crop_rects(sid_state["roi"]))
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -69,6 +69,9 @@ def test_imports_neither_jax_nor_zaru_tpu():
         "import zaru_tpu_torch.detection, zaru_tpu_torch.landmark, zaru_tpu_torch.filters\n"
         "import zaru_tpu_torch.face.landmark.multipie68, zaru_tpu_torch.face.landmark.canonical_face\n"
         "import zaru_tpu_torch.hand.tracking, zaru_tpu_torch.eval\n"
+        "import zaru_tpu_torch.face.recognition, zaru_tpu_torch.face.identify, zaru_tpu_torch.image.blend\n"
+        "import zaru_tpu_torch.quat, zaru_tpu_torch.procrustes, zaru_tpu_torch.pnp, zaru_tpu_torch.approx\n"
+        "from zaru_tpu_torch.face import identify, recognition\n"
         "from zaru_tpu_torch.detection import Detector\n"
         "from zaru_tpu_torch.landmark import Estimator, LandmarkTracker\n"
         "from zaru_tpu_torch.hand.tracking import HandTracker\n"
@@ -100,6 +103,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from zaru_tpu_torch.face.landmark.multipie68 import FaceOnnx, PeppaFacialLandmark
     from zaru_tpu_torch.hand.tracking import HandTracker
     from zaru_tpu_torch.nn import Loader, NeuralNetwork
+    from zaru_tpu_torch.face.identify import FaceIdentifier, StreamIdentifier
+    from zaru_tpu_torch.face.recognition import Embedder
+    from zaru_tpu_torch.image.blend import blend
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (
@@ -134,6 +140,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: MultiHandTracker(compute_dtype=torch.bfloat16),
         lambda: BodyTracker(compute_dtype=torch.bfloat16),
         *(lambda name=name: ev.RUNNERS[name]() for name in ev.RUNNERS),
+        Embedder,
+        FaceIdentifier,
+        StreamIdentifier,
+        lambda: StreamIdentifier(threshold=0.5, crop_grow=0.1),
+        lambda: blend(Image.new(4, 4), Image.new(2, 2)),
         resolve_device,
         lambda: resolve_device("cuda"),
     ):

@@ -25,9 +25,12 @@ track|serve|info``; the host engines (``nn.NeuralNetwork``/``Loader``,
 68-point landmarkers (``face.landmark.multipie68``); the equivariance sweep
 (:mod:`zaru_tpu_torch.eval`, ``python -m zaru_tpu_torch eval``);
 ``compute_dtype=torch.bfloat16`` (bf16 network bodies) on every network
-and on ``FaceTracker``, ``MultiHandTracker`` and ``BodyTracker``. Not
-ported: ``serve --shard`` and the ``export``/``run-exported`` subcommands
-(ROADMAP Queue 1).
+and on ``FaceTracker``, ``MultiHandTracker`` and ``BodyTracker``; face
+identification (``face.recognition.Embedder``, ``face.identify``'s
+``FaceIdentifier`` and ``StreamIdentifier``), ``image.blend``, ``quat``,
+``procrustes``, ``pnp`` and ``approx``. Not ported: the NHWC layout and 45
+ONNX ops, ``serve --shard`` and the ``export``/``run-exported``
+subcommands (ROADMAP Queue 1).
 """
 
 from ._device import resolve_device

@@ -21,6 +21,7 @@ __all__ = [
     "rect_iou",
     "rotate_cw",
     "rotate_ccw",
+    "rrect_transform_in",
     "rrect_transform_out",
     "rrect_bounding",
     "signed_angle_to_x",
@@ -72,6 +73,14 @@ def rotate_ccw(pt, radians):
     c, s = torch.cos(radians), torch.sin(radians)
     x, y = pt[..., 0], pt[..., 1]
     return torch.stack([c * x - s * y, s * x + c * y], dim=-1)
+
+
+def rrect_transform_in(rrect, pt):
+    """Parent coords → rotated-rect local coords, the local origin at the
+    rect's top-left corner (geometry.py:131)."""
+    center = rrect[..., 2:4] * 0.5
+    top_left = rrect[..., 0:2] - center
+    return rotate_cw(pt - top_left - center, rrect[..., 4]) + center
 
 
 def rrect_transform_out(rrect, pt):

@@ -5,7 +5,9 @@ arithmetic is IEEE: ``torch.round`` rounds half to even and is never used
 for pixel coordinates, and division by a Python number goes through
 :func:`div`. :func:`sigmoid_np` and :func:`total_f32_key` serve the host
 engines (numpy), as the JAX package's numpy branch of ``sigmoid`` and its
-``total_f32_key`` do.
+``total_f32_key`` do. :func:`xp` picks numpy or :data:`torch_np` for a
+value, as the JAX package's ``_xp`` (num.py:14) picks numpy or
+``jax.numpy``: ``quat.py`` and ``procrustes.py`` run one body on either.
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["round_half_away", "sigmoid", "sigmoid_np", "div", "fma", "recip", "total_f32_key"]
+__all__ = [
+    "round_half_away", "sigmoid", "sigmoid_np", "div", "fma", "recip", "total_f32_key", "to_numpy", "torch_np",
+    "xp",
+]
 
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
@@ -60,10 +65,10 @@ def div(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
-def recip(n: int) -> float:
-    """``f32(1/n)``: XLA compiles ``x / n`` for a constant ``n`` into
+def recip(n: float) -> float:
+    """``f32(1) / f32(n)``: XLA compiles ``x / n`` for a constant ``n`` into
     ``x * f32(1/n)``, which can be one ulp off the quotient when ``n`` is
-    not a power of two; the samplers' index maps follow it."""
+    not a power of two; the samplers' index maps and the blend follow it."""
     return float(np.float32(1.0) / np.float32(n))
 
 
@@ -84,3 +89,74 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
     odd = torch.where((err != 0) & ((s.view(torch.int64) & 1) == 0), torch.nextafter(s, toward), s)
     return odd.float()
+
+
+class _TorchLinalg:
+    svd = staticmethod(torch.linalg.svd)
+    det = staticmethod(torch.linalg.det)
+
+
+class _TorchNumpy:
+    """The numpy functions ``quat.py`` and ``procrustes.py`` call, with
+    numpy's names and keywords, on torch tensors. Results stay on the
+    inputs' device; a new array goes to the device of ``like``."""
+
+    linalg = _TorchLinalg
+    sqrt = staticmethod(torch.sqrt)
+    cos = staticmethod(torch.cos)
+    sin = staticmethod(torch.sin)
+    arctan2 = staticmethod(torch.atan2)
+    arcsin = staticmethod(torch.asin)
+    sign = staticmethod(torch.sign)
+    where = staticmethod(torch.where)
+    zeros_like = staticmethod(torch.zeros_like)
+    ones_like = staticmethod(torch.ones_like)
+    swapaxes = staticmethod(torch.swapaxes)
+    reshape = staticmethod(torch.reshape)
+
+    @staticmethod
+    def asarray(x, dtype=None, like=None):
+        return torch.as_tensor(x, dtype=dtype, device=None if like is None else like.device)
+
+    @staticmethod
+    def eye(n, dtype=None, like=None):
+        return torch.eye(n, dtype=dtype, device=None if like is None else like.device)
+
+    @staticmethod
+    def sum(x, axis=None, keepdims=False):
+        return torch.sum(x, dim=axis, keepdim=keepdims)
+
+    @staticmethod
+    def mean(x, axis=None):
+        return torch.mean(x, dim=axis)
+
+    @staticmethod
+    def stack(arrays, axis=0):
+        return torch.stack(arrays, dim=axis)
+
+    @staticmethod
+    def concatenate(arrays, axis=0):
+        return torch.cat(arrays, dim=axis)
+
+    @staticmethod
+    def cross(a, b):
+        return torch.linalg.cross(a, b, dim=-1)
+
+    @staticmethod
+    def clip(x, lo, hi):
+        return torch.clamp(x, lo, hi)
+
+
+torch_np = _TorchNumpy()
+
+
+def xp(x):
+    """The array namespace of ``x`` (zaru_tpu/num.py:14 ``_xp``):
+    :data:`torch_np` for a tensor, numpy for anything else."""
+    return torch_np if isinstance(x, torch.Tensor) else np
+
+
+def to_numpy(x):
+    """A host numpy copy of a tensor on any device; anything else as it
+    is (for the numpy-only host classes, which take tensors too)."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
