@@ -8,8 +8,8 @@ Phases, one line of output each and each phase's wall time (any failed
 check exits non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, CUDA version;
-2. build: the four kernels from ``zaru_tpu_torch/csrc``, one ``nvcc``
-   each, all started together;
+2. build: the kernels' five sources in ``zaru_tpu_torch/csrc`` (the stage
+   kernel's two layouts are two), one ``nvcc`` each, all started together;
 3. each kernel against its plain PyTorch version on the card: the
    rotated-ROI sampler bit for bit, in the NHWC and the planar layout, on
    coordinate-encoded 1080p frames at batch 64 with ``[B,2,5]`` slots
@@ -39,7 +39,14 @@ check exits non-zero):
    both grids, partly outside the frame, and on the crop rects stored from
    JAX's run (``identify.npz``), against the plain version and JAX's crops;
    the RGB→YUV kernel bit for bit on the fixture photo at 1920×1080 and on
-   random images of ragged sizes;
+   random images of ragged sizes; the stage kernel's NHWC variant (a
+   channels_last tensor) bit for bit against the NCHW kernel on the same
+   values, at the random cases above and at the ten chains of the two face
+   CNNs (their weights, random inputs at batch 512), and within
+   ``rtol = atol = 1e-4`` of its plain version; the two chains the stage
+   plan treats apart (``onnx_dialect.npz``): 48 channels, planned node by
+   node on the card as on the CPU, and 7 blocks at 128 channels, planned as
+   5 + 2 (two launches), both layouts, against the CPU and JAX;
 4. the paths against the JAX reference stored in
    ``zaru_tpu_torch/fixtures/``: ``FaceTracker`` one step at a time from
    JAX's state (flags equal, landmarks and ROI within the CPU test's
@@ -81,7 +88,13 @@ check exits non-zero):
    identities equal) and free-running, no plain kernel version on the card;
    blend, quat, Procrustes, Dlt and approx on CUDA tensors against the
    port's CPU run, and the head pose's yaw (Face Mesh V1 on the cropped
-   photo → ``ProcrustesAnalyzer``) against JAX's;
+   photo → ``ProcrustesAnalyzer``) against JAX's; the ONNX dialect
+   (``onnx_dialect.npz``, tests/test_torch_onnx_ops.py, _fuzz.py,
+   _layout.py): every op case (Resize's shrinks, cubic and nearest among
+   them), the 50 fuzz graphs in their layouts at batch 3, and the six
+   bundled models loaded ``with_layout("NHWC")`` (and bf16 with NHWC on the
+   short-range detector) against JAX's stored runs at the tests'
+   tolerances, the models also against the port's NCHW modules;
 5. the paths at full size on the fixture photo upscaled to 1920×1080 on
    the card, 54 steps after 9 of warm-up: ``FaceTracker.step_batch`` at
    batches 64 and 512 with detection forced every 9th step, then
@@ -118,7 +131,12 @@ check exits non-zero):
    the main path (FaceTracker, StreamIdentifier, StreamIdentifier,
    FaceTracker) at 64 and 512, two rotated-sampler launches a step, every
    stream identified, with a profile of the step and of its embedding pass
-   at 512, and ``FaceIdentifier.enroll``/``identify`` per call. The card's machine has no image
+   at 512, and ``FaceIdentifier.enroll``/``identify`` per call; Face Mesh V1
+   on the rotated views and short-range BlazeFace on the letterbox views at
+   batch 512 through ``Cnn`` with NHWC-layout modules, in turns with the
+   NCHW ones (NCHW, NHWC, NHWC, NCHW; each run launching only its own stage
+   variant), and a 9-call profile of each counting copy kernels and crop-
+   or activation-sized copies. The card's machine has no image
    decoder (cv2, PIL), so file decoding is not run here: the CPU tests
    (tests/test_torch_serve.py) cover the CLI's inputs;
 6. each kernel's time at its main-path inputs (queued behind a device spin
@@ -136,8 +154,10 @@ check exits non-zero):
    512×192², the stage kernel's ten chains at batch 1 (``run_frame``), and
    both samplers at BodyTracker's 512×256² (256-pixel grid) and 512×224²,
    the stage kernel's ten chains at batch 1 for the host engines'
-   launches, and the rotated sampler at StreamIdentifier's 512×112², as
-   further entries of the JSON line;
+   launches, the rotated sampler at StreamIdentifier's 512×112², and the
+   stage kernel's NHWC variant at the ten chains (channels_last copies of
+   their real inputs, the same bound), as further entries of the JSON
+   line;
 7. the launch counts of phase 5, then one JSON line of per-kernel numbers,
    then the result line.
 
@@ -435,16 +455,22 @@ def phase_kernels_vs_plain(torch, device):
             "alpha": None if relu else torch.rand(C, generator=gen) * 0.25 + 0.05,
         } for _ in range(nb)]
         x = torch.randn((512, C, H, W), generator=gen).to(device)
-        got = fused_blocks(x, pack_blocks(blocks, C).to(device), H, W, C)
+        packed = pack_blocks(blocks, C).to(device)
+        got = fused_blocks(x, packed, H, W, C)
+        got_nhwc = fused_blocks(x.contiguous(memory_format=torch.channels_last), packed, H, W, C)
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             want = blaze_blocks_reference(
                 x, [{k: None if v is None else v.to(device) for k, v in b.items()} for b in blocks])
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         ok = bool(((got - want).abs() <= STAGE_TOL + STAGE_TOL * want.abs()).all())
+        nhwc_differ = int((got_nhwc != got).sum())
         print(f"blaze_stage vs plain, random weights, [512,{C},{H},{W}] x {nb} blocks"
-              f"{' (ReLU)' if relu else ''} (tiles {_tiling(C, H, W, nb)[:2]}): max abs err {err}", flush=True)
+              f"{' (ReLU)' if relu else ''} (tiles {_tiling(C, H, W, nb)[:2]}): max abs err {err}; the NHWC "
+              f"variant on the channels_last copy: {nhwc_differ} values differ from the NCHW kernel", flush=True)
         check(ok, "blaze_stage kernel disagrees with its plain version")
+        check(nhwc_differ == 0 and got_nhwc.is_contiguous(memory_format=torch.channels_last),
+              "the NHWC stage variant is not bit-equal to the NCHW kernel (or not channels_last)")
     try:
         fused_blocks(torch.zeros((2, 8, 6, 6), device=device), torch.zeros((1, 8 * 8 + 12 * 8), device=device),
                      6, 6, 8)
@@ -799,23 +825,25 @@ MULTI_BATCH = 128  # streams of the multi-object runs (4 slots each: 512 crops a
 
 
 def launch_counters():
-    """Each kernel's wrapper, whose ``launches`` counts its kernel's launches."""
+    """Each kernel's wrapper and the attribute that counts its kernel's
+    launches (the stage kernel counts its NHWC variant apart)."""
     from zaru_tpu_torch.ops.cnn_stage import fused_blocks
     from zaru_tpu_torch.ops.letterbox import letterbox_sample
     from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast
     from zaru_tpu_torch.ops.yuv import rgb_to_yuv_fast
 
-    return {"rotated_sample": rotated_sample_fast, "letterbox_sample": letterbox_sample,
-            "blaze_stage": fused_blocks, "rgb_to_yuv": rgb_to_yuv_fast}
+    return {"rotated_sample": (rotated_sample_fast, "launches"), "letterbox_sample": (letterbox_sample, "launches"),
+            "blaze_stage": (fused_blocks, "launches"), "blaze_stage_nhwc": (fused_blocks, "nhwc_launches"),
+            "rgb_to_yuv": (rgb_to_yuv_fast, "launches")}
 
 
 def zero_launches():
-    for fn in launch_counters().values():
-        fn.launches = 0
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in launch_counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
 
 
 def timed_run(torch, step, what, kernels):
@@ -1204,14 +1232,16 @@ def phase_yuv_times(torch, rgb, launches):
     }
 
 
-def phase_stage_times(torch, tracker, frames, state, launches, steps, what="main path"):
+def phase_stage_times(torch, tracker, frames, state, launches, steps, what="main path", nhwc=False):
     """The stage kernel at each BlazeBlock chain of the two face CNNs, on the
     chain's real input at batch 512 (the main path's crops and letterbox
     views) and the real weights: checked against its plain version, then
     timed beside the plain version and the per-op chain the executor ran
     before the stage plan (``F.conv2d`` depthwise, ``F.conv2d`` 1×1, ``+``,
     ``torch.where`` PReLU or ``torch.relu`` per block, TF32 off). The JSON
-    row sums the ten chains, one launch each."""
+    row sums the ten chains, one launch each. ``nhwc``: the same on a
+    channels_last copy of each input, through the NHWC variant (its own
+    row)."""
     from zaru_tpu_torch.onnx.executor import _OPS
     from zaru_tpu_torch.ops.cnn_stage import (
         _tiling, blaze_blocks_reference, fused_blocks, pack_blocks, unpack_blocks,
@@ -1233,7 +1263,7 @@ def phase_stage_times(torch, tracker, frames, state, launches, steps, what="main
             params = net.params()
             env = net.activations(xs)
             for k, st in enumerate(net.stages):
-                x = env[st.input]
+                x = env[st.input].contiguous(memory_format=torch.channels_last if nhwc else torch.contiguous_format)
                 B, C, H, W = x.shape
                 nb = len(st.blocks)
                 packed = pack_blocks(
@@ -1261,7 +1291,8 @@ def phase_stage_times(torch, tracker, frames, state, launches, steps, what="main
                 nbytes = 2 * x.numel() * 4 + packed.numel() * 4
                 ops = nb * B * H * W * C * (2 * (9 + C) + 4)
                 t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-                print(f"blaze_stage, {what}, {model} chain {k}: [{B},{C},{H},{W}] x {nb} blocks "
+                print(f"blaze_stage{' NHWC' if nhwc else ''}, {what}, {model} chain {k}: [{B},{C},{H},{W}] "
+                      f"x {nb} blocks "
                       f"(tiles {_tiling(C, H, W, nb)[:2]}): {ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
                       f"({'bytes' if t_bytes >= t_ops else 'operations'}), plain {plain_ms:.4f} ms, "
                       f"per-op chain {chain_ms:.4f} ms, max abs err {err} (per-op chain vs plain "
@@ -1274,11 +1305,13 @@ def phase_stage_times(torch, tracker, frames, state, launches, steps, what="main
                 tot["err"] = max(tot["err"], err)
             del env
     t_bytes, t_ops = tot["bytes"] / HBM_BYTES_PER_S * 1e3, tot["ops"] / F32_FLOPS * 1e3
-    print(f"blaze_stage, {what}, the ten chains at batch {frames.shape[0]}, one launch each: {tot['ms']:.4f} ms, "
+    print(f"blaze_stage{' NHWC' if nhwc else ''}, {what}, the ten chains at batch {frames.shape[0]}, one launch each: "
+          f"{tot['ms']:.4f} ms, "
           f"bound {max(t_bytes, t_ops):.4f} ms, plain {tot['plain_ms']:.4f} ms, per-op chain "
           f"{tot['library_ms']:.4f} ms; {launches / steps:.3f} launches/step", flush=True)
     return {
-        "name": "blaze_stage", "route": "cuda", "source": "zaru_tpu_torch/csrc/blaze_stage.cu",
+        "name": "blaze_stage_nhwc" if nhwc else "blaze_stage", "route": "cuda",
+        "source": f"zaru_tpu_torch/csrc/blaze_stage{'_nhwc' if nhwc else ''}.cu (kernel: csrc/blaze_stage.cuh)",
         "replaces": "zaru_tpu/ops/cnn_stage.py:148", "launches": launches, "path": what,
         "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1583,13 +1616,12 @@ def phase_serve(torch, np, img, device, card, tracker, tiled_ms, run_frame_ms):
 
     def timed(single, steps, streams, up):
         stage0, flush0 = up.stage_seconds, up.flush_seconds
-        for fn in launch_counters().values():
-            fn.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         stats = serve_loop(tracker, streams, up, single=single, steps=steps, emit=lambda rec, out: None)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in launch_counters().items()}
+        launches = read_launches()
         return dt, stats, launches, (up.stage_seconds - stage0) / steps, (up.flush_seconds - flush0) / steps
 
     for n in (WARMUP, STEPS):  # warm-up, then the timed run; each starts from a fresh state
@@ -2496,6 +2528,279 @@ def phase_identify_full_size(torch, np, img, device, card, tracker, ident, rgba,
     return sid, kept, result
 
 
+# --- the ONNX dialect and the NHWC layout (onnx/executor.py, onnx/layout.py) ---
+
+DIALECT_FIXTURE = "onnx_dialect.npz"  # tests/test_torch_onnx_{ops,fuzz,layout}.py
+DIALECT_CHAINS = {"chain of 2 blocks at 48 channels": [], "chain of 7 blocks at 128 channels": [5, 2]}
+
+
+def dialect_cases(np):
+    """The stored cases of the dialect's tests: ``{"ops/<name>": {"graph":
+    bytes, "tol": str, "ins": [...], "outs": [...], ...}}`` (a ``layout``
+    and, for the bundled models, a ``model`` file name)."""
+    from zaru_tpu_torch.assets import fixture_path
+
+    cases = {}
+    with np.load(fixture_path(DIALECT_FIXTURE)) as f:
+        for k in f.files:
+            name, field = k.rsplit("/", 1)
+            cases.setdefault(name, {})[field] = f[k]
+    out = {}
+    for name, c in cases.items():
+        case = {"ins": [c[f"in{i}"] for i in range(sum(k.startswith("in") for k in c))],
+                "outs": [c[f"out{i}"] for i in range(sum(k.startswith("out") for k in c))]}
+        for k, v in c.items():
+            if k == "graph":
+                case[k] = v.tobytes()
+            elif not k.startswith(("in", "out")):
+                case[k] = str(v)
+        out[name] = case
+    return out
+
+
+def _ordered(np, a):
+    i = a.astype(np.float32).view(np.int32).astype(np.int64)
+    return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def dialect_error(np, got, want, tol):
+    """``(ok, error)`` of ``got`` against JAX's ``want`` at the tests'
+    tolerance ``tol`` (tests/test_torch_onnx_ops.py ``check``): the count of
+    unequal values (``exact``, integers), ulps (``ulp:N``), the largest
+    absolute error (``abs:X``, ``cnn``) or bf16 ulps of max(1, |out|max)
+    (``bf16:N``)."""
+    if got.shape != want.shape:
+        return False, float("inf")
+    if tol == "exact" or want.dtype.kind in "biu":
+        n = int((got.astype(want.dtype) != want).sum())
+        return n == 0, n
+    if tol.startswith("ulp:"):
+        u = int(np.abs(_ordered(np, got) - _ordered(np, want)).max()) if want.size else 0
+        return u <= int(tol[4:]), u
+    err = float(np.abs(got - want).max()) if want.size else 0.0
+    top = max(1.0, float(np.abs(want).max())) if want.size else 1.0
+    if tol == "cnn":
+        return bool((np.abs(got - want) <= 1e-3 * top + 2e-3 * np.abs(want)).all()), err
+    if tol.startswith("bf16:"):
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+        return err <= int(tol[5:]) * ulp, err / ulp
+    return err <= float(tol[4:]) * top, err
+
+
+def _numpy_outs(torch, outs):
+    return [o if not isinstance(o, torch.Tensor) else o.float().cpu().numpy() for o in outs]
+
+
+def run_graph(torch, np, data, ins, device, layout="NCHW"):
+    """An ONNX graph's outputs (numpy) on ``device`` in ``layout``, and its
+    module."""
+    import warnings
+
+    from zaru_tpu_torch.onnx import load_model
+
+    m = load_model(data, torch.device(device), layout=layout)
+    with torch.inference_mode(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # Resize's approximation warnings, as in the tests
+        outs = m(*(torch.from_numpy(np.asarray(x)).to(device) for x in ins))
+    return m, _numpy_outs(torch, outs)
+
+
+def phase_stage_nhwc_vs_plain(torch, np, device):
+    """The stage kernel's NHWC variant at the ten chains of the two face
+    CNNs (their weights, random inputs at batch 512): bit for bit against
+    the NCHW kernel on the same values, within ``rtol = atol = 1e-4`` of the
+    plain version on the channels_last input; then the two chains the plan
+    treats apart (tests/test_torch_onnx_ops.py): 48 channels, which the
+    kernel is not built for, planned as on the CPU (no stage) and run node
+    by node, and 7 blocks at 128 channels, planned as 5 + 2 on both devices;
+    each on the card against the CPU and against JAX."""
+    from zaru_tpu_torch.assets import model_path
+    from zaru_tpu_torch.onnx import load_model
+    from zaru_tpu_torch.ops.cnn_stage import blaze_blocks_reference, fused_blocks, unpack_blocks
+
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    worst = 0.0
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for model, side in (("face_landmark.onnx", 192), ("face_detection_short_range.onnx", 128)):
+            net = load_model(model_path(model).read_bytes(), device)
+            env = net.activations(torch.rand((2, 3, side, side), generator=gen).to(device) * 2 - 1)
+            for k, st in enumerate(net.stages):
+                _, C, H, W = env[st.input].shape
+                x = (torch.rand((512, C, H, W), generator=gen) * 2 - 1).to(device)
+                packed = net._packed[st.nodes[0]]
+                x_cl = x.contiguous(memory_format=torch.channels_last)
+                got, ref = fused_blocks(x_cl, packed, H, W, C), fused_blocks(x, packed, H, W, C)
+                want = blaze_blocks_reference(x_cl, unpack_blocks(packed, C))
+                torch.cuda.synchronize()
+                differ = int((got != ref).sum())
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                check(got.is_contiguous(memory_format=torch.channels_last),
+                      f"the NHWC variant's output is not channels_last ({model} chain {k})")
+                check(differ == 0, f"the NHWC stage variant differs from the NCHW kernel at {model} chain {k}: "
+                      f"{differ} values")
+                check(bool(((got - want).abs() <= STAGE_TOL + STAGE_TOL * want.abs()).all()),
+                      f"the NHWC stage variant disagrees with its plain version at {model} chain {k}")
+            del env
+    print(f"blaze_stage NHWC variant at the ten chains of the two face CNNs, [512,C,H,W] channels_last: "
+          f"bit-equal to the NCHW kernel, max abs err vs plain {worst}", flush=True)
+    x = torch.zeros((2, 16, 6, 6), device=device).transpose(2, 3)  # neither layout
+    try:
+        fused_blocks(x, torch.zeros((1, 16 * 16 + 12 * 16), device=device), 6, 6, 16)
+    except ValueError as e:
+        print(f"blaze_stage refuses a tensor in neither layout on the card: {e}", flush=True)
+    else:
+        check(False, "fused_blocks launched on a tensor that is neither NCHW-contiguous nor channels_last")
+
+    cases = dialect_cases(np)
+    for name, plan in DIALECT_CHAINS.items():
+        c = cases[f"ops/{name}"]
+        for layout in ("NCHW", "NHWC"):
+            zero_launches()
+            m, got = run_graph(torch, np, c["graph"], c["ins"], device, layout)
+            launches = read_launches()
+            cpu, want_cpu = run_graph(torch, np, c["graph"], c["ins"], "cpu", layout)
+            pieces = [len(st.blocks) for st in m.stages]
+            check(pieces == plan == [len(st.blocks) for st in cpu.stages],
+                  f"{name}: planned {pieces} on the card, {[len(st.blocks) for st in cpu.stages]} on the CPU")
+            key = "blaze_stage_nhwc" if layout == "NHWC" else "blaze_stage"
+            check(launches[key] == len(plan), f"{name} ({layout}): {launches[key]} stage launches, want {len(plan)}")
+            ok_cpu, err_cpu = dialect_error(np, got[0], want_cpu[0], c["tol"])
+            ok_jax, err_jax = dialect_error(np, got[0], c["outs"][0], c["tol"])
+            print(f"{name}, {layout}, batch {c['ins'][0].shape[0]}: planned {pieces or 'node by node'} on the "
+                  f"card as on the CPU, {launches[key]} stage launches; vs the CPU {err_cpu}, vs JAX {err_jax} "
+                  f"({c['tol']})", flush=True)
+            check(ok_cpu and ok_jax, f"{name} ({layout}) disagrees with the CPU or JAX")
+
+
+def phase_dialect_vs_jax(torch, np, device):
+    """Every stored case of tests/test_torch_onnx_{ops,fuzz,layout}.py on
+    the card against JAX's stored outputs, at the tests' tolerances: the
+    op cases (Resize's shrinks among them), the fuzz graphs in both layouts
+    at batch 3 (three images against JAX's three batch-1 runs), and the six
+    bundled models with
+    ``with_layout("NHWC")`` (and bf16 with NHWC on the short-range
+    detector), those also against the port's NCHW module on the card."""
+    from zaru_tpu_torch.nn import Loader
+
+    cases = dialect_cases(np)
+    worst, counts, failed = {}, {}, []
+    for name, c in sorted(cases.items()):
+        group = name.split("/", 1)[0]
+        runs = []
+        if group == "layout":
+            path = str(ROOT / "assets" / "onnx" / c["model"])
+            loader = Loader(path, device=device).with_layout("NHWC")
+            bf16 = c["tol"].startswith("bf16")
+            net = (loader.with_bf16() if bf16 else loader).load()
+            x = torch.from_numpy(c["ins"][0]).to(device)
+            with torch.inference_mode():
+                outs = net.estimate(x)
+                check(all(o.is_contiguous() for o in outs), f"{name}: an output leaves channels_last")
+                runs.append(("", _numpy_outs(torch, outs), c["outs"], c["tol"]))
+                if not bf16:
+                    ref = _numpy_outs(torch, Loader(path, device=device).load().estimate(x))
+                    runs.append((" vs the NCHW module", _numpy_outs(torch, outs), ref, "cnn"))
+        else:
+            _m, outs = run_graph(torch, np, c["graph"], c["ins"], device, c.get("layout", "NCHW"))
+            runs.append(("", outs, c["outs"], c["tol"]))
+        for what, outs, wants, tol in runs:
+            check(len(outs) == len(wants), f"{name}{what}: {len(outs)} outputs, want {len(wants)}")
+            for i, (got, want) in enumerate(zip(outs, wants)):
+                ok, err = dialect_error(np, np.asarray(got), want, tol)
+                if not ok:
+                    failed.append(f"{name}{what} output {i}: {err} ({tol})")
+                key = (group, tol.split(":")[0])
+                worst[key] = max(worst.get(key, 0), err)
+        counts[group] = counts.get(group, 0) + 1
+    print(f"ONNX dialect vs JAX on the card: {counts} cases, {len(failed)} outputs outside the tests' tolerance "
+          f"{failed}; the largest errors by group and kind (exact: values differing; ulp: ulps; abs, cnn: absolute; "
+          f"bf16: bf16 ulps): { {f'{g} {k}': v for (g, k), v in sorted(worst.items())} }", flush=True)
+    check(not failed, f"{len(failed)} outputs of the dialect's cases disagree with JAX on the card")
+
+
+def nhwc_copies(torch, step, crops, batch):
+    """Over a 9-call torch.profiler run of ``step``: the copy kernels on the
+    device per call, and the copy ops per call whose input is a crop
+    (``[N,3,h,w]``/``[N,h,w,3]`` for ``(h, w)`` in ``crops``) or a 4-D
+    activation of the batch (``[batch, ...]`` of at least 1024 values an
+    image)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        for i in range(9):
+            step(i)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "copy" in e.key.lower())
+    shapes = {(h, w, 3) for h, w in crops} | {(3, h, w) for h, w in crops}
+    crop = act = 0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key not in COPY_OPS + ("aten::copy_",) or not e.input_shapes or len(e.input_shapes[0]) != 4:
+            continue
+        shape = tuple(e.input_shapes[0])
+        if shape[1:] in shapes:
+            crop += e.count
+        elif shape[0] == batch and shape[1] * shape[2] * shape[3] >= 1024:
+            act += e.count
+    return kernels / 9, crop / 9, act / 9
+
+
+def phase_nhwc_full_size(torch, img, device, card, state, batch=512):
+    """Face Mesh V1 on the rotated views and short-range BlazeFace on the
+    letterbox views of the fixture photo at batch 512, through ``Cnn`` with
+    NHWC-layout modules and with the main path's NCHW ones, in turns (NCHW,
+    NHWC, NHWC, NCHW), 54 calls after 9 each; the NHWC runs must launch the
+    stage kernel's NHWC variant and not the NCHW one, and agree with the
+    NCHW runs at the CNN bar; then a 9-call profile of each layout counting
+    the copy kernels and the crop- or activation-sized copies."""
+    from zaru_tpu_torch.nn import Cnn, ColorMapper
+    from zaru_tpu_torch.pipeline import _ops
+
+    frames = img.expand(batch, *img.shape).contiguous()
+    mapper = ColorMapper.linear(-1.0, 1.0)
+    cnns = {layout: (Cnn.load("face_landmark.onnx", mapper, device, layout=layout),
+                     Cnn.load("face_detection_short_range.onnx", mapper, device, layout=layout))
+            for layout in ("NCHW", "NHWC")}
+    lm = cnns["NCHW"][0]
+    view_rects = _ops.aspect_view_rect(state["roi"], lm.input_resolution())
+    _fit, fit_rrect = _ops.full_frame_fit(frames, cnns["NCHW"][1].input_resolution())
+    fit_rrect = fit_rrect.expand(batch, 5).contiguous()
+
+    def call(layout):
+        lm_cnn, det_cnn = cnns[layout]
+        with torch.inference_mode():
+            return lm_cnn.apply_views_fast(frames, view_rects) + det_cnn.apply_views_letterbox(frames, fit_rrect)
+
+    outs = {layout: call(layout) for layout in ("NCHW", "NHWC")}
+    worst = 0.0
+    for got, want in zip(outs["NHWC"], outs["NCHW"], strict=True):
+        w = want.float().cpu().numpy()
+        g = got.float().cpu().numpy()
+        worst = max(worst, float(abs(g - w).max()))
+        check(bool((abs(g - w) <= 1e-3 * max(1.0, float(abs(w).max())) + 2e-3 * abs(w)).all()),
+              "the NHWC modules disagree with the NCHW ones on the photo's views")
+    ms, launches = {}, {}
+    for k, layout in enumerate(("NCHW", "NHWC", "NHWC", "NCHW")):
+        stage = "blaze_stage" if layout == "NCHW" else "blaze_stage_nhwc"
+        dt, n = timed_run(torch, lambda i, layout=layout: call(layout), f"Cnn, {layout} modules",
+                          ("rotated_sample", "letterbox_sample", stage))
+        ms.setdefault(layout, []).append(dt / STEPS * 1e3)
+        launches[layout] = n
+        other = "blaze_stage_nhwc" if layout == "NCHW" else "blaze_stage"
+        check(n[other] == 0, f"the {layout} modules launched {n[other]} times the other stage variant")
+    copies = {layout: nhwc_copies(torch, lambda i, layout=layout: call(layout), [(192, 192), (128, 128)], batch)
+              for layout in ("NCHW", "NHWC")}
+    print(f"Face Mesh V1 (rotated views) + BlazeFace short range (letterbox views) at batch {batch} through Cnn, "
+          f"{STEPS} calls after {WARMUP}, in turns NCHW / NHWC / NHWC / NCHW: "
+          f"{ms['NCHW'][0]:.3f} / {ms['NHWC'][0]:.3f} / {ms['NHWC'][1]:.3f} / {ms['NCHW'][1]:.3f} ms/call; "
+          f"NHWC vs NCHW outputs max abs {worst}; launches NCHW {launches['NCHW']}, NHWC {launches['NHWC']}; "
+          f"per call (copy kernels on the device, crop-sized copies, activation-sized copies): "
+          f"NCHW {copies['NCHW']}, NHWC {copies['NHWC']} [{card}]", flush=True)
+    return ms, launches["NHWC"], copies
+
+
 def timed_phase(what, fn, *args):
     """``fn(*args)``, then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -2528,7 +2833,7 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    print(f"build: {len(_build.SOURCES)} kernels in {_build.build_all():.1f} s "
+    print(f"build: {len(_build.SOURCES)} kernel sources in {_build.build_all():.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})", flush=True)
 
     # The pose models BodyTracker loads: the stub blobs stored in
@@ -2548,6 +2853,8 @@ def run_phases(torch, np, F, device, smi):
     """Phases 3-7 (see the module docstring)."""
     timed = timed_phase
     timed("3, kernels vs plain", phase_kernels_vs_plain, torch, device)
+    timed("3, the stage kernel's NHWC variant and the plan's other chains", phase_stage_nhwc_vs_plain, torch, np,
+          device)
     rgba, img = load_photo(torch, F, np, device)
     timed("3, this slice's shapes vs plain", phase_slice_shapes_vs_plain, torch, np, device, rgba)
     timed("3, BodyTracker's shapes vs plain", phase_body_shapes_vs_plain, torch, np, device)
@@ -2563,7 +2870,10 @@ def run_phases(torch, np, F, device, smi):
     timed("4, host engines and eval: the full sweep", full_sweep, torch, np, device, cropped, rgba, smi, "first")
     ident = timed("4, identification vs JAX", phase_identify_vs_jax, torch, np, device, rgba, cropped)
     timed("4, blend, quat, Procrustes, Dlt, approx and the head pose", phase_pose3d_vs_cpu, torch, np, device, cropped)
+    timed("4, the ONNX dialect and the NHWC layout vs JAX", phase_dialect_vs_jax, torch, np, device)
     tracker, runs = timed("5, face runs", phase_full_size, torch, img, device, smi)
+    _nhwc_ms, nhwc_launches, _copies = timed("5, NHWC-layout modules in turns with NCHW", phase_nhwc_full_size, torch,
+                                             img, device, smi, runs["main path"][1])
     sid, (sid_frames, sid_state, sid_launches), _ = timed(
         "5, StreamIdentifier in turns with the main path", phase_identify_full_size, torch, np, img, device, smi,
         tracker, ident, rgba, cropped)
@@ -2584,6 +2894,7 @@ def run_phases(torch, np, F, device, smi):
     print(f"launches in the BodyTracker run at 512 ({STEPS} steps): {body_launches}; in the serving run at "
           f"{SERVE_STREAMS} streams ({STEPS} steps): {serve_launches}", flush=True)
     print(f"launches in the StreamIdentifier run at 512 ({STEPS} steps): {sid_launches}", flush=True)
+    print(f"launches in the NHWC-layout Cnn run at 512 ({STEPS} calls): {nhwc_launches}", flush=True)
     print(f"launches in the host engines' runs ({HOST_CALLS} calls each): "
           f"{ {k: v[1]['blaze_stage'] for k, v in host_calls.items()} } stage chains; in the timed sweep: "
           f"{ {k: v[1]['blaze_stage'] for k, v in sweeps.items()} }", flush=True)
@@ -2593,6 +2904,8 @@ def run_phases(torch, np, F, device, smi):
     kernels = phase_kernel_times(torch, frames, tracker.lm_cnn, tracker.det_cnn, state["roi"], launches,
                                  "main path")
     kernels.append(phase_stage_times(torch, tracker, frames, state, launches["blaze_stage"], STEPS))
+    kernels.append(phase_stage_times(torch, tracker, frames, state, nhwc_launches["blaze_stage_nhwc"], STEPS,
+                                     "Cnn with NHWC-layout modules", nhwc=True))
     kernels.append(phase_yuv_times(torch, rgb, launches["rgb_to_yuv"]))
     phase_kernel_times(torch, hand_frames, hands.lm_cnn, hands.det_cnn, seed, multi["hand tracking"],
                        "hand tracking run", prescale_m=256)

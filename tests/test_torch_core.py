@@ -71,6 +71,7 @@ def test_imports_neither_jax_nor_zaru_tpu():
         "import zaru_tpu_torch.hand.tracking, zaru_tpu_torch.eval\n"
         "import zaru_tpu_torch.face.recognition, zaru_tpu_torch.face.identify, zaru_tpu_torch.image.blend\n"
         "import zaru_tpu_torch.quat, zaru_tpu_torch.procrustes, zaru_tpu_torch.pnp, zaru_tpu_torch.approx\n"
+        "import zaru_tpu_torch.onnx.executor, zaru_tpu_torch.onnx.layout\n"
         "from zaru_tpu_torch.face import identify, recognition\n"
         "from zaru_tpu_torch.detection import Detector\n"
         "from zaru_tpu_torch.landmark import Estimator, LandmarkTracker\n"
@@ -82,6 +83,16 @@ def test_imports_neither_jax_nor_zaru_tpu():
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_onnx_registry_is_jaxs():
+    """The port's executor runs exactly the JAX importer's ops
+    (zaru_tpu/onnx/ops.py ``OPS``)."""
+    from zaru_tpu.onnx.ops import OPS
+
+    from zaru_tpu_torch.onnx import SUPPORTED_OPS
+
+    assert SUPPORTED_OPS == set(OPS) and len(SUPPORTED_OPS) == 62
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -136,6 +147,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: NeuralNetwork.load("assets/onnx/slim_160_latest.onnx"),
         lambda: Loader("assets/onnx/slim_160_latest.onnx").load(),
         lambda: Loader("assets/onnx/slim_160_latest.onnx").with_bf16().load(),
+        lambda: Loader("assets/onnx/slim_160_latest.onnx").with_layout("NHWC").load(),
         lambda: FaceTracker(compute_dtype=torch.bfloat16),
         lambda: MultiHandTracker(compute_dtype=torch.bfloat16),
         lambda: BodyTracker(compute_dtype=torch.bfloat16),

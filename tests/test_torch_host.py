@@ -453,7 +453,7 @@ def test_reduce_mean_matches_jax(stored):
         assert got.shape == want.shape, name
         np.testing.assert_allclose(got, want, rtol=0, atol=OP_TOL, err_msg=name)
     w = OnnxWriter(opset=18)
-    w.input("x", X_SHAPE)
+    w.input("x", (1,) + X_SHAPE[1:])  # a batch-1 graph, run at batch 2
     w.node("ReduceMean", ["x"], ["y"])
     w.output("y", (1, 1, 1, 1))
     with pytest.raises(NotImplementedError, match="batch axis"):
@@ -472,13 +472,13 @@ def test_constant_matches_jax(stored):
 
 
 def test_every_model_loads_and_four_match_jax(stored):
-    """Every blob in assets/onnx loads in the port (18 ops now); the 68-point
+    """Every blob in assets/onnx loads in the port (62 ops now); the 68-point
     landmarkers, mobilefacenet and short-range BlazeFace at batch 1 on a
     seeded input are within the CNN bar of JAX's outputs. Neither 68-point
     network has a BlazeBlock chain for the stage kernel."""
     from zaru_tpu_torch.onnx import SUPPORTED_OPS
 
-    assert len(SUPPORTED_OPS) == 18
+    assert len(SUPPORTED_OPS) == 62
     names = sorted(n for n in os.listdir(ONNX_DIR) if n.endswith(".onnx"))
     assert len(names) == 10
     modules = {n: _load(os.path.join(ONNX_DIR, n)) for n in names}
@@ -498,7 +498,9 @@ def test_network_api():
     """``NeuralNetwork``/``Loader``: inputs, outputs, output selection by
     name and position, ``estimate`` on raw tensors; ``with_bf16`` loads a
     network whose body runs in bf16 and whose outputs are f32, near the f32
-    ones; the NHWC layout is refused, naming the ROADMAP item; ``Cnn``
+    ones; ``with_layout("NHWC")`` loads a channels_last module whose
+    outputs are the NCHW module's (tests/test_torch_onnx_layout.py holds it
+    to JAX); ``Cnn``
     takes ``(NeuralNetwork, CnnInputShape, ColorMapper)`` and refuses a
     shape that does not fit."""
     from zaru_tpu_torch.assets import model_path
@@ -525,8 +527,12 @@ def test_network_api():
         assert got.dtype == torch.float32 and got.shape == want.shape
         bound = 0.05 * max(1.0, float(want.abs().max()))  # the landmarks: 1.3 px of 224 measured
         assert float((got - want).abs().max()) <= bound
-    with pytest.raises(NotImplementedError, match="NHWC"):
-        Loader(path).with_layout("NHWC")
+    nhwc = Loader(path, device="cpu").with_layout("NHWC").load()
+    assert nhwc.module.layout == "NHWC"
+    for got, want in zip(nhwc.estimate(x), full, strict=True):
+        assert got.shape == want.shape and got.is_contiguous()
+        tol = 1e-3 * max(1.0, float(want.abs().max()))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=2e-3)
     cnn = Cnn(net, CnnInputShape.NCHW, ColorMapper.linear(0.0, 1.0))
     assert (cnn.input_resolution().width, cnn.input_resolution().height) == (224, 224)
     with pytest.raises(ValueError, match="input shape"):

@@ -16,9 +16,12 @@ samplers and run the network on the batch:
 - :meth:`Cnn.apply_tensor_hwc`: the network on ``[B,h,w,3]`` inputs
   (``nn.py:195-198``, batched instead of ``vmap``-ed);
 - :meth:`Cnn.apply_views_fast`, :meth:`Cnn.apply_views_letterbox`: the
-  network on views the samplers write in its own planar ``[N,3,h,w]``
-  layout, with no copy between the sampler and the network. The pipelines
-  use these;
+  network on views the samplers write in its own layout, with no copy
+  between the sampler and the network: planar ``[N,3,h,w]`` for an NCHW
+  module; for an NHWC-layout module (``NeuralNetwork.load(layout="NHWC")``,
+  ``onnx/layout.py``) the samplers' NHWC stores, handed to the network as
+  the ``permute(0, 3, 1, 2)`` view, which is channels_last, as JAX's
+  ``Cnn`` feeds ``apply_nhwc`` (nn.py:171-176). The pipelines use these;
 - :meth:`Cnn.sample_view_hwc`, :meth:`Cnn.apply_on_view`: the exact
   sampler (``ops/sampling.view_to_tensor_core``, ``nn.py:232,259``), which
   JAX runs as an XLA gather outside any Pallas kernel and the port runs as
@@ -77,12 +80,14 @@ class NeuralNetwork:
         self.module = module
 
     @staticmethod
-    def load(path_or_bytes, *, output_subset=None, compute_dtype=None, device=None) -> "NeuralNetwork":
+    def load(path_or_bytes, *, output_subset=None, compute_dtype=None, device=None, layout=None) -> "NeuralNetwork":
         """Parses an ONNX file (or its bytes) onto ``device`` (``cuda``
         unless named); ``output_subset`` selects the outputs by name or
         position; ``compute_dtype=torch.bfloat16`` runs the body in bf16
-        (the outputs stay f32; None is f32)."""
-        return NeuralNetwork(load_model(path_or_bytes, resolve_device(device), output_subset, compute_dtype))
+        (the outputs stay f32; None is f32); ``layout="NHWC"`` keeps the
+        activations channels_last (None is ``"NCHW"``)."""
+        return NeuralNetwork(load_model(path_or_bytes, resolve_device(device), output_subset, compute_dtype,
+                                        layout or "NCHW"))
 
     @property
     def device(self) -> torch.device:
@@ -125,6 +130,7 @@ class Loader:
         self._device = device
         self._output_subset = None
         self._compute_dtype = None
+        self._layout = None
 
     def with_output_selection(self, names: Sequence[str]) -> "Loader":
         self._output_subset = list(names)
@@ -140,23 +146,23 @@ class Loader:
         return self
 
     def with_layout(self, layout: str) -> "Loader":
-        """Only ``"NCHW"``, the ONNX layout, runs here."""
-        if layout != "NCHW":
-            raise NotImplementedError(
-                f"layout {layout!r} is not ported (ROADMAP Queue 1: the NHWC layout and the other ONNX ops)"
-            )
+        """The activations' layout (zaru_tpu/nn.py:138): ``"NCHW"``, the
+        ONNX layout, or ``"NHWC"``, channels_last (``onnx/layout.py``)."""
+        self._layout = layout
         return self
 
     def load(self) -> NeuralNetwork:
         return NeuralNetwork.load(
-            self._src, output_subset=self._output_subset, compute_dtype=self._compute_dtype, device=self._device
+            self._src, output_subset=self._output_subset, compute_dtype=self._compute_dtype, device=self._device,
+            layout=self._layout,
         )
 
 
 class Cnn:
     """A CNN operating on image views (zaru_tpu/nn.py:153): a network with
     one ``[1,3,h,w]`` (NCHW) or ``[1,h,w,3]`` (NHWC) input, and the colour
-    mapper its inputs take."""
+    mapper its inputs take. An NCHW graph in an NHWC-layout module is fed
+    NHWC samples through a permuted view (the module docstring)."""
 
     def __init__(self, nn: NeuralNetwork, shape: CnnInputShape, color_mapper: ColorMapper):
         self.nn = nn
@@ -172,21 +178,32 @@ class Cnn:
             self._res = Resolution(t[2], t[1])
         else:
             raise ValueError(f"invalid model input shape for {shape}: {t}")
-        self._layout = shape.value
+        # The samplers' layout: the graph's own, or NHWC for an NCHW graph
+        # whose module keeps its activations channels_last.
+        self._layout = "NHWC" if nn.module.layout == "NHWC" else shape.value
+        self._permute = shape == CnnInputShape.NCHW and self._layout == "NHWC"
 
     @staticmethod
     def load(
-        filename: str, color_mapper: ColorMapper, device=None, output_subset=None, compute_dtype=None
+        filename: str, color_mapper: ColorMapper, device=None, output_subset=None, compute_dtype=None,
+        layout=None,
     ) -> "Cnn":
         """Loads the NCHW network ``filename`` from the model directories
         onto ``device`` (``cuda`` unless named); ``output_subset`` selects
         its outputs by name or position (zaru_tpu/nn.py:126
         ``with_output_selection_by_index``), ``compute_dtype`` the dtype of
-        its body (:meth:`NeuralNetwork.load`)."""
+        its body, ``layout`` its activations' (:meth:`NeuralNetwork.load`)."""
         nn = NeuralNetwork.load(
-            model_path(filename), output_subset=output_subset, compute_dtype=compute_dtype, device=device
+            model_path(filename), output_subset=output_subset, compute_dtype=compute_dtype, device=device,
+            layout=layout,
         )
         return Cnn(nn, CnnInputShape.NCHW, color_mapper)
+
+    def _net(self, xs) -> list[torch.Tensor]:
+        """The network on samples in :attr:`_layout`, ``[N,...]`` with the
+        sample's three trailing axes."""
+        xs = xs.reshape(-1, *xs.shape[-3:])
+        return self.net(xs.permute(0, 3, 1, 2) if self._permute else xs)
 
     def input_resolution(self) -> Resolution:
         return self._res
@@ -219,24 +236,25 @@ class Cnn:
         return letterbox_sample(frames_u8, rrects, r.width, r.height, m.lo, m.hi, layout)
 
     def apply_tensor_hwc(self, t_hwc) -> list[torch.Tensor]:
-        """The network on pre-sampled ``[B,h,w,3]`` f32 inputs."""
+        """The network on pre-sampled ``[B,h,w,3]`` f32 inputs (an
+        NHWC-layout module takes them as the permuted view, no copy)."""
         if self.shape == CnnInputShape.NHWC:
             return self.net(t_hwc)
-        return self.net(t_hwc.permute(0, 3, 1, 2).contiguous())
+        t = t_hwc.permute(0, 3, 1, 2)
+        return self.net(t if self._permute else t.contiguous())
 
     def apply_views_fast(
         self, frames_u8, rrects, prescale_m: int = PRESCALE_M, mirror=None
     ) -> list[torch.Tensor]:
         """The network on the rotated views of ``rrects [B,...,5]``, sampled
-        planar (in the network's own layout): outputs over the ``N`` views
-        flattened in rect order."""
-        xs = self.sample_views_fast(frames_u8, rrects, prescale_m, self._layout, mirror)
-        return self.net(xs.reshape(-1, *xs.shape[-3:]))
+        in the network's own layout (planar, or NHWC for an NHWC-layout
+        module): outputs over the ``N`` views flattened in rect order."""
+        return self._net(self.sample_views_fast(frames_u8, rrects, prescale_m, self._layout, mirror))
 
     def apply_views_letterbox(self, frames_u8, rrects) -> list[torch.Tensor]:
         """The network on the letterbox views of ``rrects [B,5]``, sampled
-        planar."""
-        return self.net(self.sample_views_letterbox(frames_u8, rrects, self._layout))
+        in the network's own layout."""
+        return self._net(self.sample_views_letterbox(frames_u8, rrects, self._layout))
 
     def sample_view_hwc(self, frames_u8, rrects, mirror=None):
         """Exact rotated views: ``[B,H,W,4] u8`` + ``[B,...,5]`` rects →
@@ -246,8 +264,7 @@ class Cnn:
 
     def apply_on_view(self, frames_u8, rrects, mirror=None) -> list[torch.Tensor]:
         """The network on the exact rotated views of ``rrects [B,...,5]``,
-        sampled planar: outputs over the ``N`` views flattened in rect
-        order."""
+        sampled in the network's own layout: outputs over the ``N`` views
+        flattened in rect order."""
         r, m = self._res, self.mapper
-        xs = view_to_tensor_core(frames_u8, rrects, r.width, r.height, m.lo, m.hi, self._layout, mirror)
-        return self.net(xs.reshape(-1, *xs.shape[-3:]))
+        return self._net(view_to_tensor_core(frames_u8, rrects, r.width, r.height, m.lo, m.hi, self._layout, mirror))

@@ -1,43 +1,80 @@
 """Runs a parsed ONNX graph as an ``nn.Module``.
 
-The counterpart of zaru_tpu/onnx/importer.py (``import_model``) for the 18
-ops the shipped models use: Conv, Relu, PRelu, Add, Pad, MaxPool,
-Transpose, Reshape and Concat (the face models), Resize (palm detection),
-Clip, GlobalAveragePool, Squeeze, Gemm and Sigmoid (hand landmarks),
-ReduceMean (``slim_160_latest.onnx``), AveragePool
-(``landmarks_68_pfld.onnx``) and Constant (``mobilefacenet.onnx``). Each op
-follows the JAX package's semantics in zaru_tpu/onnx/ops.py: ``_conv`` :219
-with ``_conv_pads`` :205 (explicit pads, SAME_UPPER, SAME_LOWER and VALID),
-``_max_pool`` :328 and ``_avg_pool`` :342 with ``_pool_pads`` :268 and
-``_pool_output`` :289, ``_pad`` :420, ``_prelu`` :72, ``_reshape`` :440,
-``_transpose`` :463, ``_concat`` :472, ``_sigmoid`` :78, ``_clip`` :115,
-``_global_avg_pool`` :355, ``_reduce_mean`` :407 with ``_reduce`` :360,
-``_squeeze`` :480, ``_constant`` :565, ``_resize`` :573 (its two exact
-configurations) and ``_gemm`` :656. A graph with any other op is refused
-when it is loaded.
+The counterpart of zaru_tpu/onnx/importer.py (``import_model``) and of its
+op registry, zaru_tpu/onnx/ops.py (``OPS``): the same 62 ops under the same
+names, each following its JAX handler:
 
-The parameters are the graph's float initializers, keyed by their ONNX
-names exactly as zaru_tpu/onnx/importer.py:109-136 keys them: a float
-initializer read only by a structural input slot (Resize ``roi`` and
-``scales``, Upsample ``scales``, Pad ``constant_value``) is no parameter,
-and other initializers (shape vectors) stay numpy constants as well. A
-Constant node is evaluated when the module is built: an integer value, or
-a float value read only through a slot that takes a static value (a shape,
-pads, a Clip bound), joins the numpy constants as an initializer would; any
-other float value becomes a device tensor that is no parameter (JAX keeps
-Constant outputs out of its params as well). The
-graphs are exported at batch 1 and run here at batch B: a Reshape's leading
-1 is read as the batch axis, as the JAX cascade's ``vmap`` over streams has
-it, a Resize keeps the batch and takes only the spatial sizes, and a
-Squeeze never drops the batch axis.
+- elementwise (ops.py:59-199): Relu, LeakyRelu, PRelu, Sigmoid,
+  HardSigmoid, Tanh, Exp, Sqrt, Neg, Erf, Clip, Add, Sub, Mul, Div, Pow,
+  variadic Min and Max, Softmax (opset < 13 flattens the trailing axes),
+  Identity, Cast;
+- convolution and pooling (:205-357): Conv (explicit pads, SAME_UPPER,
+  SAME_LOWER, VALID), MaxPool and AveragePool (``ceil_mode``,
+  ``count_include_pad``), GlobalAveragePool;
+- reductions (:360-413, :765-780): ReduceMean, ReduceSum, ReduceMax,
+  ReduceMin, one axis at a time in ascending order; ArgMax;
+- shape (:419-562): Pad, Reshape, Flatten, Transpose, Concat, Squeeze,
+  Unsqueeze, Shape, Gather, Slice, Split, Constant;
+- resampling (:572-649): Resize and Upsample as ``jax.image.resize``
+  computes them (:func:`resize`);
+- linear algebra and the rest (:655-838): Gemm, MatMul,
+  BatchNormalization, Abs, Floor, Ceil, Round (half to even), Log, Elu,
+  Gelu, Where, Equal, Greater, Less, Expand, Tile,
+  InstanceNormalization, ConvTranspose.
+
+A graph with any other op is refused when it is loaded.
+
+**Parameters and host values.** The parameters are the graph's float
+initializers, keyed by their ONNX names exactly as
+zaru_tpu/onnx/importer.py:109-136 keys them: a float initializer read only
+by a structural input slot (Resize ``roi`` and ``scales``, Upsample
+``scales``, Pad ``constant_value``) is no parameter. Every other
+initializer and every Constant is a host value, a numpy array, as JAX's
+``static_env`` holds them (importer.py:177-218): a node whose inputs are
+all host values and whose op has a numpy form (:data:`_HOST_OPS`: Shape,
+Gather, Concat, Squeeze, Unsqueeze, Slice, Cast, Identity, the arithmetic
+and comparison ops) computes in numpy, and its outputs are host values
+too; Shape always is one. What runs where is decided when the module is
+built, from the graph alone. A slot that reads a shape, pads, axes, scales
+or a bound (:data:`_HOST_SLOTS`) takes a host value as numpy; a slot that
+must be static (``_need_static`` in ops.py) and gets a tensor raises
+``ValueError`` as JAX does. A host value read by any other slot of a node
+that runs on the device becomes a tensor there: a copy made when the module
+is built for the initializers and Constants (a buffer, no parameter; float
+ones stay f32, as JAX's numpy constants do), made at each call for values
+the host computed (float64 as f32, as JAX canonicalizes).
+
+**Batches.** The graphs are exported at batch 1 and run here at batch B.
+A graph input whose declared leading dimension is 1 or symbolic carries
+the batch, and so does every device value computed from it; its axis 0
+stands for JAX's axis of size 1 (a graph input declared at a fixed size
+greater than 1 carries none, and ops compute on it exactly as JAX does).
+The result at batch B is JAX's batch-1 result per image, concatenated
+along axis 0, or the op raises ``NotImplementedError`` when it would read
+or move the batch axis of more than one image:
+
+- Reshape reads a leading 1 as the batch, Flatten ``axis=0`` keeps it,
+  Resize and Upsample keep it, Squeeze with no axes keeps it, Shape of a
+  batched value gives its per-image shape (axis 0 divided by B);
+- Gather, Split, Concat, ArgMax, Softmax (and Softmax before opset 13 on
+  axis 0), the reductions, Squeeze and Unsqueeze of axis 0, Transpose
+  moving it, Tile repeating it and Expand broadcasting it to more than one
+  or adding leading axes raise at B > 1; Slice of axis 0 keeps or empties
+  it, as JAX's slice of a size-1 axis does; MatMul raises when a batched
+  operand of one or two axes would have its axis 0 contracted; Gemm's
+  ``transA`` always raises.
 
 **Stage plan.** When a module is built it finds the maximal chains of
 stride-1 BlazeBlocks (:func:`find_stages`): a depthwise 3×3 ``Conv``
 (``group == C``, stride 1, pads 1) → a 1×1 ``Conv`` C→C → an ``Add`` with
 the depthwise conv's input → ``PRelu`` or ``Relu``, every intermediate read
-by that one consumer only. :meth:`OnnxModule.forward` runs each chain as one
-``ops.cnn_stage.fused_blocks`` call (the stage kernel on CUDA, the plain
-per-op chain on the CPU) and every other node one by one. The packed stage
+by that one consumer only, with a channel count ``C`` the stage kernel is
+built for (``cnn_stage.KERNEL_CHANNELS``); a chain longer than
+``cnn_stage.max_blocks(C)`` is split so that every piece has a tiling at
+any image size. Any other chain runs node by node. :meth:`OnnxModule.forward`
+runs each chain as one ``ops.cnn_stage.fused_blocks`` call (the stage
+kernel on CUDA, the plain per-op chain on the CPU) and every other node one
+by one, so the CPU and the card run the same plan. The packed stage
 weights are built from the parameters at construction and again by
 :meth:`OnnxModule.load_params`.
 
@@ -45,8 +82,8 @@ The other convolutions stay ``F.conv2d`` (cuDNN on the GPU), as the JAX
 package left them to XLA. cuDNN runs f32 convolutions in TF32 by default,
 which keeps about three decimal digits and breaks the repo's CNN bar
 (``atol = 1e-3·max(1,|out|max)``, ``rtol = 2e-3``), so :meth:`forward`
-turns TF32 off around them, and pins f32 matrix products (Gemm) to full
-f32 whatever ``torch.set_float32_matmul_precision`` the caller set.
+turns TF32 off around them, and pins f32 matrix products (Gemm, MatMul) to
+full f32 whatever ``torch.set_float32_matmul_precision`` the caller set.
 
 **Compute dtype.** ``compute_dtype=torch.bfloat16`` runs the network body
 in bf16, as ``compute_dtype=jnp.bfloat16`` does in the JAX importer
@@ -57,27 +94,35 @@ of that dtype leave as f32. The parameters themselves stay f32 (so
 ``weights.params_from_jax`` are those of an f32 module); the cast copy is
 made when the module is built and again by :meth:`OnnxModule.load_params`.
 A float Constant stays f32 as JAX's numpy constant does, so what it meets
-is promoted to f32 as in JAX. Two ops follow JAX's rounding in bf16 only:
+is promoted to f32 as in JAX. Ops follow JAX's rounding in bf16:
 
-- Conv adds its bias after the convolution, rounded to bf16 first
-  (ops.py:260-264); ``F.conv2d`` with the bias would add it before its one
-  rounding, which differs from JAX in a quarter of the outputs. In f32 the
-  bias stays fused, so f32 modules are unchanged bit for bit;
-- Gemm's product is rounded before ``alpha`` and ``beta · c`` (ops.py:665,
-  as in f32), accumulated in f32: :meth:`forward` turns cuBLAS's reduced-
-  precision bf16 reduction off around it (JAX asks for f32 accumulation)
-  and restores the caller's setting afterwards.
+- Conv and ConvTranspose add their bias after the convolution, rounded to
+  bf16 first (ops.py:260-264); ``F.conv2d`` with the bias would add it
+  before its one rounding, which differs from JAX in a quarter of the
+  outputs. In f32 Conv's bias stays fused, so f32 modules are unchanged
+  bit for bit;
+- Gemm's and MatMul's products are rounded once (ops.py:665, :673),
+  accumulated in f32: :meth:`forward` turns cuBLAS's reduced-precision
+  bf16 reduction off around them (JAX asks for f32 accumulation) and
+  restores the caller's setting afterwards;
+- Resize contracts one axis at a time and rounds in between (:func:`resize`).
 
 A bf16 module builds no stage plan: the stage kernel
 (``csrc/blaze_stage.cu``) is f32 by design, and JAX's bf16 path runs its
 convolutions in XLA (``cnn_stage.fused_blocks`` has no caller in
 ``zaru_tpu/``). The choice is made once, when the module is built; an f32
 module on CUDA launches the stage kernel or raises, as before.
+
+**Layout.** ``layout="NHWC"`` keeps the activations channels_last
+(``onnx/layout.py``), the counterpart of JAX's NHWC layout: logical shapes
+stay NCHW, so every op runs unchanged.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -86,9 +131,41 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import cnn_stage
-from .proto import OnnxModel, OnnxNode
+from . import layout as _layout
+from .proto import TENSOR_DTYPES, OnnxModel, OnnxNode
 
-__all__ = ["OnnxModule", "SUPPORTED_OPS", "Stage", "find_stages"]
+__all__ = ["OnnxModule", "SUPPORTED_OPS", "Stage", "find_stages", "resize"]
+
+
+def _static(node, vals, idx: int, what: str) -> np.ndarray:
+    """Input ``idx`` as a host value, or ``ValueError`` (ops.py:47
+    ``_need_static``)."""
+    v = vals[idx] if idx < len(vals) else None
+    if not isinstance(v, (np.ndarray, np.generic)):
+        raise ValueError(f"{node.op_type} node {node.name!r}: input #{idx} ({what}) must be statically known")
+    return np.asarray(v)
+
+
+def _str(v) -> str:
+    return v.decode() if isinstance(v, bytes) else v
+
+
+def _batched(node, i: int = 0) -> bool:
+    """Whether input ``i`` carries the batch (see the module docstring), as
+    the module stamped it; a node no module planned (an op called on its
+    own) takes its first input as the batch, as the port always has."""
+    batched = getattr(node, "batched", None)
+    return i == 0 if batched is None else i < len(batched) and batched[i]
+
+
+def _per_image(node, vals, i: int = 0) -> bool:
+    """Whether input ``i`` carries the batch of more than one image: an op
+    that would read or move its axis 0 then raises."""
+    return _batched(node, i) and np.ndim(vals[i]) > 0 and vals[i].shape[0] > 1
+
+
+def _refuse_batch_axis(node, what: str) -> None:
+    raise NotImplementedError(f"{node.op_type} node {node.name!r}: {what} the batch axis of more than one image")
 
 
 def _same_pads(size: int, k: int, s: int, d: int, lower: bool) -> tuple[int, int]:
@@ -103,7 +180,7 @@ def _same_pads(size: int, k: int, s: int, d: int, lower: bool) -> tuple[int, int
 def _pad_pairs(node: OnnxNode, x, kernel, strides, dilations) -> list[tuple[int, int]]:
     """(begin, end) padding of the two spatial axes from ``auto_pad`` or the
     explicit ``pads`` (ops.py:205, :268)."""
-    auto_pad = node.attrs.get("auto_pad", "NOTSET")
+    auto_pad = _str(node.attrs.get("auto_pad", "NOTSET"))
     if auto_pad in ("SAME_UPPER", "SAME_LOWER"):
         return [
             _same_pads(x.shape[2 + i], k, s, d, auto_pad == "SAME_LOWER")
@@ -134,6 +211,34 @@ def _conv(node, vals):
         groups=node.attrs.get("group", 1),
     )
     return out + b[:, None, None] if bias_after else out
+
+
+def _conv_transpose(node, vals):
+    """ops.py:794: the full transposed convolution (``F.conv_transpose2d``
+    with no padding), then each axis cropped by its begin and end pad and
+    grown by ``output_padding`` (zeros before the bias): ONNX pads may be
+    asymmetric, which ``F.conv_transpose2d``'s one pad per axis is not. The
+    bias is added after the convolution, as JAX adds it."""
+    x, w = vals[0], vals[1]
+    b = vals[2] if len(vals) > 2 else None
+    if x.ndim != 4:
+        raise NotImplementedError(f"ConvTranspose node {node.name!r}: only 2-D transposed convolutions")
+    if node.attrs.get("group", 1) != 1:
+        raise NotImplementedError("grouped ConvTranspose")
+    auto_pad = _str(node.attrs.get("auto_pad", "NOTSET"))
+    if auto_pad not in ("NOTSET", "VALID") or "output_shape" in node.attrs:
+        raise NotImplementedError(
+            f"ConvTranspose node {node.name!r}: auto_pad={auto_pad!r} / "
+            "output_shape are not supported — re-export with explicit pads"
+        )
+    strides = node.attrs.get("strides", [1, 1])
+    dilations = node.attrs.get("dilations", [1, 1])
+    pads = node.attrs.get("pads") or [0, 0, 0, 0]
+    out_pad = node.attrs.get("output_padding", [0, 0])
+    out = F.conv_transpose2d(x, w, None, stride=strides, dilation=dilations)
+    (pt, pl), (pb, pr) = pads[:2], pads[2:]
+    out = F.pad(out, (-pl, out_pad[1] - pr, -pt, out_pad[0] - pb))  # negative pads crop
+    return out if b is None else out + b[:, None, None]
 
 
 def _pool_pad_pairs(node, x, kernel, strides, dilations) -> tuple[int, int, int, int]:
@@ -181,26 +286,26 @@ def _avg_pool(node, vals):
     return (1.0 / counts) * sums
 
 
-def _reduce_mean(node, vals):
-    """Means over ``axes`` (an attribute before opset 18, an input from opset
-    18; none or an empty input: every axis, or with ``noop_with_empty_axes``
+def _reduce(node, vals, fn):
+    """A reduction over ``axes`` (an attribute, or from opset 18 an input;
+    none or an empty input: every axis, or with ``noop_with_empty_axes``
     the input itself), one axis at a time in ascending order as ops.py:360
-    reduces them; ``keepdims`` (default 1). The batch axis is never
-    reduced: the graphs run batched."""
+    reduces them; ``keepdims`` (default 1). Refuses the batch axis of more
+    than one image."""
     x = vals[0]
     axes = node.attrs.get("axes")
     if axes is None and len(vals) > 1 and vals[1] is not None:
-        axes = np.asarray(vals[1]).tolist()
+        axes = _static(node, vals, 1, "axes").tolist()
     if axes is not None and len(axes) == 0:
         if node.attrs.get("noop_with_empty_axes", 0):
             return x
         axes = None
     axes = sorted({int(a) % x.ndim for a in (range(x.ndim) if axes is None else axes)})
-    if 0 in axes:
-        raise NotImplementedError(f"ReduceMean node {node.name!r}: reduces the batch axis")
+    if 0 in axes and _per_image(node, vals):
+        _refuse_batch_axis(node, "reduces")
     out = x
     for ax in axes:
-        out = out.mean(dim=ax, keepdim=True)
+        out = fn(out, ax)
     if not node.attrs.get("keepdims", 1):
         out = out.reshape([s for i, s in enumerate(out.shape) if i not in axes])
     return out
@@ -210,11 +315,11 @@ def _pad(node, vals):
     x = vals[0]
     pads = node.attrs.get("pads")
     if pads is None:
-        pads = np.asarray(vals[1]).tolist()
+        pads = _static(node, vals, 1, "pads").tolist()
     value = node.attrs.get("value", 0.0)
     if len(vals) > 2 and vals[2] is not None:
-        value = float(np.asarray(vals[2]))
-    mode = node.attrs.get("mode", "constant")
+        value = float(_static(node, vals, 2, "constant_value"))
+    mode = _str(node.attrs.get("mode", "constant"))
     if mode != "constant":
         raise NotImplementedError(f"Pad node {node.name!r}: mode {mode!r}")
     rank = x.ndim
@@ -228,23 +333,40 @@ def _reshape(node, vals):
     x = vals[0]
     shape = node.attrs.get("shape")
     if shape is None:
-        shape = np.asarray(vals[1]).tolist()
+        shape = _static(node, vals, 1, "shape").tolist()
     shape = [int(s) for s in shape]
     if not node.attrs.get("allowzero", 0):
         shape = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
-    if shape and shape[0] == 1 and x.shape[0] != 1:
+    if shape and shape[0] == 1 and _per_image(node, vals):
         shape[0] = x.shape[0]  # the batch-1 graph's leading axis is the batch
     return torch.reshape(x, shape)
+
+
+def _flatten(node, vals):
+    """ops.py:452: ``[prod(shape[:axis]), -1]``, a negative axis counted
+    from the end; ``axis=0`` keeps a batch axis (each image's ``[1, n]``)."""
+    x = vals[0]
+    axis = node.attrs.get("axis", 1)
+    if axis < 0:
+        axis += x.ndim
+    if axis == 0 and _per_image(node, vals):
+        axis = 1
+    return torch.reshape(x, (int(np.prod(x.shape[:axis])) if axis > 0 else 1, -1))
 
 
 def _transpose(node, vals):
     x = vals[0]
     perm = node.attrs.get("perm") or list(reversed(range(x.ndim)))
+    if perm[0] != 0 and _per_image(node, vals):
+        _refuse_batch_axis(node, "moves")
     return x.permute(*perm)
 
 
 def _concat(node, vals):
-    return torch.cat(vals, dim=node.attrs["axis"])
+    axis = node.attrs["axis"]
+    if axis % vals[0].ndim == 0 and any(_per_image(node, vals, i) for i in range(len(vals))):
+        _refuse_batch_axis(node, "concatenates along")
+    return torch.cat(vals, dim=axis)
 
 
 def _clip(node, vals):
@@ -264,55 +386,369 @@ def _clip(node, vals):
     return torch.clamp(x, *bounds)
 
 
-def _squeeze(node, vals):
+def _squeeze_axes(node, vals) -> list[int]:
     x = vals[0]
     axes = node.attrs.get("axes")
     if axes is None and len(vals) > 1 and vals[1] is not None:
-        axes = np.asarray(vals[1]).tolist()
-    if axes is None:  # every size-1 axis but the batch
-        axes = [i for i in range(1, x.ndim) if x.shape[i] == 1]
-    axes = sorted({int(a) % x.ndim for a in axes})
-    if 0 in axes:
-        raise NotImplementedError(f"Squeeze node {node.name!r}: squeezes the batch axis")
-    return x.reshape([s for i, s in enumerate(x.shape) if i not in axes])
+        axes = _static(node, vals, 1, "axes").tolist()
+    if axes is None:  # every size-1 axis (but a batch axis)
+        first = 1 if _batched(node) else 0
+        axes = [i for i in range(first, np.ndim(x)) if x.shape[i] == 1]
+    return sorted({int(a) % np.ndim(x) for a in axes})
+
+
+def _squeeze(node, vals):
+    axes = _squeeze_axes(node, vals)
+    if 0 in axes and _per_image(node, vals):
+        _refuse_batch_axis(node, "squeezes")
+    return vals[0].reshape([s for i, s in enumerate(vals[0].shape) if i not in axes])
+
+
+def _unsqueeze_axes(node, vals) -> list[int]:
+    axes = node.attrs.get("axes")
+    if axes is None:
+        axes = _static(node, vals, 1, "axes").tolist()
+    rank = np.ndim(vals[0]) + len(axes)
+    return sorted(int(a) % rank for a in axes)
+
+
+def _unsqueeze(node, vals):
+    axes = _unsqueeze_axes(node, vals)
+    if 0 in axes and _per_image(node, vals):
+        _refuse_batch_axis(node, "moves")
+    x = vals[0]
+    for a in axes:
+        x = x.unsqueeze(a)
+    return x
+
+
+def _gather(node, vals):
+    """``jnp.take`` (ops.py:512): negative indices wrap."""
+    data, idx = vals
+    axis = node.attrs.get("axis", 0) % data.ndim
+    if axis == 0 and _per_image(node, vals):
+        _refuse_batch_axis(node, "gathers along")
+    idx = idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + data.shape[axis], idx)
+    out = data.index_select(axis, idx.reshape(-1))
+    return out.reshape(data.shape[:axis] + idx.shape + data.shape[axis + 1:])
+
+
+def _slice_args(node, vals, rank: int) -> list[tuple[int, slice]]:
+    """``(axis, slice)`` pairs from the attributes (opset < 10) or the
+    ``starts``, ``ends``, ``axes``, ``steps`` inputs (ops.py:521)."""
+    if "starts" in node.attrs:
+        starts, ends = node.attrs["starts"], node.attrs["ends"]
+        axes = node.attrs.get("axes", list(range(len(starts))))
+        steps = [1] * len(starts)
+    else:
+        starts = _static(node, vals, 1, "starts").tolist()
+        ends = _static(node, vals, 2, "ends").tolist()
+        axes = (_static(node, vals, 3, "axes").tolist() if len(vals) > 3 and vals[3] is not None
+                else list(range(len(starts))))
+        steps = (_static(node, vals, 4, "steps").tolist() if len(vals) > 4 and vals[4] is not None
+                 else [1] * len(starts))
+    return [(int(ax) % rank, slice(int(st), int(en), int(sp))) for st, en, ax, sp in zip(starts, ends, axes, steps)]
+
+
+def _slice(node, vals):
+    """numpy's slicing, as ops.py:521 slices: a negative step through an
+    index; the batch axis is kept or emptied as a size-1 axis is."""
+    x = vals[0]
+    for ax, sl in _slice_args(node, vals, x.ndim):
+        if ax == 0 and _per_image(node, vals):
+            if len(range(1)[sl]) == 0:
+                x = x[:0]
+            continue
+        idx = range(x.shape[ax])[sl]
+        if sl.step > 0:
+            x = x.narrow(ax, idx.start, len(idx)) if sl.step == 1 else x[(slice(None),) * ax + (sl,)]
+        else:
+            x = x.index_select(ax, torch.tensor(list(idx), dtype=torch.int64, device=x.device))
+    return x
+
+
+def _split_sizes(node, vals, size: int) -> list[int]:
+    split = node.attrs.get("split")
+    if split is None and len(vals) > 1 and vals[1] is not None:
+        split = _static(node, vals, 1, "split").tolist()
+    if split is None:
+        n = len(node.outputs)
+        split = [size // n] * n
+    return np.cumsum(split)[:-1].tolist()
+
+
+def _split(node, vals):
+    """``jnp.split`` at the cumulative sizes (ops.py:550): from the
+    attribute, the input or an even split over the outputs."""
+    x = vals[0]
+    axis = node.attrs.get("axis", 0) % x.ndim
+    if axis == 0 and _per_image(node, vals):
+        _refuse_batch_axis(node, "splits")
+    return list(torch.tensor_split(x, _split_sizes(node, vals, x.shape[axis]), dim=axis))
+
+
+def _softmax(node, vals):
+    """ops.py:171: per axis from opset 13 (default -1); before it over the
+    flattened trailing axes from ``axis`` (default 1)."""
+    x = vals[0]
+    if getattr(node, "opset", 13) >= 13:
+        axis = node.attrs.get("axis", -1) % x.ndim
+        if axis == 0 and _per_image(node, vals):
+            _refuse_batch_axis(node, "normalizes over")
+        return torch.softmax(x, axis)
+    axis = node.attrs.get("axis", 1) % max(x.ndim, 1)
+    if axis == 0 and _per_image(node, vals):
+        _refuse_batch_axis(node, "normalizes over")
+    return torch.softmax(x.reshape(x.shape[:axis] + (-1,)), -1).reshape(x.shape)
+
+
+def _torch_dtype(np_dtype) -> torch.dtype:
+    """A numpy dtype's torch dtype; float64 as float32, as JAX keeps it
+    without x64."""
+    dt = np.dtype(np_dtype)
+    return torch.float32 if dt == np.float64 else torch.from_numpy(np.zeros(0, dt)).dtype
+
+
+def _cast(node, vals):
+    return vals[0].to(_torch_dtype(TENSOR_DTYPES[node.attrs["to"]]))
+
+
+def _matmul(node, vals):
+    a, b = vals
+    if (a.ndim == 1 and _per_image(node, vals, 0)) or (b.ndim <= 2 and _per_image(node, vals, 1)):
+        _refuse_batch_axis(node, "contracts")
+    return torch.matmul(a, b)
+
+
+def _batch_norm(node, vals):
+    """ops.py:678, in its order of operations:
+    ``(x − mean)·(scale·rsqrt(var + eps)) + bias``, the root in f32."""
+    x, scale, bias, mean, var = vals[:5]
+    eps = node.attrs.get("epsilon", 1e-5)
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    inv = torch.rsqrt(var.float() + eps).to(x.dtype)
+    return (x - mean.reshape(shape)) * (scale * inv).reshape(shape) + bias.reshape(shape)
+
+
+def _instance_norm(node, vals):
+    """ops.py:783: the mean and the population variance (``jnp.var``:
+    the mean of the squared deviations) over the spatial axes."""
+    x, scale, bias = vals
+    eps = node.attrs.get("epsilon", 1e-5)
+    axes = tuple(range(2, x.ndim))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = torch.square(x - mean).mean(dim=axes, keepdim=True)
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    return (x - mean) * torch.rsqrt(var + eps) * scale.reshape(shape) + bias.reshape(shape)
+
+
+def _elu(node, vals):
+    x = vals[0]
+    return torch.where(x < 0, node.attrs.get("alpha", 1.0) * (torch.exp(x) - 1.0), x)
+
+
+def _gelu(node, vals):
+    """``jax.nn.gelu``: ``0.5·x·erfc(−x·√½)``, or with ``approximate="tanh"``
+    ``x·0.5·(1 + tanh(√(2/π)·(x + 0.044715·x³)))``."""
+    x = vals[0]
+    if _str(node.attrs.get("approximate", "none")) == "tanh":
+        c = float(np.sqrt(2 / np.pi).astype(np.float32))
+        return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+    return 0.5 * x * torch.special.erfc(-x * float(np.sqrt(0.5).astype(np.float32)))
+
+
+def _expand(node, vals):
+    """Two-way broadcast to ``shape`` (ops.py:750); a batch axis of more
+    than one image stays one image's size 1 against ``shape``."""
+    x = vals[0]
+    shape = [int(s) for s in _static(node, vals, 1, "shape").tolist()]
+    if _per_image(node, vals):
+        per_image = torch.broadcast_shapes((1,) + tuple(x.shape[1:]), tuple(shape))
+        if len(shape) > x.ndim or per_image[0] != 1:
+            _refuse_batch_axis(node, "broadcasts")
+        shape = [x.shape[0]] + list(per_image[1:])
+    return x.expand(torch.broadcast_shapes(tuple(x.shape), tuple(shape)))
+
+
+def _tile(node, vals):
+    x = vals[0]
+    reps = [int(r) for r in _static(node, vals, 1, "repeats").tolist()]
+    if _per_image(node, vals) and (len(reps) > x.ndim or reps[len(reps) - x.ndim] != 1):
+        _refuse_batch_axis(node, "repeats")
+    return torch.tile(x, reps)
+
+
+def _argmax(node, vals):
+    """``jnp.argmax`` (the first index of the maximum), int64."""
+    x = vals[0]
+    axis = node.attrs.get("axis", 0) % x.ndim
+    if axis == 0 and _per_image(node, vals):
+        _refuse_batch_axis(node, "reduces")
+    return torch.argmax(x, axis, keepdim=bool(node.attrs.get("keepdims", 1)))
+
+
+def _min(node, vals):
+    out = vals[0]
+    for v in vals[1:]:
+        out = torch.minimum(out, v)
+    return out
+
+
+def _div(node, vals):
+    """``a / b``; by a float host value (a constant, folded into JAX's
+    program) as XLA:CPU compiles it: a product with its f32 reciprocal."""
+    a, b = vals
+    if isinstance(b, (np.ndarray, np.generic)):
+        if b.dtype.kind == "f" and a.is_floating_point():
+            return a * torch.from_numpy(np.float32(1) / np.asarray(b, np.float32)).to(a.device)
+        b = _device_value(b, a.device)
+    return a / b
+
+
+def _max(node, vals):
+    out = vals[0]
+    for v in vals[1:]:
+        out = torch.maximum(out, v)
+    return out
+
+
+# --- Resize ------------------------------------------------------------------
+
+
+def _triangle(x):
+    return torch.clamp(1 - torch.abs(x), min=0)
+
+
+def _keys_cubic(x):
+    """The Keys cubic kernel with a = −0.5, as ``jax.image.resize``'s
+    ``cubic`` (PyTorch's ``bicubic`` takes a = −0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def _resize_weights(m: int, n: int, method: str, device: torch.device) -> torch.Tensor:
+    """``[m, n] f32``: the weight of input ``i`` in output ``j`` along one
+    axis, as ``jax.image``'s ``compute_weight_mat`` computes it with
+    antialiasing: half-pixel centres, the kernel widened by ``m / n`` on a
+    shrink, each column normalised to sum 1."""
+    inv_scale = 1.0 / (n / m)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = torch.abs(sample[None, :] - torch.arange(m, dtype=torch.float32, device=device)[:, None]) / kernel_scale
+    w = (_triangle if method == "linear" else _keys_cubic)(x)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = torch.where(torch.abs(total) > eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def _axis_order(shape, sizes, axes) -> list[int]:
+    """The order ``jnp.einsum`` contracts the resized axes in: of two, the
+    one whose pass costs less work first (the earlier on a tie)."""
+    if len(axes) != 2:
+        return list(axes)
+    a, b = axes
+    h, w, H, W = shape[a], shape[b], sizes[a], sizes[b]
+    return [a, b] if H * w * (h + W) <= h * W * (w + H) else [b, a]
+
+
+def resize(x: torch.Tensor, sizes, method: str) -> torch.Tensor:
+    """``jax.image.resize(x, sizes, method)`` for ``nearest``, ``linear``
+    and ``cubic``. Nearest reads input ``floor((j + 0.5)·m / n)`` along
+    each resized axis. Linear and cubic contract each resized axis with
+    :func:`_resize_weights` (antialiased on a shrink), one axis at a time
+    and rounded to the input's dtype in between, as JAX's einsum does: bf16
+    takes bf16 weights. A 4-D linear resize that grows only the spatial
+    axes runs ``F.interpolate`` (bilinear, half-pixel), which computes the
+    same weights: in f32 both axes before its one rounding, in bf16 the
+    cheaper axis first."""
+    sizes = [int(s) for s in sizes]
+    axes = [d for d in range(x.ndim) if x.shape[d] != sizes[d]]
+    if not axes:
+        return x
+    if method == "nearest":
+        for d in axes:
+            m, n = x.shape[d], sizes[d]
+            idx = torch.floor((torch.arange(n, dtype=torch.float32) + 0.5) * m / n).to(torch.int64)
+            x = x.index_select(d, idx.to(x.device))
+        return x
+    if method == "linear" and x.ndim == 4 and min(axes) >= 2 and all(sizes[d] > x.shape[d] for d in axes):
+        cl = x.is_contiguous(memory_format=torch.channels_last)
+        # Channels-last: PyTorch's NCHW bilinear kernel on CUDA runs one
+        # thread per output pixel over every image and channel, which is
+        # slow at a small spatial size and a large batch.
+        x = x.contiguous(memory_format=torch.channels_last)
+        h, w = x.shape[2:]
+        H, W = sizes[2:]
+        if x.dtype != torch.float32 and (h, w) != (H, W):
+            first = _axis_order(x.shape, sizes, [2, 3])[0]
+            x = F.interpolate(x, size=(H, w) if first == 2 else (h, W), mode="bilinear", align_corners=False)
+        out = F.interpolate(x, size=(H, W), mode="bilinear", align_corners=False)
+        return out if cl else out.contiguous()
+    for d in _axis_order(x.shape, sizes, axes):
+        w = _resize_weights(x.shape[d], sizes[d], method, x.device).to(x.dtype)
+        x = torch.movedim(torch.matmul(torch.movedim(x, d, -1), w), -1, d)
+    return x
+
+
+def _resize_sizes(node, vals, x, scales) -> list[int]:
+    """``floor(scale · dim + 1e-7)`` per axis (ops.py:592-598); a batch
+    axis keeps its size."""
+    sizes = [int(np.floor(float(s) * d + 1e-7)) for s, d in zip(scales, x.shape)]
+    if _batched(node):
+        sizes[0] = x.shape[0]
+    return sizes
 
 
 def _resize(node, vals):
-    """Bilinear with half-pixel centres, the configuration of the JAX
-    handler that ``jax.image.resize`` computes exactly (ops.py:604-616). The
-    target size comes from ``sizes`` or else ``scales`` (``floor(scale ·
-    dim)``); only its spatial part is taken, the batch is the input's."""
+    """ops.py:572: the target size from ``sizes`` or else ``scales``; linear
+    with half-pixel centres and nearest ``asymmetric``/``floor`` as they
+    are, every other nearest, linear or cubic configuration with JAX's
+    warning, computed as ``jax.image.resize`` computes it (:func:`resize`).
+    A batch axis keeps its size."""
     x = vals[0]
-    mode = node.attrs.get("mode", "nearest")
-    coord = node.attrs.get("coordinate_transformation_mode", "half_pixel")
-    sizes = None
-    if len(vals) > 3 and vals[3] is not None and np.size(vals[3]) > 0:
+    mode = _str(node.attrs.get("mode", "nearest"))
+    coord = _str(node.attrs.get("coordinate_transformation_mode", "half_pixel"))
+    nearest_mode = _str(node.attrs.get("nearest_mode", "round_prefer_floor"))
+    if len(vals) > 3 and vals[3] is not None and np.size(_static(node, vals, 3, "sizes")) > 0:
         sizes = [int(s) for s in np.asarray(vals[3]).tolist()]
-    elif len(vals) > 2 and vals[2] is not None and np.size(vals[2]) > 0:
-        scales = np.asarray(vals[2]).tolist()
-        sizes = [int(np.floor(float(s) * d + 1e-7)) for s, d in zip(scales, x.shape)]
-    if sizes is None:
+        if _batched(node):
+            sizes[0] = x.shape[0]
+    elif len(vals) > 2 and vals[2] is not None and np.size(_static(node, vals, 2, "scales")) > 0:
+        sizes = _resize_sizes(node, vals, x, np.asarray(vals[2]).tolist())
+    else:
         raise ValueError(f"Resize node {node.name!r}: no static sizes/scales")
-    if x.ndim != 4 or mode != "linear" or coord not in ("half_pixel", "pytorch_half_pixel"):
-        raise NotImplementedError(
-            f"Resize node {node.name!r}: only 2-D linear half_pixel, got mode={mode!r} coord={coord!r}"
-        )
-    if coord == "pytorch_half_pixel" and 1 in sizes[2:]:
-        raise ValueError(f"Resize node {node.name!r}: pytorch_half_pixel with an output dim of 1")
-    # Channels-last: PyTorch's NCHW bilinear kernel on CUDA runs one thread
-    # per output pixel over every image and channel, which is slow at a
-    # small spatial size and a large batch.
-    x = x.contiguous(memory_format=torch.channels_last)
-    h, w = x.shape[2:]
-    H, W = sizes[2:]
-    if x.dtype != torch.float32 and (h, w) != (H, W):
-        # jax.image.resize contracts one axis at a time (one einsum, in the
-        # order of least work, the height first on a tie) and rounds to bf16
-        # in between; F.interpolate computes both axes before its one
-        # rounding.
-        x = F.interpolate(x, size=(H, w) if H * w * (h + W) <= h * W * (w + H) else (h, W),
-                          mode="bilinear", align_corners=False)
-    return F.interpolate(x, size=sizes[2:], mode="bilinear", align_corners=False).contiguous()
+    if mode == "linear" and coord in ("half_pixel", "pytorch_half_pixel"):
+        if coord == "pytorch_half_pixel" and 1 in sizes[2:]:
+            raise ValueError(f"Resize node {node.name!r}: pytorch_half_pixel with an output dim of 1")
+        return resize(x, sizes, "linear")
+    if mode == "nearest" and coord == "asymmetric" and nearest_mode == "floor":
+        return resize(x, sizes, "nearest")
+    if mode not in ("nearest", "linear", "cubic"):
+        raise ValueError(f"unsupported Resize config mode={mode} coord={coord}")
+    warnings.warn(
+        f"Resize node {node.name!r}: mode={mode!r} with "
+        f"coordinate_transformation_mode={coord!r} "
+        f"(nearest_mode={nearest_mode!r}) is approximated by "
+        "jax.image.resize's half-pixel convention; outputs may differ "
+        "from ONNX semantics",
+        stacklevel=2,
+    )
+    return resize(x, sizes, mode)
+
+
+def _upsample(node, vals):
+    """ops.py:638: ``scales`` from the attribute or the input, nearest or
+    (any other mode) linear."""
+    x = vals[0]
+    scales = node.attrs.get("scales")
+    if scales is None:
+        scales = _static(node, vals, 1, "scales").tolist()
+    method = "nearest" if _str(node.attrs.get("mode", "nearest")) == "nearest" else "linear"
+    return resize(x, _resize_sizes(node, vals, x, scales), method)
 
 
 def _gemm(node, vals):
@@ -331,30 +767,135 @@ def _gemm(node, vals):
 _OPS = {
     "Conv": _conv,
     "Relu": lambda node, vals: torch.relu(vals[0]),
+    "LeakyRelu": lambda node, vals: torch.where(vals[0] < 0, node.attrs.get("alpha", 0.01) * vals[0], vals[0]),
     "PRelu": lambda node, vals: torch.where(vals[0] < 0, vals[1] * vals[0], vals[0]),
-    "Add": lambda node, vals: vals[0] + vals[1],
-    "Pad": _pad,
-    "MaxPool": _max_pool,
-    "Transpose": _transpose,
-    "Reshape": _reshape,
-    "Concat": _concat,
-    "Resize": _resize,
-    "Clip": _clip,
-    "GlobalAveragePool": lambda node, vals: vals[0].mean(dim=tuple(range(2, vals[0].ndim)), keepdim=True),
-    "Squeeze": _squeeze,
-    "Gemm": _gemm,
     "Sigmoid": lambda node, vals: torch.sigmoid(vals[0]),
+    "HardSigmoid": lambda node, vals: torch.clamp(
+        node.attrs.get("alpha", 0.2) * vals[0] + node.attrs.get("beta", 0.5), 0.0, 1.0),
+    "Tanh": lambda node, vals: torch.tanh(vals[0]),
+    "Exp": lambda node, vals: torch.exp(vals[0]),
+    "Sqrt": lambda node, vals: torch.sqrt(vals[0]),
+    "Neg": lambda node, vals: -vals[0],
+    "Erf": lambda node, vals: torch.erf(vals[0]),
+    "Clip": _clip,
+    "Add": lambda node, vals: vals[0] + vals[1],
+    "Sub": lambda node, vals: vals[0] - vals[1],
+    "Mul": lambda node, vals: vals[0] * vals[1],
+    "Div": _div,
+    "Pow": lambda node, vals: torch.pow(vals[0], vals[1]),
+    "Min": _min,
+    "Max": _max,
+    "Softmax": _softmax,
+    "Identity": lambda node, vals: vals[0],
+    "Cast": _cast,
+    "MaxPool": _max_pool,
     "AveragePool": _avg_pool,
-    "ReduceMean": _reduce_mean,
+    "GlobalAveragePool": lambda node, vals: vals[0].mean(dim=tuple(range(2, vals[0].ndim)), keepdim=True),
+    "ReduceMean": lambda node, vals: _reduce(node, vals, lambda x, ax: x.mean(dim=ax, keepdim=True)),
+    "ReduceSum": lambda node, vals: _reduce(node, vals, lambda x, ax: x.sum(dim=ax, keepdim=True)),
+    "ReduceMax": lambda node, vals: _reduce(node, vals, lambda x, ax: x.amax(dim=ax, keepdim=True)),
+    "ReduceMin": lambda node, vals: _reduce(node, vals, lambda x, ax: x.amin(dim=ax, keepdim=True)),
+    "Pad": _pad,
+    "Reshape": _reshape,
+    "Flatten": _flatten,
+    "Transpose": _transpose,
+    "Concat": _concat,
+    "Squeeze": _squeeze,
+    "Unsqueeze": _unsqueeze,
+    "Gather": _gather,
+    "Slice": _slice,
+    "Split": _split,
+    "Resize": _resize,
+    "Upsample": _upsample,
+    "Gemm": _gemm,
+    "MatMul": _matmul,
+    "BatchNormalization": _batch_norm,
+    "Abs": lambda node, vals: torch.abs(vals[0]),
+    "Floor": lambda node, vals: torch.floor(vals[0]),
+    "Ceil": lambda node, vals: torch.ceil(vals[0]),
+    "Round": lambda node, vals: torch.round(vals[0]),  # half to even, as ONNX and jnp.round
+    "Log": lambda node, vals: torch.log(vals[0]),
+    "Elu": _elu,
+    "Gelu": _gelu,
+    "Where": lambda node, vals: torch.where(vals[0].to(torch.bool), vals[1], vals[2]),
+    "Equal": lambda node, vals: vals[0] == vals[1],
+    "Greater": lambda node, vals: vals[0] > vals[1],
+    "Less": lambda node, vals: vals[0] < vals[1],
+    "Expand": _expand,
+    "Tile": _tile,
+    "ArgMax": _argmax,
+    "InstanceNormalization": _instance_norm,
+    "ConvTranspose": _conv_transpose,
 }
-SUPPORTED_OPS = frozenset(_OPS) | {"Constant"}
+
+
+def _host_shape(node, vals):
+    return np.asarray(np.shape(vals[0]), dtype=np.int64)
+
+
+def _host_squeeze(node, vals):
+    return np.squeeze(vals[0], axis=tuple(_squeeze_axes(node, vals)))
+
+
+def _host_unsqueeze(node, vals):
+    x = vals[0]
+    for a in _unsqueeze_axes(node, vals):
+        x = np.expand_dims(x, a)
+    return x
+
+
+def _host_slice(node, vals):
+    x = vals[0]
+    slicers = [slice(None)] * np.ndim(x)
+    for ax, sl in _slice_args(node, vals, np.ndim(x)):
+        slicers[ax] = sl
+    return x[tuple(slicers)]
+
+
+def _host_min(node, vals):
+    return functools.reduce(np.minimum, vals)
+
+
+def _host_max(node, vals):
+    return functools.reduce(np.maximum, vals)
+
+
+# The numpy forms of the ops a node whose inputs are all host values runs on
+# the host (ops.py: the handlers whose numpy inputs give numpy outputs).
+_HOST_OPS = {
+    "Shape": _host_shape,
+    "Gather": lambda node, vals: np.take(vals[0], np.asarray(vals[1]).astype(np.int64),
+                                         axis=node.attrs.get("axis", 0)),
+    "Concat": lambda node, vals: np.concatenate(vals, axis=node.attrs["axis"]),
+    "Squeeze": _host_squeeze,
+    "Unsqueeze": _host_unsqueeze,
+    "Slice": _host_slice,
+    "Cast": lambda node, vals: np.asarray(vals[0]).astype(TENSOR_DTYPES[node.attrs["to"]]),
+    "Identity": lambda node, vals: vals[0],
+    "Add": lambda node, vals: vals[0] + vals[1],
+    "Sub": lambda node, vals: vals[0] - vals[1],
+    "Mul": lambda node, vals: vals[0] * vals[1],
+    "Div": lambda node, vals: vals[0] / vals[1],
+    "Pow": lambda node, vals: vals[0] ** vals[1],
+    "Neg": lambda node, vals: -vals[0],
+    "Min": _host_min,
+    "Max": _host_max,
+    "Equal": lambda node, vals: vals[0] == vals[1],
+    "Greater": lambda node, vals: vals[0] > vals[1],
+    "Less": lambda node, vals: vals[0] < vals[1],
+}
+SUPPORTED_OPS = frozenset(_OPS) | {"Shape", "Constant"}
 # Input slots whose float initializer is structural, never a parameter
 # (zaru_tpu/onnx/importer.py:109-123).
 _FLOAT_STATIC_SLOTS = frozenset({("Resize", 1), ("Resize", 2), ("Upsample", 1), ("Pad", 2)})
 # Input slots whose value an op reads on the host (a shape, pads, a bound,
-# axes): a float Constant read only through these stays numpy.
+# axes, scales, repeats: every slot ops.py's ``_need_static`` reads): a host
+# value read there stays numpy.
 _HOST_SLOTS = _FLOAT_STATIC_SLOTS | {
-    ("Reshape", 1), ("Pad", 1), ("Clip", 1), ("Clip", 2), ("Squeeze", 1), ("ReduceMean", 1), ("Resize", 3),
+    ("Reshape", 1), ("Pad", 1), ("Clip", 1), ("Clip", 2), ("Squeeze", 1), ("Resize", 3),
+    ("Slice", 1), ("Slice", 2), ("Slice", 3), ("Slice", 4), ("Split", 1), ("Unsqueeze", 1),
+    ("Expand", 1), ("Tile", 1), ("ReduceMean", 1), ("ReduceSum", 1), ("ReduceMax", 1), ("ReduceMin", 1),
+    ("Div", 1),  # a constant divisor: its reciprocal (_div)
 }
 
 
@@ -374,6 +915,18 @@ def _float_static_names(nodes) -> set[str]:
             if name:
                 (static if (n.op_type, idx) in _FLOAT_STATIC_SLOTS else traced).add(name)
     return static - traced
+
+
+def _carries_batch(vi) -> bool:
+    """Whether a graph input carries the batch: its declared leading
+    dimension is 1 or symbolic (or its shape unknown)."""
+    return not vi.shape or not isinstance(vi.shape[0], int) or vi.shape[0] == 1
+
+
+def _device_value(v: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host value as a tensor on ``device``: float64 as f32."""
+    arr = np.array(v, np.float32 if np.asarray(v).dtype == np.float64 else None)  # a copy torch may write
+    return torch.from_numpy(arr).to(device)
 
 
 @contextlib.contextmanager
@@ -459,9 +1012,11 @@ def _block_at(nodes, i, consumers, inits):
 
 
 def find_stages(model: OnnxModel) -> list[Stage]:
-    """The graph's maximal chains of BlazeBlocks (see the module docstring).
-    A block output read by anything but the next block (or a graph output)
-    ends its chain."""
+    """The graph's chains of BlazeBlocks that the stage kernel takes (see
+    the module docstring): maximal chains of a channel count in
+    ``cnn_stage.KERNEL_CHANNELS``, split into pieces of at most
+    ``cnn_stage.max_blocks(C)`` blocks. A block output read by anything but
+    the next block (or a graph output) ends its chain."""
     g = model.graph
     nodes = g.nodes
     consumers: dict[str, list[int]] = {}
@@ -478,8 +1033,7 @@ def find_stages(model: OnnxModel) -> list[Stage]:
         if found is None:
             continue
         names, idx, out = found
-        x = nodes[i].inputs[0]
-        blocks, node_idx = [names], list(idx)
+        chain = [(nodes[i].inputs[0], names, idx, out)]
         while True:
             nxt = None
             cs = consumers.get(out, [])
@@ -490,12 +1044,17 @@ def find_stages(model: OnnxModel) -> list[Stage]:
                         nxt = f
             if nxt is None:
                 break
-            blocks.append(nxt[0])
-            node_idx += nxt[1]
+            chain.append((out, *nxt))
             out = nxt[2]
-        taken.update(node_idx)
-        C = g.initializers[blocks[0]["dw_w"]].shape[0]
-        stages.append(Stage(x, out, C, tuple(blocks), tuple(node_idx)))
+        taken.update(k for link in chain for k in link[2])
+        C = g.initializers[names["dw_w"]].shape[0]
+        if C not in cnn_stage.KERNEL_CHANNELS:
+            continue
+        most = cnn_stage.max_blocks(C)
+        for s in range(0, len(chain), most):
+            piece = chain[s:s + most]
+            stages.append(Stage(piece[0][0], piece[-1][3], C, tuple(link[1] for link in piece),
+                                tuple(k for link in piece for k in link[2])))
     return stages
 
 
@@ -519,14 +1078,19 @@ class OnnxModule(nn.Module):
     stay those of the whole graph.
 
     ``compute_dtype``: ``torch.bfloat16`` runs the body in bf16 (see the
-    module docstring); None is f32."""
+    module docstring); None is f32.
 
-    def __init__(self, model: OnnxModel, device: torch.device, output_subset=None, compute_dtype=None):
+    ``layout``: ``"NCHW"`` or ``"NHWC"`` (channels_last activations,
+    ``onnx/layout.py``)."""
+
+    def __init__(self, model: OnnxModel, device: torch.device, output_subset=None, compute_dtype=None,
+                 layout: str = "NCHW"):
         super().__init__()
         self.device = device
         if compute_dtype not in (None, torch.bfloat16):
             raise NotImplementedError(f"compute_dtype {compute_dtype}: only torch.bfloat16 or None (f32)")
         self.compute_dtype = compute_dtype
+        self.layout = _layout.check(layout)
         g = model.graph
         unsupported = sorted({n.op_type for n in g.nodes} - SUPPORTED_OPS)
         if unsupported:
@@ -541,26 +1105,16 @@ class OnnxModule(nn.Module):
             if arr.dtype in (np.float32, np.float16, np.float64) and name not in static_floats:
                 attr = f"p{i}"
                 self._attr_of[name] = attr
-                t = torch.tensor(np.asarray(arr, np.float32), device=device)
+                t = _layout.store(torch.tensor(np.asarray(arr, np.float32), device=device), self.layout)
                 self.register_parameter(attr, nn.Parameter(t, requires_grad=False))
             else:
                 self._static[name] = arr
-        host_reads: dict[str, bool] = {}
         for n in g.nodes:
-            for idx, name in enumerate(n.inputs):
-                if name:
-                    host_reads[name] = host_reads.get(name, True) and (n.op_type, idx) in _HOST_SLOTS
-        self._const_attr: dict[str, str] = {}
-        for i, n in enumerate(g.nodes):
+            n.opset = model.opset  # Softmax reads it, as the JAX importer stamps it (importer.py:161-164)
             if n.op_type == "Constant":
-                arr = _constant_value(n)
-                if arr.dtype.kind == "f" and not host_reads.get(n.outputs[0], True):
-                    self._const_attr[n.outputs[0]] = f"c{i}"
-                    self.register_buffer(f"c{i}", torch.tensor(arr, dtype=torch.float32, device=device),
-                                         persistent=False)
-                else:
-                    self._static[n.outputs[0]] = arr
+                self._static[n.outputs[0]] = _constant_value(n)
         self.input_info = [vi for vi in g.inputs if vi.name not in g.initializers]
+        self._plan_values(g)
         self.output_names = [vi.name for vi in g.outputs]
         if output_subset is not None:
             by_name = set(self.output_names)
@@ -577,6 +1131,38 @@ class OnnxModule(nn.Module):
         self._stage_at = {st.nodes[0]: st for st in self.stages}
         self._in_stage = {i for st in self.stages for i in st.nodes}
         self._derive_weights()
+
+    def _plan_values(self, g) -> None:
+        """Which nodes run on the host, which values carry the batch, and a
+        device copy (a buffer) of each build-time host value a device node
+        reads as a tensor; stamps each node's ``batched`` inputs."""
+        host = set(self._static)
+        batched = {vi.name for vi in self.input_info if _carries_batch(vi)}
+        self._on_host: set[int] = set()
+        self._to_device: dict[int, tuple] = {}  # a device node's slots that read a host value as a tensor
+        tensor_reads: set[str] = set()
+        for i, n in enumerate(g.nodes):
+            if n.op_type == "Constant":
+                continue
+            ins = [name for name in n.inputs if name]
+            if n.op_type == "Shape" or (n.op_type in _HOST_OPS and all(name in host for name in ins)):
+                self._on_host.add(i)
+                host.update(n.outputs)
+                n.batched = (False,) * len(n.inputs)
+                continue
+            n.batched = tuple(bool(name) and name in batched for name in n.inputs)
+            if any(n.batched):
+                batched.update(n.outputs)
+            to_device = tuple(idx for idx, name in enumerate(n.inputs)
+                              if name in host and (n.op_type, idx) not in _HOST_SLOTS)
+            if to_device:
+                self._to_device[i] = to_device
+                tensor_reads.update(n.inputs[idx] for idx in to_device)
+        self._batched = batched
+        self._const_attr: dict[str, str] = {}
+        for j, name in enumerate(sorted(tensor_reads & set(self._static))):
+            self._const_attr[name] = f"c{j}"
+            self.register_buffer(f"c{j}", _device_value(self._static[name], self.device), persistent=False)
 
     @torch.no_grad()
     def _derive_weights(self) -> None:
@@ -616,19 +1202,22 @@ class OnnxModule(nn.Module):
 
     def activations(self, *inputs: torch.Tensor) -> dict:
         """Every value the selected outputs depend on, by name (a chain's
-        inner values are not computed), for ``inputs``."""
+        inner values are not computed), for ``inputs``: device values as
+        tensors, host values as numpy arrays."""
         if len(inputs) != len(self.input_info):
             raise ValueError(f"expected {len(self.input_info)} inputs, got {len(inputs)}")
         dtype = self.compute_dtype
         if dtype:
             inputs = [x.to(dtype) if x.is_floating_point() else x for x in inputs]
+        inputs = [_layout.store(x, self.layout) for x in inputs]
+        batch = next((x.shape[0] for vi, x in zip(self.input_info, inputs) if vi.name in self._batched), 1)
         env: dict = dict(self._static)
         env.update(self._compute_params)
-        env.update((name, getattr(self, attr)) for name, attr in self._const_attr.items())
         env.update((vi.name, x) for vi, x in zip(self.input_info, inputs))
+        device_static = {name: getattr(self, attr) for name, attr in self._const_attr.items()}
         with _full_precision():
             for i, node in enumerate(self.nodes):
-                if i not in self._live:
+                if i not in self._live or node.op_type == "Constant":
                     continue
                 st = self._stage_at.get(i)
                 if st is not None:
@@ -636,14 +1225,30 @@ class OnnxModule(nn.Module):
                     env[st.output] = cnn_stage.fused_blocks(
                         x, self._packed[i], x.shape[2], x.shape[3], st.channels
                     )
-                elif i not in self._in_stage and node.op_type != "Constant":
-                    vals = [env[n] if n else None for n in node.inputs]
-                    env[node.outputs[0]] = _OPS[node.op_type](node, vals)
+                    continue
+                if i in self._in_stage:
+                    continue
+                vals = [env[n] if n else None for n in node.inputs]
+                if i in self._on_host:
+                    out = _HOST_OPS[node.op_type](node, vals)
+                    if node.op_type == "Shape" and node.inputs[0] in self._batched and out.size:
+                        out[0] //= batch  # the per-image shape
+                else:
+                    for idx in self._to_device.get(i, ()):
+                        name = node.inputs[idx]
+                        vals[idx] = device_static[name] if name in device_static else _device_value(vals[idx],
+                                                                                                    self.device)
+                    out = _OPS[node.op_type](node, vals)
+                    if self.layout == "NHWC":
+                        out = _layout.keep(node.op_type, vals, out)
+                env.update(zip(node.outputs, out if isinstance(out, list) else [out]))
         return env
 
     def forward(self, *inputs: torch.Tensor) -> list[torch.Tensor]:
         env = self.activations(*inputs)
         outs = [env[n] for n in self.output_names]
+        if self.layout == "NHWC":
+            outs = [_layout.to_nchw(o) for o in outs]
         if self.compute_dtype:
             outs = [o.float() if o.dtype == self.compute_dtype else o for o in outs]
         return outs

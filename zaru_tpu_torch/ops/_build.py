@@ -11,10 +11,12 @@ interface::
 rounded on its own: the samplers' index maps reproduce an exact f32
 operation order, and a contracted FMA moves pixels. The BlazeBlock stage
 kernel is held to its plain version at a tolerance, and is built with
-``--fmad=true`` (:data:`FMAD_ON`). The libraries go into
-``zaru_tpu_torch/_build/``, named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one is loaded as it is. The build
-runs at first use, never when a module is imported.
+``--fmad=true`` (:data:`FMAD_ON`); its two layouts are two sources that
+include one header (``blaze_stage.cuh``), so their builds run side by side.
+The libraries go into ``zaru_tpu_torch/_build/``, named by a hash of the
+source, the headers (``csrc/*.cuh``) and the flags, so an edited source
+rebuilds and an unchanged one is loaded as it is. The build runs at first
+use, never when a module is imported.
 
 The loaded libraries are the module's one piece of state.
 """
@@ -37,7 +39,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-FMAD_ON = frozenset({"blaze_stage"})  # sources compared at a tolerance
+FMAD_ON = frozenset({"blaze_stage", "blaze_stage_nhwc"})  # sources compared at a tolerance
 SOURCES = {p.stem: p for p in sorted(_CSRC.glob("*.cu"))}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -58,6 +60,8 @@ def flags(name: str) -> list[str]:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(flags(name)).encode())
     return _BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 

@@ -8,11 +8,20 @@ consecutive stride-1 BlazeBlocks on ``[B,C,H,W] f32``::
 (depthwise 3×3 with zero padding 1 → pointwise 1×1 → residual Add →
 PReLU; a ReLU block is PReLU with α = 0). The ONNX executor finds such
 chains in the face CNNs (``onnx/executor.py``) and runs each through
-:func:`fused_blocks`: on a CUDA tensor it launches ``csrc/blaze_stage.cu``,
+:func:`fused_blocks`: on a CUDA tensor it launches ``csrc/blaze_stage.cu``
+(the kernel in ``csrc/blaze_stage.cuh``),
 which keeps the stage's activations in shared memory; on a CPU tensor it
 runs :func:`blaze_blocks_reference`, the plain version, which is the
 executor's own per-op chain (the same ``F.conv2d`` calls, Add and PReLU in
 the same order), so on the CPU the executor's numbers do not move.
+
+The kernel reads and writes either memory layout of the logical
+``[B,C,H,W]``: an NCHW-contiguous tensor, or a channels_last one (an NHWC
+module, ``onnx/layout.py``; ``csrc/blaze_stage_nhwc.cu``), whose output is
+channels_last too. The two variants differ only in the index maps of the
+global load and store, so they are bit-equal on the same values. Each
+counts its launches:
+``fused_blocks.launches`` (NCHW) and ``fused_blocks.nhwc_launches``.
 
 Blocks are dicts of ``dw_w [C,1,3,3]``, ``dw_b [C]``, ``pw_w [C,C,1,1]``,
 ``pw_b [C]`` and ``alpha`` (``[C]``, any shape of C values, or None for a
@@ -33,7 +42,7 @@ import torch.nn.functional as F
 
 from ._build import library
 
-__all__ = ["KERNEL_CHANNELS", "blaze_blocks_reference", "fused_blocks", "pack_blocks", "unpack_blocks"]
+__all__ = ["KERNEL_CHANNELS", "blaze_blocks_reference", "fused_blocks", "max_blocks", "pack_blocks", "unpack_blocks"]
 
 SMEM_LIMIT = 232448  # dynamic shared memory one thread block may use (H100)
 # The channel counts csrc/blaze_stage.cu is instantiated for: those of the
@@ -86,9 +95,10 @@ def unpack_blocks(packed, C: int) -> list[dict]:
 
 
 def blaze_blocks_reference(x, blocks):
-    """Plain PyTorch version of the stage on any device: per block a
-    depthwise ``F.conv2d`` with padding 1, a 1×1 ``F.conv2d``, the residual
-    Add and PReLU (``torch.where(y < 0, a·y, y)``, the executor's) or ReLU."""
+    """Plain PyTorch version of the stage on any device and in either
+    memory layout (its ops are logical NCHW): per block a depthwise
+    ``F.conv2d`` with padding 1, a 1×1 ``F.conv2d``, the residual Add and
+    PReLU (``torch.where(y < 0, a·y, y)``, the executor's) or ReLU."""
     C = x.shape[1]
     for b in blocks:
         f = lambda k: _f32(b[k], x.device)  # noqa: E731
@@ -118,6 +128,25 @@ def _smem_bytes(C: int, rh: int, rw: int) -> int:
     return (C * (rh + 1) * (rw + 1) + (rw + 5) // 4 * 4 + ds + C * C + 12 * C) * 4
 
 
+def _fits(C: int, rh: int, rw: int) -> bool:
+    """Whether a region of ``rh × rw`` pixels fits the shared memory and,
+    where the depthwise stays in registers, the threads."""
+    return _smem_bytes(C, rh, rw) <= SMEM_LIMIT and not (
+        _in_registers(C, rh, rw) and rh * rw > PIXELS_PER_THREAD[C] * THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def max_blocks(C: int) -> int:
+    """The most blocks a stage of ``C`` channels may have so that
+    :func:`_tiling` finds a tiling at any image size: a 1×1 tile's region,
+    ``(1 + 2·nb)²`` pixels, still fits (5 at 128 channels, 15 at 16). The
+    executor splits longer chains."""
+    nb = 1
+    while _fits(C, 3 + 2 * nb, 3 + 2 * nb):
+        nb += 1
+    return nb
+
+
 @functools.lru_cache(maxsize=None)
 def _tiling(C: int, H: int, W: int, nb: int) -> tuple[int, int, int]:
     """``(tile_h, tile_w, shared-memory bytes)`` for a stage (the bytes
@@ -133,13 +162,14 @@ def _tiling(C: int, H: int, W: int, nb: int) -> tuple[int, int, int]:
             rh, rw = min(H, th + 2 * nb), min(W, tw + 2 * nb)
             region = rh * rw
             smem = _smem_bytes(C, rh, rw)
-            if smem > SMEM_LIMIT or (_in_registers(C, rh, rw) and region > PIXELS_PER_THREAD[C] * THREADS):
+            if not _fits(C, rh, rw):
                 continue
             cost = nty * ntx * region * (1.0 if smem <= SMEM_LIMIT // 2 - 1024 else 1.5)
             if best is None or cost < best[0]:
                 best = (cost, th, tw, smem)
     if best is None:
-        raise ValueError(f"a stage of {C} channels does not fit the shared memory")
+        raise ValueError(f"a stage of {C} channels and {nb} blocks does not fit the shared memory "
+                         f"(at most {max_blocks(C)} blocks fit at any size)")
     return best[1:]
 
 
@@ -154,8 +184,10 @@ def _check(x, packed, H, W, C):
 
 def fused_blocks(x, packed, H: int, W: int, C: int):
     """Runs the packed stage over ``x [B,C,H,W] f32`` → the last block's
-    output, same shape. A CUDA tensor launches the kernel (or raises), a
-    CPU tensor runs the plain version."""
+    output, same shape and layout. A CUDA tensor launches the kernel (or
+    raises): an NCHW-contiguous one the NCHW variant, a channels_last one
+    the NHWC variant; any other strides raise, as do more blocks than
+    :func:`max_blocks`. A CPU tensor runs the plain version."""
     _check(x, packed, H, W, C)
     if x.device.type == "cpu":
         return blaze_blocks_reference(x, unpack_blocks(packed, C))
@@ -165,11 +197,17 @@ def fused_blocks(x, packed, H: int, W: int, C: int):
     if C not in KERNEL_CHANNELS or not 0 < B <= 65535:
         raise ValueError(f"the kernel takes C in {KERNEL_CHANNELS} and 1..65535 images, "
                          f"got C={C}, B={B}")
-    x = x.contiguous()
+    if x.is_contiguous():
+        nhwc = False
+    elif x.is_contiguous(memory_format=torch.channels_last):
+        nhwc = True
+    else:
+        raise ValueError(f"x must be NCHW-contiguous or channels_last, got strides {x.stride()}")
     packed = packed.contiguous()
     tile_h, tile_w, smem = _tiling(C, H, W, nb)
-    out = torch.empty_like(x)
-    fn = library("blaze_stage").zaru_blaze_stage
+    out = torch.empty_like(x)  # keeps x's memory format
+    name = "blaze_stage_nhwc" if nhwc else "blaze_stage"
+    fn = getattr(library(name), f"zaru_{name}")
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(
@@ -178,8 +216,12 @@ def fused_blocks(x, packed, H: int, W: int, C: int):
     )
     if rc != 0:
         raise RuntimeError(f"blaze_stage kernel launch failed: CUDA error {rc}")
-    fused_blocks.launches += 1
+    if nhwc:
+        fused_blocks.nhwc_launches += 1
+    else:
+        fused_blocks.launches += 1
     return out
 
 
 fused_blocks.launches = 0
+fused_blocks.nhwc_launches = 0
