@@ -94,7 +94,9 @@ check exits non-zero):
    them), the 50 fuzz graphs in their layouts at batch 3, and the six
    bundled models loaded ``with_layout("NHWC")`` (and bf16 with NHWC on the
    short-range detector) against JAX's stored runs at the tests'
-   tolerances, the models also against the port's NCHW modules;
+   tolerances, the models also against the port's NCHW modules; then a
+   module's second call on every Div, Resize and negative-step Slice case,
+   which must copy nothing from the host;
 5. the paths at full size on the fixture photo upscaled to 1920×1080 on
    the card, 54 steps after 9 of warm-up: ``FaceTracker.step_batch`` at
    batches 64 and 512 with detection forced every 9th step, then
@@ -2530,61 +2532,7 @@ def phase_identify_full_size(torch, np, img, device, card, tracker, ident, rgba,
 
 # --- the ONNX dialect and the NHWC layout (onnx/executor.py, onnx/layout.py) ---
 
-DIALECT_FIXTURE = "onnx_dialect.npz"  # tests/test_torch_onnx_{ops,fuzz,layout}.py
 DIALECT_CHAINS = {"chain of 2 blocks at 48 channels": [], "chain of 7 blocks at 128 channels": [5, 2]}
-
-
-def dialect_cases(np):
-    """The stored cases of the dialect's tests: ``{"ops/<name>": {"graph":
-    bytes, "tol": str, "ins": [...], "outs": [...], ...}}`` (a ``layout``
-    and, for the bundled models, a ``model`` file name)."""
-    from zaru_tpu_torch.assets import fixture_path
-
-    cases = {}
-    with np.load(fixture_path(DIALECT_FIXTURE)) as f:
-        for k in f.files:
-            name, field = k.rsplit("/", 1)
-            cases.setdefault(name, {})[field] = f[k]
-    out = {}
-    for name, c in cases.items():
-        case = {"ins": [c[f"in{i}"] for i in range(sum(k.startswith("in") for k in c))],
-                "outs": [c[f"out{i}"] for i in range(sum(k.startswith("out") for k in c))]}
-        for k, v in c.items():
-            if k == "graph":
-                case[k] = v.tobytes()
-            elif not k.startswith(("in", "out")):
-                case[k] = str(v)
-        out[name] = case
-    return out
-
-
-def _ordered(np, a):
-    i = a.astype(np.float32).view(np.int32).astype(np.int64)
-    return np.where(i < 0, -(i & 0x7FFFFFFF), i)
-
-
-def dialect_error(np, got, want, tol):
-    """``(ok, error)`` of ``got`` against JAX's ``want`` at the tests'
-    tolerance ``tol`` (tests/test_torch_onnx_ops.py ``check``): the count of
-    unequal values (``exact``, integers), ulps (``ulp:N``), the largest
-    absolute error (``abs:X``, ``cnn``) or bf16 ulps of max(1, |out|max)
-    (``bf16:N``)."""
-    if got.shape != want.shape:
-        return False, float("inf")
-    if tol == "exact" or want.dtype.kind in "biu":
-        n = int((got.astype(want.dtype) != want).sum())
-        return n == 0, n
-    if tol.startswith("ulp:"):
-        u = int(np.abs(_ordered(np, got) - _ordered(np, want)).max()) if want.size else 0
-        return u <= int(tol[4:]), u
-    err = float(np.abs(got - want).max()) if want.size else 0.0
-    top = max(1.0, float(np.abs(want).max())) if want.size else 1.0
-    if tol == "cnn":
-        return bool((np.abs(got - want) <= 1e-3 * top + 2e-3 * np.abs(want)).all()), err
-    if tol.startswith("bf16:"):
-        ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
-        return err <= int(tol[5:]) * ulp, err / ulp
-    return err <= float(tol[4:]) * top, err
 
 
 def _numpy_outs(torch, outs):
@@ -2615,7 +2563,7 @@ def phase_stage_nhwc_vs_plain(torch, np, device):
     by node, and 7 blocks at 128 channels, planned as 5 + 2 on both devices;
     each on the card against the CPU and against JAX."""
     from zaru_tpu_torch.assets import model_path
-    from zaru_tpu_torch.onnx import load_model
+    from zaru_tpu_torch.onnx import dialect_cases, load_model
     from zaru_tpu_torch.ops.cnn_stage import blaze_blocks_reference, fused_blocks, unpack_blocks
 
     gen = torch.Generator(device="cpu").manual_seed(13)
@@ -2652,7 +2600,7 @@ def phase_stage_nhwc_vs_plain(torch, np, device):
     else:
         check(False, "fused_blocks launched on a tensor that is neither NCHW-contiguous nor channels_last")
 
-    cases = dialect_cases(np)
+    cases = dialect_cases.load()
     for name, plan in DIALECT_CHAINS.items():
         c = cases[f"ops/{name}"]
         for layout in ("NCHW", "NHWC"):
@@ -2665,8 +2613,8 @@ def phase_stage_nhwc_vs_plain(torch, np, device):
                   f"{name}: planned {pieces} on the card, {[len(st.blocks) for st in cpu.stages]} on the CPU")
             key = "blaze_stage_nhwc" if layout == "NHWC" else "blaze_stage"
             check(launches[key] == len(plan), f"{name} ({layout}): {launches[key]} stage launches, want {len(plan)}")
-            ok_cpu, err_cpu = dialect_error(np, got[0], want_cpu[0], c["tol"])
-            ok_jax, err_jax = dialect_error(np, got[0], c["outs"][0], c["tol"])
+            ok_cpu, err_cpu = dialect_cases.compare(got[0], want_cpu[0], c["tol"])
+            ok_jax, err_jax = dialect_cases.compare(got[0], c["outs"][0], c["tol"])
             print(f"{name}, {layout}, batch {c['ins'][0].shape[0]}: planned {pieces or 'node by node'} on the "
                   f"card as on the CPU, {launches[key]} stage launches; vs the CPU {err_cpu}, vs JAX {err_jax} "
                   f"({c['tol']})", flush=True)
@@ -2682,8 +2630,9 @@ def phase_dialect_vs_jax(torch, np, device):
     ``with_layout("NHWC")`` (and bf16 with NHWC on the short-range
     detector), those also against the port's NCHW module on the card."""
     from zaru_tpu_torch.nn import Loader
+    from zaru_tpu_torch.onnx import dialect_cases
 
-    cases = dialect_cases(np)
+    cases = dialect_cases.load()
     worst, counts, failed = {}, {}, []
     for name, c in sorted(cases.items()):
         group = name.split("/", 1)[0]
@@ -2707,7 +2656,7 @@ def phase_dialect_vs_jax(torch, np, device):
         for what, outs, wants, tol in runs:
             check(len(outs) == len(wants), f"{name}{what}: {len(outs)} outputs, want {len(wants)}")
             for i, (got, want) in enumerate(zip(outs, wants)):
-                ok, err = dialect_error(np, np.asarray(got), want, tol)
+                ok, err = dialect_cases.compare(got, want, tol)
                 if not ok:
                     failed.append(f"{name}{what} output {i}: {err} ({tol})")
                 key = (group, tol.split(":")[0])
@@ -2717,6 +2666,38 @@ def phase_dialect_vs_jax(torch, np, device):
           f"{failed}; the largest errors by group and kind (exact: values differing; ulp: ulps; abs, cnn: absolute; "
           f"bf16: bf16 ulps): { {f'{g} {k}': v for (g, k), v in sorted(worst.items())} }", flush=True)
     check(not failed, f"{len(failed)} outputs of the dialect's cases disagree with JAX on the card")
+    host_copies_on_repeat(torch, np, device, cases)
+
+
+def host_copies_on_repeat(torch, np, device, cases):
+    """A module's second call on inputs already on the card copies nothing
+    from the host: a constant divisor is a buffer (its reciprocal), a value
+    the host computes is copied once and kept, and index vectors and resize
+    weights are made on the card. Counted with torch.profiler's host→device
+    copies over the second call of every Div, Resize and negative-step
+    Slice case."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from zaru_tpu_torch.onnx import load_model
+
+    copies = {}
+    for name in sorted(n for n in cases if n.startswith(("ops/Div", "ops/Resize", "ops/Slice inputs"))):
+        c = cases[name]
+        m = load_model(c["graph"], torch.device(device))
+        xs = [torch.from_numpy(np.asarray(x)).to(device) for x in c["ins"]]
+        with torch.inference_mode(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            m(*xs)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                m(*xs)
+                torch.cuda.synchronize()
+        copies[name[len("ops/"):]] = sum(e.count for e in prof.key_averages() if "Memcpy HtoD" in e.key)
+    print(f"host-to-device copies in a module's second call, {len(copies)} Div, Resize and Slice cases: "
+          f"{sum(copies.values())} ({ {k: v for k, v in copies.items() if v} or 'none'})", flush=True)
+    check(not any(copies.values()), f"a module's second call copies from the host: {copies}")
 
 
 def nhwc_copies(torch, step, crops, batch):

@@ -34,6 +34,14 @@ MODELS = [
 OP_TOL = 1e-5
 
 
+def step(node):
+    """``node`` as a module plans it for these batch-2 inputs: its first
+    input carries the batch."""
+    from zaru_tpu_torch.onnx.executor import Step
+
+    return Step.of(node, 13, [i == 0 for i in range(len(node.inputs))])
+
+
 @pytest.mark.parametrize("name", MODELS)
 def test_model_matches_jax(name):
     data = model_path(name).read_bytes()
@@ -97,7 +105,7 @@ def test_hand_ops_match_jax():
         # Per image, as the JAX cascade runs the batch-1 graph under vmap.
         want = np.concatenate([np.asarray(fn(node, [jx[i:i + 1], *statics], [None, *statics]))
                                for i in range(jx.shape[0])])
-        got = tex._OPS[op](node, [tx, *statics]).numpy()
+        got = tex._OPS[op](step(node), [tx, *statics]).numpy()
         assert got.shape == want.shape, (op, attrs)
         if tol is None:
             np.testing.assert_array_equal(got, want, err_msg=f"{op} {attrs}")
@@ -137,7 +145,7 @@ def test_hand_ops_match_jax():
     # Nearest with half-pixel coordinates is served as JAX serves it, with
     # its warning (tests/test_torch_onnx_ops.py holds the values to JAX).
     with pytest.warns(UserWarning, match="approximated"):
-        tex._resize(OnnxNode("Resize", ["x", "r", "s", "z"], ["y"], attrs={"mode": "nearest"}),
+        tex._resize(step(OnnxNode("Resize", ["x", "r", "s", "z"], ["y"], attrs={"mode": "nearest"})),
                     [tx, roi, roi, np.asarray([1, 5, 14, 12], np.int64)])
 
 

@@ -35,7 +35,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from test_torch_bf16 import NET_TOL_ULPS, ulp_of_max  # noqa: E402
+from test_torch_bf16 import NET_TOL_ULPS  # noqa: E402
 from test_torch_onnx_ops import ROOT, check, regen, stored_cases  # noqa: E402
 from torch_port import one_torch_thread  # noqa: E402,F401
 
@@ -129,9 +129,8 @@ def test_bf16_nhwc_matches_jax(stored):
     net = load(str(c["model"]), "NHWC", torch.bfloat16)
     assert net.module.compute_dtype == torch.bfloat16 and net.module.stages == []
     for i, (o, want) in enumerate(zip(net.estimate(torch.from_numpy(c["ins"][0])), c["outs"], strict=True)):
-        assert o.dtype == torch.float32 and tuple(o.shape) == want.shape
-        err = float(np.abs(o.numpy() - want).max())
-        assert err <= NET_TOL_ULPS["short_range"] * ulp_of_max(want), f"output {i}: {err / ulp_of_max(want):.2f} ulps"
+        assert o.dtype == torch.float32
+        check(o.numpy(), want, c["tol"], f"output {i}")
 
 
 def test_every_blob_loads_in_nhwc():

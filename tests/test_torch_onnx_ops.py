@@ -212,6 +212,43 @@ def _div_constant(r):
     return w.serialize(), [f32(r, (4, 50), scale=10.0)]
 
 
+def _div_scalar(kind):
+    """``x / c`` by a 0-d divisor: a Constant's ``value_float`` or 0-d
+    ``value`` (host values, as JAX's constants), or a 0-d initializer (a
+    parameter in both)."""
+    def build(r):
+        from zaru_tpu.onnx.writer import OnnxWriter
+
+        w = OnnxWriter(graph_name="div")
+        w.input("x", (4, 50))
+        if kind == "value_float":
+            w.node("Constant", [], ["c"], value_float=255.0)
+        elif kind == "value":
+            w.node("Constant", [], ["c"], value=np.asarray(0.3, np.float32))
+        else:
+            w.initializer("c", np.asarray(7.0, np.float32))
+        w.node("Div", ["x", "c"], ["y"])
+        w.output("y", (4, 50))
+        return w.serialize(), [f32(r, (4, 50), scale=100.0)]
+    return build
+
+
+def _div_host(r):
+    """``x / float(H)``, ``H`` from Shape → Gather → Cast: a divisor the host
+    computes at each call."""
+    from zaru_tpu.onnx.writer import OnnxWriter
+
+    w = OnnxWriter(graph_name="div_host")
+    w.input("x", (1, 3, 5, 7))
+    w.initializer("two", i64(2))
+    w.node("Shape", ["x"], ["s"])
+    w.node("Gather", ["s", "two"], ["h"], axis=0)
+    w.node("Cast", ["h"], ["hf"], to=1)
+    w.node("Div", ["x", "hf"], ["y"])
+    w.output("y", (1, 3, 5, 7))
+    return w.serialize(), [f32(r, (3, 3, 5, 7), scale=10.0)]
+
+
 def _round(r):
     halves = np.asarray([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 3.5, -3.5, 0.49999997, 2.5000002], np.float32)
     return graph("Round", [("in", np.concatenate([halves, f32(r, (30,), scale=4.0)]))])
@@ -296,6 +333,10 @@ CASES = {
     # it as a product with its f32 reciprocal (a third of these quotients
     # differ from a division by one ulp); the port does the same.
     "Div by a Constant": (lambda r: _div_constant(r), "exact"),
+    "Div by a scalar value_float Constant": (_div_scalar("value_float"), "exact"),
+    "Div by a 0-d value Constant": (_div_scalar("value"), "exact"),
+    "Div by a 0-d initializer": (_div_scalar("initializer"), "exact"),
+    "Div by a host-computed value": (_div_host, "exact"),
     "Pow": (_binary("Pow", 0.1, 4.0, -2.0, 2.0), "ulp:2"),
     "Min of 3": (lambda r: graph("Min", [("in", f32(r, (4, 5))), ("in", f32(r, (4, 5))), ("in", f32(r, (1, 5)))]),
                  "exact"),
@@ -372,11 +413,11 @@ CASES = {
     "chain of 7 blocks at 128 channels": (lambda r: _chain_graph(128, 7, 8), "abs:1e-4"),
 }
 # Graphs whose inputs are batches of batch-1 images: JAX runs each image.
-PER_IMAGE = {"Shape, Gather, Concat, Reshape", "Resize with host-computed sizes",
+PER_IMAGE = {"Shape, Gather, Concat, Reshape", "Resize with host-computed sizes", "Div by a host-computed value",
              "chain of 2 blocks at 48 channels", "chain of 7 blocks at 128 channels"}
 # The cases test_fixture_is_current runs JAX on.
-LIVE = ["Elu", "ConvTranspose stride 2 pad 1", "Resize linear 8x8 to 3x7", "Resize cubic down (warns)",
-        "Resize with host-computed sizes", "chain of 2 blocks at 48 channels"]
+LIVE = ["Elu", "Div by a scalar value_float Constant", "ConvTranspose stride 2 pad 1", "Resize linear 8x8 to 3x7",
+        "Resize cubic down (warns)", "Resize with host-computed sizes", "chain of 2 blocks at 48 channels"]
 
 
 def build(name):
@@ -423,42 +464,21 @@ def regen(prefix, names, build_fn, jax_fn, arrays_fn):
 
 
 def stored_cases(prefix) -> dict:
-    """``{name: {"graph": bytes, "tol": str, "ins": [...], "outs": [...],
-    ...}}`` under ``prefix``; other string fields (``layout``, ``model``) as
-    ``str``."""
-    cases: dict = {}
-    with np.load(FIXTURE) as f:
-        for k in f.files:
-            if k.startswith(prefix):
-                name, field = k[len(prefix):].rsplit("/", 1)
-                cases.setdefault(name, {})[field] = f[k]
-    out = {}
-    for name, c in cases.items():
-        case = {"ins": [c[f"in{i}"] for i in range(sum(k.startswith("in") for k in c))],
-                "outs": [c[f"out{i}"] for i in range(sum(k.startswith("out") for k in c))]}
-        for k, v in c.items():
-            if k == "graph":
-                case[k] = v.tobytes()
-            elif not k.startswith(("in", "out")):
-                case[k] = str(v)
-        out[name] = case
-    return out
+    """The stored cases under ``prefix`` (``zaru_tpu_torch.onnx.dialect_cases.load``)."""
+    from zaru_tpu_torch.onnx import dialect_cases
+
+    return dialect_cases.load(prefix)
 
 
 def check(got, want, tol, what):
     """``got`` (numpy) against JAX's ``want`` at tolerance ``tol`` (see the
-    module docstring); integer and bool results are compared by value."""
-    assert got.shape == want.shape, (what, got.shape, want.shape)
-    if tol == "exact" or want.dtype.kind in "biu":
-        np.testing.assert_array_equal(got.astype(want.dtype), want, err_msg=what)
-    elif tol.startswith("ulp:"):
-        np.testing.assert_array_max_ulp(got.astype(want.dtype), want, maxulp=int(tol[4:]))
-    elif tol == "cnn":
-        np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-3 * max(1.0, float(np.abs(want).max())),
-                                   err_msg=what)
-    else:
-        bound = float(tol[4:]) * max(1.0, float(np.abs(want).max()))
-        np.testing.assert_allclose(got, want, rtol=0, atol=bound, err_msg=what)
+    module docstring), by ``zaru_tpu_torch.onnx.dialect_cases.compare``, the
+    rule chip_smoke.py holds the card to; integer and bool results are
+    compared by value."""
+    from zaru_tpu_torch.onnx import dialect_cases
+
+    ok, err = dialect_cases.compare(got, want, tol)
+    assert ok, f"{what}: error {err} at {tol} (shapes {np.shape(got)}, {want.shape})"
 
 
 def run_port(data, feeds, layout="NCHW", compute_dtype=None, device="cpu"):
@@ -506,7 +526,8 @@ def test_host_values(stored):
     """Shape, and what the host computes from it, stay numpy (Shape's
     output is the per-image shape at batch 3); initializers and Constants
     read as tensors get one device copy each; a slot that must be static
-    and gets a device value raises as JAX does."""
+    and gets a device value raises as JAX does; a divisor the host holds
+    reaches the device once, as its reciprocal."""
     from zaru_tpu.onnx.writer import OnnxWriter
 
     from zaru_tpu_torch.onnx import load_model
@@ -528,6 +549,19 @@ def test_host_values(stored):
     w.output("y", (2, 2))
     with pytest.raises(ValueError, match="statically known"):
         load_model(w.serialize(), torch.device("cpu"))(torch.ones(1, 4))
+    # A constant divisor is one buffer, its f32 reciprocal; a divisor the
+    # host computes gets one device copy, kept for the next call.
+    c = stored["Div by a scalar value_float Constant"]
+    m = load_model(c["graph"], torch.device("cpu"))
+    (buf,) = [b for _name, b in m.named_buffers()]
+    assert buf.dtype == torch.float32 and buf.item() == np.float32(1) / np.float32(255)
+    c = stored["Div by a host-computed value"]
+    m = load_model(c["graph"], torch.device("cpu"))
+    x = torch.from_numpy(c["ins"][0])
+    first = m(x)[0]
+    (copy,) = m._host_copies.values()
+    assert torch.equal(m(x)[0], first) and list(m._host_copies.values()) == [copy]
+    assert copy.item() == np.float32(1) / np.float32(5)
 
 
 def test_resize_modes():
@@ -607,6 +641,10 @@ def test_batch_semantics():
         "Tile": _batch_graph("Tile", (1, 4, 6), inits=(i64([1, 2, 1]),)),
         "ArgMax axis 1": _batch_graph("ArgMax", (1, 4, 6), {"axis": 1}),
         "Split axis 2": _batch_graph("Split", (1, 4, 6), {"axis": 2}, inits=(i64([2, 4]),)),
+        "Reshape to a leading -1, one row an image": _batch_graph("Reshape", (1, 4, 6), inits=(i64([-1, 24]),)),
+        "Reshape to a leading 0": _batch_graph("Reshape", (1, 4, 6), inits=(i64([0, 24]),)),
+        "Add against a size-1 axis 0": _batch_graph("Add", (1, 4, 6), inits=(np.ones((1, 4, 1), np.float32),)),
+        "MatMul on the rows": _batch_graph("MatMul", (1, 4, 6), inits=(np.ones((6, 2), np.float32),)),
     }.items()})
     for name, (data, shape) in keep.items():
         m = load_model(data, torch.device("cpu"))
@@ -625,12 +663,38 @@ def test_batch_semantics():
         "Expand adding an axis": _batch_graph("Expand", (1, 4, 6), inits=(i64([2, 1, 4, 6]),)),
         "Unsqueeze axis 0": _batch_graph("Unsqueeze", (1, 4, 6), inits=(i64([0]),)),
         "Concat axis 0": _batch_graph("Concat", (1, 4, 6), {"axis": 0}, inits=(np.ones((1, 4, 6), np.float32),)),
+        "Reshape to a leading 2": _batch_graph("Reshape", (1, 4, 6), inits=(i64([2, -1]),)),
+        "Reshape to a leading -1, several rows an image": _batch_graph("Reshape", (1, 4, 6), inits=(i64([-1, 6]),)),
+        "Flatten axis 2": _batch_graph("Flatten", (1, 4, 6), {"axis": 2}),
+        "Add against an axis 0 of 2": _batch_graph("Add", (1, 4, 6), inits=(np.ones((2, 1, 1), np.float32),)),
+        "Add adding a leading axis": _batch_graph("Add", (1, 4, 6), inits=(np.ones((2, 1, 1, 1), np.float32),)),
+        "MatMul of 2-D rows against 3-D": _batch_graph("MatMul", (1, 6), inits=(np.ones((2, 6, 3), np.float32),)),
     }
     for name, data in refuse.items():
         m = load_model(data, torch.device("cpu"))
-        m(torch.from_numpy(x[:1]))  # batch 1: JAX's graph as it is
+        xs = x if len(m.input_info[0].shape) == 3 else x[:, 0]
+        m(torch.from_numpy(xs[:1]))  # batch 1: JAX's graph as it is
         with pytest.raises(NotImplementedError, match="batch axis"):
-            m(torch.from_numpy(x))
+            m(torch.from_numpy(xs))
+    # Batched indices: into an unbatched data's axis 0 they keep the batch
+    # first; along another axis they would move it.
+    from zaru_tpu.onnx.writer import OnnxWriter
+
+    idx = np.asarray([[0, 3], [2, 1], [3, 3]], np.int64)
+    for axis, keeps in ((0, True), (1, False)):
+        w = OnnxWriter(opset=13)
+        w.input("i", (1, 2), np.int64)
+        w.initializer("data", np.arange(20, dtype=np.float32).reshape(5, 4))
+        w.node("Gather", ["data", "i"], ["y"], axis=axis)
+        w.output("y", ())
+        m = load_model(w.serialize(), torch.device("cpu"))
+        if keeps:
+            got = m(torch.from_numpy(idx))[0]
+            assert torch.equal(got, torch.cat([m(torch.from_numpy(idx[i:i + 1]))[0] for i in range(3)]))
+        else:
+            m(torch.from_numpy(idx[:1]))
+            with pytest.raises(NotImplementedError, match="batch axis"):
+                m(torch.from_numpy(idx))
 
 
 if __name__ == "__main__":

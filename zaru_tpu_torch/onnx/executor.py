@@ -41,28 +41,39 @@ must be static (``_need_static`` in ops.py) and gets a tensor raises
 ``ValueError`` as JAX does. A host value read by any other slot of a node
 that runs on the device becomes a tensor there: a copy made when the module
 is built for the initializers and Constants (a buffer, no parameter; float
-ones stay f32, as JAX's numpy constants do), made at each call for values
-the host computed (float64 as f32, as JAX canonicalizes).
+ones stay f32, as JAX's numpy constants do), made at the first call that
+computes a value on the host and kept for the next call with the same
+value (float64 as f32, as JAX canonicalizes). A Div by a float host value
+multiplies by the value's f32 reciprocal, which is what the buffer or copy
+holds: JAX folds the constant into its program, and XLA:CPU compiles that
+division as such a product.
 
 **Batches.** The graphs are exported at batch 1 and run here at batch B.
 A graph input whose declared leading dimension is 1 or symbolic carries
 the batch, and so does every device value computed from it; its axis 0
-stands for JAX's axis of size 1 (a graph input declared at a fixed size
-greater than 1 carries none, and ops compute on it exactly as JAX does).
-The result at batch B is JAX's batch-1 result per image, concatenated
-along axis 0, or the op raises ``NotImplementedError`` when it would read
-or move the batch axis of more than one image:
+holds one row per image, in place of JAX's axis of size 1 (a graph input
+declared at a fixed size greater than 1 carries none, and ops compute on
+it exactly as JAX does). The result at batch B is JAX's batch-1 result per
+image, concatenated along axis 0, or the op raises ``NotImplementedError``
+when it would read or move the batch axis of more than one image, or give
+an image more than one row of it:
 
-- Reshape reads a leading 1 as the batch, Flatten ``axis=0`` keeps it,
-  Resize and Upsample keep it, Squeeze with no axes keeps it, Shape of a
-  batched value gives its per-image shape (axis 0 divided by B);
+- Reshape reads a leading 1 (or 0) as the batch and keeps a leading -1
+  that leaves one row per image, Flatten ``axis=0`` keeps it, Resize and
+  Upsample keep it, Squeeze with no axes keeps it, Shape of a batched
+  value gives its per-image shape (axis 0 divided by B);
 - Gather, Split, Concat, ArgMax, Softmax (and Softmax before opset 13 on
   axis 0), the reductions, Squeeze and Unsqueeze of axis 0, Transpose
   moving it, Tile repeating it and Expand broadcasting it to more than one
-  or adding leading axes raise at B > 1; Slice of axis 0 keeps or empties
-  it, as JAX's slice of a size-1 axis does; MatMul raises when a batched
-  operand of one or two axes would have its axis 0 contracted; Gemm's
-  ``transA`` always raises.
+  or adding leading axes raise at B > 1; so do a Reshape to any other
+  leading size, a Flatten whose rows would hold more than the image's
+  axis 0, Gather with batched indices other than into an unbatched
+  ``data``'s axis 0, and a broadcast (the elementwise ops, PRelu, Where,
+  MatMul's leading axes) that would put a batched operand's axis 0
+  anywhere but first or broadcast it against a size other than 1; Slice
+  of axis 0 keeps or empties it, as JAX's slice of a size-1 axis does;
+  MatMul raises when a batched operand of one or two axes would have its
+  axis 0 contracted or moved; Gemm's ``transA`` always raises.
 
 **Stage plan.** When a module is built it finds the maximal chains of
 stride-1 BlazeBlocks (:func:`find_stages`): a depthwise 3×3 ``Conv``
@@ -150,12 +161,35 @@ def _str(v) -> str:
     return v.decode() if isinstance(v, bytes) else v
 
 
-def _batched(node, i: int = 0) -> bool:
-    """Whether input ``i`` carries the batch (see the module docstring), as
-    the module stamped it; a node no module planned (an op called on its
-    own) takes its first input as the batch, as the port always has."""
-    batched = getattr(node, "batched", None)
-    return i == 0 if batched is None else i < len(batched) and batched[i]
+@dataclass(frozen=True)
+class Step:
+    """A graph node as :class:`OnnxModule` runs it: the parsed node's fields
+    (the parsed model itself is left as it is) and what the module decided
+    when it was built: the model's ``opset`` (Softmax reads it, as the JAX
+    importer hands it to its handlers, importer.py:161-164), which inputs
+    carry the batch (``batched``) and which are host values (``host``)."""
+
+    op_type: str
+    inputs: tuple
+    outputs: tuple
+    name: str
+    attrs: dict
+    opset: int
+    batched: tuple
+    host: tuple
+
+    @classmethod
+    def of(cls, node: OnnxNode, opset: int, batched=None, host=None) -> Step:
+        """``node`` as a step; ``batched`` and ``host`` (one flag an input)
+        default to none."""
+        none = (False,) * len(node.inputs)
+        return cls(node.op_type, tuple(node.inputs), tuple(node.outputs), node.name, node.attrs, opset,
+                   tuple(none if batched is None else batched), tuple(none if host is None else host))
+
+
+def _batched(node: Step, i: int = 0) -> bool:
+    """Whether input ``i`` carries the batch (see the module docstring)."""
+    return node.batched[i]
 
 
 def _per_image(node, vals, i: int = 0) -> bool:
@@ -166,6 +200,27 @@ def _per_image(node, vals, i: int = 0) -> bool:
 
 def _refuse_batch_axis(node, what: str) -> None:
     raise NotImplementedError(f"{node.op_type} node {node.name!r}: {what} the batch axis of more than one image")
+
+
+def _check_broadcast(node, shapes, batched) -> None:
+    """Refuses a broadcast of ``shapes`` that would not keep a batched
+    operand's axis 0 as the result's axis 0 against size-1 axes of the
+    others: a batched operand of fewer axes than the result, or an
+    unbatched one of as many whose axis 0 is not 1."""
+    rank = max(len(s) for s in shapes)
+    for s, b in zip(shapes, batched):
+        if (b and len(s) < rank) or (not b and len(s) == rank > 0 and s[0] != 1):
+            _refuse_batch_axis(node, "broadcasts")
+
+
+def _elementwise(fn):
+    """A handler of an elementwise op on several inputs: ``fn(*vals)``, after
+    :func:`_check_broadcast` when an input carries more than one image."""
+    def handler(node, vals):
+        if any(_per_image(node, vals, i) for i in range(len(vals))):
+            _check_broadcast(node, [tuple(np.shape(v)) for v in vals], [_batched(node, i) for i in range(len(vals))])
+        return fn(*vals)
+    return handler
 
 
 def _same_pads(size: int, k: int, s: int, d: int, lower: bool) -> tuple[int, int]:
@@ -330,27 +385,40 @@ def _pad(node, vals):
 
 
 def _reshape(node, vals):
+    """A batched input's leading target size 1 (or 0) is the batch; a
+    leading -1 must leave one row per image; any other leading size would
+    give an image several rows, and raises."""
     x = vals[0]
     shape = node.attrs.get("shape")
     if shape is None:
         shape = _static(node, vals, 1, "shape").tolist()
     shape = [int(s) for s in shape]
-    if not node.attrs.get("allowzero", 0):
+    allowzero = node.attrs.get("allowzero", 0)
+    per_image = bool(shape) and _per_image(node, vals)
+    if per_image and shape[0] not in (1, -1) and (shape[0] != 0 or allowzero):
+        _refuse_batch_axis(node, f"reshapes to a leading {shape[0]}")
+    if not allowzero:
         shape = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
-    if shape and shape[0] == 1 and _per_image(node, vals):
+    if per_image and shape[0] == 1:
         shape[0] = x.shape[0]  # the batch-1 graph's leading axis is the batch
-    return torch.reshape(x, shape)
+    out = torch.reshape(x, shape)
+    if per_image and out.shape[0] != x.shape[0]:
+        _refuse_batch_axis(node, f"reshapes to {out.shape[0] // x.shape[0]} rows an image of")
+    return out
 
 
 def _flatten(node, vals):
     """ops.py:452: ``[prod(shape[:axis]), -1]``, a negative axis counted
-    from the end; ``axis=0`` keeps a batch axis (each image's ``[1, n]``)."""
+    from the end; ``axis=0`` keeps a batch axis (each image's ``[1, n]``),
+    and a larger one raises where an image's rows would be several."""
     x = vals[0]
     axis = node.attrs.get("axis", 1)
     if axis < 0:
         axis += x.ndim
-    if axis == 0 and _per_image(node, vals):
-        axis = 1
+    if _per_image(node, vals):
+        if int(np.prod(x.shape[1:axis])) != 1:
+            _refuse_batch_axis(node, "flattens into several rows an image of")
+        axis = max(axis, 1)
     return torch.reshape(x, (int(np.prod(x.shape[:axis])) if axis > 0 else 1, -1))
 
 
@@ -382,7 +450,8 @@ def _clip(node, vals):
     if all(v is None for v in bounds):
         return x
     if any(isinstance(v, torch.Tensor) for v in bounds):  # torch.clamp takes two tensors or two numbers
-        bounds = [None if v is None else torch.as_tensor(v, dtype=x.dtype, device=x.device) for v in bounds]
+        bounds = [v if v is None or isinstance(v, torch.Tensor) else torch.full((), v, dtype=x.dtype, device=x.device)
+                  for v in bounds]
     return torch.clamp(x, *bounds)
 
 
@@ -423,11 +492,15 @@ def _unsqueeze(node, vals):
 
 
 def _gather(node, vals):
-    """``jnp.take`` (ops.py:512): negative indices wrap."""
+    """``jnp.take`` (ops.py:512): negative indices wrap. Batched indices
+    keep their batch axis first only as indices into an unbatched
+    ``data``'s axis 0."""
     data, idx = vals
     axis = node.attrs.get("axis", 0) % data.ndim
     if axis == 0 and _per_image(node, vals):
         _refuse_batch_axis(node, "gathers along")
+    if _per_image(node, vals, 1) and (axis != 0 or _batched(node, 0)):
+        _refuse_batch_axis(node, "moves")
     idx = idx.to(torch.int64)
     idx = torch.where(idx < 0, idx + data.shape[axis], idx)
     out = data.index_select(axis, idx.reshape(-1))
@@ -464,7 +537,7 @@ def _slice(node, vals):
         if sl.step > 0:
             x = x.narrow(ax, idx.start, len(idx)) if sl.step == 1 else x[(slice(None),) * ax + (sl,)]
         else:
-            x = x.index_select(ax, torch.tensor(list(idx), dtype=torch.int64, device=x.device))
+            x = x.index_select(ax, torch.arange(idx.start, idx.stop, idx.step, device=x.device))
     return x
 
 
@@ -492,7 +565,7 @@ def _softmax(node, vals):
     """ops.py:171: per axis from opset 13 (default -1); before it over the
     flattened trailing axes from ``axis`` (default 1)."""
     x = vals[0]
-    if getattr(node, "opset", 13) >= 13:
+    if node.opset >= 13:
         axis = node.attrs.get("axis", -1) % x.ndim
         if axis == 0 and _per_image(node, vals):
             _refuse_batch_axis(node, "normalizes over")
@@ -515,9 +588,16 @@ def _cast(node, vals):
 
 
 def _matmul(node, vals):
+    """``a @ b``. A batched ``a`` of two axes keeps its rows first against a
+    ``b`` of at most two; otherwise a batched operand's axis 0 must lead
+    the broadcast axes (:func:`_check_broadcast`)."""
     a, b = vals
-    if (a.ndim == 1 and _per_image(node, vals, 0)) or (b.ndim <= 2 and _per_image(node, vals, 1)):
-        _refuse_batch_axis(node, "contracts")
+    if _per_image(node, vals, 0) or _per_image(node, vals, 1):
+        if (a.ndim == 1 and _batched(node, 0)) or (b.ndim <= 2 and _batched(node, 1)):
+            _refuse_batch_axis(node, "contracts")
+        if a.ndim == 2 and _batched(node, 0) and b.ndim > 2:
+            _refuse_batch_axis(node, "moves")
+        _check_broadcast(node, [tuple(v.shape[:-2]) for v in (a, b)], [_batched(node, 0), _batched(node, 1)])
     return torch.matmul(a, b)
 
 
@@ -588,29 +668,14 @@ def _argmax(node, vals):
     return torch.argmax(x, axis, keepdim=bool(node.attrs.get("keepdims", 1)))
 
 
-def _min(node, vals):
-    out = vals[0]
-    for v in vals[1:]:
-        out = torch.minimum(out, v)
-    return out
+_mul, _true_div = _elementwise(torch.mul), _elementwise(torch.div)
 
 
 def _div(node, vals):
     """``a / b``; by a float host value (a constant, folded into JAX's
-    program) as XLA:CPU compiles it: a product with its f32 reciprocal."""
-    a, b = vals
-    if isinstance(b, (np.ndarray, np.generic)):
-        if b.dtype.kind == "f" and a.is_floating_point():
-            return a * torch.from_numpy(np.float32(1) / np.asarray(b, np.float32)).to(a.device)
-        b = _device_value(b, a.device)
-    return a / b
-
-
-def _max(node, vals):
-    out = vals[0]
-    for v in vals[1:]:
-        out = torch.maximum(out, v)
-    return out
+    program) as XLA:CPU compiles it: a product with its f32 reciprocal,
+    which is what the module hands over for such a ``b``."""
+    return (_mul if node.host[1] and vals[1].is_floating_point() else _true_div)(node, vals)
 
 
 # --- Resize ------------------------------------------------------------------
@@ -628,11 +693,18 @@ def _keys_cubic(x):
     return torch.where(x >= 2.0, 0.0, out)
 
 
-def _resize_weights(m: int, n: int, method: str, device: torch.device) -> torch.Tensor:
-    """``[m, n] f32``: the weight of input ``i`` in output ``j`` along one
-    axis, as ``jax.image``'s ``compute_weight_mat`` computes it with
-    antialiasing: half-pixel centres, the kernel widened by ``m / n`` on a
-    shrink, each column normalised to sum 1."""
+@functools.lru_cache(maxsize=64)
+def _resize_weights(m: int, n: int, method: str, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``[m, n]`` in ``dtype``: the weight of input ``i`` in output ``j``
+    along one axis, as ``jax.image``'s ``compute_weight_mat`` computes it
+    in f32 with antialiasing: half-pixel centres, the kernel widened by
+    ``m / n`` on a shrink, each column normalised to sum 1. Kept for the
+    next call at the same sizes."""
+    with torch.inference_mode(False):
+        return _weight_mat(m, n, method, device).to(dtype)
+
+
+def _weight_mat(m: int, n: int, method: str, device: torch.device) -> torch.Tensor:
     inv_scale = 1.0 / (n / m)
     kernel_scale = max(inv_scale, 1.0)
     sample = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
@@ -672,8 +744,8 @@ def resize(x: torch.Tensor, sizes, method: str) -> torch.Tensor:
     if method == "nearest":
         for d in axes:
             m, n = x.shape[d], sizes[d]
-            idx = torch.floor((torch.arange(n, dtype=torch.float32) + 0.5) * m / n).to(torch.int64)
-            x = x.index_select(d, idx.to(x.device))
+            idx = torch.floor((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5) * m / n)
+            x = x.index_select(d, idx.to(torch.int64))
         return x
     if method == "linear" and x.ndim == 4 and min(axes) >= 2 and all(sizes[d] > x.shape[d] for d in axes):
         cl = x.is_contiguous(memory_format=torch.channels_last)
@@ -689,7 +761,7 @@ def resize(x: torch.Tensor, sizes, method: str) -> torch.Tensor:
         out = F.interpolate(x, size=(H, W), mode="bilinear", align_corners=False)
         return out if cl else out.contiguous()
     for d in _axis_order(x.shape, sizes, axes):
-        w = _resize_weights(x.shape[d], sizes[d], method, x.device).to(x.dtype)
+        w = _resize_weights(x.shape[d], sizes[d], method, x.dtype, x.device)
         x = torch.movedim(torch.matmul(torch.movedim(x, d, -1), w), -1, d)
     return x
 
@@ -768,7 +840,7 @@ _OPS = {
     "Conv": _conv,
     "Relu": lambda node, vals: torch.relu(vals[0]),
     "LeakyRelu": lambda node, vals: torch.where(vals[0] < 0, node.attrs.get("alpha", 0.01) * vals[0], vals[0]),
-    "PRelu": lambda node, vals: torch.where(vals[0] < 0, vals[1] * vals[0], vals[0]),
+    "PRelu": _elementwise(lambda x, s: torch.where(x < 0, s * x, x)),
     "Sigmoid": lambda node, vals: torch.sigmoid(vals[0]),
     "HardSigmoid": lambda node, vals: torch.clamp(
         node.attrs.get("alpha", 0.2) * vals[0] + node.attrs.get("beta", 0.5), 0.0, 1.0),
@@ -778,13 +850,13 @@ _OPS = {
     "Neg": lambda node, vals: -vals[0],
     "Erf": lambda node, vals: torch.erf(vals[0]),
     "Clip": _clip,
-    "Add": lambda node, vals: vals[0] + vals[1],
-    "Sub": lambda node, vals: vals[0] - vals[1],
-    "Mul": lambda node, vals: vals[0] * vals[1],
+    "Add": _elementwise(torch.add),
+    "Sub": _elementwise(torch.sub),
+    "Mul": _mul,
     "Div": _div,
-    "Pow": lambda node, vals: torch.pow(vals[0], vals[1]),
-    "Min": _min,
-    "Max": _max,
+    "Pow": _elementwise(torch.pow),
+    "Min": _elementwise(lambda *vals: functools.reduce(torch.minimum, vals)),
+    "Max": _elementwise(lambda *vals: functools.reduce(torch.maximum, vals)),
     "Softmax": _softmax,
     "Identity": lambda node, vals: vals[0],
     "Cast": _cast,
@@ -817,10 +889,10 @@ _OPS = {
     "Log": lambda node, vals: torch.log(vals[0]),
     "Elu": _elu,
     "Gelu": _gelu,
-    "Where": lambda node, vals: torch.where(vals[0].to(torch.bool), vals[1], vals[2]),
-    "Equal": lambda node, vals: vals[0] == vals[1],
-    "Greater": lambda node, vals: vals[0] > vals[1],
-    "Less": lambda node, vals: vals[0] < vals[1],
+    "Where": _elementwise(lambda c, a, b: torch.where(c.to(torch.bool), a, b)),
+    "Equal": _elementwise(torch.eq),
+    "Greater": _elementwise(torch.gt),
+    "Less": _elementwise(torch.lt),
     "Expand": _expand,
     "Tile": _tile,
     "ArgMax": _argmax,
@@ -895,7 +967,6 @@ _HOST_SLOTS = _FLOAT_STATIC_SLOTS | {
     ("Reshape", 1), ("Pad", 1), ("Clip", 1), ("Clip", 2), ("Squeeze", 1), ("Resize", 3),
     ("Slice", 1), ("Slice", 2), ("Slice", 3), ("Slice", 4), ("Split", 1), ("Unsqueeze", 1),
     ("Expand", 1), ("Tile", 1), ("ReduceMean", 1), ("ReduceSum", 1), ("ReduceMax", 1), ("ReduceMin", 1),
-    ("Div", 1),  # a constant divisor: its reciprocal (_div)
 }
 
 
@@ -923,10 +994,21 @@ def _carries_batch(vi) -> bool:
     return not vi.shape or not isinstance(vi.shape[0], int) or vi.shape[0] == 1
 
 
-def _device_value(v: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host value as a tensor on ``device``: float64 as f32."""
-    arr = np.array(v, np.float32 if np.asarray(v).dtype == np.float64 else None)  # a copy torch may write
-    return torch.from_numpy(arr).to(device)
+def _inverts(step: Step, idx: int, value) -> bool:
+    """Whether a host value read as a tensor by input ``idx`` of ``step`` is
+    handed over as its f32 reciprocal: a Div's float divisor (:func:`_div`)."""
+    return step.op_type == "Div" and idx == 1 and np.asarray(value).dtype.kind == "f"
+
+
+def _device_value(v, device: torch.device, reciprocal: bool = False) -> torch.Tensor:
+    """A host value as a tensor on ``device``: float64 as f32; with
+    ``reciprocal``, a float value's f32 reciprocal."""
+    arr = np.asarray(v)
+    if arr.dtype == np.float64 or reciprocal:
+        arr = arr.astype(np.float32)
+    if reciprocal:
+        arr = np.float32(1) / arr
+    return torch.from_numpy(np.array(arr)).to(device)  # a copy torch may write, an array even of a 0-d value
 
 
 @contextlib.contextmanager
@@ -1097,7 +1179,6 @@ class OnnxModule(nn.Module):
             raise NotImplementedError(
                 f"model {g.name!r} uses ONNX ops the port does not run: {unsupported}"
             )
-        self.nodes = g.nodes
         self._attr_of: dict[str, str] = {}
         self._static: dict[str, np.ndarray] = {}
         static_floats = _float_static_names(g.nodes)
@@ -1110,11 +1191,10 @@ class OnnxModule(nn.Module):
             else:
                 self._static[name] = arr
         for n in g.nodes:
-            n.opset = model.opset  # Softmax reads it, as the JAX importer stamps it (importer.py:161-164)
             if n.op_type == "Constant":
                 self._static[n.outputs[0]] = _constant_value(n)
         self.input_info = [vi for vi in g.inputs if vi.name not in g.initializers]
-        self._plan_values(g)
+        self._plan_values(model)
         self.output_names = [vi.name for vi in g.outputs]
         if output_subset is not None:
             by_name = set(self.output_names)
@@ -1132,37 +1212,61 @@ class OnnxModule(nn.Module):
         self._in_stage = {i for st in self.stages for i in st.nodes}
         self._derive_weights()
 
-    def _plan_values(self, g) -> None:
-        """Which nodes run on the host, which values carry the batch, and a
-        device copy (a buffer) of each build-time host value a device node
-        reads as a tensor; stamps each node's ``batched`` inputs."""
+    def _plan_values(self, model: OnnxModel) -> None:
+        """The steps (:class:`Step`): which nodes run on the host, which
+        values carry the batch and which are host values; and a device copy
+        (a buffer) of each build-time host value a device node reads as a
+        tensor."""
         host = set(self._static)
         batched = {vi.name for vi in self.input_info if _carries_batch(vi)}
+        self.nodes: list[Step] = []
         self._on_host: set[int] = set()
         self._to_device: dict[int, tuple] = {}  # a device node's slots that read a host value as a tensor
-        tensor_reads: set[str] = set()
-        for i, n in enumerate(g.nodes):
+        buffers: set[tuple[str, bool]] = set()
+        for i, n in enumerate(model.graph.nodes):
+            is_host = tuple(bool(name) and name in host for name in n.inputs)
             if n.op_type == "Constant":
+                self.nodes.append(Step.of(n, model.opset))
                 continue
-            ins = [name for name in n.inputs if name]
-            if n.op_type == "Shape" or (n.op_type in _HOST_OPS and all(name in host for name in ins)):
+            if n.op_type == "Shape" or (n.op_type in _HOST_OPS and all(is_host[k] or not name
+                                                                        for k, name in enumerate(n.inputs))):
+                self.nodes.append(Step.of(n, model.opset, host=is_host))
                 self._on_host.add(i)
                 host.update(n.outputs)
-                n.batched = (False,) * len(n.inputs)
                 continue
-            n.batched = tuple(bool(name) and name in batched for name in n.inputs)
-            if any(n.batched):
+            step = Step.of(n, model.opset, [bool(name) and name in batched for name in n.inputs], is_host)
+            self.nodes.append(step)
+            if any(step.batched):
                 batched.update(n.outputs)
             to_device = tuple(idx for idx, name in enumerate(n.inputs)
-                              if name in host and (n.op_type, idx) not in _HOST_SLOTS)
+                              if is_host[idx] and (n.op_type, idx) not in _HOST_SLOTS)
             if to_device:
                 self._to_device[i] = to_device
-                tensor_reads.update(n.inputs[idx] for idx in to_device)
+                buffers.update((n.inputs[idx], _inverts(step, idx, self._static[n.inputs[idx]]))
+                               for idx in to_device if n.inputs[idx] in self._static)
         self._batched = batched
-        self._const_attr: dict[str, str] = {}
-        for j, name in enumerate(sorted(tensor_reads & set(self._static))):
-            self._const_attr[name] = f"c{j}"
-            self.register_buffer(f"c{j}", _device_value(self._static[name], self.device), persistent=False)
+        self._const_attr: dict[tuple[str, bool], str] = {}
+        for j, (name, reciprocal) in enumerate(sorted(buffers)):
+            self._const_attr[name, reciprocal] = f"c{j}"
+            self.register_buffer(f"c{j}", _device_value(self._static[name], self.device, reciprocal),
+                                 persistent=False)
+        self._host_copies: dict[tuple, torch.Tensor] = {}
+
+    def _tensor_of(self, step: Step, idx: int, value) -> torch.Tensor:
+        """Host value ``value`` read as a tensor by input ``idx`` of ``step``:
+        its buffer, or for a value the host computed in this call, the copy
+        kept from the first call that computed the same value."""
+        name, reciprocal = step.inputs[idx], _inverts(step, idx, value)
+        attr = self._const_attr.get((name, reciprocal))
+        if attr is not None:
+            return getattr(self, attr)
+        arr = np.asarray(value)
+        key = (name, reciprocal, arr.dtype.str, arr.shape, arr.tobytes())
+        t = self._host_copies.get(key)
+        if t is None:
+            with torch.inference_mode(False):
+                t = self._host_copies[key] = _device_value(arr, self.device, reciprocal)
+        return t
 
     @torch.no_grad()
     def _derive_weights(self) -> None:
@@ -1214,7 +1318,6 @@ class OnnxModule(nn.Module):
         env: dict = dict(self._static)
         env.update(self._compute_params)
         env.update((vi.name, x) for vi, x in zip(self.input_info, inputs))
-        device_static = {name: getattr(self, attr) for name, attr in self._const_attr.items()}
         with _full_precision():
             for i, node in enumerate(self.nodes):
                 if i not in self._live or node.op_type == "Constant":
@@ -1235,9 +1338,7 @@ class OnnxModule(nn.Module):
                         out[0] //= batch  # the per-image shape
                 else:
                     for idx in self._to_device.get(i, ()):
-                        name = node.inputs[idx]
-                        vals[idx] = device_static[name] if name in device_static else _device_value(vals[idx],
-                                                                                                    self.device)
+                        vals[idx] = self._tensor_of(node, idx, vals[idx])
                     out = _OPS[node.op_type](node, vals)
                     if self.layout == "NHWC":
                         out = _layout.keep(node.op_type, vals, out)
