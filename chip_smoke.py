@@ -138,9 +138,28 @@ check exits non-zero):
    batch 512 through ``Cnn`` with NHWC-layout modules, in turns with the
    NCHW ones (NCHW, NHWC, NHWC, NCHW; each run launching only its own stage
    variant), and a 9-call profile of each counting copy kernels and crop-
-   or activation-sized copies. The card's machine has no image
+   or activation-sized copies; the main path's ``step_batch`` exported
+   with ``zaru_tpu_torch.export.export_fn`` at 1920×1080 and batch 512 (a
+   force-detect input), reloaded through ``load_exported`` and run in
+   lockstep with the eager step for 18 steps (bit-equal, or each differing
+   key held to the trackers' tolerances), then timed in turns with it
+   (eager, exported, exported, eager; 54 steps after 9, detection forced
+   every 9th step, the rotated, letterbox and stage kernels launched inside
+   the exported run), and the single-stream ``step`` exported and held bit
+   for bit to ``run_frame``, timed in turns with it; ``analyze`` of
+   BlazeFace and Face Mesh V1 (the same FLOPs with and without the stage
+   plan) beside their measured ms/call at batch 512 and the speed of light
+   at 67 TFLOP/s; the ``Trainer`` on Face Mesh V1 at batch 64 (face crops of
+   the stored photo, the pretrained network's outputs as labels, weights
+   perturbed from a numpy seed) on the card and on the CPU, losses and
+   parameters held to the CPU run, ms/step, then inference through the
+   stage kernel on the trained weights against the op-by-op graph; an async
+   checkpoint of the trained parameters read back onto the card; a
+   ``profiling.trace`` of one exported detect step whose file must name the
+   stage and both sampler kernels. The card's machine has no image
    decoder (cv2, PIL), so file decoding is not run here: the CPU tests
-   (tests/test_torch_serve.py) cover the CLI's inputs;
+   (tests/test_torch_serve.py, tests/test_torch_export.py) cover the CLI's
+   inputs;
 6. each kernel's time at its main-path inputs (queued behind a device spin
    so the host's launch cost is hidden) beside its plain version's and its
    bound; for the samplers the whole call in the planar layout the path
@@ -2782,6 +2801,246 @@ def phase_nhwc_full_size(torch, img, device, card, state, batch=512):
     return ms, launches["NHWC"], copies
 
 
+# Trainer on Face Mesh V1 (tests/test_torch_train.py's recipe at 192²):
+# crops, seeds and tolerances against the port's own CPU run.
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_RES = 64, 10, 192
+# The weights' perturbation, in standard deviations of each parameter: at
+# slim_160's 0.03 Face Mesh's first Adam step at lr 1e-4 overshoots (the
+# loss rises from 0.21 to 1.13 at batch 16 on the CPU); at 0.1 it falls
+# from 2.3 to 0.5 in ten steps.
+TRAIN_PERTURB = 0.1
+TRAIN_FIRST_LOSS_RTOL = 1e-5  # tests/test_torch_train.py FIRST_LOSS_RTOL
+TRAIN_LOSS_RTOL = 0.1  # tests/test_torch_train.py LOSS_RTOL: Adam parts the runs
+TRAIN_PARAM_TOL_LR_STEPS = 0.5  # tests/test_torch_train.py PARAM_TOL_LR_STEPS
+
+
+def outputs_diff(torch, a, b):
+    """The leaves (of the new state and the outputs) where two step results
+    ``(state, outputs)`` differ, by path, with the largest difference."""
+    from torch.utils._pytree import keystr, tree_flatten_with_path
+
+    fa, fb = ({keystr(p): v for p, v in tree_flatten_with_path(r)[0]} for r in (a, b))
+    return {k: float((fa[k].double() - fb[k].double()).abs().max()) for k in fa if not torch.equal(fa[k], fb[k])}
+
+
+def phase_export_full_size(torch, img, device, card, tracker, frames):
+    """The main path's gated step exported at 1080p and batch 512 (a
+    force-detect input, so the cadence stays the caller's), reloaded and run
+    in lockstep with the eager step (bit-equal, or each differing key held
+    to the trackers' tolerances), then both timed in turns (eager,
+    exported, exported, eager) with the kernels' launches counted inside
+    the exported run; then the single-stream step against run_frame."""
+    from zaru_tpu_torch.export import export_fn, load_exported
+
+    batch = frames.shape[0]
+    yes, no = torch.tensor(True, device=device), torch.tensor(False, device=device)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        export_fn(lambda st, fs, force: tracker.step_batch(st, fs, force), (tracker.init_state(batch), frames, no),
+                  f"{d}/step_batch.pt2")
+        t1 = time.perf_counter()
+        call = load_exported(f"{d}/step_batch.pt2")
+        size = os.path.getsize(f"{d}/step_batch.pt2")
+        print(f"export of FaceTracker.step_batch at 1920x1080, batch {batch}: traced and saved in {t1 - t0:.1f} s, "
+              f"reloaded in {time.perf_counter() - t1:.1f} s, {size / 1e6:.2f} MB", flush=True)
+        t0 = time.perf_counter()
+        export_fn(lambda st, f: tracker.step(st, f), (tracker.init_state(), img), f"{d}/step.pt2")
+        single = load_exported(f"{d}/step.pt2")
+        print(f"export of FaceTracker.step at 1920x1080: traced, saved and reloaded in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    se = sx = tracker.init_state(batch)
+    diffs = {}
+    for i in range(2 * 9):
+        force = i % 9 == 0
+        se, oe = tracker.step_batch(se, frames, force)
+        sx, ox = call(sx, frames, yes if force else no)
+        for k, v in outputs_diff(torch, (se, oe), (sx, ox)).items():
+            diffs[k] = max(diffs.get(k, 0.0), v)
+    print(f"exported step_batch against eager over 18 steps (2 forced detections): "
+          f"{'bit-equal' if not diffs else f'differing keys {diffs}'}", flush=True)
+    # Held, if they differ at all, to the trackers' one-step tolerances:
+    # flags equal, scores within MODEL_SCORE_TOL, positions within STEP_TOL_PX.
+    check(all(not any(f in k for f in ("valid", "tracking", "init"))
+              and v <= (MODEL_SCORE_TOL if "confidence" in k else STEP_TOL_PX) for k, v in diffs.items()),
+          f"exported step_batch differs from eager: {diffs}")
+    eager = lambda st, force: tracker.step_batch(st, frames, force)  # noqa: E731
+    exported = lambda st, force: call(st, frames, yes if force else no)  # noqa: E731
+    ms, launches = {}, {}
+    for what, fn in (("eager", eager), ("exported", exported), ("exported", exported), ("eager", eager)):
+        box = {"state": tracker.init_state(batch)}
+
+        def step(i, fn=fn, box=box):
+            box["state"], box["out"] = fn(box["state"], i % 9 == 0)
+
+        dt, launches[what] = timed_run(torch, step, f"{what} step_batch", FACE_KERNELS)
+        ms.setdefault(what, []).append(dt / STEPS * 1e3)
+        check(bool(box["out"]["valid"].all()), f"{what} step_batch lost the face")
+    print(f"main path at 1920x1080, batch {batch}, eager / exported / exported / eager: "
+          f"{ms['eager'][0]:.3f} / {ms['exported'][0]:.3f} / {ms['exported'][1]:.3f} / {ms['eager'][1]:.3f} "
+          f"ms/step; launches in the exported run {launches['exported']} [{card}]", flush=True)
+    se = sx = tracker.init_state()
+    single_diffs = {}
+    for _ in range(9):
+        se, oe = tracker.run_frame(se, img)
+        sx, ox = single(sx, img)
+        single_diffs.update(outputs_diff(torch, (se, oe), (sx, ox)))
+    check(not single_diffs, f"exported step differs from run_frame: {single_diffs}")
+    one = {}
+    for what, fn in (("run_frame", tracker.run_frame), ("exported", single), ("exported", single),
+                     ("run_frame", tracker.run_frame)):
+        box = {"state": tracker.init_state()}
+
+        def step(i, fn=fn, box=box):
+            box["state"], box["out"] = fn(box["state"], img)
+
+        dt, launches[f"{what}, one stream"] = timed_run(torch, step, f"{what}, one stream", ("blaze_stage",))
+        one.setdefault(what, []).append(dt / STEPS * 1e3)
+    check(launches["exported, one stream"]["rotated_sample"] == 0, "the exported single-stream step ran a sampler")
+    print(f"single stream at 1920x1080, run_frame / exported / exported / run_frame: {one['run_frame'][0]:.3f} / "
+          f"{one['exported'][0]:.3f} / {one['exported'][1]:.3f} / {one['run_frame'][1]:.3f} ms/frame, exported "
+          f"bit-equal to run_frame over 9 frames; launches in the exported run {launches['exported, one stream']} "
+          f"[{card}]", flush=True)
+    return call, launches["exported"]
+
+
+def phase_analysis_full_size(torch, device, card, tracker, batch=512):
+    """``analyze`` of the main path's two networks beside their measured
+    time at batch 512: FLOPs, the speed of light at 67 TFLOP/s (f32)."""
+    from zaru_tpu_torch.onnx.analysis import H100_F32_TFLOPS, analyze
+
+    for what, cnn in (("BlazeFace short-range", tracker.det_cnn), ("Face Mesh V1", tracker.lm_cnn)):
+        rep = analyze(cnn.net, what)
+        m = cnn.net
+        plan = (m.stages, m._stage_at, m._in_stage)
+        m.stages, m._stage_at, m._in_stage = [], {}, set()
+        try:
+            op_by_op = analyze(cnn.net, what).flops
+        finally:
+            m.stages, m._stage_at, m._in_stage = plan
+        check(op_by_op == rep.flops, f"{what}: analyze counts {rep.flops} FLOPs with the stage plan, {op_by_op} without")
+        res = cnn.input_resolution()
+        x = torch.rand(batch, 3, res.height, res.width, device=device) * 2 - 1
+        with torch.inference_mode():
+            ms = cuda_ms(torch, lambda: cnn.net(x), reps=20)
+        sol_ms = rep.flops * batch / (H100_F32_TFLOPS * 1e12) * 1e3
+        print(f"analyze {rep} (the same without the stage plan); at batch {batch}: {rep.flops * batch / 1e9:.3f} GFLOP, "
+              f"speed of light {sol_ms:.4f} ms at {H100_F32_TFLOPS:g} TFLOP/s, measured {ms:.4f} ms/call "
+              f"({100 * sol_ms / ms:.1f}% of the f32 peak) [{card}]", flush=True)
+
+
+def train_inputs(np):
+    """TRAIN_BATCH jittered square face crops of the stored photo at
+    TRAIN_RES², nearest-neighbour (tests/test_torch_train.py's recipe),
+    as NCHW f32 in [-1, 1]."""
+    from zaru_tpu_torch.assets import fixture_path
+
+    with np.load(fixture_path("sad_linus_track.npz")) as f:
+        rgb, roi = f["rgb"], f["roi"][0, 0]
+    cx, cy, size = float(roi[0]), float(roi[1]), float(max(roi[2], roi[3]))
+    rng = np.random.default_rng(7)
+    crops = []
+    for _ in range(TRAIN_BATCH):
+        jx, jy = rng.uniform(-0.05, 0.05, 2) * size
+        side = size * float(rng.uniform(0.9, 1.15))
+        grid = (np.arange(TRAIN_RES) + 0.5) * side / TRAIN_RES - side / 2
+        xs = np.clip(np.floor(cx + jx + grid), 0, rgb.shape[1] - 1).astype(np.int64)
+        ys = np.clip(np.floor(cy + jy + grid), 0, rgb.shape[0] - 1).astype(np.int64)
+        crops.append(rgb[ys[:, None], xs[None, :]])
+    x = np.stack(crops).astype(np.float32) * np.float32(2.0 / 255.0) - np.float32(1.0)
+    return np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+
+
+def phase_trainer(torch, np, device, card):
+    """The Trainer on Face Mesh V1 at batch 64 on the card and on the CPU
+    from the same perturbed weights, crops and teacher labels: losses held
+    to the CPU run's, the stored parameters in units of lr·K, ms/step; then
+    inference through the stage kernel on the trained weights against the
+    op-by-op graph (the CNN bar). → the trained network."""
+    from zaru_tpu_torch.assets import model_path
+    from zaru_tpu_torch.nn import NeuralNetwork
+    from zaru_tpu_torch.train import Trainer
+
+    x = train_inputs(np)
+    teacher = NeuralNetwork.load(model_path("face_landmark.onnx"), device=device)
+    with torch.inference_mode():
+        y = teacher.module(torch.from_numpy(x).to(device))[0].reshape(TRAIN_BATCH, -1).cpu().numpy()
+    rng = np.random.default_rng(3)
+    base = {k: v.detach().cpu().numpy() for k, v in teacher.params.items()}
+    student = {k: (base[k] + rng.normal(0, TRAIN_PERTURB * (np.std(base[k]) + 1e-6), base[k].shape)).astype(np.float32)
+               for k in sorted(base)}
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        net = NeuralNetwork.load(model_path("face_landmark.onnx"), device=dev)
+        net.load_params(student)
+        trainer = Trainer(net)
+        xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(xd, yd))  # ends in the loss's host read
+            times.append(time.perf_counter() - t0)
+        runs.append((net, np.asarray(losses), times))
+    (net, losses, times), (cpu_net, cpu_losses, cpu_times) = runs
+    rel = np.abs(losses / cpu_losses - 1)
+    param_err = max(float((p.detach().cpu() - cpu_net.params[k].detach()).abs().max())
+                    for k, p in net.params.items()) / (1e-4 * TRAIN_STEPS)
+    print(f"Trainer on Face Mesh V1, batch {TRAIN_BATCH}, {TRAIN_STEPS} Adam steps at lr 1e-4: losses on the card "
+          f"{[round(float(v), 6) for v in losses]}, relative difference from the CPU run {rel.max():.3g} "
+          f"(first {rel[0]:.3g}), parameters {param_err:.3g} lr·K apart; {np.mean(times[1:]) * 1e3:.3f} ms/step "
+          f"on the card (first step {times[0] * 1e3:.1f} ms), {np.mean(cpu_times) * 1e3:.1f} ms/step on the CPU "
+          f"[{card}]", flush=True)
+    check(rel[0] <= TRAIN_FIRST_LOSS_RTOL and rel.max() <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_TOL_LR_STEPS,
+          "the Trainer on the card parts from its CPU run beyond the tolerances")
+    check(losses[-1] < losses[0], "the Trainer's loss did not fall")
+    xd = torch.from_numpy(x).to(device)
+    with torch.inference_mode():
+        zero_launches()
+        fused = net.module(xd)[0]
+        stage = read_launches()["blaze_stage"]
+        op_by_op = net.module(xd, stages=False)[0]
+    err = float((fused - op_by_op).abs().max())
+    tol = 1e-3 * max(1.0, float(op_by_op.abs().max()))
+    print(f"after training: inference through the stage kernel ({stage} launches) against the op-by-op graph on "
+          f"the trained weights: max difference {err:.3g} (bar {tol:.3g} + 2e-3 relative)", flush=True)
+    check(stage == 8 and bool(((fused - op_by_op).abs() <= tol + 2e-3 * op_by_op.abs()).all()),
+          "inference after training does not see the trained weights")
+    return net
+
+
+def phase_checkpoint_profiler(torch, device, card, net, tracker, call, frames):
+    """An async checkpoint of the trained card parameters (host copy
+    before the call returns, written on a thread) read back onto the card;
+    then a profiler trace of one exported detect step, which must name the
+    stage and both sampler kernels."""
+    from zaru_tpu_torch.checkpoint import load_params, save_params_async
+    from zaru_tpu_torch.profiling import trace
+
+    params = net.params
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        handle = save_params_async(f"{d}/ckpt", params)
+        t1 = time.perf_counter()
+        handle.wait_until_finished()
+        t2 = time.perf_counter()
+        back = load_params(f"{d}/ckpt", like=params)
+        check(all(back[k].device == params[k].device and torch.equal(back[k], params[k].detach()) for k in params),
+              "the checkpoint did not come back equal onto the card")
+        print(f"async checkpoint of {len(params)} tensors ({sum(p.numel() for p in params.values()) * 4 / 1e6:.2f} MB): "
+              f"{(t1 - t0) * 1e3:.1f} ms to return (host copy included), {(t2 - t0) * 1e3:.1f} ms written; read "
+              f"back onto {device} equal [{card}]", flush=True)
+        batch = frames.shape[0]
+        state = tracker.init_state(batch)
+        yes = torch.tensor(True, device=device)
+        with trace(f"{d}/prof"):
+            call(state, frames, yes)
+        (path,) = Path(f"{d}/prof").glob("*.json")
+        text = path.read_text()
+        names = [k for k in ("blaze_stage_kernel", "rotated_sample_kernel", "letterbox_sample_kernel") if k in text]
+        print(f"profiler trace of one exported detect step at batch {batch}: {path.stat().st_size / 1e6:.2f} MB, "
+              f"names {names}", flush=True)
+        check(len(names) == 3, f"the trace names only {names}")
+
+
 def timed_phase(what, fn, *args):
     """``fn(*args)``, then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -2868,6 +3127,14 @@ def run_phases(torch, np, F, device, smi):
     host_calls, sweeps = timed("5, host engines and eval", phase_host_full_size, torch, np, device, nets, image,
                                cropped, rgba, smi)
     timed("5, bf16 against f32", phase_bf16_full_size, torch, img, device, smi, tracker, hands, seed)
+    main_frames = runs["main path"][0]
+    call, export_launches = timed("5, export and run-exported of the main path", phase_export_full_size, torch, img,
+                                  device, smi, tracker, main_frames)
+    timed("5, analyze", phase_analysis_full_size, torch, device, smi, tracker)
+    trained = timed("5, Trainer on Face Mesh V1", phase_trainer, torch, np, device, smi)
+    timed("5, checkpoint and profiler", phase_checkpoint_profiler, torch, device, smi, trained, tracker, call,
+          main_frames)
+    del call
     print(f"launches in the batch-512 face runs ({STEPS} steps each): {runs['launches']}", flush=True)
     print(f"launches in the batch-128 multi-object runs ({STEPS} steps each): {multi}", flush=True)
     print(f"launches in the face-model and single-stream runs ({STEPS} steps each): "
@@ -2876,6 +3143,7 @@ def run_phases(torch, np, F, device, smi):
           f"{SERVE_STREAMS} streams ({STEPS} steps): {serve_launches}", flush=True)
     print(f"launches in the StreamIdentifier run at 512 ({STEPS} steps): {sid_launches}", flush=True)
     print(f"launches in the NHWC-layout Cnn run at 512 ({STEPS} calls): {nhwc_launches}", flush=True)
+    print(f"launches in the exported main path's run at 512 ({STEPS} steps): {export_launches}", flush=True)
     print(f"launches in the host engines' runs ({HOST_CALLS} calls each): "
           f"{ {k: v[1]['blaze_stage'] for k, v in host_calls.items()} } stage chains; in the timed sweep: "
           f"{ {k: v[1]['blaze_stage'] for k, v in sweeps.items()} }", flush=True)

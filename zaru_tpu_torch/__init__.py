@@ -28,10 +28,16 @@ track|serve|info``; the host engines (``nn.NeuralNetwork``/``Loader``,
 and on ``FaceTracker``, ``MultiHandTracker`` and ``BodyTracker``; face
 identification (``face.recognition.Embedder``, ``face.identify``'s
 ``FaceIdentifier`` and ``StreamIdentifier``), ``image.blend``, ``quat``,
-``procrustes``, ``pnp`` and ``approx``. Not ported: the NHWC layout and 45
-ONNX ops, ``serve --shard`` and the ``export``/``run-exported``
-subcommands (ROADMAP Queue 1).
+``procrustes``, ``pnp`` and ``approx``; the JAX importer's whole ONNX
+dialect and the NHWC layout; ``export`` (a tracker step as a
+``torch.export`` program, the kernels as registered ops, and ``python -m
+zaru_tpu_torch export|run-exported``), ``train.Trainer``, ``checkpoint``,
+``profiling`` and ``onnx.analysis``. Not ported: ``serve --shard``,
+``parallel`` and data-parallel training, the GUI, the camera sources and
+the native JPEG bridge (ROADMAP Queue 1).
 """
+
+__version__ = "0.1.0"
 
 from ._device import resolve_device
 from .pipeline import BodyTracker, FaceTracker, MultiFaceTracker, MultiHandTracker

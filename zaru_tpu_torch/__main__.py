@@ -11,6 +11,11 @@ asset inventory, on the GPU.
     python -m zaru_tpu_torch serve INPUT... --streams N [--pipeline ...]
         [--steps N | --soak SECONDS] [--out out.jsonl] [--landmarks]
         [--no-loop] [--decode-wait MS] [--batch-program] [--device cuda]
+    python -m zaru_tpu_torch export OUT [--pipeline face|hand|body] [--iris]
+        [--slots N] [--batch N] [--height H] [--width W] [--device cuda]
+        [--verify]
+    python -m zaru_tpu_torch run-exported ARTIFACT INPUT [--state S]
+        [--out out.jsonl] [--max-frames N]
 
 ``track`` reads INPUT (video file, GIF/APNG animation, single image, or a
 directory of images), runs the chosen cascade one stream at a time
@@ -22,15 +27,24 @@ finite, joining as slots free), decoded on a host thread pool, uploaded
 double-buffered (``pipeline.ingest.FrameUploader``) and stepped through the
 batch-gated cascade, one JSON line per step. ``eval`` forwards its
 arguments to :func:`zaru_tpu_torch.eval.main`, the equivariance sweep.
+``export`` saves a tracker's step as a ``torch.export`` artifact with the
+weights baked in (``--batch N``: the batch-gated ``step_batch``, which runs
+the letterbox, rotated and stage kernels; else the single-stream ``step``),
+beside its initial state (``OUT.state.npz``) and manifest
+(``OUT.manifest.json``); ``run-exported`` runs such an artifact over INPUT
+with nothing but this package, after checking the frames, the state
+sidecar and the manifest against the program's signature
+(:mod:`zaru_tpu_torch.export`).
 ``info`` reports the runtime (torch and CUDA versions, the card), which
 model blobs resolve through the ``ZARU_TPU_MODELS`` search chain, and which
 of their wrappers the port lacks.
 
 ``--device`` (``cuda`` unless named) is the port's counterpart of
 ``JAX_PLATFORMS``: without a GPU the default raises instead of running on
-the CPU; ``--device cpu`` runs the kernels' plain versions. Not ported:
-``serve --shard`` (it exits naming the missing ``ShardedTracker``) and the
-``export`` and ``run-exported`` subcommands.
+the CPU; ``--device cpu`` runs the kernels' plain versions; an exported
+artifact runs on the device it was exported for. Not ported: ``serve
+--shard`` (it exits naming the missing ``ShardedTracker``, which waits for
+the slice that shards over devices).
 """
 
 from __future__ import annotations
@@ -202,7 +216,8 @@ def cmd_serve(args) -> int:
     if args.shard:
         raise SystemExit(
             "--shard needs ShardedTracker (zaru_tpu/parallel/mesh.py), which the port does not "
-            "have yet; serve on one device without --shard"
+            "have yet (it comes with the slice that shards over devices); serve on one device "
+            "without --shard"
         )
     tracker = _build_tracker(args.pipeline, iris=args.iris, slots=args.slots, device=args.device)
 
@@ -253,6 +268,163 @@ def cmd_serve(args) -> int:
         if sink is not None and sink is not sys.stdout:
             sink.close()
     print(stats.summary(streams), file=sys.stderr)
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Saves a tracker's step as a ``torch.export`` artifact
+    (zaru_tpu/__main__.py:394 ``cmd_export``): the weights baked in, the
+    initial state beside it as a sidecar, and a manifest."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from .export import export_fn, load_exported, save_state, write_manifest
+
+    tracker = _build_tracker(args.pipeline, iris=args.iris, slots=args.slots, device=args.device)
+    if args.batch:
+        state = tracker.init_state(batch=args.batch)
+        frames = torch.zeros((args.batch, args.height, args.width, 4), dtype=torch.uint8, device=tracker.device)
+        fn = lambda st, fs: tracker.step_batch(st, fs)  # noqa: E731  the serving step (`run_frames_gated`)
+        kind = f"step_batch (gated), batch {args.batch}"
+    else:
+        state = tracker.init_state()
+        frames = torch.zeros((args.height, args.width, 4), dtype=torch.uint8, device=tracker.device)
+        fn = lambda st, f: tracker.step(st, f)  # noqa: E731
+        kind = "single-stream step"
+    out_path = Path(args.out)
+    export_fn(fn, (state, frames), out_path, device=tracker.device)
+    state_path = Path(f"{out_path}.state.npz")
+    save_state(state, state_path)
+    manifest = write_manifest(
+        out_path, pipeline=args.pipeline, kind=kind, batch=args.batch, frame_shape=frames.shape,
+        frame_dtype="uint8", platforms=[str(tracker.device)], state_leaves=len(pytree.tree_leaves(state)),
+    )
+    size = out_path.stat().st_size
+    print(
+        f"exported {args.pipeline} {kind} for {args.height}x{args.width} frames for device "
+        f"{tracker.device} -> {out_path} ({size / 1e6:.2f} MB) + init state {state_path.name} + {manifest.name}",
+        file=sys.stderr,
+    )
+    if args.verify:
+        restored = load_exported(out_path)
+        _new_state, out = restored(state, frames)
+        shapes = {k: list(v.shape) for k, v in out.items()}
+        print(f"verify: reloaded and ran; outputs {shapes}", file=sys.stderr)
+    return 0
+
+
+def cmd_run_exported(args) -> int:
+    """Runs an exported step over an offline input with nothing but the
+    artifact and its state sidecar (zaru_tpu/__main__.py:459
+    ``cmd_run_exported``). The artifact's signature and manifest are
+    checked before the frame loop: wrong-sized frames and a stale or
+    mismatched sidecar fail with one line. A batch artifact gathers N
+    frames a step; the last step pads by repeating the last frame and says
+    so (``"padded"``)."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from .export import deserialize_exported, load_state, read_manifest
+    from .serve import _host
+
+    exp = deserialize_exported(args.artifact)
+    state = load_state(args.state or f"{args.artifact}.state.npz")
+
+    # The exported arguments are (state, frame): the frame is the last flat
+    # input, the state's leaves come before it.
+    frame_shape, _ = exp.in_specs[-1]
+    state_specs = exp.in_specs[:-1]
+    if len(frame_shape) == 4:
+        batch, frame_hw = frame_shape[0], frame_shape[1:]
+    elif len(frame_shape) == 3:
+        batch, frame_hw = 0, frame_shape
+    else:
+        raise SystemExit(
+            f"{args.artifact}: last input has shape {list(frame_shape)}; expected a [H,W,4] or "
+            "[B,H,W,4] frame — not a zaru_tpu_torch step artifact?"
+        )
+
+    state_leaves = pytree.tree_leaves(state)
+    if len(state_leaves) != len(state_specs):
+        raise SystemExit(
+            f"state sidecar has {len(state_leaves)} arrays but the artifact was exported with "
+            f"{len(state_specs)}; the --state file does not belong to this artifact (re-export, or pass "
+            "the matching .state.npz)"
+        )
+    for i, (leaf, (shape, dtype)) in enumerate(zip(state_leaves, state_specs)):
+        got = (tuple(np.shape(leaf)), np.asarray(leaf).dtype.name)
+        if got != (shape, dtype):
+            raise SystemExit(
+                f"state sidecar leaf {i} is {got[1]}{list(got[0])} but the artifact expects "
+                f"{dtype}{list(shape)}; stale or mismatched --state sidecar"
+            )
+
+    manifest = read_manifest(args.artifact)
+    if manifest is not None:
+        want_shape = ([batch] if batch else []) + list(frame_hw)
+        if manifest.get("frame_shape") != want_shape:
+            raise SystemExit(
+                f"manifest {manifest.get('frame_shape')} disagrees with the artifact signature "
+                f"{want_shape}; the .manifest.json does not belong to this artifact"
+            )
+        print(
+            f"artifact: {manifest.get('pipeline')} {manifest.get('kind')} "
+            f"(zaru_tpu_torch {manifest.get('framework_version')}, torch {manifest.get('torch_version')}, "
+            f"platforms {manifest.get('platforms') or 'default'})",
+            file=sys.stderr,
+        )
+
+    sink = open(args.out, "w") if args.out else sys.stdout
+    n_valid = n_frames = step = 0
+
+    def run_step(frame_or_batch, rec_extra, n_real=None):
+        nonlocal state, n_valid, step
+        try:
+            state, out = exp.call(state, frame_or_batch)
+        except (ValueError, TypeError, RuntimeError) as e:
+            raise SystemExit(
+                f"step {step} (frames {tuple(frame_or_batch.shape)}) failed: exported-signature mismatch "
+                f"or a runtime error inside the artifact — {e}"
+            ) from e
+        rec = _to_jsonable(out)
+        rec.update(rec_extra)
+        rec.pop("rois", None)
+        rec.pop("roi", None)
+        print(json.dumps(rec), file=sink, flush=sink is sys.stdout)
+        valid = _host(out["valid"]).reshape(-1)
+        if n_real is not None:
+            valid = valid[:n_real]  # padding frames do not count
+        n_valid += int(valid.sum())
+        step += 1
+
+    try:
+        pending = []
+        for idx, image in enumerate(_iter_frames(Path(args.input), exp.device)):
+            if args.max_frames is not None and idx >= args.max_frames:
+                break
+            frame = image.data
+            if tuple(frame.shape) != frame_hw:
+                raise SystemExit(
+                    f"frame {idx} has shape {tuple(frame.shape)}; the artifact expects {frame_hw} frames "
+                    "(exported signature)"
+                )
+            n_frames += 1
+            if not batch:
+                run_step(frame, {"frame": idx})
+                continue
+            pending.append(frame)
+            if len(pending) == batch:
+                run_step(torch.stack(pending), {"frames": n_frames - batch})
+                pending = []
+        if pending:
+            real = len(pending)
+            pending += [pending[-1]] * (batch - real)
+            run_step(torch.stack(pending), {"frames": n_frames - real, "padded": batch - real}, n_real=real)
+    finally:
+        if sink is not sys.stdout:
+            sink.close()
+    print(f"{n_frames} frames, {n_valid} valid detections", file=sys.stderr)
     return 0
 
 
@@ -350,6 +522,29 @@ def main(argv=None) -> int:
     )
     device_arg(p_serve)
     p_serve.set_defaults(fn=cmd_serve)
+
+    p_export = sub.add_parser("export", help="save a tracker step as a torch.export artifact")
+    p_export.add_argument("out", help="artifact output path")
+    p_export.add_argument("--pipeline", default="face", choices=("face", "hand", "body"))
+    p_export.add_argument("--iris", action="store_true")
+    p_export.add_argument("--slots", type=int, default=4)
+    p_export.add_argument(
+        "--batch", type=int, default=0,
+        help="export the batch-gated serving step for N streams (default 0 = single-stream step)",
+    )
+    p_export.add_argument("--height", type=int, default=1080)
+    p_export.add_argument("--width", type=int, default=1920)
+    p_export.add_argument("--verify", action="store_true", help="reload the artifact and run it once on zero frames")
+    device_arg(p_export)
+    p_export.set_defaults(fn=cmd_export)
+
+    p_run = sub.add_parser("run-exported", help="run an exported step artifact over an offline input")
+    p_run.add_argument("artifact", help="artifact from `export`")
+    p_run.add_argument("input", help="video / GIF / image / image directory")
+    p_run.add_argument("--state", help="init-state sidecar (default: ARTIFACT.state.npz)")
+    p_run.add_argument("--out", help="output JSONL path (default stdout)")
+    p_run.add_argument("--max-frames", type=int, default=None)
+    p_run.set_defaults(fn=cmd_run_exported)
 
     p_info = sub.add_parser("info", help="runtime + model-asset inventory")
     p_info.set_defaults(fn=cmd_info)

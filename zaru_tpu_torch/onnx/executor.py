@@ -700,8 +700,21 @@ def _resize_weights(m: int, n: int, method: str, dtype: torch.dtype, device: tor
     in f32 with antialiasing: half-pixel centres, the kernel widened by
     ``m / n`` on a shrink, each column normalised to sum 1. Kept for the
     next call at the same sizes."""
-    with torch.inference_mode(False):
+    with _real_tensors():
         return _weight_mat(m, n, method, device).to(dtype)
+
+
+@contextlib.contextmanager
+def _real_tensors():
+    """Makes a tensor that is kept from one call to the next: a plain one,
+    outside inference mode and outside any tracing or fake-tensor mode of
+    the call that makes it (``torch.export``, ``FakeTensorMode`` in
+    ``onnx/analysis.py``), so a later eager call can use it; a traced
+    program takes it as a constant."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with torch.inference_mode(False), _disable_current_modes():
+        yield
 
 
 def _weight_mat(m: int, n: int, method: str, device: torch.device) -> torch.Tensor:
@@ -1174,6 +1187,7 @@ class OnnxModule(nn.Module):
         self.compute_dtype = compute_dtype
         self.layout = _layout.check(layout)
         g = model.graph
+        self.name = g.name
         unsupported = sorted({n.op_type for n in g.nodes} - SUPPORTED_OPS)
         if unsupported:
             raise NotImplementedError(
@@ -1264,7 +1278,7 @@ class OnnxModule(nn.Module):
         key = (name, reciprocal, arr.dtype.str, arr.shape, arr.tobytes())
         t = self._host_copies.get(key)
         if t is None:
-            with torch.inference_mode(False):
+            with _real_tensors():
                 t = self._host_copies[key] = _device_value(arr, self.device, reciprocal)
         return t
 
@@ -1304,10 +1318,12 @@ class OnnxModule(nn.Module):
             p.copy_(v)
         self._derive_weights()
 
-    def activations(self, *inputs: torch.Tensor) -> dict:
+    def activations(self, *inputs: torch.Tensor, stages: bool = True) -> dict:
         """Every value the selected outputs depend on, by name (a chain's
         inner values are not computed), for ``inputs``: device values as
-        tensors, host values as numpy arrays."""
+        tensors, host values as numpy arrays. ``stages=False`` runs the
+        chains node by node too: the graph JAX differentiates (the stage
+        kernel's op has no gradient)."""
         if len(inputs) != len(self.input_info):
             raise ValueError(f"expected {len(self.input_info)} inputs, got {len(inputs)}")
         dtype = self.compute_dtype
@@ -1316,20 +1332,22 @@ class OnnxModule(nn.Module):
         inputs = [_layout.store(x, self.layout) for x in inputs]
         batch = next((x.shape[0] for vi, x in zip(self.input_info, inputs) if vi.name in self._batched), 1)
         env: dict = dict(self._static)
-        env.update(self._compute_params)
+        # An f32 module reads its parameters themselves (attribute reads,
+        # which torch.export tracks), a bf16 one their cast copy.
+        env.update(self._compute_params if dtype else self.params())
         env.update((vi.name, x) for vi, x in zip(self.input_info, inputs))
         with _full_precision():
             for i, node in enumerate(self.nodes):
                 if i not in self._live or node.op_type == "Constant":
                     continue
-                st = self._stage_at.get(i)
+                st = self._stage_at.get(i) if stages else None
                 if st is not None:
                     x = env[st.input]
                     env[st.output] = cnn_stage.fused_blocks(
                         x, self._packed[i], x.shape[2], x.shape[3], st.channels
                     )
                     continue
-                if i in self._in_stage:
+                if stages and i in self._in_stage:
                     continue
                 vals = [env[n] if n else None for n in node.inputs]
                 if i in self._on_host:
@@ -1345,8 +1363,8 @@ class OnnxModule(nn.Module):
                 env.update(zip(node.outputs, out if isinstance(out, list) else [out]))
         return env
 
-    def forward(self, *inputs: torch.Tensor) -> list[torch.Tensor]:
-        env = self.activations(*inputs)
+    def forward(self, *inputs: torch.Tensor, stages: bool = True) -> list[torch.Tensor]:
+        env = self.activations(*inputs, stages=stages)
         outs = [env[n] for n in self.output_names]
         if self.layout == "NHWC":
             outs = [_layout.to_nchw(o) for o in outs]

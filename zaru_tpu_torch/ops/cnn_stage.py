@@ -23,6 +23,13 @@ global load and store, so they are bit-equal on the same values. Each
 counts its launches:
 ``fused_blocks.launches`` (NCHW) and ``fused_blocks.nhwc_launches``.
 
+The stage is the registered op ``zaru_tpu_torch::blaze_stage``
+(:func:`blaze_stage_op`): its CUDA kernel is the launch, its CPU kernel the
+plain version, its fake kernel the output's shape and layout, so
+``torch.export`` captures it and ``FakeTensorMode`` runs it; a FLOP formula
+(:func:`stage_flops`) lets ``torch.utils.flop_counter`` count it as the
+per-op chain it replaces.
+
 Blocks are dicts of ``dw_w [C,1,3,3]``, ``dw_b [C]``, ``pw_w [C,C,1,1]``,
 ``pw_b [C]`` and ``alpha`` (``[C]``, any shape of C values, or None for a
 ReLU), as in the JAX module. :func:`pack_blocks` lays them out for the
@@ -40,9 +47,14 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from torch.utils.flop_counter import register_flop_formula
+
 from ._build import library
 
-__all__ = ["KERNEL_CHANNELS", "blaze_blocks_reference", "fused_blocks", "max_blocks", "pack_blocks", "unpack_blocks"]
+__all__ = [
+    "KERNEL_CHANNELS", "blaze_blocks_reference", "blaze_stage_op", "fused_blocks", "max_blocks", "pack_blocks",
+    "stage_flops", "unpack_blocks",
+]
 
 SMEM_LIMIT = 232448  # dynamic shared memory one thread block may use (H100)
 # The channel counts csrc/blaze_stage.cu is instantiated for: those of the
@@ -182,18 +194,17 @@ def _check(x, packed, H, W, C):
                          f"got {tuple(packed.shape)} {packed.dtype} on {packed.device}")
 
 
-def fused_blocks(x, packed, H: int, W: int, C: int):
-    """Runs the packed stage over ``x [B,C,H,W] f32`` → the last block's
-    output, same shape and layout. A CUDA tensor launches the kernel (or
-    raises): an NCHW-contiguous one the NCHW variant, a channels_last one
-    the NHWC variant; any other strides raise, as do more blocks than
-    :func:`max_blocks`. A CPU tensor runs the plain version."""
-    _check(x, packed, H, W, C)
-    if x.device.type == "cpu":
-        return blaze_blocks_reference(x, unpack_blocks(packed, C))
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    B, nb = x.shape[0], packed.shape[0]
+@torch.library.custom_op("zaru_tpu_torch::blaze_stage", mutates_args=(), device_types="cuda")
+def blaze_stage_op(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """The stage as a registered op on ``x [B,C,H,W] f32`` and its packed
+    blocks: the CUDA kernel launches ``csrc/blaze_stage.cu`` (an
+    NCHW-contiguous ``x``) or ``csrc/blaze_stage_nhwc.cu`` (a channels_last
+    one) once and counts it in ``fused_blocks.launches`` or
+    ``fused_blocks.nhwc_launches``; the CPU kernel is the plain version.
+    It has no autograd formula (JAX has no backward kernel either): a
+    gradient asked through it raises."""
+    B, C, H, W = x.shape
+    nb = packed.shape[0]
     if C not in KERNEL_CHANNELS or not 0 < B <= 65535:
         raise ValueError(f"the kernel takes C in {KERNEL_CHANNELS} and 1..65535 images, "
                          f"got C={C}, B={B}")
@@ -221,6 +232,38 @@ def fused_blocks(x, packed, H: int, W: int, C: int):
     else:
         fused_blocks.launches += 1
     return out
+
+
+@blaze_stage_op.register_kernel("cpu")
+def _(x, packed):
+    return blaze_blocks_reference(x, unpack_blocks(packed, x.shape[1]))
+
+
+@blaze_stage_op.register_fake
+def _(x, packed):
+    return torch.empty_like(x)
+
+
+@register_flop_formula(torch.ops.zaru_tpu_torch.blaze_stage)
+def stage_flops(x_shape, packed_shape, *args, out_shape=None, **kwargs) -> int:
+    """``B·H·W·C·(2·(9 + C) + 4)`` a block: the depthwise 3×3 and the 1×1's
+    multiply-adds at two operations each, and the two biases, the residual
+    Add and PReLU at one each."""
+    B, C, H, W = x_shape
+    return packed_shape[0] * B * H * W * C * (2 * (9 + C) + 4)
+
+
+def fused_blocks(x, packed, H: int, W: int, C: int):
+    """Runs the packed stage over ``x [B,C,H,W] f32`` → the last block's
+    output, same shape and layout, through :func:`blaze_stage_op`. A CUDA
+    tensor launches the kernel (or raises): an NCHW-contiguous one the NCHW
+    variant, a channels_last one the NHWC variant; any other strides raise,
+    as do more blocks than :func:`max_blocks`. A CPU tensor runs the plain
+    version."""
+    _check(x, packed, H, W, C)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return blaze_stage_op(x, packed)
 
 
 fused_blocks.launches = 0

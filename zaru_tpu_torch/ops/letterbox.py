@@ -8,7 +8,9 @@ CUDA tensor it launches ``csrc/letterbox_sample.cu``, which replaces the TPU
 kernel ``letterbox_sample_pallas`` (zaru_tpu/ops/pallas_kernels.py:44); on a
 CPU tensor it runs the plain version, :func:`letterbox_sample_reference`
 (``letterbox_sample_core``, zaru_tpu/ops/sampling.py:120). Both are
-bit-exact to the JAX functions.
+bit-exact to the JAX functions. The two are the CUDA and CPU kernels of the
+registered op ``zaru_tpu_torch::letterbox_sample`` (:func:`letterbox_sample_op`),
+which ``torch.export`` captures.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ import torch
 from ._build import library
 from .sampling import color_adjust, letterbox_sample_core
 
-__all__ = ["letterbox_sample", "letterbox_sample_planar_reference", "letterbox_sample_reference"]
+__all__ = [
+    "letterbox_sample", "letterbox_sample_op", "letterbox_sample_planar_reference", "letterbox_sample_reference",
+]
 
 letterbox_sample_reference = letterbox_sample_core
 
@@ -40,20 +44,13 @@ def letterbox_sample_planar_reference(frames_u8, rrects, out_w: int, out_h: int,
     return letterbox_sample_core(frames_u8, rrects, out_w, out_h, lo, hi).permute(0, 3, 1, 2).contiguous()
 
 
-def letterbox_sample(
-    frames_u8, rrects, out_w: int, out_h: int, lo: float, hi: float, layout: str = "NHWC"
-):
-    """Letterbox sample + colour map; see the module docstring."""
-    _check(frames_u8, rrects)
-    if layout not in ("NHWC", "NCHW"):
-        raise ValueError(f"layout must be NHWC or NCHW, got {layout!r}")
-    planar = layout == "NCHW"
-    if frames_u8.device.type == "cpu":
-        if planar:
-            return letterbox_sample_planar_reference(frames_u8, rrects, out_w, out_h, lo, hi)
-        return letterbox_sample_core(frames_u8, rrects, out_w, out_h, lo, hi)
-    if frames_u8.device.type != "cuda":
-        raise ValueError(f"unsupported device {frames_u8.device}")
+@torch.library.custom_op("zaru_tpu_torch::letterbox_sample", mutates_args=(), device_types="cuda")
+def letterbox_sample_op(
+    frames_u8: torch.Tensor, rrects: torch.Tensor, out_w: int, out_h: int, lo: float, hi: float, planar: bool,
+) -> torch.Tensor:
+    """The sampler as a registered op: its CUDA kernel launches
+    ``csrc/letterbox_sample.cu`` once and counts it in
+    ``letterbox_sample.launches``; its CPU kernel is the plain version."""
     if not (frames_u8.is_contiguous() and rrects.is_contiguous()):
         raise ValueError("frames and rects must be contiguous")
     B, H, W, _ = frames_u8.shape
@@ -74,6 +71,33 @@ def letterbox_sample(
         raise RuntimeError(f"letterbox_sample kernel launch failed: CUDA error {rc}")
     letterbox_sample.launches += 1
     return out
+
+
+@letterbox_sample_op.register_kernel("cpu")
+def _(frames_u8, rrects, out_w, out_h, lo, hi, planar):
+    if planar:
+        return letterbox_sample_planar_reference(frames_u8, rrects, out_w, out_h, lo, hi)
+    return letterbox_sample_core(frames_u8, rrects, out_w, out_h, lo, hi)
+
+
+@letterbox_sample_op.register_fake
+def _(frames_u8, rrects, out_w, out_h, lo, hi, planar):
+    B = frames_u8.shape[0]
+    return frames_u8.new_empty((B, 3, out_h, out_w) if planar else (B, out_h, out_w, 3), dtype=torch.float32)
+
+
+def letterbox_sample(
+    frames_u8, rrects, out_w: int, out_h: int, lo: float, hi: float, layout: str = "NHWC"
+):
+    """Letterbox sample + colour map; see the module docstring. A CUDA
+    tensor launches the kernel (or raises), a CPU tensor runs the plain
+    version."""
+    _check(frames_u8, rrects)
+    if layout not in ("NHWC", "NCHW"):
+        raise ValueError(f"layout must be NHWC or NCHW, got {layout!r}")
+    if frames_u8.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {frames_u8.device}")
+    return letterbox_sample_op(frames_u8, rrects, out_w, out_h, lo, hi, layout == "NCHW")
 
 
 letterbox_sample.launches = 0

@@ -14,11 +14,14 @@ the eye crops of iris refinement use 256): bit-exact to the exact sampler
 for views whose rotated bounding box fits the grid, within
 ``ceil(stride/2)`` source pixels beyond. The per-view coefficients follow
 the f32 op order of ``_prescale_geometry`` (:118), ``_prescale_coefs``
-(:366-371) and ``_sampler_coefs`` (:539-570) (:func:`sampler_coefs`). On a
-CUDA tensor one launch of ``csrc/rotated_sample.cu``
-(:func:`rotated_sample_launch`) computes them per view and samples; on a
-CPU tensor :func:`rotated_sample_fast_reference`, the plain version, runs
-both in torch ops. The TPU kernels replaced are listed in the CUDA source.
+(:366-371) and ``_sampler_coefs`` (:539-570) (:func:`sampler_coefs`). The
+sampler is the registered op ``zaru_tpu_torch::rotated_sample``
+(:func:`rotated_sample_op`, so ``torch.export`` captures it): on a CUDA
+tensor one launch of ``csrc/rotated_sample.cu`` (:func:`rotated_sample_launch`)
+computes them per view and samples; on a CPU tensor the plain version
+(:func:`rotated_sample_fast_reference`) runs both in torch ops; its fake
+kernel gives the output's shape. The TPU kernels replaced are listed in the
+CUDA source.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ __all__ = [
     "rotated_sample_fast",
     "rotated_sample_fast_reference",
     "rotated_sample_launch",
+    "rotated_sample_op",
     "sampler_coefs",
 ]
 
@@ -161,6 +165,17 @@ def _shaped(out, rrects, out_w, out_h, layout):
     return out.reshape(*rrects.shape[:-1], *tail)
 
 
+def _plain(frames_u8, rects, out_w, out_h, lo, hi, prescale_m, planar, mirror):
+    """The plain version on flat ``rects [N,5]`` (``N/B`` views a frame) →
+    ``[N,out_h,out_w,3]`` or, ``planar``, ``[N,3,out_h,out_w]``."""
+    coefs, icoefs = sampler_coefs(rects, prescale_m)
+    out = _reference(frames_u8.contiguous(), coefs, icoefs, out_w, out_h, lo, hi, prescale_m)
+    if any(mirror):
+        flip = torch.tensor(list(mirror), device=out.device).repeat(frames_u8.shape[0])
+        out = torch.where(flip[:, None, None, None], out.flip(-2), out)
+    return out.permute(0, 3, 1, 2).contiguous() if planar else out
+
+
 def rotated_sample_fast_reference(
     frames_u8, rrects, out_w: int, out_h: int, lo: float = 0.0, hi: float = 1.0,
     prescale_m: int = PRESCALE_M, layout: str = "NHWC", mirror=None,
@@ -171,13 +186,8 @@ def rotated_sample_fast_reference(
     the gather, because torch wraps negative ones). The planar layout is the
     NHWC result permuted, a mirrored slot the NHWC result flipped."""
     _check(frames_u8, rrects, layout, mirror)
-    coefs, icoefs = sampler_coefs(rrects.reshape(-1, 5), prescale_m)
-    out = _reference(frames_u8.contiguous(), coefs, icoefs, out_w, out_h, lo, hi, prescale_m)
-    if mirror is not None and any(mirror):
-        flip = torch.tensor(list(mirror), device=out.device).repeat(frames_u8.shape[0])
-        out = torch.where(flip[:, None, None, None], out.flip(-2), out)
-    if layout == "NCHW":
-        out = out.permute(0, 3, 1, 2).contiguous()
+    out = _plain(frames_u8, rrects.reshape(-1, 5), out_w, out_h, lo, hi, prescale_m, layout == "NCHW",
+                 list(mirror or ()))
     return _shaped(out, rrects, out_w, out_h, layout)
 
 
@@ -189,7 +199,8 @@ def rotated_sample_launch(
     for ``rects [N,5]`` (``slots`` = N/B views per frame, view ``n`` of frame
     ``n // slots``) → ``[N,out_h,out_w,3]`` or, ``layout="NCHW"``,
     ``[N,3,out_h,out_w]`` f32. The kernel computes each view's coefficients
-    itself. Counts the launch in ``rotated_sample_fast.launches``."""
+    itself. Not counted: the registered op's CUDA kernel
+    (:func:`rotated_sample_op`) counts its launches."""
     B, H, W, _ = frames_u8.shape
     N = rects.shape[0]
     if not (frames_u8.is_cuda and frames_u8.dtype == torch.uint8 and frames_u8.is_contiguous()):
@@ -220,8 +231,33 @@ def rotated_sample_launch(
     )
     if rc != 0:
         raise RuntimeError(f"rotated_sample kernel launch failed: CUDA error {rc}")
+    return out
+
+
+@torch.library.custom_op("zaru_tpu_torch::rotated_sample", mutates_args=(), device_types="cuda")
+def rotated_sample_op(
+    frames: torch.Tensor, rects: torch.Tensor, out_w: int, out_h: int, lo: float, hi: float,
+    prescale_m: int, planar: bool, mirror: list[bool],
+) -> torch.Tensor:
+    """The sampler as a registered op on flat ``rects [N,5]`` (``mirror``:
+    one flag a slot, or empty): its CUDA kernel is one launch of
+    :func:`rotated_sample_launch`, counted in ``rotated_sample_fast.launches``
+    (so a launch from inside an exported program counts too); its CPU
+    kernel the plain version."""
+    slots = rects.shape[0] // frames.shape[0]
+    out = rotated_sample_launch(frames, rects, slots, out_w, out_h, lo, hi, prescale_m,
+                                "NCHW" if planar else "NHWC", mirror or None)
     rotated_sample_fast.launches += 1
     return out
+
+
+rotated_sample_op.register_kernel("cpu")(_plain)
+
+
+@rotated_sample_op.register_fake
+def _(frames, rects, out_w, out_h, lo, hi, prescale_m, planar, mirror):
+    n = rects.shape[0]
+    return frames.new_empty((n, 3, out_h, out_w) if planar else (n, out_h, out_w, 3), dtype=torch.float32)
 
 
 def kernel_coefs(rects, prescale_m: int = PRESCALE_M):
@@ -250,19 +286,14 @@ def rotated_sample_fast(
     frames_u8, rrects, out_w: int, out_h: int, lo: float = 0.0, hi: float = 1.0,
     prescale_m: int = PRESCALE_M, layout: str = "NHWC", mirror=None,
 ):
-    """Rotated-view sample + colour map; see the module docstring. A CUDA
-    tensor launches the kernel (or raises), a CPU tensor runs the plain
-    version."""
-    if frames_u8.device.type == "cpu":
-        return rotated_sample_fast_reference(
-            frames_u8, rrects, out_w, out_h, lo, hi, prescale_m, layout, mirror
-        )
-    if frames_u8.device.type != "cuda":
+    """Rotated-view sample + colour map; see the module docstring. Calls
+    :func:`rotated_sample_op`: a CUDA tensor launches the kernel (or
+    raises), a CPU tensor runs the plain version."""
+    if frames_u8.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {frames_u8.device}")
     _check(frames_u8, rrects, layout, mirror)
-    rects = rrects.reshape(-1, 5).contiguous()
-    slots = rects.shape[0] // frames_u8.shape[0]
-    out = rotated_sample_launch(frames_u8, rects, slots, out_w, out_h, lo, hi, prescale_m, layout, mirror)
+    out = rotated_sample_op(frames_u8, rrects.reshape(-1, 5).contiguous(), out_w, out_h, lo, hi, prescale_m,
+                            layout == "NCHW", list(mirror or ()))
     return _shaped(out, rrects, out_w, out_h, layout)
 
 

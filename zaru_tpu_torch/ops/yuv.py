@@ -12,7 +12,8 @@ The counterparts of zaru_tpu/ops/pallas_kernels.py:129-191:
   rounded on its own. On a CUDA tensor it launches ``csrc/rgb_to_yuv.cu``
   (:func:`rgb_to_yuv_launch`); on a CPU tensor it runs
   :func:`rgb_to_yuv_fast_reference`, the plain version, which is bit-equal
-  to the kernel. The Pallas kernel's planar transposes are a TPU lane-layout
+  to the kernel. Both are kernels of the registered op
+  ``zaru_tpu_torch::rgb_to_yuv`` (:func:`rgb_to_yuv_op`). The Pallas kernel's planar transposes are a TPU lane-layout
   mechanism and are not ported: the kernel reads the interleaved layout.
 
 No path of the JAX package runs the kernel; it is ported as a standalone
@@ -33,6 +34,7 @@ __all__ = [
     "rgb_to_yuv_fast",
     "rgb_to_yuv_fast_reference",
     "rgb_to_yuv_launch",
+    "rgb_to_yuv_op",
     "yuv_to_rgb",
 ]
 
@@ -77,7 +79,8 @@ def rgb_to_yuv_fast_reference(rgb):
 
 def rgb_to_yuv_launch(rgb):
     """Launches ``csrc/rgb_to_yuv.cu`` on a contiguous CUDA ``[H,W,3] f32``
-    → ``[H,W,3] f32``. Counts the launch in ``rgb_to_yuv_fast.launches``."""
+    → ``[H,W,3] f32``. Not counted: the registered op's CUDA kernel
+    (:func:`rgb_to_yuv_op`) counts its launches."""
     _check(rgb)
     if not (rgb.is_cuda and rgb.is_contiguous()):
         raise ValueError("rgb must be a contiguous CUDA tensor")
@@ -95,18 +98,35 @@ def rgb_to_yuv_launch(rgb):
             torch.cuda.current_stream(rgb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rgb_to_yuv kernel launch failed: CUDA error {rc}")
+    return out
+
+
+@torch.library.custom_op("zaru_tpu_torch::rgb_to_yuv", mutates_args=(), device_types="cuda")
+def rgb_to_yuv_op(rgb: torch.Tensor) -> torch.Tensor:
+    """The conversion as a registered op: its CUDA kernel is one launch of
+    :func:`rgb_to_yuv_launch`, counted in ``rgb_to_yuv_fast.launches``; its
+    CPU kernel the plain version."""
+    out = rgb_to_yuv_launch(rgb.contiguous())
     rgb_to_yuv_fast.launches += 1
     return out
 
 
+rgb_to_yuv_op.register_kernel("cpu")(rgb_to_yuv_fast_reference)
+
+
+@rgb_to_yuv_op.register_fake
+def _(rgb):
+    return torch.empty_like(rgb, memory_format=torch.contiguous_format)
+
+
 def rgb_to_yuv_fast(rgb):
-    """RGB → YUV of ``[H,W,3] f32``; see the module docstring. A CUDA tensor
-    launches the kernel (or raises), a CPU tensor runs the plain version."""
-    if rgb.device.type == "cpu":
-        return rgb_to_yuv_fast_reference(rgb)
-    if rgb.device.type != "cuda":
+    """RGB → YUV of ``[H,W,3] f32``; see the module docstring. Calls
+    :func:`rgb_to_yuv_op`: a CUDA tensor launches the kernel (or raises), a
+    CPU tensor runs the plain version."""
+    _check(rgb)
+    if rgb.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {rgb.device}")
-    return rgb_to_yuv_launch(rgb.contiguous())
+    return rgb_to_yuv_op(rgb)
 
 
 rgb_to_yuv_fast.launches = 0

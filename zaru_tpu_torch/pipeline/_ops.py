@@ -20,6 +20,7 @@ from ..num import div
 from ..resolution import Resolution
 
 __all__ = [
+    "choose",
     "full_frame_fit",
     "unmap_center_size",
     "unmap_points",
@@ -82,3 +83,19 @@ def padded_roi(xy, angle, padding: float):
     [...]`` plus relative padding (_ops.py:79)."""
     roi = rrect_bounding(angle, xy)
     return torch.cat([rect_grow_rel(roi[..., 0:4], padding), roi[..., 4:5]], dim=-1)
+
+
+def choose(pred, true_fn, false_fn, operands: tuple):
+    """``torch.cond(pred, true_fn, false_fn, operands)``, JAX's ``lax.cond``
+    over the ROI sources. Eagerly the predicate is read on the host (one
+    read, where it is a tensor) and ``torch.cond`` runs that branch as it
+    is; under ``torch.export`` a tensor predicate stays in the graph and
+    both branches are captured. A Python bool picks its branch either way."""
+    if isinstance(pred, torch.Tensor) and torch.compiler.is_exporting():
+        # The operator itself: torch.cond would hand the branches to
+        # TorchDynamo, which cannot trace the executor's host-side numpy;
+        # export's own tracing runs them as Python, as it runs the step.
+        return torch.ops.higher_order.cond(pred, true_fn, false_fn, operands)
+    if isinstance(pred, torch.Tensor):
+        pred = bool(pred)
+    return torch.cond(pred, true_fn, false_fn, operands)

@@ -23,19 +23,23 @@ The default CNNs' BlazeBlock chains run through the stage kernel
 Mesh V2's blocks are bottlenecks and run op by op.
 
 The batch gate: in JAX the detect-or-keep choice is a device-side
-``lax.cond`` (face_cascade.py:509). Here it is one host read of one bool per
-step (``all streams tracking and not forced``), which waits for the previous
-step's tracking flags; capturing the two branches as CUDA graphs is left
-for later. With ``redetect_bucket=K`` an unforced detect step detects only
-the first K lost streams (``_detect_bucket`` :216).
+``lax.cond`` (face_cascade.py:509). Here it is a ``torch.cond``
+(``_ops.choose``) over the same branches (``_kept``, ``_detect_lost``,
+``_detect_bucket``): eagerly one host read of one bool per step (``all
+streams tracking and not forced``), which waits for the previous step's
+tracking flags, then that branch; under ``torch.export`` both branches in
+the graph. Capturing the two branches as CUDA graphs is left for later.
+With ``redetect_bucket=K`` an unforced detect step detects only the first K
+lost streams (``_detect_bucket`` :216).
 
 The ungated entry points sample every crop with the exact sampler
 (``Cnn.apply_on_view``), as JAX's ``step`` does:
 
 - ``step``/``run_frame`` (:420, :517): one stream, ``[H,W,4]`` frame,
-  unbatched state. JAX's ``lax.cond`` on the stream's tracking flag is one
-  host read here; detection runs the exact sampler too, so the path runs
-  the stage kernel at batch 1 and no sampler kernel. With ``iris`` the eye
+  unbatched state. JAX's ``lax.cond`` on the stream's tracking flag is the
+  same ``torch.cond`` (one host read when run eagerly); detection runs the
+  exact sampler too, so the path runs the stage kernel at batch 1 and no
+  sampler kernel. With ``iris`` the eye
   crops are exact as well (``_iris_single`` :381);
 - ``run_frames`` (:521), JAX's ``vmap(step)``: each stream detects exactly
   when it is lost and keeps its tracked ROI otherwise. Detection runs for
@@ -158,28 +162,25 @@ class FaceTracker:
         rois = torch.cat([rect, torch.zeros_like(rect[:, :1])], dim=-1)
         return rois, valid[:, 0]
 
-    def _detect_lost(self, state, frames, exact: bool = False):
+    def _detect_lost(self, roi, tr, frames, exact: bool = False):
         """Detection for every stream; lost streams take its ROI, tracked
-        streams keep theirs → (rois [B,5], founds [B], seeded [B])."""
-        tr = state["tracking"]
+        streams keep theirs (``roi [B,5]``, ``tr [B]``) → (rois [B,5],
+        founds [B], seeded [B])."""
         det_rois, det_founds = self._detect_batch(frames, exact)
-        return torch.where(tr[:, None], state["roi"], det_rois), tr | det_founds, ~tr
+        return torch.where(tr[:, None], roi, det_rois), tr | det_founds, ~tr
 
-    def _detect_bucket(self, state, frames):
+    def _detect_bucket(self, roi, tr, frames):
         """Detection for the first K lost streams only (K =
         ``redetect_bucket``): a stable sort on the tracking flags brings the
         lost streams to the front, their K frames are detected as one batch,
         and the results are scattered back; tracked streams keep their ROIs.
         → (rois [B,5], founds [B], seeded [B])."""
-        tr = state["tracking"]
         k = min(int(self.redetect_bucket), tr.shape[0])
         idx = torch.sort(tr.to(torch.uint8), stable=True).indices[:k]  # lost first
         sel = ~tr[idx]  # bucket slots that really are lost
         rois_k, found_k = self._detect_batch(frames[idx])
         apply = sel & found_k
-        rois = state["roi"].index_copy(
-            0, idx, torch.where(apply[:, None], rois_k, state["roi"][idx])
-        )
+        rois = roi.index_copy(0, idx, torch.where(apply[:, None], rois_k, roi[idx]))
         founds = tr.index_copy(0, idx, tr[idx] | apply)
         seeded = torch.zeros_like(tr).index_copy(0, idx, sel)
         return rois, founds, seeded
@@ -289,30 +290,45 @@ class FaceTracker:
         eyes = self._iris_decode(outputs, rects.reshape(2 * b, 5), flips)
         return eyes.reshape(b, 2, EyeLandmarks.NUM_LANDMARKS, 3)
 
-    def _kept(self, state):
-        """ROI sources of a step that detects nothing: the carried ROIs."""
-        tr = state["tracking"]
-        return state["roi"], torch.ones_like(tr), torch.zeros_like(tr)
+    @staticmethod
+    def _kept(roi, tr, frames):
+        """ROI sources of a step that detects nothing: the carried ROIs
+        (a copy: a ``torch.cond`` branch returns no operand)."""
+        return roi.clone(), torch.ones_like(tr), torch.zeros_like(tr)
 
     @torch.inference_mode()
-    def step_batch(self, state: dict, frames, force_detect: bool = False):
+    def step_batch(self, state: dict, frames, force_detect=False):
         """One gated step for ``frames [B,H,W,4] u8`` on the tracker's device
         → ``(new_state, outputs)``; outputs hold ``landmarks [B,N,3]`` in
         image coords (``N`` the landmarker's), ``confidence [B]``, ``roi
         [B,5]``, ``valid [B]`` and, with ``iris``, ``eyes [B,2,76,3]``.
 
         Detection runs for every stream when some stream is lost or
-        ``force_detect`` is set (the redetect cadence); tracked streams keep
-        their carried ROIs either way. With ``redetect_bucket``, a detect
-        step that is not forced detects only the first K lost streams. The
-        eye crops always go through the rotated-ROI kernel, as JAX's batch
-        step samples them whatever ``fast_sampler`` says."""
-        if not force_detect and bool(state["tracking"].all()):
-            sources = self._kept(state)
-        elif self.redetect_bucket and not force_detect:
-            sources = self._detect_bucket(state, frames)
-        else:
-            sources = self._detect_lost(state, frames)
+        ``force_detect`` (a bool, or a bool tensor as in JAX) is set (the
+        redetect cadence); tracked streams keep their carried ROIs either
+        way. With ``redetect_bucket``, a detect step that is not forced
+        detects only the first K lost streams. The eye crops always go
+        through the rotated-ROI kernel, as JAX's batch step samples them
+        whatever ``fast_sampler`` says. The detect-or-keep choice (and the
+        bucket's) is :func:`_ops.choose`, so ``torch.export`` captures both
+        branches."""
+        # The branches are plain functions of exactly the operands (no bound
+        # method, no default argument): torch.export traces them so.
+        def detect_all(roi, tr, frames):
+            return self._detect_lost(roi, tr, frames)
+
+        def detect_bucket(roi, tr, frames):
+            return self._detect_bucket(roi, tr, frames)
+
+        def detect(roi, tr, frames):
+            if not self.redetect_bucket:
+                return detect_all(roi, tr, frames)
+            return _ops.choose(force_detect, detect_all, detect_bucket, (roi, tr, frames))
+
+        tr = state["tracking"]
+        keep = (tr.all() & ~force_detect if isinstance(force_detect, torch.Tensor)
+                else not force_detect and tr.all())
+        sources = _ops.choose(keep, self._kept, detect, (state["roi"], tr, frames))
         return self._track_batch(state, frames, *sources, exact=not self.fast_sampler, eyes_exact=False)
 
     def run_frames_gated(self, state: dict, frames):
@@ -321,11 +337,13 @@ class FaceTracker:
 
     def _ungated(self, state, frames, exact_detect: bool):
         """JAX's ``step`` for every stream of ``frames [B,...]``: lost streams
-        take a detection (one host read: is any lost?), every crop exact."""
-        if bool(state["tracking"].all()):
-            sources = self._kept(state)
-        else:
-            sources = self._detect_lost(state, frames, exact_detect)
+        take a detection (:func:`_ops.choose` on "is every stream
+        tracking?"), every crop exact."""
+        def detect(roi, tr, frames):
+            return self._detect_lost(roi, tr, frames, exact_detect)
+
+        tr = state["tracking"]
+        sources = _ops.choose(tr.all(), self._kept, detect, (state["roi"], tr, frames))
         return self._track_batch(state, frames, *sources, exact=True, eyes_exact=True)
 
     @torch.inference_mode()

@@ -24,12 +24,14 @@ flag, and a frame counter. One step over a batch of streams
   one are culled; outputs of inactive slots are zeroed.
 
 The batch gate: in JAX the detect-or-keep choice is a device-side
-``lax.cond`` (:382). Here it is one host read per step of one small int
-(0: every stream tracking and none due; 1: detection for lost streams
-only; 2: an interval is due), skipped when the caller forces detection.
-With ``redetect_bucket=K`` a step of kind 1 detects only the first K lost
-streams (:348-370); due and forced steps detect every stream, so no
-stream's periodic redetect is skipped.
+``lax.cond`` (:382). Here it is a ``torch.cond`` (``_ops.choose``): detect
+when some stream is lost or due or the caller forces it, else keep the
+slots. Run eagerly it is one host read of one bool a step (none when the
+caller forces detection); under ``torch.export`` both branches are in the
+graph. With ``redetect_bucket=K`` a detect step where no interval is due
+and nothing is forced detects only the first K lost streams (:348-370),
+a second ``torch.cond`` (one more host read eagerly); due and forced steps
+detect every stream, so no stream's periodic redetect is skipped.
 
 With ``fast_sampler`` (on in both trackers; off in this base class, as in
 JAX) the gated step samples its slot crops through the rotated-ROI kernel;
@@ -263,24 +265,35 @@ class MultiObjectTracker:
         return out
 
     @torch.inference_mode()
-    def step_batch(self, state: dict, frames, force_detect: bool = False):
+    def step_batch(self, state: dict, frames, force_detect=False):
         """One gated step for ``frames [B,H,W,4] u8`` on the tracker's device
         → ``(new_state, outputs)``; outputs hold ``landmarks [B,S,K,3]`` in
         image coords, ``confidence [B,S]``, ``rois [B,S,5]``, ``valid
-        [B,S]`` and the landmarker's extras (see the module docstring)."""
+        [B,S]`` and the landmarker's extras (see the module docstring).
+        ``force_detect``: a bool, or a bool tensor as in JAX."""
+        # The branches are plain functions of the operands, as torch.export
+        # traces them (see pipeline/_ops.choose).
+        def kept(rois, active, lost, due, frames):
+            return rois.clone(), active.clone()
+
+        def detect_all(rois, active, lost, due, frames):
+            return self._detect_assign({"rois": rois, "active": active}, frames, lost | due)
+
+        def detect_bucket(rois, active, lost, due, frames):
+            return self._detect_bucket({"rois": rois, "active": active}, frames, lost)
+
+        def detect(rois, active, lost, due, frames):
+            if not self.redetect_bucket:
+                return detect_all(rois, active, lost, due, frames)
+            full = (due.any() | force_detect if isinstance(force_detect, torch.Tensor)
+                    else force_detect or due.any())
+            return _ops.choose(full, detect_all, detect_bucket, (rois, active, lost, due, frames))
+
         lost = ~state["active"].any(-1)
         due = state["frame"] % self.detect_interval == 0
-        do = lost | due
-        if force_detect:
-            gate = 2
-        else:  # the one host read of the step
-            gate = int(do.any().to(torch.int32) + due.any().to(torch.int32))
-        if gate == 0:
-            rois, active = state["rois"], state["active"]
-        elif gate == 1 and self.redetect_bucket:
-            rois, active = self._detect_bucket(state, frames, lost)
-        else:
-            rois, active = self._detect_assign(state, frames, do)
+        keep = (~(lost | due).any() & ~force_detect if isinstance(force_detect, torch.Tensor)
+                else not force_detect and ~(lost | due).any())
+        rois, active = _ops.choose(keep, kept, detect, (state["rois"], state["active"], lost, due, frames))
         new_rois, confidence, extras, pos = self._track_slots_batch(frames, rois, not self.fast_sampler)
         return self._post(state, rois, active, new_rois, confidence, extras, pos)
 
@@ -290,13 +303,16 @@ class MultiObjectTracker:
 
     def _ungated(self, state, frames, exact_detect: bool):
         """JAX's ``step`` for every stream of ``frames [B,...]``: streams
-        lost or due take a detection (one host read: does any?), every crop
-        exact."""
+        lost or due take a detection (:func:`_ops.choose` on "does any?"),
+        every crop exact."""
+        def detect(rois, active, do, frames):
+            return self._detect_assign({"rois": rois, "active": active}, frames, do, exact_detect)
+
+        def kept(rois, active, do, frames):
+            return rois.clone(), active.clone()
+
         do = ~state["active"].any(-1) | (state["frame"] % self.detect_interval == 0)
-        if bool(do.any()):
-            rois, active = self._detect_assign(state, frames, do, exact_detect)
-        else:
-            rois, active = state["rois"], state["active"]
+        rois, active = _ops.choose(do.any(), detect, kept, (state["rois"], state["active"], do, frames))
         new_rois, confidence, extras, pos = self._track_slots_batch(frames, rois, exact=True)
         return self._post(state, rois, active, new_rois, confidence, extras, pos)
 
