@@ -2,7 +2,8 @@
 """Builds the PyTorch port's CUDA kernels and drives its paths on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase, on one card
+    python3 chip_smoke.py --sharding   # the build and the sharding phase only (any number of cards)
 
 Phases, one line of output each and each phase's wall time (any failed
 check exits non-zero):
@@ -159,7 +160,24 @@ check exits non-zero):
    stage and both sampler kernels. The card's machine has no image
    decoder (cv2, PIL), so file decoding is not run here: the CPU tests
    (tests/test_torch_serve.py, tests/test_torch_export.py) cover the CLI's
-   inputs;
+   inputs; then stream sharding (``zaru_tpu_torch.parallel``) over a mesh
+   of every visible card, or with one card two shards on it: a
+   ``FaceTracker`` built on the CPU and sharded onto the cards (a tensor the
+   replica left behind would fail here), 18 ``step_gated`` steps at
+   1920×1080 × 512 (detection forced every 9th) with every shard's outputs
+   and state bit-equal to its own ``step_batch`` on its slice run by a
+   tracker built on its card (from the main thread, so a launch for another
+   card's tensor shows), ``valid`` equal to the unsharded run at 512 and
+   landmarks within SHARD_LM_TOL_PX of it; then the unsharded main path,
+   the sharded step, the sharded step and the unsharded one in turns (54
+   steps after 9, the rotated kernel once a step per shard); ``serve_loop``
+   over the sharded
+   tracker at 64 streams through the sharded uploader, bit-equal to
+   ``step_gated`` on the same frames uploaded at once; data-parallel
+   training (``train.make_data_parallel_train_step``) of Face Mesh V1 at
+   batch 64 over the mesh for 10 steps, its first loss against the
+   one-device ``Trainer``'s, ms/step; the trained replicas saved and
+   restored onto the mesh with ``load_params(like=)``;
 6. each kernel's time at its main-path inputs (queued behind a device spin
    so the host's launch cost is hidden) beside its plain version's and its
    bound; for the samplers the whole call in the planar layout the path
@@ -2814,6 +2832,190 @@ TRAIN_LOSS_RTOL = 0.1  # tests/test_torch_train.py LOSS_RTOL: Adam parts the run
 TRAIN_PARAM_TOL_LR_STEPS = 0.5  # tests/test_torch_train.py PARAM_TOL_LR_STEPS
 
 
+# Stream sharding (zaru_tpu_torch.parallel): the sharded main path's batch,
+# serving's stream count, and the sharded run's landmarks against the
+# unsharded run at 512 (px): 0 measured over 18 steps on H100s, two shards of
+# 256 on one card and four of 128 on four cards (each shard runs the CNNs at
+# its own batch, and cuDNN could sum them in another order there); held to
+# the one-step bound STEP_TOL_PX.
+SHARD_BATCH, SHARD_SERVE_STREAMS = 512, 64
+SHARD_LM_TOL_PX = STEP_TOL_PX
+
+
+def sync_all(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def sharding_mesh(torch):
+    """Every visible card, or with one card two shards on it."""
+    from zaru_tpu_torch.parallel import stream_mesh
+
+    return stream_mesh() if torch.cuda.device_count() > 1 else stream_mesh(["cuda:0", "cuda:0"])
+
+
+def timed_sharded(torch, step, what):
+    """``timed_run`` for a step that may run on several cards: every card
+    synchronised before the clock starts and before it stops."""
+    for i in range(WARMUP):
+        step(i)
+    sync_all(torch)
+    zero_launches()
+    t0 = time.perf_counter()
+    for i in range(STEPS):
+        step(i)
+    sync_all(torch)
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    check(all(launches[k] > 0 for k in FACE_KERNELS), f"{what}: a kernel of the path was never launched: {launches}")
+    return dt, launches
+
+
+def phase_sharding(torch, np, img, device, card, tracker):
+    """Stream sharding on the card(s): see the module docstring (phase 5's
+    last part). ``tracker``: the unsharded main path's tracker on
+    ``device``."""
+    from zaru_tpu_torch.checkpoint import load_params, save_params
+    from zaru_tpu_torch.assets import model_path
+    from zaru_tpu_torch.nn import NeuralNetwork
+    from zaru_tpu_torch.parallel import ShardedTracker
+    from zaru_tpu_torch.pipeline import FaceTracker
+    from zaru_tpu_torch.pipeline.ingest import FrameUploader
+    from zaru_tpu_torch.serve import StreamSet, serve_loop
+    from zaru_tpu_torch.train import Trainer, make_data_parallel_train_step
+
+    mesh = sharding_mesh(torch)
+    n = len(mesh)
+    cards = list(dict.fromkeys(mesh))
+    print(f"mesh: {[str(d) for d in mesh]}: {n} shards over {len(cards)} card(s) "
+          f"({', '.join(torch.cuda.get_device_name(d) for d in cards)})", flush=True)
+    t0 = time.perf_counter()
+    sharded = ShardedTracker(FaceTracker(device="cpu"), mesh)
+    replicate_s = time.perf_counter() - t0
+    B = SHARD_BATCH
+    frames = img.expand(B, *img.shape).contiguous()
+    shards = sharded.shard_frames(frames)
+    own = {d: FaceTracker(device=d) for d in cards}
+    state = sharded.init_state(B)
+    own_states = [own[d].init_state(B // n) for d in mesh]
+    ref_state = tracker.init_state(B)
+    lm_err, bad = 0.0, []
+    for i in range(2 * 9):
+        force = i % 9 == 0
+        state, out = sharded.step_gated(state, shards, force)
+        runs = [own[d].step_batch(st, f, force) for d, st, f in zip(mesh, own_states, shards.shards)]
+        own_states = [st for st, _ in runs]
+        for tree, mine in ((out, [o for _, o in runs]), (state, own_states)):
+            flat = [(k, v, [m[k] for m in mine]) for k, v in tree.items() if not isinstance(v, dict)]
+            flat += [(f"filter/{k}", v, [m["filter"][k] for m in mine]) for k, v in tree.get("filter", {}).items()]
+            for k, v, want in flat:
+                for s, (got, w) in enumerate(zip(v.shards, want)):
+                    if got.device != mesh[s] or not torch.equal(got, w):
+                        bad.append((i, k, s))
+        ref_state, ref = tracker.step_batch(ref_state, frames, force)
+        if not torch.equal(out["valid"].cpu(), ref["valid"].cpu()):
+            bad.append((i, "valid against the unsharded run", -1))
+        lm_err = max(lm_err, float((out["landmarks"].cpu() - ref["landmarks"].cpu()).abs().max()))
+    print(f"sharded FaceTracker (built on the CPU, replicated in {replicate_s:.2f} s) at 1920x1080 x {B}, {n} "
+          f"shards of {B // n}: 18 step_gated steps (detect every 9th): every shard's outputs and state bit-equal "
+          f"to its own step_batch on a tracker built on its card, on its card: {not bad} {bad[:4]}; valid equal "
+          f"to the unsharded run at {B}, landmarks {lm_err:.6g} px from it (bound {SHARD_LM_TOL_PX}), all valid "
+          f"{bool(ref['valid'].all())}", flush=True)
+    check(not bad and lm_err <= SHARD_LM_TOL_PX and bool(np.asarray(out["valid"]).all()),
+          "the sharded step parts from its shards' own steps or from the unsharded run")
+
+    box = {"plain": tracker.init_state(B), "sharded": sharded.init_state(B)}
+
+    def plain(i):
+        box["plain"], _ = tracker.step_batch(box["plain"], frames, force_detect=(i % 9 == 0))
+
+    def shard_step(i):
+        box["sharded"], box["out"] = sharded.step_gated(box["sharded"], shards, i % 9 == 0)
+
+    ms = {}
+    for what, step in (("unsharded", plain), ("sharded", shard_step), ("sharded", shard_step), ("unsharded", plain)):
+        dt, launches = timed_sharded(torch, step, what)
+        ms.setdefault(what, []).append(dt / STEPS * 1e3)
+        if what == "sharded":
+            shard_launches = launches
+    check(shard_launches["rotated_sample"] == STEPS * n,
+          f"sharded run: {shard_launches['rotated_sample']} rotated launches in {STEPS} steps of {n} shards")
+    print(f"sharded main path at 1920x1080 x {B} over {n} shards, {STEPS} steps after {WARMUP} (detect every 9th), "
+          f"in turns: unsharded {ms['unsharded'][0]:.3f} / sharded {ms['sharded'][0]:.3f} / sharded "
+          f"{ms['sharded'][1]:.3f} / unsharded {ms['unsharded'][1]:.3f} ms/step; sharded launches {shard_launches} "
+          f"[{card}]", flush=True)
+
+    S = SHARD_SERVE_STREAMS
+    host = img.cpu().numpy()
+    host_frames = [np.ascontiguousarray(np.roll(host, (s % 8, 3 * (s // 8)), axis=(0, 1))) for s in range(S)]
+    serving = ShardedTracker(tracker, mesh)
+    up = FrameUploader(S, host.shape, device=serving.frame_sharding)
+    streams = StreamSet([memory_factory(host_frames[s], f"memory{s}") for s in range(S)])
+    streams.prime()
+    outs = []
+    zero_launches()
+    t0 = time.perf_counter()
+    stats = serve_loop(serving, streams, up, single=False, steps=9,
+                       emit=lambda rec, out: outs.append({k: out[k].cpu() for k in ("valid", "landmarks")}))
+    sync_all(torch)
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    streams.close()
+    direct = serving.shard_frames(np.stack(host_frames))
+    st = serving.init_state(S)
+    same = True
+    for t in range(9):
+        st, out = serving.step_gated(st, direct)
+        same &= torch.equal(outs[t]["valid"], out["valid"].cpu()) and torch.equal(outs[t]["landmarks"],
+                                                                                 out["landmarks"].cpu())
+    print(f"serve_loop over the sharded tracker at {S} streams ({n} shards), sharded uploader: 9 steps in "
+          f"{dt:.3f} s ({dt / 9 * 1e3:.3f} ms/step, the first included, {stats.frames} fresh frames), bit-equal to "
+          f"step_gated on the same frames uploaded at once: {same}, all valid {bool(outs[-1]['valid'].all())}; "
+          f"launches {launches} [{card}]", flush=True)
+    check(same and bool(outs[-1]["valid"].all()) and launches["rotated_sample"] == 9 * n,
+          "sharded serving parts from step_gated or lost the face")
+
+    x = train_inputs(np)
+    teacher = NeuralNetwork.load(model_path("face_landmark.onnx"), device=device)
+    with torch.inference_mode():
+        y = teacher.module(torch.from_numpy(x).to(device))[0].reshape(TRAIN_BATCH, -1).cpu().numpy()
+    rng = np.random.default_rng(3)
+    base = {k: v.detach().cpu().numpy() for k, v in teacher.params.items()}
+    student = {k: (base[k] + rng.normal(0, TRAIN_PERTURB * (np.std(base[k]) + 1e-6), base[k].shape)).astype(np.float32)
+               for k in sorted(base)}
+    one = NeuralNetwork.load(model_path("face_landmark.onnx"), device=device)
+    one.load_params(student)
+    first = Trainer(one).train_step(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+    net = NeuralNetwork.load(model_path("face_landmark.onnx"), device="cpu")
+    net.load_params(student)
+    step, params, opt_state, shard_batch = make_data_parallel_train_step(net, mesh)
+    xs, ys = shard_batch(x), shard_batch(y)
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, xs, ys)
+        losses.append(float(loss))  # the host read ends the step
+        times.append(time.perf_counter() - t0)
+    rel = abs(losses[0] / first - 1)
+    on_mesh = all(v.devices == tuple(cards) for v in params.values())
+    print(f"data-parallel training of Face Mesh V1 (built on the CPU) at batch {TRAIN_BATCH} over {n} shards, "
+          f"{TRAIN_STEPS} Adam steps: losses {[round(v, 6) for v in losses]}, first {losses[0]:.8g} against the "
+          f"one-device Trainer's {first:.8g} (relative {rel:.3g}, bound {TRAIN_FIRST_LOSS_RTOL}); replicas on "
+          f"{[str(d) for d in cards]} {on_mesh}; {np.mean(times[1:]) * 1e3:.3f} ms/step (first step "
+          f"{times[0] * 1e3:.1f} ms) [{card}]", flush=True)
+    check(rel <= TRAIN_FIRST_LOSS_RTOL and losses[-1] < losses[0] and on_mesh,
+          "data-parallel training parts from the one-device Trainer or does not learn")
+    with tempfile.TemporaryDirectory() as d:
+        save_params(f"{d}/ckpt", params)
+        back = load_params(f"{d}/ckpt", like=params)
+    restored = all(b.devices == params[k].devices and all(torch.equal(c, p.detach()) for c, p in
+                                                          zip(b.copies, params[k].copies)) for k, b in back.items())
+    print(f"checkpoint of the trained replicas ({len(params)} parameters) restored onto the mesh with like=: "
+          f"every copy equal on its card {restored}", flush=True)
+    check(restored, "the replicated checkpoint did not come back onto the mesh")
+    return ms
+
+
 def outputs_diff(torch, a, b):
     """The leaves (of the new state and the outputs) where two step results
     ``(state, outputs)`` differ, by path, with the largest difference."""
@@ -3076,12 +3278,18 @@ def main() -> int:
     print(f"build: {len(_build.SOURCES)} kernel sources in {_build.build_all():.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})", flush=True)
 
-    # The pose models BodyTracker loads: the stub blobs stored in
-    # body_track.npz (the real ones are missing upstream).
-    with tempfile.TemporaryDirectory() as stubs:
-        write_body_stubs(np, stubs)
-        os.environ["ZARU_TPU_MODELS"] = stubs
-        run_phases(torch, np, F, device, smi)
+    if "--sharding" in sys.argv[1:]:
+        from zaru_tpu_torch.pipeline import FaceTracker
+
+        _rgba, img = load_photo(torch, F, np, device)
+        timed_phase("5, stream sharding", phase_sharding, torch, np, img, device, smi, FaceTracker(device=device))
+    else:
+        # The pose models BodyTracker loads: the stub blobs stored in
+        # body_track.npz (the real ones are missing upstream).
+        with tempfile.TemporaryDirectory() as stubs:
+            write_body_stubs(np, stubs)
+            os.environ["ZARU_TPU_MODELS"] = stubs
+            run_phases(torch, np, F, device, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -3135,6 +3343,7 @@ def run_phases(torch, np, F, device, smi):
     timed("5, checkpoint and profiler", phase_checkpoint_profiler, torch, device, smi, trained, tracker, call,
           main_frames)
     del call
+    timed("5, stream sharding", phase_sharding, torch, np, img, device, smi, tracker)
     print(f"launches in the batch-512 face runs ({STEPS} steps each): {runs['launches']}", flush=True)
     print(f"launches in the batch-128 multi-object runs ({STEPS} steps each): {multi}", flush=True)
     print(f"launches in the face-model and single-stream runs ({STEPS} steps each): "

@@ -78,6 +78,10 @@ def test_imports_neither_jax_nor_zaru_tpu():
         "from zaru_tpu_torch.hand.tracking import HandTracker\n"
         "from zaru_tpu_torch.face.landmark.multipie68 import reference_positions\n"
         "assert reference_positions().shape == (68, 3)\n"
+        "import importlib, pkgutil\n"
+        "for m in pkgutil.walk_packages(zaru_tpu_torch.__path__, 'zaru_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert 'zaru_tpu_torch.parallel.mesh' in sys.modules and 'zaru_tpu_torch.video.webcam' in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'zaru_tpu' or m.startswith('zaru_tpu.')]\n"
         "assert not bad, bad\n"

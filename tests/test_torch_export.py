@@ -457,15 +457,18 @@ def test_run_exported_refuses_mismatches(artifacts, tmp_path):
         main(["run-exported", str(single), CROPPED])
 
 
-def test_export_options_and_shard(tmp_path):
-    """--iris only with the face pipeline; --shard still exits, naming the
-    slice it waits for."""
+def test_export_options_and_shard(tmp_path, capsys):
+    """--iris only with the face pipeline; --shard serves (one CPU shard
+    with ``--device cpu``; tests/test_torch_serve.py holds its records)."""
     from zaru_tpu_torch.__main__ import main
 
     with pytest.raises(SystemExit):
         main(["export", str(tmp_path / "x.pt2"), "--pipeline", "hand", "--iris", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="shards over devices"):
-        main(["serve", CROPPED, "--streams", "2", "--shard", "--device", "cpu"])
+    out = tmp_path / "serve.jsonl"
+    assert main(["serve", CROPPED, "--streams", "2", "--steps", "1", "--shard", "--device", "cpu",
+                 "--out", str(out)]) == 0
+    assert "sharding 2 streams over 1 cpu devices" in capsys.readouterr().err
+    assert len(out.read_text().splitlines()) == 1
 
 
 def test_analysis_matches_jax(stored):

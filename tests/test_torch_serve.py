@@ -15,7 +15,8 @@
   tracker's own ``run_frames_gated`` (``run_frame`` at one stream) on the
   same frames, and a join's slot reset to a fresh state.
 - The CLI, as tests/test_cli.py and tests/test_serve.py drive zaru_tpu's,
-  with ``--device cpu``; without it, and without a GPU, it raises.
+  with ``--device cpu`` (``serve --shard`` over one CPU shard, and over two
+  with the mesh replaced); without it, and without a GPU, it raises.
 
 No JAX program is compiled here: the JAX side is the host policy classes
 and ``reset_state_slots``, which run in numpy.
@@ -504,14 +505,19 @@ def test_cli_info_lists_every_model(capsys):
 
 
 def test_cli_refuses_shard_and_needs_a_device(monkeypatch):
-    """``--shard`` exits naming the missing ShardedTracker; without
+    """``--shard`` refuses a stream count the mesh does not divide
+    (tests/test_cli.py ``test_serve_shard_rejects_indivisible``; a mesh of
+    three CPU shards stands in for a host with three cards); without
     ``--device`` and without a GPU the commands raise instead of running on
     the CPU."""
+    import zaru_tpu_torch.parallel as parallel
     from zaru_tpu_torch.__main__ import main
     from zaru_tpu_torch.assets import fixture_path
 
-    with pytest.raises(SystemExit, match="ShardedTracker"):
-        main(["serve", "x.jpg", "--streams", "2", "--shard", "--device", "cpu"])
+    with monkeypatch.context() as m:
+        m.setattr(parallel, "stream_mesh", lambda devices=None: (torch.device("cpu"),) * 3)
+        with pytest.raises(SystemExit, match="divide evenly"):
+            main(["serve", "x.jpg", "--streams", "2", "--shard", "--device", "cpu"])
     with pytest.raises(SystemExit):
         main(["track", "x.mp4", "--pipeline", "hand", "--iris", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -519,3 +525,33 @@ def test_cli_refuses_shard_and_needs_a_device(monkeypatch):
     for argv in (["track", photo], ["serve", photo, "--streams", "2", "--steps", "1"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv)
+
+
+def test_cli_serve_shard(tmp_path, capsys, monkeypatch):
+    """``serve --shard --device cpu`` (tests/test_cli.py
+    ``test_serve_sharded``): one CPU shard, the ``sharding`` line on stderr,
+    and records equal to those of serving without ``--shard``; over a mesh
+    of two CPU shards the streams are served shard by shard through the
+    sharded uploader and found in every record."""
+    import zaru_tpu_torch.parallel as parallel
+    from zaru_tpu_torch.__main__ import main
+    from zaru_tpu_torch.assets import fixture_path
+
+    photo = str(fixture_path("sad_linus_cropped.jpg"))
+    args = ["serve", photo, "--streams", "2", "--steps", "3", "--device", "cpu", "--landmarks"]
+    plain, sharded = tmp_path / "plain.jsonl", tmp_path / "sharded.jsonl"
+    assert main([*args, "--out", str(plain)]) == 0
+    capsys.readouterr()
+    assert main([*args, "--shard", "--out", str(sharded)]) == 0
+    assert "sharding 2 streams over 1 cpu devices" in capsys.readouterr().err
+    recs = [json.loads(line) for line in sharded.read_text().splitlines()]
+    assert recs == [json.loads(line) for line in plain.read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0, 1, 2] and all(r["valid"] == [True, True] for r in recs)
+    monkeypatch.setattr(parallel, "stream_mesh", lambda devices=None: (torch.device("cpu"),) * 2)
+    two = tmp_path / "two.jsonl"
+    assert main(["serve", photo, "--streams", "4", "--steps", "2", "--device", "cpu", "--shard",
+                 "--out", str(two)]) == 0
+    assert "sharding 4 streams over 2 cpu devices" in capsys.readouterr().err
+    recs = [json.loads(line) for line in two.read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0, 1] and all(r["valid"] == [True] * 4 for r in recs)
+    assert all(min(r["confidence"]) > 0.9 for r in recs)

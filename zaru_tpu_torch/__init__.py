@@ -32,9 +32,12 @@ identification (``face.recognition.Embedder``, ``face.identify``'s
 dialect and the NHWC layout; ``export`` (a tracker step as a
 ``torch.export`` program, the kernels as registered ops, and ``python -m
 zaru_tpu_torch export|run-exported``), ``train.Trainer``, ``checkpoint``,
-``profiling`` and ``onnx.analysis``. Not ported: ``serve --shard``,
-``parallel`` and data-parallel training, the GUI, the camera sources and
-the native JPEG bridge (ROADMAP Queue 1).
+``profiling`` and ``onnx.analysis``; stream sharding over several devices
+(``parallel.ShardedTracker``, ``stream_mesh``, ``serve --shard``) and
+data-parallel training (``train.make_data_parallel_train_step``) in one
+process; the native JPEG bridge (``native``, the ``native`` decode backend)
+and the camera sources (``video.HttpCam``, ``video.Webcam``). Not ported:
+the GUI (ROADMAP Queue 1).
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,7 @@ asset inventory, on the GPU.
         [--device cuda]
     python -m zaru_tpu_torch serve INPUT... --streams N [--pipeline ...]
         [--steps N | --soak SECONDS] [--out out.jsonl] [--landmarks]
-        [--no-loop] [--decode-wait MS] [--batch-program] [--device cuda]
+        [--no-loop] [--decode-wait MS] [--batch-program] [--shard] [--device cuda]
     python -m zaru_tpu_torch export OUT [--pipeline face|hand|body] [--iris]
         [--slots N] [--batch N] [--height H] [--width W] [--device cuda]
         [--verify]
@@ -42,9 +42,9 @@ of their wrappers the port lacks.
 ``--device`` (``cuda`` unless named) is the port's counterpart of
 ``JAX_PLATFORMS``: without a GPU the default raises instead of running on
 the CPU; ``--device cpu`` runs the kernels' plain versions; an exported
-artifact runs on the device it was exported for. Not ported: ``serve
---shard`` (it exits naming the missing ``ShardedTracker``, which waits for
-the slice that shards over devices).
+artifact runs on the device it was exported for. ``serve --shard`` splits
+the streams over every visible GPU (``parallel.ShardedTracker``; with
+``--device cpu``, one CPU shard).
 """
 
 from __future__ import annotations
@@ -209,17 +209,26 @@ def cmd_serve(args) -> int:
     seconds instead of ``--steps``, and at ``--streams 1`` the tracker's
     single-stream ``run_frame`` (``--batch-program`` restores the gated
     batch step). Frames decode on the host and reach the device through the
-    double-buffered uploader."""
+    double-buffered uploader. ``--shard`` splits the streams over every
+    visible GPU (with ``--device cpu``, over the one CPU device), each shard
+    stepped on its device (:class:`~zaru_tpu_torch.parallel.ShardedTracker`),
+    frames uploaded straight into the sharded layout."""
+    from ._device import resolve_device
     from .pipeline.ingest import FrameUploader
     from .serve import StreamSet, serve_loop
 
-    if args.shard:
-        raise SystemExit(
-            "--shard needs ShardedTracker (zaru_tpu/parallel/mesh.py), which the port does not "
-            "have yet (it comes with the slice that shards over devices); serve on one device "
-            "without --shard"
-        )
     tracker = _build_tracker(args.pipeline, iris=args.iris, slots=args.slots, device=args.device)
+    runner, target = tracker, tracker.device
+    if args.shard:
+        from .parallel import ShardedTracker, stream_mesh
+
+        device = resolve_device(args.device)
+        mesh = stream_mesh() if device.type == "cuda" else stream_mesh([device])
+        if args.streams % len(mesh):
+            raise SystemExit(f"--streams {args.streams} must divide evenly over the {len(mesh)} available devices")
+        runner = ShardedTracker(tracker, mesh)
+        target = runner.frame_sharding
+        print(f"sharding {args.streams} streams over {len(mesh)} {device.type} devices", file=sys.stderr)
 
     def make_factory(path: Path):
         def factory():
@@ -250,15 +259,15 @@ def cmd_serve(args) -> int:
         for ev in prime_events:
             src = f" ({ev.source})" if ev.source else ""
             print(f"stream slot {ev.slot}: {ev.kind}{src}", file=sys.stderr)
-        uploader = FrameUploader(batch=args.streams, shape=streams.frames[0].shape, device=tracker.device)
+        uploader = FrameUploader(batch=args.streams, shape=streams.frames[0].shape, device=target)
         sink = open(args.out, "w") if args.out else sys.stdout
 
         def emit(rec, _out):
             print(json.dumps(rec), file=sink, flush=sink is sys.stdout)
 
         stats = serve_loop(
-            tracker, streams, uploader,
-            single=args.streams == 1 and not args.batch_program,
+            runner, streams, uploader,
+            single=args.streams == 1 and not args.batch_program and not args.shard,
             steps=args.steps, emit=emit, soak=args.soak, decode_wait=args.decode_wait / 1e3,
             report_every=args.report_every, landmarks=args.landmarks, no_loop=args.no_loop,
             log=lambda line: print(line, file=sys.stderr),
@@ -499,7 +508,7 @@ def main(argv=None) -> int:
     p_serve.add_argument("--report-every", type=int, default=10)
     p_serve.add_argument(
         "--shard", action="store_true",
-        help="shard the streams over all available devices (not in the port yet: exits)",
+        help="shard the streams over every visible GPU (with --device cpu, the one CPU device)",
     )
     p_serve.add_argument(
         "--no-loop", action="store_true",

@@ -28,6 +28,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .parallel.mesh import Replicated
+
 __all__ = ["CheckpointManager", "load_params", "save_params", "save_params_async"]
 
 _FILE = "params.pt"  # the tensors of a directory checkpoint
@@ -92,9 +94,19 @@ def save_params_async(path: str | Path, params: dict) -> _PendingSave:
     return _PendingSave(_write, Path(path), _host_copy(params))
 
 
+def _place(t: torch.Tensor, like):
+    """``t`` where ``like`` lives: a copy on each device of a
+    :class:`~zaru_tpu_torch.parallel.Replicated` (a parameter replicated over
+    a mesh, as JAX's ``_abstract_like`` places a replicated leaf), a tensor's
+    device, else the host."""
+    if isinstance(like, Replicated):
+        return Replicated(t.to(d, copy=True) for d in like.devices)
+    return t.to(like.device if isinstance(like, torch.Tensor) else "cpu")
+
+
 def _restore(data: dict, like: dict | None, path: Path) -> dict:
     """``data`` (name → CPU tensor) checked against ``like`` and each leaf
-    placed on its ``like`` tensor's device."""
+    placed where its ``like`` leaf lives (:func:`_place`)."""
     if like is None:
         return data
     missing = sorted(set(like) - set(data))
@@ -104,14 +116,16 @@ def _restore(data: dict, like: dict | None, path: Path) -> dict:
     if extra:
         raise ValueError(f"checkpoint {path} has params {extra} not in the restore target; pass a matching "
                          "`like` tree")
-    return {k: data[k].to(v.device if isinstance(v, torch.Tensor) else "cpu") for k, v in like.items()}
+    return {k: _place(data[k], v) for k, v in like.items()}
 
 
 def load_params(path: str | Path, *, like: dict | None = None) -> dict:
     """Loads a flat parameter dict as CPU tensors (a ``.npz`` archive of
     either package, or a checkpoint directory). ``like``: a dict of tensors
-    naming exactly the parameters to load; each leaf goes to its tensor's
-    device, and a missing or extra name raises."""
+    (or of ``Replicated`` parameters, such as
+    ``train.make_data_parallel_train_step`` returns) naming exactly the
+    parameters to load; each leaf goes to its tensor's device (a copy to
+    each device of a replicated one), and a missing or extra name raises."""
     path = Path(path)
     if path.suffix == ".npz":
         with np.load(path, allow_pickle=False) as data:

@@ -7,11 +7,13 @@ decoder hit 4K30): backends here are selected with ``ZARU_TPU_JPEG_BACKEND``:
 
 - ``cv2``      — OpenCV/libjpeg-turbo (default; fastest available in-process)
 - ``pil``      — Pillow
+- ``native``   — libjpeg through the port's C++ bridge
+                 (:mod:`zaru_tpu_torch.native`, built at first use)
 
-Both are imported when a frame is decoded, not when this module is. The JAX
-package's ``native`` backend (its C++ bridge, zaru_tpu/native) is not
-ported; asking for it raises. PNG/GIF/APNG go through PIL regardless.
-:class:`DecodePool` decodes frames on a thread pool.
+Each is imported when a frame is decoded, not when this module is; a
+backend that cannot be imported falls back to cv2 with a warning, as in
+JAX. PNG/GIF/APNG go through PIL regardless. :class:`DecodePool` decodes
+frames on a thread pool.
 """
 
 from __future__ import annotations
@@ -48,9 +50,16 @@ def _decode_jpeg_pil(data: bytes) -> np.ndarray:
     return np.asarray(PILImage.open(io.BytesIO(data)).convert("RGB"))
 
 
+def _decode_jpeg_native(data: bytes) -> np.ndarray:
+    from ..native import turbojpeg
+
+    return turbojpeg.decode(data)
+
+
 _BACKENDS = {
     "cv2": _decode_jpeg_cv2,
     "pil": _decode_jpeg_pil,
+    "native": _decode_jpeg_native,
 }
 
 
@@ -89,8 +98,8 @@ def load_image(path: str | Path) -> np.ndarray:
 
 class DecodePool:
     """A thread pool of :func:`decode_jpeg` (zaru_tpu/image/decode.py:95):
-    cv2 (libjpeg-turbo) releases the interpreter lock while it decodes, so
-    frames decode in parallel on the host's cores."""
+    cv2 (libjpeg-turbo) and the native backend release the interpreter lock
+    while they decode, so frames decode in parallel on the host's cores."""
 
     def __init__(self, threads: int = 8):
         from concurrent.futures import ThreadPoolExecutor

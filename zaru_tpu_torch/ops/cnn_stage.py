@@ -221,10 +221,11 @@ def blaze_stage_op(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     fn = getattr(library(name), f"zaru_{name}")
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(
-        x.data_ptr(), packed.data_ptr(), out.data_ptr(), B, C, H, W, nb, tile_h, tile_w, smem,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the runtime's current device: cudaFuncSetAttribute and the launch
+        rc = fn(
+            x.data_ptr(), packed.data_ptr(), out.data_ptr(), B, C, H, W, nb, tile_h, tile_w, smem,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"blaze_stage kernel launch failed: CUDA error {rc}")
     if nhwc:

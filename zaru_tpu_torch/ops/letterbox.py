@@ -62,11 +62,12 @@ def letterbox_sample_op(
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    rc = fn(
-        frames_u8.data_ptr(), rrects.data_ptr(), out.data_ptr(), B, H, W, out_w, out_h,
-        color_adjust(lo, hi), float(np.float32(lo)), int(planar),
-        torch.cuda.current_stream(frames_u8.device).cuda_stream,
-    )
+    with torch.cuda.device(frames_u8.device):  # the launch goes to the runtime's current device
+        rc = fn(
+            frames_u8.data_ptr(), rrects.data_ptr(), out.data_ptr(), B, H, W, out_w, out_h,
+            color_adjust(lo, hi), float(np.float32(lo)), int(planar),
+            torch.cuda.current_stream(frames_u8.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"letterbox_sample kernel launch failed: CUDA error {rc}")
     letterbox_sample.launches += 1

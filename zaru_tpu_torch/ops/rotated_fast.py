@@ -224,11 +224,12 @@ def rotated_sample_launch(
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
                    + [ctypes.c_int, ctypes.c_uint, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    rc = fn(
-        frames_u8.data_ptr(), rects.data_ptr(), out.data_ptr(), N, slots, H, W, prescale_m,
-        out_w, out_h, recip(out_w), recip(out_h), *_color(lo, hi), int(planar), mask,
-        torch.cuda.current_stream(frames_u8.device).cuda_stream,
-    )
+    with torch.cuda.device(frames_u8.device):  # the launch goes to the runtime's current device
+        rc = fn(
+            frames_u8.data_ptr(), rects.data_ptr(), out.data_ptr(), N, slots, H, W, prescale_m,
+            out_w, out_h, recip(out_w), recip(out_h), *_color(lo, hi), int(planar), mask,
+            torch.cuda.current_stream(frames_u8.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"rotated_sample kernel launch failed: CUDA error {rc}")
     return out
@@ -275,8 +276,9 @@ def kernel_coefs(rects, prescale_m: int = PRESCALE_M):
     fn = library("rotated_sample").zaru_rotated_coefs
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(rects.data_ptr(), coefs.data_ptr(), icoefs.data_ptr(), N, prescale_m,
-            torch.cuda.current_stream(rects.device).cuda_stream)
+    with torch.cuda.device(rects.device):
+        rc = fn(rects.data_ptr(), coefs.data_ptr(), icoefs.data_ptr(), N, prescale_m,
+                torch.cuda.current_stream(rects.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rotated_coefs kernel launch failed: CUDA error {rc}")
     return coefs, icoefs

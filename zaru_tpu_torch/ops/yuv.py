@@ -94,8 +94,9 @@ def rgb_to_yuv_launch(rgb):
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     m = (ctypes.c_float * 9)(*YUV_FROM_RGB.ravel().tolist())
-    rc = fn(rgb.data_ptr(), out.data_ptr(), n, ctypes.addressof(m),
-            torch.cuda.current_stream(rgb.device).cuda_stream)
+    with torch.cuda.device(rgb.device):  # the launch goes to the runtime's current device
+        rc = fn(rgb.data_ptr(), out.data_ptr(), n, ctypes.addressof(m),
+                torch.cuda.current_stream(rgb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rgb_to_yuv kernel launch failed: CUDA error {rc}")
     return out

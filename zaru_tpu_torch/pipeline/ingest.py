@@ -24,6 +24,15 @@ crosses the bus and the device steps on it:
 
 A returned device batch stays valid until the flush after next. On the
 CPU the same calls copy between plain tensors.
+
+Given a :class:`~zaru_tpu_torch.parallel.StreamSharding` (a
+``ShardedTracker``'s ``frame_sharding``) as its device, the uploader stages
+straight into the stream-sharded layout: each shard has its own pair of
+device buffers on its device, its own copy stream there and its own
+fences, the staging batch is copied slice by slice to each shard's device,
+and ``flush()`` returns a :class:`~zaru_tpu_torch.parallel.Sharded` batch,
+which ``ShardedTracker.step_gated`` takes with no second transfer
+(zaru_tpu/pipeline/ingest.py: ``device=`` a ``NamedSharding``).
 """
 
 from __future__ import annotations
@@ -34,13 +43,47 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..parallel.mesh import Sharded, StreamSharding
 
 __all__ = ["FrameUploader", "measure_ingest_bandwidth"]
 
 
+class _Lane:
+    """One device's share of the uploader: streams ``[start, stop)`` of the
+    batch, two device buffers, a copy stream on CUDA, and the fences
+    (``copied[k]``: the copy out of staging k into device buffer k ended;
+    ``consumed[k]``: the work queued on the caller's stream before the flush
+    that followed buffer k's, the step that read it, ended)."""
+
+    def __init__(self, device: torch.device, start: int, stop: int, shape: tuple):
+        self.device, self.start, self.stop = device, start, stop
+        self.dev = [torch.empty((stop - start, *shape), dtype=torch.uint8, device=device) for _ in range(2)]
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.copied = [None, None]
+        self.consumed = [None, None]
+
+    def flush(self, k: int, staging: torch.Tensor) -> torch.Tensor:
+        dev, part = self.dev[k], staging[self.start:self.stop]
+        if self.stream is None:
+            dev.copy_(part)
+            return dev
+        caller = torch.cuda.current_stream(self.device)
+        # The step that read device buffer k^1 was queued before this
+        # call: a later flush into k^1 waits for it.
+        self.consumed[k ^ 1] = caller.record_event()
+        with torch.cuda.stream(self.stream):
+            if self.consumed[k] is not None:
+                self.stream.wait_event(self.consumed[k])
+            dev.copy_(part, non_blocking=True)
+            self.copied[k] = self.stream.record_event()
+        caller.wait_event(self.copied[k])
+        return dev
+
+
 class FrameUploader:
     """Double-buffered batched frame uploader onto ``device`` (``cuda``
-    unless named).
+    unless named), or onto a mesh's devices, shard by shard, given a
+    ``StreamSharding``.
 
     Usage::
 
@@ -55,18 +98,17 @@ class FrameUploader:
     def __init__(self, batch: int, shape: tuple[int, int, int], device=None):
         self.batch = batch
         self.shape = tuple(shape)
-        self.device = resolve_device(device)
-        cuda = self.device.type == "cuda"
+        if isinstance(device, StreamSharding):
+            self.device = device
+            lanes = [(d, a, b) for d, (a, b) in zip(device.mesh, device.bounds(batch))]
+        else:
+            self.device = resolve_device(device)
+            lanes = [(self.device, 0, batch)]
+        self._lanes = [_Lane(d, a, b, self.shape) for d, a, b in lanes]
+        cuda = any(lane.stream is not None for lane in self._lanes)
         full = (batch, *self.shape)
         self._staging = [torch.zeros(full, dtype=torch.uint8, pin_memory=cuda) for _ in range(2)]
         self._staging_np = [t.numpy() for t in self._staging]
-        self._dev = [torch.empty(full, dtype=torch.uint8, device=self.device) for _ in range(2)]
-        self._stream = torch.cuda.Stream(self.device) if cuda else None
-        # copied[k]: the copy out of staging k and into device buffer k
-        # ended; consumed[k]: the work queued on the caller's stream before
-        # the flush that followed buffer k's (the step that read it) ended.
-        self._copied = [None, None]
-        self._consumed = [None, None]
         self._cur = 0
         self._fenced = False
         self.stage_seconds = 0.0
@@ -78,36 +120,25 @@ class FrameUploader:
         t0 = time.perf_counter()
         k = self._cur
         if not self._fenced:
-            if self._copied[k] is not None:
-                self._copied[k].synchronize()
+            for lane in self._lanes:
+                if lane.copied[k] is not None:
+                    lane.copied[k].synchronize()
             self._fenced = True
         np.copyto(self._staging_np[k][slot], frame)
         self.stage_seconds += time.perf_counter() - t0
 
-    def flush(self) -> torch.Tensor:
+    def flush(self):
         """Starts the upload of the staged batch and returns its device
-        buffer ``[B,H,W,4] u8``; work the caller queues on its current
-        stream after this call sees the whole batch."""
+        buffer ``[B,H,W,4] u8`` (a ``Sharded`` batch over a mesh); work the
+        caller queues on each device's current stream after this call sees
+        that device's whole share of the batch."""
         t0 = time.perf_counter()
         k = self._cur
-        dev, staging = self._dev[k], self._staging[k]
-        if self._stream is None:
-            dev.copy_(staging)
-        else:
-            caller = torch.cuda.current_stream(self.device)
-            # The step that read device buffer k^1 was queued before this
-            # call: a later flush into k^1 waits for it.
-            self._consumed[k ^ 1] = caller.record_event()
-            with torch.cuda.stream(self._stream):
-                if self._consumed[k] is not None:
-                    self._stream.wait_event(self._consumed[k])
-                dev.copy_(staging, non_blocking=True)
-                self._copied[k] = self._stream.record_event()
-            caller.wait_event(self._copied[k])
+        parts = [lane.flush(k, self._staging[k]) for lane in self._lanes]
         self._cur ^= 1
         self._fenced = False
         self.flush_seconds += time.perf_counter() - t0
-        return dev
+        return Sharded(parts) if isinstance(self.device, StreamSharding) else parts[0]
 
 
 def measure_ingest_bandwidth(batch: int = 8, shape=(1080, 1920, 4), iters: int = 20, device=None) -> dict:

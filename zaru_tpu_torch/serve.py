@@ -337,7 +337,10 @@ def serve_loop(
     ``REPORT_KEYS`` rounded to 4 places, ``landmarks`` if asked) and the
     raw outputs. Then it gathers the next step's frames, waiting at most
     ``decode_wait`` seconds for the decodes. A slot that joined is reset to
-    a fresh state, so its stream re-detects. ``log`` takes the stderr lines
+    a fresh state, so its stream re-detects. ``tracker`` may be a
+    :class:`~zaru_tpu_torch.parallel.ShardedTracker` (with ``uploader`` on
+    its ``frame_sharding``): its state is sharded, and a reset state is
+    placed again with its ``shard_state``. ``log`` takes the stderr lines
     (slot events, the periodic stats line every ``report_every`` steps).
     Returns the run's :class:`ServeStats`.
     """
@@ -346,6 +349,7 @@ def serve_loop(
     else:
         fresh_state = tracker.init_state(batch=streams.slots)
     state = fresh_state
+    shard_state = getattr(tracker, "shard_state", None)
     stats = ServeStats(streams=streams.slots)
     soak_deadline = time.perf_counter() + soak if soak else None
     step = 0
@@ -367,6 +371,8 @@ def serve_loop(
             # A fresh occupant must re-detect, not inherit the previous
             # stream's ROI/filter state.
             state = fresh_state if single else reset_state_slots(state, fresh_state, joined)
+            if shard_state is not None:
+                state = shard_state(state)
         for slot, frame in enumerate(frames):
             uploader.stage(slot, frame)
         frames_dev = uploader.flush()
