@@ -47,7 +47,12 @@ check exits non-zero):
    ``rtol = atol = 1e-4`` of its plain version; the two chains the stage
    plan treats apart (``onnx_dialect.npz``): 48 channels, planned node by
    node on the card as on the CPU, and 7 blocks at 128 channels, planned as
-   5 + 2 (two launches), both layouts, against the CPU and JAX;
+   5 + 2 (two launches), both layouts, against the CPU and JAX; the port's
+   ONNX writer: its bytes of every graph of ``onnx/writer_cases.py`` equal
+   to JAX's writer's (stored in ``fixtures/onnx_writer.npz``), and a
+   writer-built chain of three stride-1 BlazeBlocks at 32 channels run
+   through the executor at [64,32,64,64], one stage launch a call, within
+   the CNN bar of the same graph on the CPU;
 4. the paths against the JAX reference stored in
    ``zaru_tpu_torch/fixtures/``: ``FaceTracker`` one step at a time from
    JAX's state (flags equal, landmarks and ROI within the CPU test's
@@ -177,7 +182,16 @@ check exits non-zero):
    training (``train.make_data_parallel_train_step``) of Face Mesh V1 at
    batch 64 over the mesh for 10 steps, its first loss against the
    one-device ``Trainer``'s, ms/step; the trained replicas saved and
-   restored onto the mesh with ``load_params(like=)``;
+   restored onto the mesh with ``load_params(like=)``, then with the
+   largest weight sharded over the mesh (``CheckpointManager``,
+   ``restore(like=)``): each shard back on its card, every leaf bit-equal;
+   before bf16, the demo examples ``fused_cascade``, ``facemesh`` and
+   ``identify_stream`` (``zaru_tpu_torch/examples``) in this process on the
+   card for 9 frames each under ``ZARU_TPU_GUI=file`` (the photo and its
+   crop fed as ``.npy`` arrays): PNG files against the frames shown, the
+   launch counts of each run (the stage kernel in all three, both samplers
+   in ``identify_stream``), every stream identified as the crop, ms/frame
+   after the first; and ``info`` with no wrapper unported;
 6. each kernel's time at its main-path inputs (queued behind a device spin
    so the host's launch cost is hidden) beside its plain version's and its
    bound; for the samplers the whole call in the planar layout the path
@@ -223,6 +237,11 @@ STEP_TOL_PX = 1e-2  # tests/test_torch_face_cascade.py STEP_TOL_PX
 EYE_RECT_TOL_PX = 1e-3  # tests/test_torch_face_cascade.py EYE_RECT_TOL_PX
 EYE_TOL_PX = 1.0  # tests/test_torch_face_cascade.py EYE_TOL_PX
 STAGE_TOL = 1e-4  # rtol = atol, tests/test_cnn_stage.py:42
+# The repo's CNN bar, |got − want| ≤ CNN_ATOL·max(1, |want|max) + CNN_RTOL·|want|
+# (zaru_tpu_torch/onnx/dialect_cases.py "cnn", tests/test_torch_onnx_writer.py).
+CNN_ATOL, CNN_RTOL = 1e-3, 2e-3
+WRITER_BATCH = 64  # the writer-built BlazeBlock chain's batch on the card (phase 3)
+EXAMPLE_FRAMES = 9  # frames of each demo example on the card (phase 5)
 # tests/test_torch_multi_object.py: (px, score) one-step tolerances of a
 # step that tracks carried slots and of one that seeds a slot from a new
 # detection; detection candidates (px, rad).
@@ -3013,6 +3032,27 @@ def phase_sharding(torch, np, img, device, card, tracker):
     print(f"checkpoint of the trained replicas ({len(params)} parameters) restored onto the mesh with like=: "
           f"every copy equal on its card {restored}", flush=True)
     check(restored, "the replicated checkpoint did not come back onto the mesh")
+
+    from zaru_tpu_torch.checkpoint import CheckpointManager
+    from zaru_tpu_torch.parallel import StreamSharding
+
+    host = {k: np.asarray(v) for k, v in params.items()}
+    key = max((k for k, v in host.items() if v.ndim and v.shape[0] % n == 0 and v.size > n),
+              key=lambda k: host[k].size)
+    placed = dict(params, **{key: StreamSharding(mesh).put(torch.from_numpy(host[key]))})
+    with tempfile.TemporaryDirectory() as d:
+        with CheckpointManager(d) as mgr:
+            mgr.save(0, placed)
+            mgr.wait_until_finished()
+            back = mgr.restore(0, like=placed)
+    leaf = back[key]
+    on_shards = leaf.sharding == placed[key].sharding and all(s.device == mesh[i] for i, s in enumerate(leaf.shards))
+    equal = np.array_equal(np.asarray(leaf), host[key]) and all(
+        all(torch.equal(c.cpu(), torch.from_numpy(host[k])) for c in back[k].copies) for k in back if k != key)
+    print(f"checkpoint with {key!r} {tuple(host[key].shape)} sharded over the {n} shards (the rest replicated), "
+          f"CheckpointManager save and restore(like=): shards {[str(s.device) for s in leaf.shards]} of "
+          f"{tuple(leaf.shards[0].shape)}, sharding equal {on_shards}, every leaf bit-equal {equal}", flush=True)
+    check(on_shards and equal, "the sharded checkpoint leaf did not come back shard by shard onto the mesh")
     return ms
 
 
@@ -3243,6 +3283,143 @@ def phase_checkpoint_profiler(torch, device, card, net, tracker, call, frames):
         check(len(names) == 3, f"the trace names only {names}")
 
 
+# --- the ONNX writer, the demo examples and the GUI's file back-end ---
+
+
+def phase_writer_on_card(torch, np, device):
+    """The port's ONNX writer on the card's machine (no JAX there): its bytes
+    of every graph of ``onnx/writer_cases.py`` equal JAX's writer's, stored
+    in ``fixtures/onnx_writer.npz``; then the writer-built chain of three
+    stride-1 BlazeBlocks at 32 channels (seeded weights) through the
+    executor on the card at [64,32,64,64]: one stage-kernel launch a call,
+    and the output within the CNN bar of the same graph on the CPU."""
+    from zaru_tpu_torch.onnx import load_model, writer
+    from zaru_tpu_torch.onnx import writer_cases as cases
+    from zaru_tpu_torch.ops.cnn_stage import fused_blocks
+
+    stored = cases.stored()
+    same = {k: g(writer) == stored[k] for k, g in cases.GRAPHS.items()}
+    data = cases.blaze_chain(writer)
+    module, cpu = load_model(data, device), load_model(data, torch.device("cpu"))
+    plan = [(st.channels, len(st.blocks)) for st in module.stages]
+    x = np.random.default_rng(16).normal(0, 1, (WRITER_BATCH, 32, 64, 64)).astype(np.float32)
+    xd = torch.from_numpy(x).to(device)
+    calls = 3
+    with torch.inference_mode():
+        before = fused_blocks.launches
+        for _ in range(calls):
+            (out,) = module(xd)
+        torch.cuda.synchronize()
+        launches = fused_blocks.launches - before
+        (want,) = cpu(torch.from_numpy(x))
+    got = out.cpu()
+    err = float((got - want).abs().max())
+    bar = CNN_ATOL * max(1.0, float(want.abs().max()))
+    within = bool(((got - want).abs() <= bar + CNN_RTOL * want.abs()).all())
+    print(f"ONNX writer: bytes equal to JAX's writer's (stored) {same}; writer-built chain of 3 BlazeBlocks at 32 "
+          f"channels ({len(data)} bytes, plan {plan}) on {device} at {tuple(x.shape)}: {launches} stage launches in "
+          f"{calls} calls, max difference {err:.3g} from the CPU (bar {bar:.3g} + {CNN_RTOL} relative)", flush=True)
+    check(all(same.values()), f"the port's writer parts from JAX's stored bytes: {same}")
+    check(plan == [(32, 3)] and launches == calls, f"the writer-built chain ran {launches} stage launches in {calls} "
+          f"calls (plan {plan})")
+    check(within, "the writer-built chain on the card parts from the CPU beyond the CNN bar")
+
+
+def run_example(name, args, device):
+    """The example ``name`` under ``gui.run`` as its ``__main__`` runs it,
+    with ``args`` and ``--device``; a failure exits (``gui.run``'s exit
+    code). → (host-clock time of each ``show_image`` call, its stdout,
+    wall seconds)."""
+    import contextlib
+    import importlib
+    import io
+
+    from zaru_tpu_torch import gui
+
+    mod = importlib.import_module(f"zaru_tpu_torch.examples.{name}")
+    shown, show = [], gui.show_image
+
+    def timed_show(key, image):
+        show(key, image)
+        shown.append(time.perf_counter())
+
+    out = io.StringIO()
+    argv = sys.argv
+    sys.argv = [name, *args, "--device", str(device)]
+    gui.show_image = timed_show
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            gui.run(mod.main)
+    finally:
+        gui.show_image, sys.argv = show, argv
+    return shown, out.getvalue(), time.perf_counter() - t0
+
+
+def phase_examples(torch, np, device, card, rgba, cropped):
+    """``fused_cascade``, ``facemesh`` and ``identify_stream`` (the port's
+    demo examples) in this process on the card for EXAMPLE_FRAMES frames
+    each, under ``ZARU_TPU_GUI=file`` into a temporary directory, fed the
+    stored photo and its crop as ``.npy`` arrays (no image decoder here):
+    the PNG count against the frames shown, the launch counts of each run
+    (the stage kernel in all three, the rotated and letterbox kernels in
+    ``identify_stream``), every stream identified as the enrolled crop,
+    ms/frame after the first; then ``info`` with every wrapper ported."""
+    import contextlib
+    import io
+
+    from zaru_tpu_torch.__main__ import main as cli
+
+    saved = {k: os.environ.get(k) for k in ("ZARU_TPU_GUI", "ZARU_TPU_GUI_DIR", "ZARU_TPU_EXAMPLE_FRAMES",
+                                            "ZARU_TPU_LOG")}
+    with tempfile.TemporaryDirectory() as d:
+        photo, crop = f"{d}/sad_linus.npy", f"{d}/sad_linus_cropped.npy"
+        np.save(photo, rgba.cpu().numpy())
+        np.save(crop, cropped)
+        os.environ.update(ZARU_TPU_GUI="file", ZARU_TPU_GUI_DIR=f"{d}/gui",
+                          ZARU_TPU_EXAMPLE_FRAMES=str(EXAMPLE_FRAMES), ZARU_TPU_LOG="WARNING")
+        try:
+            runs = (("fused_cascade", [photo], "fused cascade", ("blaze_stage",)),
+                    ("facemesh", [photo], "facemesh", ("blaze_stage",)),
+                    ("identify_stream", [crop, "--stream", photo, "--frames", str(EXAMPLE_FRAMES)], None,
+                     FACE_KERNELS))
+            for name, args, key, kernels in runs:
+                zero_launches()
+                shown, out, wall = run_example(name, args, device)
+                torch.cuda.synchronize()
+                launches = read_launches()
+                pngs = len(list(Path(f"{d}/gui/{key}").glob("*.png"))) if key else 0
+                if key:
+                    want_pngs = EXAMPLE_FRAMES
+                    ms = (shown[-1] - shown[0]) / (len(shown) - 1) * 1e3
+                else:
+                    # identify_stream shows nothing (as JAX's); it prints each
+                    # frame's identities and milliseconds.
+                    want_pngs = 0
+                    lines = [ln for ln in out.splitlines() if ln.startswith("frame ")]
+                    check(len(lines) == EXAMPLE_FRAMES and all(ln.count("'sad_linus_cropped'") == 2 for ln in lines),
+                          f"identify_stream did not identify every stream as the crop:\n{out}")
+                    ms = float(np.mean([float(ln.rsplit("(", 1)[1].split(" ms")[0]) for ln in lines[1:]]))
+                print(f"example {name} on {device}, {EXAMPLE_FRAMES} frames ({' '.join(a.rsplit('/', 1)[-1] for a in args)}): "
+                      f"{pngs} PNG files (want {want_pngs}), {ms:.3f} ms/frame after the first, {wall:.2f} s in all "
+                      f"(model loading included); launches {launches} [{card}]", flush=True)
+                check(pngs == want_pngs, f"{name} wrote {pngs} PNG files for {EXAMPLE_FRAMES} frames")
+                check(all(launches[k] > 0 for k in kernels), f"{name}: a kernel of its path was never launched: "
+                      f"{launches}")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli(["info"])
+    unported = [ln for ln in out.getvalue().splitlines() if "(wrapper not ported)" in ln]
+    print(f"info: exit {code}, {len(out.getvalue().splitlines())} lines, wrappers not ported: {unported}", flush=True)
+    check(code == 0 and not unported, f"info lists unported wrappers: {unported}")
+
+
 def timed_phase(what, fn, *args):
     """``fn(*args)``, then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -3303,6 +3480,7 @@ def run_phases(torch, np, F, device, smi):
     timed("3, kernels vs plain", phase_kernels_vs_plain, torch, device)
     timed("3, the stage kernel's NHWC variant and the plan's other chains", phase_stage_nhwc_vs_plain, torch, np,
           device)
+    timed("3, the ONNX writer and a writer-built chain on the card", phase_writer_on_card, torch, np, device)
     rgba, img = load_photo(torch, F, np, device)
     timed("3, this slice's shapes vs plain", phase_slice_shapes_vs_plain, torch, np, device, rgba)
     timed("3, BodyTracker's shapes vs plain", phase_body_shapes_vs_plain, torch, np, device)
@@ -3334,6 +3512,7 @@ def run_phases(torch, np, F, device, smi):
                            runs["ms"][("main path", SERVE_STREAMS)], run_frame_ms)
     host_calls, sweeps = timed("5, host engines and eval", phase_host_full_size, torch, np, device, nets, image,
                                cropped, rgba, smi)
+    timed("5, the demo examples under the file back-end", phase_examples, torch, np, device, smi, rgba, cropped)
     timed("5, bf16 against f32", phase_bf16_full_size, torch, img, device, smi, tracker, hands, seed)
     main_frames = runs["main path"][0]
     call, export_launches = timed("5, export and run-exported of the main path", phase_export_full_size, torch, img,

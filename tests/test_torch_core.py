@@ -72,6 +72,10 @@ def test_imports_neither_jax_nor_zaru_tpu():
         "import zaru_tpu_torch.face.recognition, zaru_tpu_torch.face.identify, zaru_tpu_torch.image.blend\n"
         "import zaru_tpu_torch.quat, zaru_tpu_torch.procrustes, zaru_tpu_torch.pnp, zaru_tpu_torch.approx\n"
         "import zaru_tpu_torch.onnx.executor, zaru_tpu_torch.onnx.layout\n"
+        "import zaru_tpu_torch.gui, zaru_tpu_torch.gui.loop, zaru_tpu_torch.onnx.writer\n"
+        "from zaru_tpu_torch.hand.detection import ALL_KEYPOINTS, FullNetwork\n"
+        "from zaru_tpu_torch.hand.landmark import FullNetwork\n"
+        "from zaru_tpu_torch.landmark import Estimate\n"
         "from zaru_tpu_torch.face import identify, recognition\n"
         "from zaru_tpu_torch.detection import Detector\n"
         "from zaru_tpu_torch.landmark import Estimator, LandmarkTracker\n"
@@ -82,6 +86,7 @@ def test_imports_neither_jax_nor_zaru_tpu():
         "for m in pkgutil.walk_packages(zaru_tpu_torch.__path__, 'zaru_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'zaru_tpu_torch.parallel.mesh' in sys.modules and 'zaru_tpu_torch.video.webcam' in sys.modules\n"
+        "assert 'zaru_tpu_torch.examples.identify_stream' in sys.modules and 'zaru_tpu_torch.examples._common' in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'zaru_tpu' or m.startswith('zaru_tpu.')]\n"
         "assert not bad, bad\n"
@@ -106,8 +111,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from zaru_tpu_torch.face.detection import FullRangeNetwork, ShortRangeNetwork
     from zaru_tpu_torch.face.eye import EyeNetwork
     from zaru_tpu_torch.face.landmark.mediapipe import FaceMeshV1, FaceMeshV2
-    from zaru_tpu_torch.hand.detection import LiteNetwork as PalmLite
-    from zaru_tpu_torch.hand.landmark import LiteNetwork as HandLite
+    from zaru_tpu_torch.hand.detection import FullNetwork as PalmFull, LiteNetwork as PalmLite
+    from zaru_tpu_torch.hand.landmark import FullNetwork as HandFull, LiteNetwork as HandLite
     from zaru_tpu_torch.nn import Cnn, ColorMapper
     from zaru_tpu_torch.body.detection import PoseNetwork
     from zaru_tpu_torch.body.landmark import FullNetwork as PoseFull, LiteNetwork as PoseLite
@@ -137,6 +142,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: MultiHandTracker(fast_sampler=False),
         PalmLite,
         HandLite,
+        PalmFull,
+        HandFull,
         lambda: Cnn.load("face_landmark.onnx", ColorMapper.linear(-1.0, 1.0)),
         BodyTracker,
         PoseNetwork,
@@ -323,3 +330,97 @@ def test_one_euro_matches_jax():
         _eq(to, jo)
         for k in ("x", "dx", "init"):
             _eq(ts[k], js[k])
+
+
+@pytest.mark.parametrize("which", ["detection", "landmark"])
+def test_full_hand_networks_gated(which, monkeypatch):
+    """Both full hand networks raise ModelMissingError naming their blob
+    while it is absent, in the port (at construction) and in JAX (at
+    ``.cnn()``, tests/test_hand_body.py's form holds both)."""
+    import importlib
+
+    from zaru_tpu.assets import ModelMissingError as JaxMissing
+
+    from zaru_tpu_torch.assets import ModelMissingError
+
+    monkeypatch.delenv("ZARU_TPU_MODELS", raising=False)
+    port = importlib.import_module(f"zaru_tpu_torch.hand.{which}")
+    ref = importlib.import_module(f"zaru_tpu.hand.{which}")
+    blob = port.FullNetwork.FILE
+    assert blob == ref.FullNetwork.FILE == {"detection": "palm_detection_full.onnx",
+                                             "landmark": "hand_landmark_full.onnx"}[which]
+    with pytest.raises(ModelMissingError, match=blob):
+        port.FullNetwork(device="cpu").cnn()
+    with pytest.raises(JaxMissing, match=blob):
+        ref.FullNetwork().cnn()
+
+
+def test_palm_keypoints_and_anchors_match_jax():
+    """``ALL_KEYPOINTS`` and both palm networks' anchor layouts equal
+    JAX's (numpy)."""
+    from zaru_tpu.detection import Anchors as JaxAnchors
+    from zaru_tpu.hand import detection as ref
+
+    from zaru_tpu_torch.detection import Anchors
+    from zaru_tpu_torch.hand import detection as port
+
+    assert [(k.name, int(k)) for k in port.ALL_KEYPOINTS] == [(k.name, int(k)) for k in ref.ALL_KEYPOINTS]
+    for name in ("LiteNetwork", "FullNetwork"):
+        mine, theirs = getattr(port, name), getattr(ref, name)
+        assert mine.NUM_KEYPOINTS == theirs.NUM_KEYPOINTS == len(port.ALL_KEYPOINTS)
+        want = JaxAnchors.calculate(theirs.LAYERS).centers
+        got = Anchors.calculate(mine.LAYERS).centers
+        assert got.shape == (2016, 2)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_full_hand_networks_run_their_blob(tmp_path, monkeypatch):
+    """With the Lite blobs provided under the Full names (``ZARU_TPU_MODELS``
+    naming a temporary folder), each FullNetwork loads its own file and gives
+    the Lite network's detections and landmarks on the photo bit for bit."""
+    import shutil
+
+    from zaru_tpu_torch.assets import fixture_path, model_path
+    from zaru_tpu_torch.detection import Detector
+    from zaru_tpu_torch.hand import detection as palm, landmark as hand
+    from zaru_tpu_torch.image import Image
+    from zaru_tpu_torch.landmark import Estimator
+    from zaru_tpu_torch.rect import Rect
+
+    for lite, full in ((palm.LiteNetwork, palm.FullNetwork), (hand.LiteNetwork, hand.FullNetwork)):
+        shutil.copy(model_path(lite.FILE), tmp_path / full.FILE)
+    monkeypatch.setenv("ZARU_TPU_MODELS", str(tmp_path))
+    assert model_path(palm.FullNetwork.FILE) == tmp_path / palm.FullNetwork.FILE
+    image = Image.load(fixture_path("sad_linus.jpg"), device="cpu")
+
+    def detections(cls):
+        det = Detector(cls(device="cpu"))
+        det.set_threshold(0.1)  # the photo has no hand: keep the weak candidates
+        return [(d.confidence(), d.angle(), np.asarray(d.bounding_rect().center()), np.asarray(d.keypoints()))
+                for d in det.detect(image)]
+
+    def landmarks(cls):
+        est = Estimator(cls(device="cpu")).estimate(image.view(Rect.from_top_left(300.0, 100.0, 400.0, 400.0)))
+        return est.landmarks_mut().positions().copy(), est.presence, est.raw_handedness
+
+    lite, full = detections(palm.LiteNetwork), detections(palm.FullNetwork)
+    assert len(lite) == len(full) > 0
+    for a, b in zip(lite, full):
+        assert a[:2] == b[:2]
+        np.testing.assert_array_equal(a[2], b[2])
+        np.testing.assert_array_equal(a[3], b[3])
+    (pa, qa, ha), (pb, qb, hb) = landmarks(hand.LiteNetwork), landmarks(hand.FullNetwork)
+    np.testing.assert_array_equal(pa, pb)
+    assert pa.shape == (21, 3) and (qa, ha) == (qb, hb)
+
+
+def test_info_marks_no_wrapper_unported(capsys):
+    """``info`` lists every model of the JAX package's table, each wrapper
+    ported."""
+    from zaru_tpu_torch.__main__ import _KNOWN_MODELS, _ported, main
+
+    assert main(["info"]) == 0
+    out = capsys.readouterr().out
+    assert "(wrapper not ported)" not in out
+    assert all(_ported(wrapper) for wrapper, _ in _KNOWN_MODELS)
+    assert "hand.detection.FullNetwork" in out and "hand.landmark.FullNetwork" in out

@@ -28,7 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .parallel.mesh import Replicated
+from .parallel.mesh import Replicated, Sharded
 
 __all__ = ["CheckpointManager", "load_params", "save_params", "save_params_async"]
 
@@ -95,10 +95,18 @@ def save_params_async(path: str | Path, params: dict) -> _PendingSave:
 
 
 def _place(t: torch.Tensor, like):
-    """``t`` where ``like`` lives: a copy on each device of a
-    :class:`~zaru_tpu_torch.parallel.Replicated` (a parameter replicated over
-    a mesh, as JAX's ``_abstract_like`` places a replicated leaf), a tensor's
-    device, else the host."""
+    """``t`` where ``like`` lives: split shard by shard over the mesh of a
+    :class:`~zaru_tpu_torch.parallel.Sharded` (each shard copied straight
+    to its device, as JAX restores a leaf with its ``NamedSharding``), a
+    copy on each device of a :class:`~zaru_tpu_torch.parallel.Replicated`
+    (a parameter replicated over a mesh, as JAX's ``_abstract_like`` places
+    a replicated leaf), a tensor's device, else the host."""
+    if isinstance(like, Sharded):
+        sharding = like.sharding
+        if t.ndim == 0 or t.shape[0] % len(sharding.mesh):
+            raise ValueError(f"a saved leaf of shape {tuple(t.shape)} does not divide over the "
+                             f"{len(sharding.mesh)} shards of {sharding}")
+        return sharding.put(t)
     if isinstance(like, Replicated):
         return Replicated(t.to(d, copy=True) for d in like.devices)
     return t.to(like.device if isinstance(like, torch.Tensor) else "cpu")
@@ -121,11 +129,13 @@ def _restore(data: dict, like: dict | None, path: Path) -> dict:
 
 def load_params(path: str | Path, *, like: dict | None = None) -> dict:
     """Loads a flat parameter dict as CPU tensors (a ``.npz`` archive of
-    either package, or a checkpoint directory). ``like``: a dict of tensors
-    (or of ``Replicated`` parameters, such as
-    ``train.make_data_parallel_train_step`` returns) naming exactly the
-    parameters to load; each leaf goes to its tensor's device (a copy to
-    each device of a replicated one), and a missing or extra name raises."""
+    either package, or a checkpoint directory). ``like``: a dict of tensors,
+    ``Replicated`` parameters (such as
+    ``train.make_data_parallel_train_step`` returns) or ``Sharded`` ones,
+    naming exactly the parameters to load; each leaf goes to its tensor's
+    device, a copy to each device of a replicated one, and a sharded one is
+    split over its mesh shard by shard (its axis 0 must divide). A missing
+    or extra name raises."""
     path = Path(path)
     if path.suffix == ".npz":
         with np.load(path, allow_pickle=False) as data:

@@ -1,11 +1,13 @@
 """Palm detection (zaru_tpu/hand/detection.py ``_Palm`` :63, ``LiteNetwork``
-:115).
+:115, ``FullNetwork`` :124).
 
 The detection angle orients the hand fingers-up: the wrist → middle-finger
 MCP vector against the Y axis (:48 ``_palm_angle``). ``decode_device``
 (:100) decodes on tensors for the trackers, ``extract`` (:83) on the host
-for :class:`~zaru_tpu_torch.detection.Detector`. ``FullNetwork`` is a
-missing blob in the JAX package too and is not ported.
+for :class:`~zaru_tpu_torch.detection.Detector`. Both networks share the
+anchor layout. ``FullNetwork``'s blob (``palm_detection_full.onnx``) is
+missing upstream: constructing it raises ``ModelMissingError`` until the
+blob is provided (JAX's raises at ``.cnn()``, where it loads lazily).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from .._device import resolve_device
 from ..detection import Anchors, DetectionNetwork, Detections, LayerInfo, decode_ssd, decode_ssd_device
 from ..nn import Cnn, ColorMapper
 
-__all__ = ["Keypoint", "LiteNetwork"]
+__all__ = ["ALL_KEYPOINTS", "FullNetwork", "Keypoint", "LiteNetwork"]
 
 
 class Keypoint(enum.IntEnum):
@@ -34,6 +36,8 @@ class Keypoint(enum.IntEnum):
     THUMB_MCP = 6
 
 
+ALL_KEYPOINTS = list(Keypoint)
+
 
 def _palm_angle(det) -> float:
     """Clockwise rotation of the wrist → middle-finger MCP vector against
@@ -43,11 +47,11 @@ def _palm_angle(det) -> float:
     return float(np.arctan2(-rel[0], rel[1]))
 
 
-class LiteNetwork(DetectionNetwork):
-    """The lite palm detector: 192×192 input, colour range [0, 1], 2016
-    anchors, 7 keypoints."""
+class _Palm(DetectionNetwork):
+    """A palm detector: 192×192 input, colour range [0, 1], 2016 anchors,
+    7 keypoints."""
 
-    FILE = "palm_detection_lite.onnx"
+    FILE: str
     LAYERS = [LayerInfo(2, 24, 24), LayerInfo(6, 12, 12)]
     NUM_KEYPOINTS = 7
 
@@ -83,3 +87,17 @@ class LiteNetwork(DetectionNetwork):
         )
         rel = kps[..., Keypoint.WRIST, :] - kps[..., Keypoint.MIDDLE_FINGER_MCP, :]
         return boxes, conf, kps, torch.atan2(-rel[..., 0], rel[..., 1])
+
+
+class LiteNetwork(_Palm):
+    """The lite palm detector."""
+
+    FILE = "palm_detection_lite.onnx"
+
+
+class FullNetwork(_Palm):
+    """The full palm detector, about 15% slower than the lite one. Its blob
+    is missing upstream; constructing it raises ``ModelMissingError`` until
+    the blob is provided."""
+
+    FILE = "palm_detection_full.onnx"

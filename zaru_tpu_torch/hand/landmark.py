@@ -3,8 +3,11 @@
 ``LiteNetwork`` decodes on tensors for the trackers (``decode_device``,
 :168-173) and on the host for :class:`~zaru_tpu_torch.landmark.Estimator`
 (``extract`` :160) into a :class:`LandmarkResult` (:96: presence,
-handedness, the palm helpers and the rotation). ``FullNetwork`` is a
-missing blob in the JAX package too and is not ported.
+handedness, the palm helpers and the rotation). ``LiteNetwork`` and
+``FullNetwork`` (:183) share ``_HandLandmark``; ``FullNetwork``'s blob
+(``hand_landmark_full.onnx``) is missing upstream: constructing it raises
+``ModelMissingError`` until the blob is provided (JAX's raises at
+``.cnn()``, where it loads lazily).
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from .._device import resolve_device
 from ..landmark import LandmarkNetwork, Landmarks
 from ..nn import Cnn, ColorMapper
 
-__all__ = ["CONNECTIVITY", "Handedness", "LandmarkIdx", "LandmarkResult", "LiteNetwork", "PALM_LANDMARKS"]
+__all__ = ["CONNECTIVITY", "FullNetwork", "Handedness", "LandmarkIdx", "LandmarkResult", "LiteNetwork",
+           "PALM_LANDMARKS"]
 
 
 class Handedness(enum.Enum):
@@ -129,11 +133,11 @@ class LandmarkResult:
         return Handedness.RIGHT if self.raw_handedness > 0.5 else Handedness.LEFT
 
 
-class LiteNetwork(LandmarkNetwork):
-    """The lite hand landmarker: 224×224 crop, colour range [0, 1] → 21×3
+class _HandLandmark(LandmarkNetwork):
+    """A hand landmarker: 224×224 crop, colour range [0, 1] → 21×3
     landmarks, presence and handedness (both sigmoids inside the model)."""
 
-    FILE = "hand_landmark_lite.onnx"
+    FILE: str
     NUM_LANDMARKS = 21
 
     def __init__(self, compute_dtype=None, device=None):
@@ -162,3 +166,17 @@ class LiteNetwork(LandmarkNetwork):
         [B], handedness [B])``."""
         b = outputs[0].shape[0]
         return outputs[0].reshape(b, self.NUM_LANDMARKS, 3), outputs[1].reshape(b), outputs[2].reshape(b)
+
+
+class LiteNetwork(_HandLandmark):
+    """The lite hand landmarker."""
+
+    FILE = "hand_landmark_lite.onnx"
+
+
+class FullNetwork(_HandLandmark):
+    """The full hand landmarker, more accurate at 25-30% more inference
+    time. Its blob is missing upstream; constructing it raises
+    ``ModelMissingError`` until the blob is provided."""
+
+    FILE = "hand_landmark_full.onnx"

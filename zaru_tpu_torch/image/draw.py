@@ -3,7 +3,10 @@ zaru_tpu/image/draw.py (reference: crates/zaru/src/image/draw.rs and
 crates/zaru-image/src/draw/).
 
 Drawing is a host-side debug facility — it never sits on the perception hot
-path — so it renders with OpenCV on a NumPy copy and re-uploads. The API
+path — so it renders on a NumPy copy and re-uploads. ``rect`` and
+``marker`` are drawn with NumPy (their lines are axis-aligned: the pixels
+``cv2.rectangle`` and ``cv2.drawMarker`` set, so they need no OpenCV, which
+a GPU machine may lack); the slanted lines and text use OpenCV. The API
 mirrors the reference's chained calls (``draw.rect(img, r).color(c)``),
 with drawing executed when the chain is dropped/flushed or immediately via
 keyword arguments.
@@ -63,14 +66,32 @@ def _bgr(color: Color):
     return (int(color.r), int(color.g), int(color.b), int(color.a))
 
 
-def rect(target, r: Rect, color: Color = Color.RED):
-    """Axis-aligned rectangle outline (draw.rs:254-261)."""
-    import cv2
+def _span(arr: np.ndarray, x0: int, y0: int, x1: int, y1: int, color: Color) -> None:
+    """A one-pixel horizontal or vertical line from ``(x0, y0)`` to
+    ``(x1, y1)``, both ends included, clipped to the image: the pixels
+    ``cv2.line`` sets for it (thickness 1, 8-connected)."""
+    h, w = arr.shape[:2]
+    value = np.array(_bgr(color)[: arr.shape[2]], arr.dtype)
+    if y0 == y1:
+        a, b = max(min(x0, x1), 0), min(max(x0, x1), w - 1)
+        if 0 <= y0 < h and a <= b:
+            arr[y0, a:b + 1] = value
+    elif x0 == x1:
+        a, b = max(min(y0, y1), 0), min(max(y0, y1), h - 1)
+        if 0 <= x0 < w and a <= b:
+            arr[a:b + 1, x0] = value
+    else:
+        raise ValueError(f"({x0}, {y0}) → ({x1}, {y1}) is not axis-aligned")
 
+
+def rect(target, r: Rect, color: Color = Color.RED):
+    """Axis-aligned rectangle outline (draw.rs:254-261): the four edges
+    ``cv2.rectangle`` draws at thickness 1."""
     canvas, own = _canvas_of(target)
-    tl = r.top_left().astype(int)
-    br = (r.top_left() + r.size()).astype(int)
-    cv2.rectangle(canvas.array, tuple(tl), tuple(br), _bgr(color), 1)
+    x0, y0 = (int(v) for v in r.top_left().astype(int))
+    x1, y1 = (int(v) for v in (r.top_left() + r.size()).astype(int))
+    for a, b in (((x0, y0), (x1, y0)), ((x1, y0), (x1, y1)), ((x1, y1), (x0, y1)), ((x0, y1), (x0, y0))):
+        _span(canvas.array, *a, *b, color)
     return canvas.flush() if own else None
 
 
@@ -85,14 +106,14 @@ def rotated_rect(target, rr: RotatedRect, color: Color = Color.RED):
 
 
 def marker(target, pos, size: int = 5, color: Color = Color.GREEN):
-    """Cross marker at a position (draw.rs:274-282)."""
-    import cv2
-
+    """Cross marker at a position (draw.rs:274-282): the two lines of
+    ``cv2.drawMarker``'s ``MARKER_CROSS`` at thickness 1, ``size // 2``
+    pixels each side."""
     canvas, own = _canvas_of(target)
     x, y = int(round(float(pos[0]))), int(round(float(pos[1])))
-    cv2.drawMarker(
-        canvas.array, (x, y), _bgr(color), cv2.MARKER_CROSS, max(1, size), 1
-    )
+    half = max(1, size) // 2
+    _span(canvas.array, x - half, y, x + half, y, color)
+    _span(canvas.array, x, y - half, x, y + half, color)
     return canvas.flush() if own else None
 
 

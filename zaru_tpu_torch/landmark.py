@@ -13,6 +13,8 @@ landmarks plus padding, and tracking is lost below a confidence.
 
 from __future__ import annotations
 
+from typing import Protocol
+
 import numpy as np
 
 from .filters import FilterParams, TimedFilterAdapter
@@ -21,6 +23,7 @@ from .rect import Rect, RotatedRect, rrect_bounding, rrect_transform_out
 from .timer import Timer
 
 __all__ = [
+    "Estimate",
     "Estimator",
     "Landmark",
     "LandmarkFilter",
@@ -132,6 +135,15 @@ class LandmarkFilter:
             return
         self._state, out = self._params.apply(self._state, landmarks.positions())
         landmarks.set_positions(np.asarray(out))
+
+
+class Estimate(Protocol):
+    """What a landmark network's ``init_estimate`` returns and ``extract``
+    fills (landmark.py:143): its landmarks through ``landmarks_mut()``.
+    An estimate may also have ``angle_radians() -> float | None``, which
+    :class:`LandmarkTracker` reads to rotate the next ROI."""
+
+    def landmarks_mut(self) -> Landmarks: ...
 
 
 class LandmarkNetwork:
