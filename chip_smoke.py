@@ -103,8 +103,9 @@ check exits non-zero):
    tolerances, the models also against the port's NCHW modules; then a
    module's second call on every Div, Resize and negative-step Slice case,
    which must copy nothing from the host;
-5. the paths at full size on the fixture photo upscaled to 1920×1080 on
-   the card, 54 steps after 9 of warm-up: ``FaceTracker.step_batch`` at
+5. the paths at full size on the bench frame (the fixture photo upscaled
+   to 1920×1080, ``bench_programs.make_1080p_frame``: JAX's bench frame bit
+   for bit), uploaded once, 54 steps after 9 of warm-up: ``FaceTracker.step_batch`` at
    batches 64 and 512 with detection forced every 9th step, then
    ``FaceTracker(iris=True)`` at 512; ``MultiFaceTracker(max_faces=4)`` at
    batch 128; ``MultiHandTracker(max_hands=4)`` at batch 128 tracking four
@@ -191,7 +192,19 @@ check exits non-zero):
    crop fed as ``.npy`` arrays): PNG files against the frames shown, the
    launch counts of each run (the stage kernel in all three, both samplers
    in ``identify_stream``), every stream identified as the crop, ms/frame
-   after the first; and ``info`` with no wrapper unported;
+   after the first; and ``info`` with no wrapper unported; last, the
+   measurement surface (``zaru_tpu_torch/examples``: benchsuite and the
+   single-purpose benches), each script's ``main`` called in this process
+   on the card into a temporary ``--out``: ``benchsuite cascade`` at 512
+   and at 8, ``latency`` (batches 1-64) and ``ledger`` at 512, 16 steps
+   and 4 windows, the launch counts of every window of the cascade
+   program held to its cadence (16 rotated-sampler launches, 2 letterbox
+   launches on the forced detect steps, 8 stage launches a step and
+   BlazeFace's 2 on each detect step: 132), the ledger's six stages and
+   its derived row written, and ``cascade`` at 512 printed beside this
+   phase's main path at 512; then every other subcommand and script once
+   at a reduced size (one window, batch 64), each of which must launch
+   every kernel of its path and write no error record;
 6. each kernel's time at its main-path inputs (queued behind a device spin
    so the host's launch cost is hidden) beside its plain version's and its
    bound; for the samplers the whole call in the planar layout the path
@@ -624,18 +637,18 @@ def phase_yuv_vs_plain(torch, img, device):
     return rgb
 
 
-def load_photo(torch, F, np, device):
-    """The fixture photo as RGBA u8 on the card, as stored (1280×720) and
-    upscaled to 1920×1080."""
+def load_photo(torch, np, device):
+    """The fixture photo as RGBA u8 on the card: as stored (1280×720), and
+    the bench frame (``bench_programs.make_1080p_frame``: the photo upscaled
+    to 1920×1080 by OpenCV's bilinear rule, JAX's bench frame bit for bit),
+    uploaded once."""
     from zaru_tpu_torch.assets import fixture_path
+    from zaru_tpu_torch.bench_programs import make_1080p_frame
 
     with np.load(fixture_path("sad_linus_track.npz")) as f:
         rgb = torch.from_numpy(f["rgb"]).to(device)
     rgba = torch.cat([rgb, torch.full_like(rgb[..., :1], 255)], -1)
-    img = F.interpolate(
-        rgba.permute(2, 0, 1)[None].float(), size=(1080, 1920), mode="bilinear", align_corners=False
-    )
-    return rgba, img[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).contiguous()
+    return rgba, torch.from_numpy(make_1080p_frame()).to(device)
 
 
 def phase_vs_jax(torch, np, device, rgba):
@@ -3420,6 +3433,136 @@ def phase_examples(torch, np, device, card, rgba, cropped):
     check(code == 0 and not unported, f"info lists unported wrappers: {unported}")
 
 
+# The measurement surface: the cascade program's launches in a window of
+# SURFACE_STEPS steps (detection forced on steps 0 and 9).
+SURFACE_STEPS, SURFACE_WINDOWS = 16, 4
+SURFACE_DETECTS = 2
+CASCADE_WINDOW_LAUNCHES = {"rotated_sample": SURFACE_STEPS, "letterbox_sample": SURFACE_DETECTS,
+                           "blaze_stage": 8 * SURFACE_STEPS + 2 * SURFACE_DETECTS}
+SURFACE_BATCH = 64  # the reduced runs' batch
+
+
+def run_surface(torch, name, argv, card, kernels, consts=None):
+    """``zaru_tpu_torch.examples.<name>.main(argv)`` in this process on the
+    card, its stdout printed beside ``card``; ``consts`` set on the module
+    for the run (a script's steps and windows). The launch counts are zeroed
+    before and read after, and every kernel in ``kernels`` must have
+    launched; each call of a function ``timed_windows_stats`` times (a
+    window) is counted on its own. → (the launches of the run, [(label,
+    launches of one window)], its JSONL records, wall seconds)."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"zaru_tpu_torch.examples.{name}")
+    windows = []
+    timed = getattr(mod, "timed_windows_stats", None)
+
+    def counting(fn, *args, label="", **kw):
+        def counted(*a):
+            before = read_launches()
+            out = fn(*a)  # the counters count launches as the host issues them: no wait needed
+            after = read_launches()
+            windows.append((label, {k: n - before[k] for k, n in after.items()}))
+            return out
+
+        return timed(counted, *args, label=label, **kw)
+
+    saved = {k: getattr(mod, k) for k in (consts or {})}
+    if timed is not None:
+        mod.timed_windows_stats = counting
+    for k, v in (consts or {}).items():
+        setattr(mod, k, v)
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as d:
+        jsonl = f"{d}/out.jsonl"
+        args = [a.replace("{out}", jsonl) for a in argv]
+        zero_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                mod.main([*args, "--device", "cuda"])
+            torch.cuda.synchronize()
+        finally:
+            if timed is not None:
+                mod.timed_windows_stats = timed
+            for k, v in saved.items():
+                setattr(mod, k, v)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        records = [json.loads(line) for line in open(jsonl)] if os.path.exists(jsonl) else []
+    # The JSONL records, or the lines a script prints instead.
+    for line in [json.dumps(r) for r in records] or out.getvalue().splitlines():
+        print(f"  {name}: {line} [{card}]", flush=True)
+    print(f"{name} {' '.join(argv)}: {wall:.1f} s wall, launches {launches} [{card}]", flush=True)
+    check(all(launches[k] > 0 for k in kernels), f"{name} {argv}: a kernel of its path was never launched: {launches}")
+    check(not any("error" in r for r in records), f"{name} {argv}: an error record: {records}")
+    return launches, windows, records, wall
+
+
+def phase_measurement_surface(torch, device, card, main_512_ms):
+    """The measurement scripts on the card (module docstring, phase 5's
+    last part). → the ledger's records."""
+    from zaru_tpu_torch.examples import benchsuite
+
+    steps = ["--steps", str(SURFACE_STEPS), "--windows", str(SURFACE_WINDOWS), "--out", "{out}"]
+    cascade = {}
+    for batch in (512, 8):
+        _l, windows, recs, _w = run_surface(torch, "benchsuite", ["cascade", "--batch", str(batch), *steps], card,
+                                            FACE_KERNELS)
+        cascade[batch] = recs, windows
+    _l, lat_windows, lat, _w = run_surface(torch, "benchsuite", ["latency", *steps], card, FACE_KERNELS)
+    _l, led_windows, ledger, _w = run_surface(torch, "benchsuite", ["ledger", "--batch", "512", *steps], card,
+                                              FACE_KERNELS)
+    checked = [(label, w) for _r, ws in cascade.values() for label, w in ws]
+    checked += [(label, w) for label, w in lat_windows if label.startswith("latency B=")]
+    checked += [(label, w) for label, w in led_windows if label == "ledger cascade"]
+    bad = [(label, w) for label, w in checked if any(w[k] != n for k, n in CASCADE_WINDOW_LAUNCHES.items())]
+    print(f"cascade program windows: {len(checked)} (cascade at 512 and 8, latency at "
+          f"{sorted({int(l.split('=')[1]) for l, _ in checked if l.startswith('latency')})}, ledger), each "
+          f"{CASCADE_WINDOW_LAUNCHES}; windows off that count: {bad}", flush=True)
+    # The first call of each timing and its windows: cascade at 512 and 8,
+    # latency at its 7 batches, the ledger's cascade stage.
+    check(len(checked) == (2 + 7 + 1) * (SURFACE_WINDOWS + 1) and not bad,
+          f"{len(checked)} cascade program windows, launched off the cadence: {bad}")
+    stages = [r.get("stage") for r in ledger]
+    check(stages == [*benchsuite.LEDGER_STAGES, "derived"], f"the ledger wrote {stages}")
+    (c512,) = cascade[512][0]
+    print(f"benchsuite cascade at 512: {c512['ms_per_step']} ms/step (median {c512['ms_per_step_median']}, "
+          f"{c512['windows']} windows of {SURFACE_STEPS} steps) beside this run's phase 5 main path at 512: "
+          f"{main_512_ms:.3f} ms/step (54 steps) [{card}]", flush=True)
+    small = ["--batch", str(SURFACE_BATCH), "--steps", str(SURFACE_STEPS), "--windows", "1", "--out", "{out}"]
+    for sub, kernels, extra in (
+        ("batch-sweep", FACE_KERNELS, ["--sweep-batches", str(SURFACE_BATCH)]),
+        ("cadence", FACE_KERNELS, []),
+        ("detect", ("letterbox_sample", "blaze_stage"), []),
+        ("gate", FACE_KERNELS, []),
+        ("landmark", ("rotated_sample", "blaze_stage"), []),
+        ("cnnstage", ("blaze_stage",), []),
+        ("parity", HAND_KERNELS, []),
+        ("sampler", ("rotated_sample",), []),
+        ("hand", HAND_KERNELS, []),
+        ("bf16", FACE_KERNELS, []),
+    ):
+        _l, _ws, recs, _w = run_surface(torch, "benchsuite", [sub, *small, *extra], card, kernels)
+        if sub == "parity":
+            check(all(r["plain_eq"] for r in recs), "parity: a sampler kernel parts from its plain version")
+    b = str(SURFACE_BATCH)
+    short = {"SCAN_STEPS": 8, "WINDOWS": 1}
+    for name, argv, kernels, consts in (
+        ("irisbench", [b, "{out}"], FACE_KERNELS, {"STEPS": SURFACE_STEPS, "WINDOWS": 1}),
+        ("identifybench", [b, "512"], FACE_KERNELS, short),
+        ("gatebench", [b], FACE_KERNELS, short),
+        ("detbench", [b], FACE_KERNELS, short),
+        ("multifacebench", [b, "4"], ("rotated_sample", "blaze_stage"), short),
+        ("handbench", [b, "4"], HAND_KERNELS, short),
+        ("ingestbench", ["{out}"], (), {}),
+        ("jpegbench", [], (), {}),
+    ):
+        run_surface(torch, name, argv, card, kernels, consts)
+    return ledger
+
+
 def timed_phase(what, fn, *args):
     """``fn(*args)``, then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -3435,7 +3578,6 @@ def main() -> int:
         return 2
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU; torch.cuda.is_available() is False", file=sys.stderr)
@@ -3458,7 +3600,7 @@ def main() -> int:
     if "--sharding" in sys.argv[1:]:
         from zaru_tpu_torch.pipeline import FaceTracker
 
-        _rgba, img = load_photo(torch, F, np, device)
+        _rgba, img = load_photo(torch, np, device)
         timed_phase("5, stream sharding", phase_sharding, torch, np, img, device, smi, FaceTracker(device=device))
     else:
         # The pose models BodyTracker loads: the stub blobs stored in
@@ -3466,7 +3608,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as stubs:
             write_body_stubs(np, stubs)
             os.environ["ZARU_TPU_MODELS"] = stubs
-            run_phases(torch, np, F, device, smi)
+            run_phases(torch, np, device, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -3474,14 +3616,14 @@ def main() -> int:
     return 0
 
 
-def run_phases(torch, np, F, device, smi):
+def run_phases(torch, np, device, smi):
     """Phases 3-7 (see the module docstring)."""
     timed = timed_phase
     timed("3, kernels vs plain", phase_kernels_vs_plain, torch, device)
     timed("3, the stage kernel's NHWC variant and the plan's other chains", phase_stage_nhwc_vs_plain, torch, np,
           device)
     timed("3, the ONNX writer and a writer-built chain on the card", phase_writer_on_card, torch, np, device)
-    rgba, img = load_photo(torch, F, np, device)
+    rgba, img = load_photo(torch, np, device)
     timed("3, this slice's shapes vs plain", phase_slice_shapes_vs_plain, torch, np, device, rgba)
     timed("3, BodyTracker's shapes vs plain", phase_body_shapes_vs_plain, torch, np, device)
     timed("3, StreamIdentifier's 112x112 crops vs plain", phase_identify_shapes_vs_plain, torch, np, device, rgba)
@@ -3523,6 +3665,8 @@ def run_phases(torch, np, F, device, smi):
           main_frames)
     del call
     timed("5, stream sharding", phase_sharding, torch, np, img, device, smi, tracker)
+    timed("5, the measurement surface", phase_measurement_surface, torch, device, smi,
+          runs["ms"][("main path", 512)])
     print(f"launches in the batch-512 face runs ({STEPS} steps each): {runs['launches']}", flush=True)
     print(f"launches in the batch-128 multi-object runs ({STEPS} steps each): {multi}", flush=True)
     print(f"launches in the face-model and single-stream runs ({STEPS} steps each): "

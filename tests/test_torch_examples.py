@@ -1,8 +1,8 @@
 """The demo examples on the port (zaru_tpu_torch/examples), run headless
 on the CPU as tests/test_examples.py runs the JAX package's: every script
-of its RUNNABLE list but jpegbench (a measurement script, left to the
-benchmark), the animation and face-recognition examples, and the usage
-errors. The scripts run in this process (``sys.argv`` patched,
+of its RUNNABLE list but jpegbench (a measurement script, run with the
+others in tests/test_torch_bench_examples.py), the animation and
+face-recognition examples, and the usage errors. The scripts run in this process (``sys.argv`` patched,
 ``ZARU_TPU_GUI=none``, one frame, ``--device cpu``) under ``gui.run``, as
 their ``__main__`` does; only the usage errors start ``python -m``.
 """

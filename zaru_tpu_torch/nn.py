@@ -199,9 +199,16 @@ class Cnn:
         )
         return Cnn(nn, CnnInputShape.NCHW, color_mapper)
 
-    def _net(self, xs) -> list[torch.Tensor]:
-        """The network on samples in :attr:`_layout`, ``[N,...]`` with the
-        sample's three trailing axes."""
+    @property
+    def layout(self) -> str:
+        """The layout its samplers write for it (``"NCHW"`` planar or
+        ``"NHWC"``): the one :meth:`apply_samples` takes."""
+        return self._layout
+
+    def apply_samples(self, xs) -> list[torch.Tensor]:
+        """The network on samples in :attr:`layout`, ``[N,...]`` with the
+        sample's three trailing axes (what the ``apply_views_*`` methods run
+        on their samples)."""
         xs = xs.reshape(-1, *xs.shape[-3:])
         return self.net(xs.permute(0, 3, 1, 2) if self._permute else xs)
 
@@ -249,12 +256,12 @@ class Cnn:
         """The network on the rotated views of ``rrects [B,...,5]``, sampled
         in the network's own layout (planar, or NHWC for an NHWC-layout
         module): outputs over the ``N`` views flattened in rect order."""
-        return self._net(self.sample_views_fast(frames_u8, rrects, prescale_m, self._layout, mirror))
+        return self.apply_samples(self.sample_views_fast(frames_u8, rrects, prescale_m, self._layout, mirror))
 
     def apply_views_letterbox(self, frames_u8, rrects) -> list[torch.Tensor]:
         """The network on the letterbox views of ``rrects [B,5]``, sampled
         in the network's own layout."""
-        return self._net(self.sample_views_letterbox(frames_u8, rrects, self._layout))
+        return self.apply_samples(self.sample_views_letterbox(frames_u8, rrects, self._layout))
 
     def sample_view_hwc(self, frames_u8, rrects, mirror=None):
         """Exact rotated views: ``[B,H,W,4] u8`` + ``[B,...,5]`` rects →
@@ -267,4 +274,5 @@ class Cnn:
         sampled in the network's own layout: outputs over the ``N`` views
         flattened in rect order."""
         r, m = self._res, self.mapper
-        return self._net(view_to_tensor_core(frames_u8, rrects, r.width, r.height, m.lo, m.hi, self._layout, mirror))
+        xs = view_to_tensor_core(frames_u8, rrects, r.width, r.height, m.lo, m.hi, self._layout, mirror)
+        return self.apply_samples(xs)

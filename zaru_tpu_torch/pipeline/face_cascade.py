@@ -156,6 +156,12 @@ class FaceTracker:
             outputs = self.det_cnn.apply_on_view(frames, rrects)
         else:
             outputs = self.det_cnn.apply_views_letterbox(frames, rrects)
+        return self._detect_tail(outputs, fit, res)
+
+    def _detect_tail(self, outputs, fit, res):
+        """The detector's outputs for ``B`` frames → SSD decode, weighted NMS
+        with one output, the box back in the image through the letterbox
+        ``fit`` (:186) → (rois [B,5], founds [B])."""
         boxes, conf, kps, angles = self.detector.decode_device(outputs, self.detection_threshold)
         valid, _conf, avg_box, _kp, _angle = nms_average_device(boxes, conf, kps, angles, max_out=1)
         rect = _ops.unmap_center_size(avg_box[:, 0], fit, res)
