@@ -1,0 +1,39 @@
+"""The system under test, built from a configuration's ``program`` and
+``tracker`` sections: the port's tracker with its detector and landmark
+network, each named by its dotted path in ``zaru_tpu_torch``."""
+
+from __future__ import annotations
+
+import importlib
+
+import torch
+
+__all__ = ["build", "control_dtype"]
+
+
+def _load(dotted: str):
+    module, _, name = dotted.rpartition(".")
+    return getattr(importlib.import_module(module), name)
+
+
+def control_dtype(config: dict):
+    """The program's own lower-precision path, the control of ``correct``."""
+    return getattr(torch, config["program"]["control_dtype"])
+
+
+def build(config: dict, device, compute_dtype=None):
+    """The tracker of ``config`` on ``device``; ``compute_dtype`` switches
+    its networks' bodies to that precision (None: the configuration's
+    float32)."""
+    p, t = config["program"], config["tracker"]
+    f = t["one_euro"]
+    return _load(p["tracker"])(
+        _load(p["detector"])(compute_dtype, device=device),
+        _load(p["landmarker"])(compute_dtype, device=device),
+        detection_threshold=t["detection_threshold"],
+        loss_threshold=t["loss_threshold"],
+        roi_padding=t["roi_padding"],
+        smooth=_load(p["filter"])(f["min_cutoff"], f["beta"], f["d_cutoff"]),
+        frame_rate=t["frame_rate"],
+        device=device,
+    )
