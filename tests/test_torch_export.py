@@ -519,9 +519,9 @@ def test_analysis_leaves_the_module_usable(case):
 
 def test_profiling_hooks(tmp_path):
     """trace() writes a Chrome trace naming the kernels' ops and the
-    annotated range; device_timer reports through its sink."""
+    annotated range."""
     from zaru_tpu_torch.ops.cnn_stage import fused_blocks, pack_blocks
-    from zaru_tpu_torch.profiling import annotate, device_timer, trace
+    from zaru_tpu_torch.profiling import annotate, trace
 
     rng = np.random.default_rng(0)
     C = 16
@@ -534,10 +534,6 @@ def test_profiling_hooks(tmp_path):
     (trace_file,) = (tmp_path / "prof").glob("*.json")
     text = trace_file.read_text()
     assert "zaru_tpu_torch::blaze_stage" in text and "stage call" in text
-    lines = []
-    with device_timer("block", sink=lines.append) as sync:
-        sync(fused_blocks(x, packed, 5, 5, C))
-    assert len(lines) == 1 and lines[0].startswith("block: ") and lines[0].endswith("ms")
 
 
 if __name__ == "__main__":

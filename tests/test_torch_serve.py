@@ -290,7 +290,10 @@ def record_of(step, out):
 def test_serve_loop_equals_run_frames_gated(photo_small, face_tracker):
     """Two looping in-memory streams over 3 steps: the loop's records and
     outputs equal ``run_frames_gated`` called directly on the same frames,
-    bit for bit; the stats line and summary come out."""
+    bit for bit; the stats line and summary come out, the summary with the
+    program's counters over the loop: 7 host syncs in 3 steps (the gate
+    each step, the letterbox fit on the first, which detects, and each
+    step's output reads)."""
     streams = tserve.StreamSet([memory_source(photo_small, s, 3) for s in range(2)])
     recs, outs, lines, stats = run_loop(face_tracker, streams, 2, 3)
     state = face_tracker.init_state(batch=2)
@@ -302,7 +305,9 @@ def test_serve_loop_equals_run_frames_gated(photo_small, face_tracker):
         assert recs[t] == record_of(t, out)
     assert all(r["valid"] == [True, True] for r in recs)
     assert any("frames/s e2e" in line for line in lines)
-    assert stats.frames == 6 and "6 fresh frames" in stats.summary(streams)
+    summary = stats.summary(streams)
+    assert stats.frames == 6 and "6 fresh frames" in summary
+    assert summary.endswith("; host syncs 2.33/step, host copies 0, detect steps 1, kernel builds 0")
 
 
 def test_serve_loop_single_stream_equals_run_frame(photo_small, face_tracker):

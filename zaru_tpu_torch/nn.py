@@ -269,10 +269,14 @@ class Cnn:
         r, m = self._res, self.mapper
         return view_to_tensor_core(frames_u8, rrects, r.width, r.height, m.lo, m.hi, "NHWC", mirror)
 
+    def sample_on_view(self, frames_u8, rrects, mirror=None):
+        """Exact rotated views of ``rrects [B,...,5]`` in the network's own
+        layout (what :meth:`apply_on_view` runs the network on)."""
+        r, m = self._res, self.mapper
+        return view_to_tensor_core(frames_u8, rrects, r.width, r.height, m.lo, m.hi, self._layout, mirror)
+
     def apply_on_view(self, frames_u8, rrects, mirror=None) -> list[torch.Tensor]:
         """The network on the exact rotated views of ``rrects [B,...,5]``,
         sampled in the network's own layout: outputs over the ``N`` views
         flattened in rect order."""
-        r, m = self._res, self.mapper
-        xs = view_to_tensor_core(frames_u8, rrects, r.width, r.height, m.lo, m.hi, self._layout, mirror)
-        return self.apply_samples(xs)
+        return self.apply_samples(self.sample_on_view(frames_u8, rrects, mirror))

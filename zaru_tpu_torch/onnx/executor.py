@@ -141,6 +141,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import profiling
 from ..ops import cnn_stage
 from . import layout as _layout
 from .proto import TENSOR_DTYPES, OnnxModel, OnnxNode
@@ -1269,7 +1270,8 @@ class OnnxModule(nn.Module):
     def _tensor_of(self, step: Step, idx: int, value) -> torch.Tensor:
         """Host value ``value`` read as a tensor by input ``idx`` of ``step``:
         its buffer, or for a value the host computed in this call, the copy
-        kept from the first call that computed the same value."""
+        kept from the first call that computed the same value (a new copy is
+        counted in ``profiling.counters["host_copies"]``)."""
         name, reciprocal = step.inputs[idx], _inverts(step, idx, value)
         attr = self._const_attr.get((name, reciprocal))
         if attr is not None:
@@ -1278,7 +1280,8 @@ class OnnxModule(nn.Module):
         key = (name, reciprocal, arr.dtype.str, arr.shape, arr.tobytes())
         t = self._host_copies.get(key)
         if t is None:
-            with _real_tensors():
+            profiling.counters["host_copies"] += 1
+            with profiling.span("zaru.build.host_copy"), _real_tensors():
                 t = self._host_copies[key] = _device_value(arr, self.device, reciprocal)
         return t
 

@@ -30,6 +30,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from .. import profiling
+
 __all__ = ["FMAD_ON", "NVCC_FLAGS", "SOURCES", "build_all", "flags", "library"]
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -68,27 +70,31 @@ def _target(name: str) -> Path:
 
 def build_all() -> float:
     """Compiles every source that has no up-to-date library, one ``nvcc``
-    per source in parallel. Returns the seconds it took; raises with the
-    compiler's output if any build fails."""
+    per source in parallel (the span ``zaru.build.kernels``; each source
+    built is counted in ``profiling.counters["kernel_builds"]``). Returns
+    the seconds it took; raises with the compiler's output if any build
+    fails."""
     t0 = time.perf_counter()
     _BUILD_DIR.mkdir(exist_ok=True)
-    procs = []
-    for name in SOURCES:
-        so = _target(name)
-        if so.exists():
-            continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(SOURCES[name])]
-        procs.append((name, so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )))
-    failed = []
-    for name, so, tmp, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu:\n{out}")
-        else:
-            os.replace(tmp, so)
+    todo = [(name, so) for name, so in ((name, _target(name)) for name in SOURCES) if not so.exists()]
+    if not todo:
+        return time.perf_counter() - t0
+    with profiling.span("zaru.build.kernels"):
+        procs = []
+        for name, so in todo:
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(SOURCES[name])]
+            procs.append((name, so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        failed = []
+        for name, so, tmp, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu:\n{out}")
+            else:
+                os.replace(tmp, so)
+                profiling.counters["kernel_builds"] += 1
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import profiling
 from ..num import fma, recip, round_half_away
 
 __all__ = [
@@ -47,16 +48,20 @@ def color_map(rgb, adjust: float, lo: float):
     return (rgb.to(torch.float64) * adjust + lo).to(torch.float32)
 
 
-def _gather_rgb(frames_u8, lin, ok, planar: bool = False):
+def _channel_shifts(device):
+    """The shifts that split R, G and B off an RGBA word, on ``device``."""
+    return torch.tensor([0, 8, 16], dtype=torch.int32, device=device)
+
+
+def _gather_rgb(frames_u8, lin, ok, shifts, planar: bool = False):
     """RGB of ``frames_u8 [B,H,W,4]`` at the pixels ``lin`` (indices into
     the ``[B*H*W]`` RGBA pixels), black where not ``ok``: ``[..., 3]`` or,
     ``planar``, ``[..., 3, h, w]`` for ``lin [..., h, w]``. One gather of
     whole pixels (as 32-bit words, little-endian: R in the low byte), the
-    channels split off by shifts; indices are masked before the gather,
-    since torch indexing wraps negative ones."""
+    channels split off by ``shifts`` (:func:`_channel_shifts`); indices are
+    masked before the gather, since torch indexing wraps negative ones."""
     words = frames_u8.contiguous().view(torch.int32).reshape(-1)
     px = words[torch.where(ok, lin, torch.zeros_like(lin))]
-    shifts = torch.tensor([0, 8, 16], dtype=torch.int32, device=px.device)
     if planar:
         rgb, ok = (px.unsqueeze(-3) >> shifts[:, None, None]) & 255, ok.unsqueeze(-3)
     else:
@@ -98,7 +103,7 @@ def letterbox_sample_core(frames_u8, rrects, out_w: int, out_h: int, lo: float, 
     B, H, W, _ = frames_u8.shape
     yi, xi, ok = _letterbox_index(frames_u8, rrects, out_w, out_h)
     bidx = torch.arange(B, device=frames_u8.device)[:, None, None]
-    rgb = _gather_rgb(frames_u8, (bidx * H + yi) * W + xi, ok)
+    rgb = _gather_rgb(frames_u8, (bidx * H + yi) * W + xi, ok, _channel_shifts(frames_u8.device))
     return color_map(rgb, color_adjust(lo, hi), float(np.float32(lo)))
 
 
@@ -124,7 +129,8 @@ def _view_index(frames_u8, r, out_w: int, out_h: int, mirror=None, scale_to_view
         if len(mirror) != r.shape[1]:
             raise ValueError(f"mirror needs one flag per slot of [B,S,5] rects, got {len(mirror)} "
                              f"for {r.shape[1]} slots")
-        flip = torch.tensor(mirror, dtype=torch.bool, device=dev)[:, None]
+        with profiling.sync("zaru.sync.sampler_mirror"):
+            flip = torch.tensor(mirror, dtype=torch.bool, device=dev)[:, None]
         xv = torch.where(flip, xv.flip(-1), xv)
     shape = (B, r.shape[1], out_h, out_w)
     rr = r[:, :, None, None, :]
@@ -166,7 +172,9 @@ def view_to_tensor_core(
     B = frames_u8.shape[0]
     lead = rrects.shape[:-1]
     lin, ok = _view_index(frames_u8, rrects.reshape(B, -1, 5), out_w, out_h, mirror)
-    rgb = _gather_rgb(frames_u8, lin, ok, layout == "NCHW")
+    with profiling.sync("zaru.sync.sampler_shifts"):
+        shifts = _channel_shifts(frames_u8.device)
+    rgb = _gather_rgb(frames_u8, lin, ok, shifts, layout == "NCHW")
     mapped = color_map(rgb, color_adjust(lo, hi), float(np.float32(lo)))
     return mapped.reshape(*lead, *mapped.shape[2:])
 

@@ -16,6 +16,7 @@ from ..geometry import (
     rrect_bounding,
     rrect_transform_out,
 )
+from .. import profiling
 from ..num import div
 from ..resolution import Resolution
 
@@ -36,9 +37,11 @@ def _aspect(res: Resolution) -> float:
 
 def full_frame_fit(frame, res: Resolution):
     """Letterbox rect covering a whole ``[..., H, W, 4]`` frame at the
-    network's aspect (_ops.py:33). Returns (fit rect [4], fit rrect [5])."""
+    network's aspect (_ops.py:33). Returns (fit rect [4], fit rrect [5]).
+    The rect's copy to the device is a host sync on a CUDA device."""
     h, w = frame.shape[-3], frame.shape[-2]
-    full = torch.tensor([w / 2.0, h / 2.0, float(w), float(h)], dtype=torch.float32, device=frame.device)
+    with profiling.sync("zaru.sync.frame_fit"):
+        full = torch.tensor([w / 2.0, h / 2.0, float(w), float(h)], dtype=torch.float32, device=frame.device)
     fit = rect_grow_to_fit_aspect(full, _aspect(res))
     return fit, torch.cat([fit, torch.zeros(1, dtype=torch.float32, device=frame.device)])
 
@@ -90,12 +93,15 @@ def choose(pred, true_fn, false_fn, operands: tuple):
     over the ROI sources. Eagerly the predicate is read on the host (one
     read, where it is a tensor) and ``torch.cond`` runs that branch as it
     is; under ``torch.export`` a tensor predicate stays in the graph and
-    both branches are captured. A Python bool picks its branch either way."""
+    both branches are captured. A Python bool picks its branch either way.
+    The host read is the span ``zaru.sync.gate``, counted in
+    ``profiling.counters["host_syncs"]``."""
     if isinstance(pred, torch.Tensor) and torch.compiler.is_exporting():
         # The operator itself: torch.cond would hand the branches to
         # TorchDynamo, which cannot trace the executor's host-side numpy;
         # export's own tracing runs them as Python, as it runs the step.
         return torch.ops.higher_order.cond(pred, true_fn, false_fn, operands)
     if isinstance(pred, torch.Tensor):
-        pred = bool(pred)
+        with profiling.sync("zaru.sync.gate"):
+            pred = bool(pred)
     return torch.cond(pred, true_fn, false_fn, operands)

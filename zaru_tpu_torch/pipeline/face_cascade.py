@@ -32,6 +32,16 @@ the graph. Capturing the two branches as CUDA graphs is left for later.
 With ``redetect_bucket=K`` an unforced detect step detects only the first K
 lost streams (``_detect_bucket`` :216).
 
+Spans and counters (:mod:`zaru_tpu_torch.profiling`, free while no profiler
+runs): every entry point is a ``zaru.step`` span; inside it ``zaru.detect``
+(the whole branch, ``.sample``, ``.net``, ``.tail`` within) and
+``zaru.track.sample``, ``.net``, ``.tail``. Each host sync is a
+``zaru.sync.<site>`` span counted in ``host_syncs``: the gate's read
+(``gate``, each step that is not forced), the letterbox fit's copy
+(``frame_fit``, each detect step), and on the exact sampler's paths its
+channel shifts (``sampler_shifts``, each call), its mirror flags
+(``sampler_mirror``) and the iris flips (``iris_flip``).
+
 The ungated entry points sample every crop with the exact sampler
 (``Cnn.apply_on_view``), as JAX's ``step`` does:
 
@@ -70,6 +80,7 @@ from ..face.eye import EyeLandmarks, EyeNetwork
 from ..face.landmark.mediapipe import FaceMeshV1, LandmarkIdx
 from ..filters import OneEuroFilter
 from ..geometry import rect_grow_rel, rrect_bounding, signed_angle_to_x
+from ..profiling import counters, span, sync
 from . import _ops
 
 __all__ = ["FaceTracker"]
@@ -148,15 +159,20 @@ class FaceTracker:
 
     def _detect_batch(self, frames, exact: bool = False):
         """Letterbox (or, ``exact``, the exact sampler) + BlazeFace + decode
-        + NMS for every stream → (rois [B,5], founds [B])."""
+        + NMS for every stream → (rois [B,5], founds [B]); the spans
+        ``zaru.detect.sample``, ``.net`` and ``.tail``."""
         res = self.det_cnn.input_resolution()
         fit, fit_rrect = _ops.full_frame_fit(frames, res)
         rrects = fit_rrect.expand(frames.shape[0], 5).contiguous()
-        if exact:
-            outputs = self.det_cnn.apply_on_view(frames, rrects)
-        else:
-            outputs = self.det_cnn.apply_views_letterbox(frames, rrects)
-        return self._detect_tail(outputs, fit, res)
+        with span("zaru.detect.sample"):
+            if exact:
+                xs = self.det_cnn.sample_on_view(frames, rrects)
+            else:
+                xs = self.det_cnn.sample_views_letterbox(frames, rrects, self.det_cnn.layout)
+        with span("zaru.detect.net"):
+            outputs = self.det_cnn.apply_samples(xs)
+        with span("zaru.detect.tail"):
+            return self._detect_tail(outputs, fit, res)
 
     def _detect_tail(self, outputs, fit, res):
         """The detector's outputs for ``B`` frames → SSD decode, weighted NMS
@@ -171,40 +187,48 @@ class FaceTracker:
     def _detect_lost(self, roi, tr, frames, exact: bool = False):
         """Detection for every stream; lost streams take its ROI, tracked
         streams keep theirs (``roi [B,5]``, ``tr [B]``) → (rois [B,5],
-        founds [B], seeded [B])."""
-        det_rois, det_founds = self._detect_batch(frames, exact)
-        return torch.where(tr[:, None], roi, det_rois), tr | det_founds, ~tr
+        founds [B], seeded [B]). The span ``zaru.detect``."""
+        counters["detect_steps"] += 1
+        with span("zaru.detect"):
+            det_rois, det_founds = self._detect_batch(frames, exact)
+            return torch.where(tr[:, None], roi, det_rois), tr | det_founds, ~tr
 
     def _detect_bucket(self, roi, tr, frames):
         """Detection for the first K lost streams only (K =
         ``redetect_bucket``): a stable sort on the tracking flags brings the
         lost streams to the front, their K frames are detected as one batch,
         and the results are scattered back; tracked streams keep their ROIs.
-        → (rois [B,5], founds [B], seeded [B])."""
-        k = min(int(self.redetect_bucket), tr.shape[0])
-        idx = torch.sort(tr.to(torch.uint8), stable=True).indices[:k]  # lost first
-        sel = ~tr[idx]  # bucket slots that really are lost
-        rois_k, found_k = self._detect_batch(frames[idx])
-        apply = sel & found_k
-        rois = roi.index_copy(0, idx, torch.where(apply[:, None], rois_k, roi[idx]))
-        founds = tr.index_copy(0, idx, tr[idx] | apply)
-        seeded = torch.zeros_like(tr).index_copy(0, idx, sel)
-        return rois, founds, seeded
+        → (rois [B,5], founds [B], seeded [B]). The span ``zaru.detect``."""
+        counters["detect_steps"] += 1
+        with span("zaru.detect"):
+            k = min(int(self.redetect_bucket), tr.shape[0])
+            idx = torch.sort(tr.to(torch.uint8), stable=True).indices[:k]  # lost first
+            sel = ~tr[idx]  # bucket slots that really are lost
+            rois_k, found_k = self._detect_batch(frames[idx])
+            apply = sel & found_k
+            rois = roi.index_copy(0, idx, torch.where(apply[:, None], rois_k, roi[idx]))
+            founds = tr.index_copy(0, idx, tr[idx] | apply)
+            seeded = torch.zeros_like(tr).index_copy(0, idx, sel)
+            return rois, founds, seeded
 
     def _track_batch(self, state, frames, rois, founds, seeded, exact: bool, eyes_exact: bool):
         """Crops (the rotated-ROI kernel, or ``exact`` the exact sampler) +
         Face Mesh for every stream, then the tail; streams not ``founds``
         come out lost. With ``iris`` the eyes, their crops exact when
-        ``eyes_exact``."""
-        res = self.lm_cnn.input_resolution()
-        view_rects = _ops.aspect_view_rect(rois, res)
-        if exact:
-            outputs = self.lm_cnn.apply_on_view(frames, view_rects)
-        else:
-            outputs = self.lm_cnn.apply_views_fast(frames, view_rects)
-        new_state, out = self._track_tail(state, outputs, view_rects, seeded)
-        new_state["tracking"] = new_state["tracking"] & founds
-        out["valid"] = out["valid"] & founds
+        ``eyes_exact``. The spans ``zaru.track.sample``, ``.net`` and
+        ``.tail``."""
+        with span("zaru.track.sample"):
+            view_rects = _ops.aspect_view_rect(rois, self.lm_cnn.input_resolution())
+            if exact:
+                xs = self.lm_cnn.sample_on_view(frames, view_rects)
+            else:
+                xs = self.lm_cnn.sample_views_fast(frames, view_rects, layout=self.lm_cnn.layout)
+        with span("zaru.track.net"):
+            outputs = self.lm_cnn.apply_samples(xs)
+        with span("zaru.track.tail"):
+            new_state, out = self._track_tail(state, outputs, view_rects, seeded)
+            new_state["tracking"] = new_state["tracking"] & founds
+            out["valid"] = out["valid"] & founds
         if self.iris:
             out["eyes"] = self._iris_batch(frames, out["landmarks"], eyes_exact)
         return new_state, out
@@ -292,7 +316,9 @@ class FaceTracker:
                 frames, rects, prescale_m=self.EYE_PRESCALE_M, mirror=mirror
             )
         b = rects.shape[0]
-        flips = torch.tensor(mirror, device=rects.device).repeat(b)
+        with sync("zaru.sync.iris_flip"):
+            flips = torch.tensor(mirror, device=rects.device)
+        flips = flips.repeat(b)
         eyes = self._iris_decode(outputs, rects.reshape(2 * b, 5), flips)
         return eyes.reshape(b, 2, EyeLandmarks.NUM_LANDMARKS, 3)
 
@@ -331,11 +357,13 @@ class FaceTracker:
                 return detect_all(roi, tr, frames)
             return _ops.choose(force_detect, detect_all, detect_bucket, (roi, tr, frames))
 
-        tr = state["tracking"]
-        keep = (tr.all() & ~force_detect if isinstance(force_detect, torch.Tensor)
-                else not force_detect and tr.all())
-        sources = _ops.choose(keep, self._kept, detect, (state["roi"], tr, frames))
-        return self._track_batch(state, frames, *sources, exact=not self.fast_sampler, eyes_exact=False)
+        counters["steps"] += 1
+        with span("zaru.step"):
+            tr = state["tracking"]
+            keep = (tr.all() & ~force_detect if isinstance(force_detect, torch.Tensor)
+                    else not force_detect and tr.all())
+            sources = _ops.choose(keep, self._kept, detect, (state["roi"], tr, frames))
+            return self._track_batch(state, frames, *sources, exact=not self.fast_sampler, eyes_exact=False)
 
     def run_frames_gated(self, state: dict, frames):
         """The serving step: :meth:`step_batch` without forced detection."""
@@ -358,7 +386,9 @@ class FaceTracker:
         :meth:`step` for each stream of ``frames [B,H,W,4]``. Every crop is
         exact; a step with a lost stream detects every stream (letterbox
         kernel) and only lost streams take the detection."""
-        return self._ungated(state, frames, exact_detect=False)
+        counters["steps"] += 1
+        with span("zaru.step"):
+            return self._ungated(state, frames, exact_detect=False)
 
     @torch.inference_mode()
     def step(self, state: dict, frame):
@@ -366,8 +396,10 @@ class FaceTracker:
         ``init_state()`` → ``(new_state, outputs)``, the outputs of
         :meth:`step_batch` without the stream axis. Detects when the stream
         is lost (one host read of its flag), every crop exact."""
-        new_state, out = self._ungated(_map_state(lambda t: t[None], state), frame[None], exact_detect=True)
-        return _map_state(lambda t: t[0], new_state), {k: v[0] for k, v in out.items()}
+        counters["steps"] += 1
+        with span("zaru.step"):
+            new_state, out = self._ungated(_map_state(lambda t: t[None], state), frame[None], exact_detect=True)
+            return _map_state(lambda t: t[0], new_state), {k: v[0] for k, v in out.items()}
 
     def run_frame(self, state: dict, frame):
         """The single-stream step, :meth:`step`."""

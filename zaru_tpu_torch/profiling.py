@@ -1,12 +1,29 @@
-"""Profiling hooks (zaru_tpu/profiling.py).
+"""Profiling hooks (zaru_tpu/profiling.py): the program's spans and counters.
 
 - :func:`trace`: ``torch.profiler`` over a block, the CPU and, when a GPU is
   present, the card's kernels; the trace goes into ``log_dir`` as a
   Chrome/Perfetto JSON file (``chrome://tracing``, ui.perfetto.dev). No
   tensorboard package is needed.
-- :func:`annotate`: a named range on that timeline.
-- :func:`device_timer`: times a block up to the completion of the device
-  work it issued.
+- :func:`span` (and its older name :func:`annotate`): a named range of the
+  program. It costs one flag check while no profiler runs; under any
+  ``torch.profiler`` profile it is a ``record_function`` range in the same
+  trace as the kernels, on the same clock, so a reader of the trace can
+  give each span the device work launched inside it.
+- :data:`counters`: plain numbers, always on, each update one ``+=``:
+  ``steps`` (tracker steps), ``detect_steps`` (steps that ran the detect
+  branch), ``host_syncs`` (host syncs of the step path, each also a
+  ``zaru.sync.<site>`` span), ``host_copies`` (device copies the ONNX
+  executor made of host values it had not copied before) and
+  ``kernel_builds`` (CUDA sources compiled by ``ops/_build.build_all``).
+- :func:`reset`: zeroes the counters.
+
+The spans of a tracker step (``pipeline/face_cascade.py``): ``zaru.step``
+around ``zaru.detect`` (``.sample``, ``.net``, ``.tail``) and
+``zaru.track``'s ``.sample``, ``.net`` and ``.tail``; ``zaru.sync.<site>``
+around each host sync (:func:`sync`); ``zaru.build.kernels`` and
+``zaru.build.host_copy`` where the step builds something it keeps. The
+serve loop adds ``zaru.serve.stage``, ``zaru.serve.flush``,
+``zaru.sync.emit`` and ``zaru.serve.gather``.
 """
 
 from __future__ import annotations
@@ -17,9 +34,11 @@ from contextlib import contextmanager
 from pathlib import Path
 
 import torch
-from torch.utils import _pytree as pytree
+import torch.autograd.profiler as _profiler
 
-__all__ = ["annotate", "device_timer", "trace"]
+__all__ = ["annotate", "counters", "reset", "span", "sync", "trace"]
+
+counters = {"steps": 0, "detect_steps": 0, "host_syncs": 0, "host_copies": 0, "kernel_builds": 0}
 
 
 @contextmanager
@@ -40,35 +59,42 @@ def trace(log_dir: str | os.PathLike):
     prof.export_chrome_trace(str(Path(log_dir) / f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-def annotate(name: str):
-    """A named range on the profiler's timeline (``record_function``)."""
-    return torch.profiler.record_function(name)
+class _Off:
+    """The span while no profiler runs: enters and leaves, nothing else
+    (a few tens of nanoseconds cheaper than ``contextlib.nullcontext``)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, value, tb):
+        pass
 
 
-@contextmanager
-def device_timer(label: str = "block", sink=print):
-    """Times a block including the device work it issued. Yields ``sync``:
-    pass it the block's outputs (tensors or trees of them; it returns them
-    unchanged), and on exit every device that holds one of them is
-    synchronized before the clock is read::
+_OFF = _Off()
 
-        with device_timer("step") as sync:
-            out = sync(step(state, frames))
-    """
-    pending = []
 
-    def sync(x):
-        pending.append(x)
-        return x
+def span(name: str):
+    """A named range of the program, as a context manager: while no
+    profiler runs a shared no-op (one flag check), under a
+    ``torch.profiler`` profile ``record_function(name)``."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _profiler.record_function(name)
 
-    start = time.perf_counter()
-    try:
-        yield sync
-    finally:
-        devices = {
-            t.device for t in pytree.tree_leaves(pending)
-            if isinstance(t, torch.Tensor) and t.device.type == "cuda"
-        }
-        for dev in devices:
-            torch.cuda.synchronize(dev)
-        sink(f"{label}: {(time.perf_counter() - start) * 1e3:.2f}ms")
+
+annotate = span  # the older name
+
+
+def sync(name: str):
+    """:func:`span` around a host sync of the step path (``name``
+    ``zaru.sync.<site>``), counted in ``counters["host_syncs"]``."""
+    counters["host_syncs"] += 1
+    return span(name)
+
+
+def reset() -> None:
+    """Zeroes :data:`counters`."""
+    for key in counters:
+        counters[key] = 0

@@ -16,14 +16,19 @@ going):
 - :func:`reset_state_slots`: a tracker state with the joined slots reset
   to a fresh state's, so a new stream re-detects instead of inheriting the
   previous occupant's ROI; on the state's device, no host round trip;
-- :class:`ServeStats`: step-latency/drop/fps accounting and the periodic
-  stats line;
+- :class:`ServeStats`: step-latency/drop/fps accounting (a step's time is
+  its whole period, the gather of the next frames included), the periodic
+  stats line, and in the summary the program's counters
+  (:data:`zaru_tpu_torch.profiling.counters`) over the run;
 - :func:`serve_loop`: the loop itself, the body of ``cmd_serve``: stage
   every slot's frame into the double-buffered uploader
   (:class:`~zaru_tpu_torch.pipeline.ingest.FrameUploader`), flush, one
   tracker step, one JSON record per step, then gather the next step's
   frames (decoded while the device stepped). The CLI calls it with file
-  sources; ``chip_smoke.py`` with in-memory ones.
+  sources; ``chip_smoke.py`` with in-memory ones. Its spans:
+  ``zaru.serve.stage``, ``zaru.serve.flush``, ``zaru.sync.emit`` (the
+  outputs read to the host, one counted host sync) and
+  ``zaru.serve.gather``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from .profiling import counters, span, sync
 
 __all__ = ["SlotEvent", "StreamSet", "ServeStats", "reset_state_slots", "serve_loop"]
 
@@ -247,7 +254,10 @@ class ServeStats:
     previous frame (drop) does not inflate throughput. Step-time
     percentiles are computed over a bounded window (the last
     ``WINDOW`` steps) so an indefinite ``--soak`` run neither leaks
-    memory nor pays ever-growing percentile cost.
+    memory nor pays ever-growing percentile cost. The summary adds the
+    program's host syncs a step, host copies, detect steps and kernel
+    builds from the start to the last recorded step, once the program has
+    stepped.
     """
 
     WINDOW = 4096
@@ -261,11 +271,14 @@ class ServeStats:
     )
     _last_report_t: float = 0.0
     _last_report_frames: int = 0
+    _counters0: dict = field(default_factory=lambda: dict(counters))  # at the start
+    _counters1: dict = field(default_factory=lambda: dict(counters))  # at the last recorded step
 
     def record_step(self, dt: float, n_active: int, n_dropped: int = 0):
         self.steps += 1
         self.frames += max(0, n_active - n_dropped)
         self.step_times.append(dt)
+        self._counters1 = dict(counters)
 
     def _pct(self, q: float) -> float:
         if not self.step_times:
@@ -298,8 +311,17 @@ class ServeStats:
             f"p95 {self._pct(95) * 1e3:.1f}ms "
             f"(last {len(self.step_times)} steps), "
             f"drops {sum(stream_set.drops)}, joins {stream_set.joins}, "
-            f"leaves {stream_set.leaves}"
+            f"leaves {stream_set.leaves}{self._counted()}"
         )
+
+    def _counted(self) -> str:
+        """The program's counters from the start to the last recorded step,
+        or nothing while the program has not stepped."""
+        ran = {k: v - self._counters0[k] for k, v in self._counters1.items()}
+        if not (ran["steps"] and self.steps):
+            return ""
+        return (f"; host syncs {ran['host_syncs'] / self.steps:.3g}/step, host copies {ran['host_copies']}, "
+                f"detect steps {ran['detect_steps']}, kernel builds {ran['kernel_builds']}")
 
 
 REPORT_KEYS = ("confidence", "presence", "pose_flag")
@@ -373,33 +395,40 @@ def serve_loop(
             state = fresh_state if single else reset_state_slots(state, fresh_state, joined)
             if shard_state is not None:
                 state = shard_state(state)
-        for slot, frame in enumerate(frames):
-            uploader.stage(slot, frame)
-        frames_dev = uploader.flush()
+        with span("zaru.serve.stage"):
+            for slot, frame in enumerate(frames):
+                uploader.stage(slot, frame)
+        with span("zaru.serve.flush"):
+            frames_dev = uploader.flush()
         if single:
             state, out = tracker.run_frame(state, frames_dev[0])
             out = {k: v[None] for k, v in out.items()}
         else:
             state, out = tracker.run_frames_gated(state, frames_dev)
-        rec = {"step": step, "valid": _host(out["valid"]).tolist()}
-        if streams.n_active != streams.slots or streams.joins:
-            rec["active"] = list(streams.active)
-        for key in REPORT_KEYS:
-            if key in out:
-                rec[key] = np.round(_host(out[key]), 4).tolist()
-        if landmarks:
-            rec["landmarks"] = _host(out["landmarks"]).tolist()
+        with sync("zaru.sync.emit"):
+            rec = {"step": step, "valid": _host(out["valid"]).tolist()}
+            if streams.n_active != streams.slots or streams.joins:
+                rec["active"] = list(streams.active)
+            for key in REPORT_KEYS:
+                if key in out:
+                    rec[key] = np.round(_host(out[key]), 4).tolist()
+            if landmarks:
+                rec["landmarks"] = _host(out["landmarks"]).tolist()
         emit(rec, out)
-        stats.record_step(time.perf_counter() - t_step, streams.n_active, n_dropped=step_drops)
+        n_active = streams.n_active
         step += 1
+        if soak_deadline is not None:
+            done = time.perf_counter() >= soak_deadline
+        else:
+            done = step >= steps
+        if not done:
+            with span("zaru.serve.gather"):
+                frames, events = streams.gather(wait=decode_wait)
+        stats.record_step(time.perf_counter() - t_step, n_active, n_dropped=step_drops)
         if step % report_every == 0:
             log(stats.report_line(streams))
-        if soak_deadline is not None:
-            if time.perf_counter() >= soak_deadline:
-                break
-        elif step >= steps:
+        if done:
             break
-        frames, events = streams.gather(wait=decode_wait)
         new_total = sum(streams.drops)
         step_drops, drop_total = new_total - drop_total, new_total
         if no_loop and streams.n_active == 0:
