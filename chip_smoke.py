@@ -4,12 +4,13 @@ NVIDIA GPU.
 
     python3 chip_smoke.py              # every phase, on one card
     python3 chip_smoke.py --sharding   # the build and the sharding phase only (any number of cards)
+    python3 chip_smoke.py --bottleneck # the build and the bottleneck kernel's phase only
 
 Phases, one line of output each and each phase's wall time (any failed
 check exits non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, CUDA version;
-2. build: the kernels' five sources in ``zaru_tpu_torch/csrc`` (the stage
+2. build: the kernels' six sources in ``zaru_tpu_torch/csrc`` (the stage
    kernel's two layouts are two), one ``nvcc`` each, all started together;
 3. each kernel against its plain PyTorch version on the card: the
    rotated-ROI sampler bit for bit, in the NHWC and the planar layout, on
@@ -223,7 +224,14 @@ check exits non-zero):
    launches, the rotated sampler at StreamIdentifier's 512×112², and the
    stage kernel's NHWC variant at the ten chains (channels_last copies of
    their real inputs, the same bound), as further entries of the JSON
-   line;
+   line; the bottleneck kernel (``phase_bottleneck``, alone with
+   ``--bottleneck``): within the CNN bar of its plain chain on random
+   weights at ragged shapes and at every chain of Face Mesh V2 (batches 512
+   and 1) and the iris model (1024 and 1) on the chain's input from
+   uniform inputs, timed beside its bound and the per-op chain, its
+   refusal of 24 channels, ``analyze`` with and without the plan, and
+   ``FaceTracker(iris=True)`` at 512 in turns with and without the plan on
+   the eye network;
 7. the launch counts of phase 5, then one JSON line of per-kernel numbers,
    then the result line.
 
@@ -898,6 +906,7 @@ MULTI_BATCH = 128  # streams of the multi-object runs (4 slots each: 512 crops a
 def launch_counters():
     """Each kernel's wrapper and the attribute that counts its kernel's
     launches (the stage kernel counts its NHWC variant apart)."""
+    from zaru_tpu_torch.ops.bottleneck import fused_bottlenecks
     from zaru_tpu_torch.ops.cnn_stage import fused_blocks
     from zaru_tpu_torch.ops.letterbox import letterbox_sample
     from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast
@@ -905,7 +914,7 @@ def launch_counters():
 
     return {"rotated_sample": (rotated_sample_fast, "launches"), "letterbox_sample": (letterbox_sample, "launches"),
             "blaze_stage": (fused_blocks, "launches"), "blaze_stage_nhwc": (fused_blocks, "nhwc_launches"),
-            "rgb_to_yuv": (rgb_to_yuv_fast, "launches")}
+            "rgb_to_yuv": (rgb_to_yuv_fast, "launches"), "bottleneck_stage": (fused_bottlenecks, "launches")}
 
 
 def zero_launches():
@@ -1388,6 +1397,153 @@ def phase_stage_times(torch, tracker, frames, state, launches, steps, what="main
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": tot["library_ms"],
         "library": "per-op chain: F.conv2d depthwise, F.conv2d 1x1, add, torch.where PReLU or relu",
+    }
+
+
+def without_bottleneck_plan(net):
+    """Runs ``net`` (an ``OnnxModule``) node by node where its bottleneck
+    plan would run, until the returned function is called."""
+    plan = (net.bottlenecks, net._bottleneck_at, net._in_stage)
+    net.bottlenecks, net._bottleneck_at = [], {}
+    net._in_stage = {i for st in net.stages for i in st.nodes}
+
+    def restore():
+        net.bottlenecks, net._bottleneck_at, net._in_stage = plan
+
+    return restore
+
+
+def phase_bottleneck(torch, np, device, card, img=None):
+    """The bottleneck kernel at every chain of Face Mesh V2 and the iris
+    model, on the chain's input (the network on uniform [-1, 1] inputs) and
+    the real weights, at batch 512 and batch 1: within the CNN bar of its
+    plain version, then timed beside its bound and the per-op chain the
+    executor runs without the plan (TF32 off); ``analyze`` of each network
+    with and without the plan, which must agree; a chain of an unbuilt width
+    must raise. With ``img``: ``FaceTracker(iris=True)`` at 512 in turns
+    with the plan and without it on the eye network (ms a step). → the
+    ``kernels`` line's row."""
+    from zaru_tpu_torch.onnx import load_model
+    from zaru_tpu_torch.onnx.analysis import analyze
+    from zaru_tpu_torch.onnx.executor import _OPS
+    from zaru_tpu_torch.ops import bottleneck as bn_ops
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    for C, B, H, W, nb in ((16, 3, 37, 29, 3), (32, 2, 20, 13, 4), (64, 5, 9, 7, 2), (128, 3, 5, 6, 4),
+                           (128, 7, 3, 3, 1), (16, 1, 130, 66, 4), (64, 600, 2, 1, 2)):
+        x = torch.rand(B, C, H, W, device=device, generator=gen) * 2 - 1
+        packed = (torch.rand(nb, bn_ops.row_floats(C), device=device, generator=gen) - 0.5) * (2.0 / C ** 0.5)
+        got = bn_ops.fused_bottlenecks(x, packed, H, W, C)
+        want = bn_ops.bottleneck_blocks_reference(x, bn_ops.unpack_bottlenecks(packed, C))
+        atol = CNN_ATOL * max(1.0, float(want.abs().max()))
+        check(bool(((got - want).abs() <= atol + CNN_RTOL * want.abs()).all()),
+              f"bottleneck_stage disagrees with its plain version at [{B},{C},{H},{W}] x {nb} blocks: "
+              f"max abs err {float((got - want).abs().max())}")
+    print("bottleneck_stage within the CNN bar of its plain version on random weights at ragged shapes "
+          f"[{card}]", flush=True)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    bound_by = set()
+    for name, res, batch in (("face_landmarks_detector.onnx", 256, 512), ("iris_landmark.onnx", 64, 1024)):
+        net = load_model((ROOT / "assets" / "onnx" / name).read_bytes(), device)
+        flops = analyze(net).flops
+        restore = without_bottleneck_plan(net)
+        try:
+            op_by_op = analyze(net).flops
+        finally:
+            restore()
+        check(flops == op_by_op, f"{name}: analyze counts {flops} FLOPs with the bottleneck plan, {op_by_op} without")
+        gen = torch.Generator(device=device).manual_seed(5)
+        xin = torch.rand(batch, 3, res, res, device=device, generator=gen) * 2 - 1
+        params = net.params()
+        with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            env = net.activations(xin, stages=False)
+            for k, bn in enumerate(net.bottlenecks):
+                packed = net._bottleneck_packed[bn.nodes[0]]
+                for b in (batch, 1):
+                    x = env[bn.input][:b].contiguous()
+                    B, C, H, W = x.shape
+
+                    def chain(x=x, bn=bn):
+                        vals = dict(params)
+                        vals[bn.input] = x
+                        for i in bn.nodes:
+                            node = net.nodes[i]
+                            vals[node.outputs[0]] = _OPS[node.op_type](node, [vals[n] for n in node.inputs])
+                        return vals[bn.output]
+
+                    kernel = lambda x=x, p=packed, H=H, W=W, C=C: bn_ops.fused_bottlenecks(x, p, H, W, C)  # noqa: E731
+                    plain = lambda x=x, p=packed, C=C: bn_ops.bottleneck_blocks_reference(  # noqa: E731
+                        x, bn_ops.unpack_bottlenecks(p, C))
+                    got, want, ops_out = kernel(), plain(), chain()
+                    torch.cuda.synchronize()
+                    diff = (got - want).abs()
+                    err = float(diff.max())
+                    atol = CNN_ATOL * max(1.0, float(want.abs().max()))
+                    ok = bool((diff <= atol + CNN_RTOL * want.abs()).all())
+                    chain_err = float((ops_out - want).abs().max())
+                    ms = cuda_ms(torch, kernel, queued=True)
+                    chain_ms = cuda_ms(torch, chain, reps=20, queued=True)
+                    plain_ms = cuda_ms(torch, plain, reps=20, queued=True)
+                    nb = len(bn.blocks)
+                    ops = bn_ops.bottleneck_flops((B, C, H, W), packed.shape)
+                    t_bytes = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+                    t_ops = ops / F32_FLOPS * 1e3
+                    bound = max(t_bytes, t_ops)
+                    by = "bytes" if t_bytes >= t_ops else "operations"
+                    print(f"bottleneck_stage, {name} chain {k}: [{B},{C},{H},{W}] x {nb} blocks (launches: blocks, "
+                          f"tile, images {[p[:4] for p in bn_ops.plan(C, H, W, B, nb)]}): {ms:.4f} ms, bound "
+                          f"{bound:.4f} ms ({by}), "
+                          f"{100 * bound / ms:.1f}% of it; plain {plain_ms:.4f} ms, per-op chain {chain_ms:.4f} ms; "
+                          f"max abs err {err:.3g} (atol {atol:.3g}; per-op chain vs plain {chain_err:.3g}) [{card}]",
+                          flush=True)
+                    check(ok, f"bottleneck_stage disagrees with its plain version at {name} chain {k}, batch {B}")
+                    check(chain_err <= atol, f"{name} chain {k}: the per-op chain differs from the plain version")
+                    if b == batch and name.startswith("face_landmarks"):
+                        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", chain_ms),
+                                       ("bound_ms", bound)):
+                            tot[key] += v
+                        tot["err"] = max(tot["err"], err)
+                        bound_by.add(by)
+            del env
+    x = torch.zeros(2, 24, 8, 8, device=device)
+    try:
+        bn_ops.fused_bottlenecks(x, torch.zeros(1, 24 * 24 + 8 * 24, device=device), 8, 8, 24)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "the bottleneck kernel ran 24 channels, which it is not built for")
+    print(f"bottleneck_stage, Face Mesh V2's seven chains at batch 512, the plan's launches: {tot['ms']:.4f} ms, "
+          f"bound {tot['bound_ms']:.4f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}%), plain {tot['plain_ms']:.4f} "
+          f"ms, per-op chain {tot['library_ms']:.4f} ms [{card}]", flush=True)
+    if img is not None:
+        from zaru_tpu_torch.pipeline import FaceTracker
+
+        iris = FaceTracker(iris=True, device=device)
+        frames = img.expand(512, *img.shape).contiguous()
+        box = {"state": iris.init_state(512)}
+
+        def step(i):
+            box["state"], box["out"] = iris.step_batch(box["state"], frames, force_detect=(i % 9 == 0))
+
+        times = {}
+        for plan in (True, False, False, True):
+            restore = None if plan else without_bottleneck_plan(iris.eye_cnn.net)
+            try:
+                dt, launches = timed_run(torch, step, "FaceTracker(iris=True)", FACE_KERNELS)
+            finally:
+                if restore:
+                    restore()
+            times.setdefault(plan, []).append(dt / STEPS * 1e3)
+            check((launches["bottleneck_stage"] > 0) == plan, f"iris: bottleneck launches {launches}")
+        print(f"FaceTracker(iris=True) at 512, detect every 9th step: {times[True]} ms/step with the bottleneck "
+              f"plan on the eye network, {times[False]} without [{card}]", flush=True)
+    return {
+        "name": "bottleneck_stage", "route": "cuda", "source": "zaru_tpu_torch/csrc/bottleneck_stage.cu",
+        "replaces": "none (XLA's per-op blocks)", "path": "Face Mesh V2, seven chains at batch 512",
+        "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "+".join(sorted(bound_by)), "library_ms": tot["library_ms"],
+        "library": "per-op chain: F.conv2d 1x1, torch.where PReLU, F.conv2d depthwise, F.conv2d 1x1, add, "
+                   "torch.where PReLU",
     }
 
 
@@ -3597,7 +3753,11 @@ def main() -> int:
     print(f"build: {len(_build.SOURCES)} kernel sources in {_build.build_all():.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})", flush=True)
 
-    if "--sharding" in sys.argv[1:]:
+    if "--bottleneck" in sys.argv[1:]:
+        _rgba, img = load_photo(torch, np, device)
+        kernels = [timed_phase("6, the bottleneck kernel", phase_bottleneck, torch, np, device, smi, img)]
+        print(json.dumps({"kernels": kernels}), flush=True)
+    elif "--sharding" in sys.argv[1:]:
         from zaru_tpu_torch.pipeline import FaceTracker
 
         _rgba, img = load_photo(torch, np, device)
@@ -3688,6 +3848,7 @@ def run_phases(torch, np, device, smi):
     kernels.append(phase_stage_times(torch, tracker, frames, state, nhwc_launches["blaze_stage_nhwc"], STEPS,
                                      "Cnn with NHWC-layout modules", nhwc=True))
     kernels.append(phase_yuv_times(torch, rgb, launches["rgb_to_yuv"]))
+    kernels.append(phase_bottleneck(torch, np, device, smi, img))
     phase_kernel_times(torch, hand_frames, hands.lm_cnn, hands.det_cnn, seed, multi["hand tracking"],
                        "hand tracking run", prescale_m=256)
     v2, v2_state, v2_launches = models["FaceTracker(landmarker=FaceMeshV2())"]

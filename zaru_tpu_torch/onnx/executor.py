@@ -89,6 +89,20 @@ by one, so the CPU and the card run the same plan. The packed stage
 weights are built from the parameters at construction and again by
 :meth:`OnnxModule.load_params`.
 
+**Bottleneck plan.** Beside it an f32 NCHW module finds the chains of
+stride-1 residual bottleneck blocks (:func:`find_bottlenecks`): a 1×1
+``Conv`` C→C/2 with a bias → ``PRelu`` with C/2 slopes → a depthwise 3×3
+``Conv`` (``group == C/2``, stride 1, pads 1, a bias) → a 1×1 ``Conv``
+C/2→C with a bias → an ``Add`` with the block's input → ``PRelu`` with C
+slopes, every intermediate read by its one consumer only, C one of
+``bottleneck.KERNEL_CHANNELS``; a block's output read by exactly the next
+block's first ``Conv`` and its ``Add`` continues the chain. Each chain runs
+as one ``ops.bottleneck.fused_bottlenecks`` call (on CUDA the bottleneck
+kernel, launches of one or more blocks as ``bottleneck.plan`` cuts the
+chain; on the CPU the plain per-op chain), with its packed weights built
+as the stages' are. A bf16 or NHWC module builds no
+bottleneck plan and runs these blocks node by node.
+
 The other convolutions stay ``F.conv2d`` (cuDNN on the GPU), as the JAX
 package left them to XLA. cuDNN runs f32 convolutions in TF32 by default,
 which keeps about three decimal digits and breaks the repo's CNN bar
@@ -142,11 +156,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import profiling
-from ..ops import cnn_stage
+from ..ops import bottleneck, cnn_stage
 from . import layout as _layout
 from .proto import TENSOR_DTYPES, OnnxModel, OnnxNode
 
-__all__ = ["OnnxModule", "SUPPORTED_OPS", "Stage", "find_stages", "resize"]
+__all__ = ["Bottlenecks", "OnnxModule", "SUPPORTED_OPS", "Stage", "find_bottlenecks", "find_stages", "resize"]
 
 
 def _static(node, vals, idx: int, what: str) -> np.ndarray:
@@ -1154,6 +1168,118 @@ def find_stages(model: OnnxModel) -> list[Stage]:
     return stages
 
 
+@dataclass(frozen=True)
+class Bottlenecks:
+    """A chain of residual bottleneck blocks: its input and output value
+    names, its channel count, each block's initializer names (``w1``,
+    ``b1``, ``a1``, ``dw_w``, ``dw_b``, ``w2``, ``b2``, ``a2``) and the
+    indices of its nodes in the graph."""
+
+    input: str
+    output: str
+    channels: int
+    blocks: tuple
+    nodes: tuple
+
+
+def _bottleneck_at(nodes, i, consumers, inits):
+    """The bottleneck block whose first 1×1 conv is ``nodes[i]``, as
+    ``(block names, node indices, output name)``, or None."""
+
+    def only(name, op):
+        cs = consumers.get(name, [])
+        return cs[0] if len(cs) == 1 and cs[0] >= 0 and nodes[cs[0]].op_type == op else None
+
+    def conv(n, shape, group=1, pads=None):
+        """Whether node ``n`` is a Conv with weights of ``shape`` and a bias,
+        stride 1, no dilation, ``group`` groups and these pads (none when
+        None)."""
+        a = n.attrs
+        w = inits.get(n.inputs[1]) if n.op_type == "Conv" and len(n.inputs) == 3 else None
+        return (w is not None and w.shape == shape and n.inputs[2] in inits
+                and a.get("group", 1) == group and a.get("auto_pad", "NOTSET") == "NOTSET"
+                and a.get("strides", [1, 1]) == [1, 1] and a.get("dilations", [1, 1]) == [1, 1]
+                and (a.get("pads") == pads if pads else not any(a.get("pads") or [])))
+
+    def prelu(k, src, n):
+        """The slope name of node ``k`` if it is a PRelu of ``src`` with ``n``
+        slopes."""
+        if k is None or nodes[k].inputs[0] != src or nodes[k].inputs[1] not in inits:
+            return None
+        return nodes[k].inputs[1] if inits[nodes[k].inputs[1]].size == n else None
+
+    c1 = nodes[i]
+    w1 = inits.get(c1.inputs[1]) if c1.op_type == "Conv" and len(c1.inputs) == 3 else None
+    if w1 is None or w1.ndim != 4:
+        return None
+    C = w1.shape[1]
+    M = C // 2
+    if C % 2 or not conv(c1, (M, C, 1, 1)):
+        return None
+    x = c1.inputs[0]
+    p1 = only(c1.outputs[0], "PRelu")
+    a1 = prelu(p1, c1.outputs[0], M)
+    dw = only(nodes[p1].outputs[0], "Conv") if a1 else None
+    if (dw is None or nodes[dw].inputs[0] != nodes[p1].outputs[0]
+            or not conv(nodes[dw], (M, 1, 3, 3), M, [1, 1, 1, 1])):
+        return None
+    c2 = only(nodes[dw].outputs[0], "Conv")
+    if c2 is None or nodes[c2].inputs[0] != nodes[dw].outputs[0] or not conv(nodes[c2], (C, M, 1, 1)):
+        return None
+    add = only(nodes[c2].outputs[0], "Add")
+    if add is None or sorted(nodes[add].inputs) != sorted([x, nodes[c2].outputs[0]]):
+        return None
+    p2 = only(nodes[add].outputs[0], "PRelu")
+    a2 = prelu(p2, nodes[add].outputs[0], C)
+    if a2 is None:
+        return None
+    names = {"w1": c1.inputs[1], "b1": c1.inputs[2], "a1": a1, "dw_w": nodes[dw].inputs[1],
+             "dw_b": nodes[dw].inputs[2], "w2": nodes[c2].inputs[1], "b2": nodes[c2].inputs[2], "a2": a2}
+    return names, (i, p1, dw, c2, add, p2), nodes[p2].outputs[0]
+
+
+def find_bottlenecks(model: OnnxModel) -> list[Bottlenecks]:
+    """The graph's chains of stride-1 residual bottleneck blocks that the
+    bottleneck kernel takes (see the module docstring): maximal chains of a
+    channel count in ``bottleneck.KERNEL_CHANNELS``. A block output read by
+    anything but the next block (or a graph output) ends its chain."""
+    g = model.graph
+    nodes = g.nodes
+    consumers: dict[str, list[int]] = {}
+    for i, n in enumerate(nodes):
+        for name in n.inputs:
+            consumers.setdefault(name, []).append(i)
+    for vi in g.outputs:
+        consumers.setdefault(vi.name, []).append(-1)
+    chains, taken = [], set()
+    for i in range(len(nodes)):
+        if i in taken:
+            continue
+        found = _bottleneck_at(nodes, i, consumers, g.initializers)
+        if found is None:
+            continue
+        names, idx, out = found
+        chain = [(names, idx)]
+        while True:
+            nxt = None
+            cs = consumers.get(out, [])
+            if len(cs) == 2 and -1 not in cs:
+                for c in cs:
+                    f = _bottleneck_at(nodes, c, consumers, g.initializers)
+                    if f is not None and set(cs) == {c, f[1][4]}:
+                        nxt = f
+            if nxt is None:
+                break
+            chain.append(nxt[:2])
+            out = nxt[2]
+        taken.update(k for _, link in chain for k in link)
+        C = g.initializers[names["w1"]].shape[1]
+        if C in bottleneck.KERNEL_CHANNELS:
+            chains.append(Bottlenecks(nodes[i].inputs[0], out, C, tuple(n for n, _ in chain),
+                                      tuple(k for _, link in chain for k in link)))
+    return chains
+
+
 def _live_nodes(nodes, outputs) -> set[int]:
     """Indices of the nodes that ``outputs`` depend on."""
     needed, live = set(outputs), set()
@@ -1224,7 +1350,9 @@ class OnnxModule(nn.Module):
         self._live = _live_nodes(g.nodes, self.output_names)
         self.stages = [] if compute_dtype else find_stages(model)
         self._stage_at = {st.nodes[0]: st for st in self.stages}
-        self._in_stage = {i for st in self.stages for i in st.nodes}
+        self.bottlenecks = [] if compute_dtype or self.layout == "NHWC" else find_bottlenecks(model)
+        self._bottleneck_at = {bn.nodes[0]: bn for bn in self.bottlenecks}
+        self._in_stage = {i for st in self.stages + self.bottlenecks for i in st.nodes}
         self._derive_weights()
 
     def _plan_values(self, model: OnnxModel) -> None:
@@ -1287,8 +1415,8 @@ class OnnxModule(nn.Module):
 
     @torch.no_grad()
     def _derive_weights(self) -> None:
-        """The stage kernel's packed weights and, in bf16, the parameters'
-        cast copy, from the current parameters."""
+        """The stage and bottleneck kernels' packed weights and, in bf16, the
+        parameters' cast copy, from the current parameters."""
         params = self.params()
         self._compute_params = (
             {k: v.to(self.compute_dtype) for k, v in params.items()} if self.compute_dtype else params
@@ -1299,6 +1427,11 @@ class OnnxModule(nn.Module):
                 st.channels,
             )
             for st in self.stages
+        }
+        self._bottleneck_packed = {
+            bn.nodes[0]: bottleneck.pack_bottlenecks([{k: params[v] for k, v in b.items()} for b in bn.blocks],
+                                                     bn.channels)
+            for bn in self.bottlenecks
         }
 
     def params(self) -> dict[str, torch.Tensor]:
@@ -1326,7 +1459,7 @@ class OnnxModule(nn.Module):
         inner values are not computed), for ``inputs``: device values as
         tensors, host values as numpy arrays. ``stages=False`` runs the
         chains node by node too: the graph JAX differentiates (the stage
-        kernel's op has no gradient)."""
+        and bottleneck kernels' ops have no gradient)."""
         if len(inputs) != len(self.input_info):
             raise ValueError(f"expected {len(self.input_info)} inputs, got {len(inputs)}")
         dtype = self.compute_dtype
@@ -1348,6 +1481,13 @@ class OnnxModule(nn.Module):
                     x = env[st.input]
                     env[st.output] = cnn_stage.fused_blocks(
                         x, self._packed[i], x.shape[2], x.shape[3], st.channels
+                    )
+                    continue
+                bn = self._bottleneck_at.get(i) if stages else None
+                if bn is not None:
+                    x = env[bn.input]
+                    env[bn.output] = bottleneck.fused_bottlenecks(
+                        x, self._bottleneck_packed[i], x.shape[2], x.shape[3], bn.channels
                     )
                     continue
                 if stages and i in self._in_stage:
