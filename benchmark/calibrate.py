@@ -17,6 +17,7 @@ own runs.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 import time
@@ -39,13 +40,13 @@ def main(argv=None) -> int:
     from benchmark.harness import program
     from benchmark.harness.cell import Session, p95_ms, rate
     from benchmark.harness.spec import Spec
-    from benchmark.reference.cascade import Cascade
 
     if not torch.cuda.is_available():
         print("calibration needs a CUDA device", file=sys.stderr)
         return 2
     cell = Spec(ROOT).cell(args.workload)
-    reference = Cascade(cell.config, ROOT / "assets" / "onnx", "cuda")
+    module = importlib.import_module(f"benchmark.reference.{cell.config['reference']}")
+    reference = module.Cascade(cell.config, ROOT / "assets" / "onnx", "cuda")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "a") as sink:
         for kind, seeds, dtype in (("sound", args.seeds, None),

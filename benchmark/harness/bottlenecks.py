@@ -14,15 +14,12 @@
   the memory bandwidth;
 - :func:`device_seconds`: the device time of the kernels launched inside
   the program's ``zaru.net.bottleneck`` spans, one a chain, with the
-  profiled steps it covers. Launch calls pair with device intervals in
-  order, as :func:`benchmark.harness.spans.device_ms` pairs them, where
-  their counts agree. Where the trace holds fewer intervals than calls
-  (the profiler can lose or misplace the device records of its first and
-  last milliseconds, PERF.md section 7), the intervals pair with the one
-  run of consecutive calls whose copies and kernel launches fall in the
-  same places, and the steps whose every launch is in that run are read.
-  None on a program without the span (an older checkout) or where no such
-  run, or more than one, exists.
+  profiled steps it covers. Launch calls pair with device intervals as
+  :func:`benchmark.harness.spans.launched` pairs them, by correlation id,
+  and the steps whose every launch paired are read (the profiler can lose
+  the device records of its first milliseconds, PERF.md section 7). None
+  on a program without the span (an older checkout), where the calls do
+  not pair, or where no step pairs.
 """
 
 from __future__ import annotations
@@ -32,7 +29,7 @@ from bisect import bisect_left, bisect_right
 from pathlib import Path
 
 from ..work.networks import _shapes
-from .spans import LAUNCHES, host_spans, launched
+from .spans import host_spans, launched
 
 __all__ = ["SPAN", "block_ops", "bound_seconds", "chains", "device_seconds"]
 
@@ -120,31 +117,7 @@ def bound_seconds(run, profiled=None) -> float:
         return sum(max(n * block_ops(c, h, w) / p["f32_flops"], 2 * 4 * c * h * w / p["bytes_per_s"])
                    for c, h, w, n in chains(path))
 
-    lm, det = per_frame(run.model("landmarker")), per_frame(run.model("detector"))
-    steps = run.profiled() if profiled is None else profiled
-    return sum(n * (lm + (det if detected else 0.0)) for n, detected in steps)
-
-
-def _calls(span) -> list:
-    """The span's launch calls of kernels and copies, in order."""
-    return sorted((iv for iv in span.host if iv.kind in ("cuda_runtime", "cuda_driver")
-                   and any(w in iv.name for w in LAUNCHES)), key=lambda iv: iv.start)
-
-
-def _aligned(span, calls) -> list | None:
-    """``(launch call, device interval)`` pairs of the span (see the module
-    docstring), or None."""
-    work = sorted(span.device, key=lambda iv: iv.start)
-    if not work or len(calls) < len(work):
-        return None
-    if len(calls) == len(work):
-        return launched(span)
-    kinds = "".join("c" if "Memcpy" in c.name or "Memset" in c.name else "k" for c in calls)
-    want = "".join("c" if w.kind == "copy" else "k" for w in work)
-    offsets = [o for o in range(len(calls) - len(work) + 1) if kinds.startswith(want, o)]
-    if len(offsets) != 1:
-        return None
-    return list(zip(calls[offsets[0]:], work))
+    return run.over_steps(per_frame, profiled)
 
 
 def device_seconds(run) -> tuple[float, list] | None:
@@ -152,21 +125,24 @@ def device_seconds(run) -> tuple[float, list] | None:
     inside the ``zaru.net.bottleneck`` spans of the steps whose launches
     all pair, and those steps' entries of ``run.profiled()``."""
     spans = [iv for iv in host_spans(run, SPAN) if iv.name == SPAN]
-    calls = _calls(run.span) if spans and run.device_busy() else []
-    pairs = _aligned(run.span, calls) if calls else None
-    if pairs is None:
+    if not spans or not run.device_busy():
         return None
-    lo, hi = pairs[0][0].start, pairs[-1][0].start
+    pairs = launched(run.span)
     steps = sorted((iv for iv in host_spans(run, "zaru.step") if iv.name == "zaru.step"), key=lambda iv: iv.start)
-    covered = [k for k, st in enumerate(steps)
-               if all(lo <= c.start <= hi for c in calls if st.start <= c.start <= st.end)]
-    if not covered or len(steps) != len(run.profiled()):
+    if pairs is None or len(steps) != len(run.profiled()):
         return None
     starts = [c.start for c, _ in pairs]
+
+    def inside(iv):
+        return [w for _, w in pairs[bisect_left(starts, iv.start):bisect_right(starts, iv.end)]]
+
+    covered = [k for k, st in enumerate(steps) if all(w is not None for w in inside(st))]
+    if not covered:
+        return None
     seconds = 0.0
     for k in covered:
         st = steps[k]
         for s in spans:
             if st.start <= s.start <= st.end:
-                seconds += sum(w.seconds for _, w in pairs[bisect_left(starts, s.start):bisect_right(starts, s.end)])
+                seconds += sum(w.seconds for w in inside(s))
     return seconds, [run.profiled()[k] for k in covered]

@@ -61,14 +61,11 @@ class Session:
         self.program = program.build(cell.config, self.device, compute_dtype)
         self._built_s = time.perf_counter() - t0
         self._uploader = None
-        self._base = None
+        self._bases = {}
 
     def _frames(self, seed: int):
         t = self.traffic
-        if self._base is None:
-            self._base = frames.bench_frame()
-        params = frames.stream_params(seed, t["streams"], t["transform"])
-        made = frames.stream_frames(self._base, params, t["width"], t["height"], self.device)
+        made = frames.traffic_frames(t, seed, self.device, self._bases)
         if t["loop"] == "track":
             return made
         host = [f.numpy() for f in made.cpu()]  # pageable host memory, one array a stream

@@ -6,26 +6,34 @@ state in and the same frames, in blocks of streams, once the window has
 closed. The gate's choice is the program's rule read from that state:
 detect when the step was forced or some stream was not tracking.
 
-Numbers read, each the largest over the kept steps; a cell compares those
-its limits file (``benchmark/limits/<cell>.json``) lists, each against its
-limit:
+Numbers read, each the largest over the kept steps (:data:`NUMBERS`: each
+name, the outputs both sides have to give for it, and how it is read from
+the program's and the reference's outputs and state out); a cell compares
+those its limits file (``benchmark/limits/<cell>.json``) lists, each
+against its limit:
 
 - ``landmarks_px``: landmark coordinates, image pixels;
 - ``roi_px``: the corners of the next ROI (output and state), image pixels;
 - ``confidence``: the face flag after its sigmoid;
 - ``filter_dx``: the 1€ filter's derivative state, network pixels a second;
 - ``flags``: mismatched booleans (``valid``, the state's ``tracking`` and
-  the filter's ``init``), held to 0.
+  the filter's ``init``), held to 0;
+- ``eyes_px``: the eyes' landmark coordinates (``eyes``), image pixels;
+  read only where both sides give ``eyes``.
+
+A limits file that names a number the cell's outputs cannot give is an
+error, not a 0.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Callable
+
 import numpy as np
 import torch
 
-__all__ = ["NUMBERS", "compare", "judge"]
-
-NUMBERS = ("landmarks_px", "roi_px", "confidence", "filter_dx", "flags")
+__all__ = ["NUMBERS", "Number", "compare", "judge"]
 
 
 def _corners(roi):
@@ -48,10 +56,42 @@ def _gap(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
+@dataclass(frozen=True)
+class Number:
+    needs: tuple  # the outputs both sides have to give
+    read: Callable  # (program, reference) → float; each side {"out": ..., "state": ...}, one block of streams
+
+
+def _out_gap(key):
+    return lambda p, r: _gap(p["out"][key], r["out"][key])
+
+
+def _roi(p, r) -> float:
+    return max(_gap(_corners(p["out"]["roi"]), _corners(r["out"]["roi"])),
+               _gap(_corners(p["state"]["roi"]), _corners(r["state"]["roi"])))
+
+
+def _flags(p, r) -> float:
+    return float(int((p["out"]["valid"] != r["out"]["valid"]).sum())
+                 + int((p["state"]["tracking"] != r["state"]["tracking"]).sum())
+                 + int((p["state"]["filter"]["init"] != r["state"]["filter"]["init"]).sum()))
+
+
+NUMBERS = {
+    "landmarks_px": Number(("landmarks",), _out_gap("landmarks")),
+    "roi_px": Number(("roi",), _roi),
+    "confidence": Number(("confidence",), _out_gap("confidence")),
+    "filter_dx": Number((), lambda p, r: _gap(p["state"]["filter"]["dx"], r["state"]["filter"]["dx"])),
+    "flags": Number(("valid",), _flags),
+    "eyes_px": Number(("eyes",), _out_gap("eyes")),
+}
+
+
 def compare(reference, kept: list, frames_of, exact: bool, single: bool, rows: int, device) -> dict:
-    """The numbers over the kept steps ``[(t, record), ...]``; ``frames_of(a,
-    b)`` gives streams ``a:b`` of the frames as a device tensor."""
-    worst = dict.fromkeys(NUMBERS, 0.0)
+    """The numbers over the kept steps ``[(t, record), ...]`` that both
+    sides' outputs give; ``frames_of(a, b)`` gives streams ``a:b`` of the
+    frames as a device tensor."""
+    worst = {}
     for _t, rec in kept:
         s_in, out, s_out = rec["state_in"], rec["out"], rec["state_out"]
         if single:
@@ -63,20 +103,14 @@ def compare(reference, kept: list, frames_of, exact: bool, single: bool, rows: i
             part = {"roi": s_in["roi"][a:b].to(device), "tracking": tracking[a:b],
                     "filter": {k: v[a:b].to(device) for k, v in s_in["filter"].items()}}
             r_state, r_out = reference.step(part, frames_of(a, b), detect, exact)
-            o = {k: v[a:b].to(device) for k, v in out.items()}
-            f = {k: v[a:b].to(device) for k, v in s_out["filter"].items()}
-            numbers = {
-                "landmarks_px": _gap(o["landmarks"], r_out["landmarks"]),
-                "roi_px": max(_gap(_corners(o["roi"]), _corners(r_out["roi"])),
-                              _gap(_corners(s_out["roi"][a:b].to(device)), _corners(r_state["roi"]))),
-                "confidence": _gap(o["confidence"], r_out["confidence"]),
-                "filter_dx": _gap(f["dx"], r_state["filter"]["dx"]),
-                "flags": float(int((o["valid"] != r_out["valid"]).sum())
-                               + int((s_out["tracking"][a:b].to(device) != r_state["tracking"]).sum())
-                               + int((f["init"] != r_state["filter"]["init"]).sum())),
-            }
-            for k, v in numbers.items():
-                worst[k] = v if np.isnan(v) else max(worst[k], v)
+            program = {"out": {k: v[a:b].to(device) for k, v in out.items()},
+                       "state": {"roi": s_out["roi"][a:b].to(device), "tracking": s_out["tracking"][a:b].to(device),
+                                 "filter": {k: v[a:b].to(device) for k, v in s_out["filter"].items()}}}
+            ref = {"out": r_out, "state": r_state}
+            for k, number in NUMBERS.items():
+                if all(n in program["out"] and n in r_out for n in number.needs):
+                    v = number.read(program, ref)
+                    worst[k] = v if np.isnan(v) else max(worst.get(k, 0.0), v)
     return worst
 
 
@@ -86,5 +120,8 @@ def judge(numbers: dict, limits: dict | None) -> tuple[bool, dict]:
     limits nothing is correct."""
     if not limits:
         return False, {k: {"value": v, "limit": None} for k, v in numbers.items()}
+    missing = [k for k in limits if k not in numbers]
+    if missing:
+        raise KeyError(f"the limits name {', '.join(missing)}, which this cell's outputs do not give")
     checks = {k: {"value": numbers[k], "limit": lim["limit"]} for k, lim in limits.items()}
     return all(c["value"] <= c["limit"] for c in checks.values()), checks

@@ -5,6 +5,11 @@ The base frame is the bench frame: the decoded fixture photo
 OpenCV's u8 bilinear rule, with alpha 255. Each stream sees its own copy
 under a similarity transform drawn from the seed (rotation, scale, shift,
 edges replicated), resampled bilinearly on the device and rounded to u8.
+
+A traffic mix with ``empty_share`` shows that share of its streams, drawn
+from the seed, a face-free part of the photo instead (``empty_crop``: x0,
+y0, x1, y1 of the 1280×720 photo), upscaled by the same rule and put under
+each such stream's own transform.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["bench_frame", "stream_params", "stream_frames"]
+__all__ = ["bench_frame", "empty_streams", "stream_params", "stream_frames", "traffic_frames"]
 
 PHOTO = Path(__file__).resolve().parent.parent / "data" / "photo.npz"
 _COEF_SCALE = np.float32(2048.0)  # OpenCV's INTER_RESIZE_COEF_SCALE
@@ -55,10 +60,15 @@ def _resize_linear_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-def bench_frame() -> np.ndarray:
-    """The 1920×1080 RGBA u8 bench frame ``[1080,1920,4]``."""
+def bench_frame(crop=None) -> np.ndarray:
+    """The 1920×1080 RGBA u8 bench frame ``[1080,1920,4]``; with ``crop``
+    (x0, y0, x1, y1 in the photo's pixels) that part of the photo, upscaled
+    by the same rule."""
     with np.load(PHOTO) as f:
         rgb = f["rgb"]
+    if crop is not None:
+        x0, y0, x1, y1 = crop
+        rgb = np.ascontiguousarray(rgb[y0:y1, x0:x1])
     frame = _resize_linear_u8(rgb, 1920, 1080)
     return np.concatenate([frame, np.full((1080, 1920, 1), 255, np.uint8)], axis=-1)
 
@@ -79,15 +89,25 @@ def stream_params(seed: int, streams: int, transform: dict) -> np.ndarray:
     ], axis=-1)
 
 
-def stream_frames(base: np.ndarray, params: np.ndarray, width: int, height: int, device, chunk: int = 16):
+def empty_streams(seed: int, streams: int, share: float) -> np.ndarray:
+    """The sorted indices of the ``round(share * streams)`` streams that show
+    the face-free frame, drawn from the seed apart from the transforms."""
+    rng = np.random.Generator(np.random.PCG64([seed, 2]))
+    return np.sort(rng.choice(streams, size=round(share * streams), replace=False))
+
+
+def stream_frames(base: np.ndarray, params: np.ndarray, width: int, height: int, device, chunk: int = 16,
+                  out=None, rows=None):
     """The streams' frames ``[N,height,width,4] u8`` on ``device``: frame
     ``i`` shows ``base`` rotated by ``params[i,0]`` about its centre, scaled
     by ``params[i,1]`` and shifted by ``params[i,2:4]`` of its size, fitted
-    to ``width×height``; pixels from beyond the base repeat its edge."""
+    to ``width×height``; pixels from beyond the base repeat its edge.
+    ``out`` and ``rows``: write frame ``i`` into ``out[rows[i]]`` instead."""
     dev = torch.device(device)
     H, W = base.shape[:2]
     src = torch.from_numpy(base).to(dev).permute(2, 0, 1)[None].float()  # [1,4,H,W]
-    out = torch.empty((len(params), height, width, 4), dtype=torch.uint8, device=dev)
+    if out is None:
+        out = torch.empty((len(params), height, width, 4), dtype=torch.uint8, device=dev)
     for a in range(0, len(params), chunk):
         p = torch.as_tensor(params[a:a + chunk], dtype=torch.float64)
         c, s, k = torch.cos(p[:, 0]), torch.sin(p[:, 0]), p[:, 1]
@@ -102,5 +122,26 @@ def stream_frames(base: np.ndarray, params: np.ndarray, width: int, height: int,
         grid = F.affine_grid(theta, [n, 4, height, width], align_corners=False)
         img = F.grid_sample(src.expand(n, -1, -1, -1), grid, mode="bilinear", padding_mode="border",
                             align_corners=False)
-        out[a:a + n] = img.round_().clamp_(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+        at = slice(a, a + n) if rows is None else torch.as_tensor(rows[a:a + n], device=dev)
+        out[at] = img.round_().clamp_(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+    return out
+
+
+def traffic_frames(t: dict, seed: int, device, bases: dict):
+    """The frames of traffic mix ``t`` for ``seed`` on ``device``; ``bases``
+    caches the base frames by crop (None: the bench frame)."""
+    def base(crop):
+        key = None if crop is None else tuple(crop)
+        if key not in bases:
+            bases[key] = bench_frame(key)
+        return bases[key]
+
+    params = stream_params(seed, t["streams"], t["transform"])
+    if not t.get("empty_share"):
+        return stream_frames(base(None), params, t["width"], t["height"], device)
+    empty = empty_streams(seed, t["streams"], t["empty_share"])
+    faces = np.setdiff1d(np.arange(t["streams"]), empty)
+    out = torch.empty((t["streams"], t["height"], t["width"], 4), dtype=torch.uint8, device=device)
+    for rows, crop in ((faces, None), (empty, t["empty_crop"])):
+        stream_frames(base(crop), params[rows], t["width"], t["height"], device, out=out, rows=rows)
     return out

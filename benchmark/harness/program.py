@@ -1,6 +1,8 @@
 """The system under test, built from a configuration's ``program`` and
 ``tracker`` sections: the port's tracker with its detector and landmark
-network, each named by its dotted path in ``zaru_tpu_torch``."""
+network, each named by its dotted path in ``zaru_tpu_torch``, and the
+tracker's further keyword arguments from ``program.options`` (for example
+``{"iris": true}``), passed through as they stand."""
 
 from __future__ import annotations
 
@@ -36,4 +38,5 @@ def build(config: dict, device, compute_dtype=None):
         smooth=_load(p["filter"])(f["min_cutoff"], f["beta"], f["d_cutoff"]),
         frame_rate=t["frame_rate"],
         device=device,
+        **p.get("options", {}),
     )

@@ -1,6 +1,11 @@
 """What the per-layer readers share: the profiled steps' work, counted by
 the benchmark (:mod:`benchmark.work`), and sums over the profiled span.
 
+The networks a step runs: the configuration's ``detector`` on detect steps,
+its ``landmarker`` on every step, and each of its further ``networks``
+(``{"name", "file", "crops", "steps"}``: ``crops`` forwards a stream,
+``steps`` ``"every"`` or ``"detect"``).
+
 A reader gets a :class:`Run` and returns its number, or None where it finds
 nothing to read: no traced span, no device activity in it, no kernel of
 its kind, or a card whose peaks the table does not hold.
@@ -38,6 +43,25 @@ class Run:
     def model(self, part: str) -> str:
         return str(self.model_dir / self.config[part]["file"])
 
+    def networks(self) -> list:
+        """``(model file, forwards a stream, detect steps only)`` of each
+        network the program runs."""
+        found = [(self.model("detector"), 1, True), (self.model("landmarker"), 1, False)]
+        for net in self.config.get("networks", []):
+            if net["steps"] not in ("every", "detect"):
+                raise ValueError(f"network {net['name']!r}: steps is {net['steps']!r}, not 'every' or 'detect'")
+            found.append((str(self.model_dir / net["file"]), net["crops"], net["steps"] == "detect"))
+        return found
+
+    def over_steps(self, per_frame, profiled=None):
+        """``per_frame(model file)`` summed over the forwards of the
+        profiled steps (or of ``profiled``, entries of :meth:`profiled`)."""
+        nets = self.networks()
+        every = sum(crops * per_frame(path) for path, crops, detect_only in nets if not detect_only)
+        detect = sum(crops * per_frame(path) for path, crops, detect_only in nets if detect_only)
+        steps = self.profiled() if profiled is None else profiled
+        return sum(n * (every + (detect if detected else 0)) for n, detected in steps)
+
     def profiled(self) -> list:
         """``(frames, detected)`` of each profiled step: a step detects when
         it was forced or some stream came in not tracking."""
@@ -65,8 +89,7 @@ def idle_share(run: Run) -> float | None:
 
 def network_flops(run: Run) -> int:
     """The networks' operations for the frames the profiled steps ran."""
-    lm, det = networks.flops(run.model("landmarker")), networks.flops(run.model("detector"))
-    return sum(n * (lm + (det if detected else 0)) for n, detected in run.profiled())
+    return run.over_steps(networks.flops)
 
 
 def stage_bound_seconds(run: Run) -> float:
@@ -84,5 +107,4 @@ def stage_bound_seconds(run: Run) -> float:
             total += max(ops / p["f32_flops"], nbytes / p["bytes_per_s"])
         return total
 
-    lm, det = per_frame(run.model("landmarker")), per_frame(run.model("detector"))
-    return sum(n * (lm + (det if detected else 0.0)) for n, detected in run.profiled())
+    return run.over_steps(per_frame)

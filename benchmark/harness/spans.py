@@ -4,15 +4,16 @@ The program (``zaru_tpu_torch/profiling.py``) names the parts of its step
 with spans that exist only while a profiler runs: each is a
 ``record_function`` range, a ``user_annotation`` host interval of the
 :class:`~.trace.Span`. A span's device time is the device work launched
-inside it, read from the trace alone: the card runs the kernels and copies
-of the step's one stream in the order the host launched them, so the n-th
-launch call on the host (a ``cuda_runtime`` or ``cuda_driver`` interval
-that launches a kernel, a copy or a memset) pairs with the n-th interval
-on the device (the pairing Kineto's correlation ids give, on the card's
-traces; the trace's device clock may lead the host's by a few hundred
-microseconds, so times cannot pair them). Where the two counts differ the
-pairing is unsound and the device readers give nothing; so do all the
-readers on a program without the spans (an older checkout).
+inside it, read from the trace alone: each launch call on the host (a
+``cuda_runtime`` or ``cuda_driver`` interval that launches a kernel, a copy
+or a memset) pairs with the interval on the device that carries its
+correlation id (Kineto's ``args.correlation``, on both; the trace's device
+clock may lead the host's, so times cannot pair them). Where the profiler
+lost a call's device record, the program's spans that hold that call are
+not read; where none is left, or where the device ran work that no call in
+the trace launched, or the trace carries no ids, the device readers give
+nothing, as all the readers do on a program without the spans (an older
+checkout).
 """
 
 from __future__ import annotations
@@ -36,28 +37,40 @@ def host_spans(run, prefix: str) -> list:
 
 
 def launched(span) -> list | None:
-    """``(launch call, device interval)`` of every kernel and copy of
-    ``span``, in launch order; None where calls and intervals do not pair."""
-    calls = sorted((iv for iv in span.host if iv.kind in ("cuda_runtime", "cuda_driver")
-                    and any(w in iv.name for w in LAUNCHES)), key=lambda iv: iv.start)
-    work = sorted(span.device, key=lambda iv: iv.start)
-    if not work or len(calls) != len(work):
+    """``(launch call, device interval or None)`` of every kernel and copy
+    launched in ``span``, in launch order, paired by correlation id: None in
+    an interval's place where the device record was lost, and None in place
+    of the list where the span has no device work, work without an id or
+    sharing one, or work whose launch the trace does not hold."""
+    work = span.device
+    if not work or any(iv.correlation is None for iv in work):
         return None
-    return list(zip(calls, work))
+    by_id = {iv.correlation: iv for iv in work}
+    if len(by_id) != len(work):
+        return None
+    calls = sorted((iv for iv in span.host if iv.kind in ("cuda_runtime", "cuda_driver")
+                    and (iv.correlation in by_id or any(w in iv.name for w in LAUNCHES))), key=lambda iv: iv.start)
+    if len({c.correlation for c in calls} & by_id.keys()) != len(by_id):
+        return None
+    return [(c, by_id.get(c.correlation)) for c in calls]
 
 
 def device_ms(run, name: str) -> float | None:
     """Mean device milliseconds of the program's span ``name``: the summed
-    time of the kernels and copies launched inside each, over the spans."""
+    time of the kernels and copies launched inside each, over the spans
+    whose every launch paired."""
     spans = [iv for iv in host_spans(run, name) if iv.name == name]
     pairs = launched(run.span) if spans and run.device_busy() else None
     if pairs is None:
         return None
     starts = [c.start for c, _ in pairs]
-    total = 0.0
+    total, read = 0.0, 0
     for s in spans:
-        total += sum(w.seconds for _, w in pairs[bisect_left(starts, s.start):bisect_right(starts, s.end)])
-    return total / len(spans) * 1e3
+        inside = [w for _, w in pairs[bisect_left(starts, s.start):bisect_right(starts, s.end)]]
+        if all(w is not None for w in inside):
+            total += sum(w.seconds for w in inside)
+            read += 1
+    return total / read * 1e3 if read else None
 
 
 def sync_idle_seconds(span, syncs) -> float:

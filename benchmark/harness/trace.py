@@ -32,6 +32,7 @@ class Interval:
     start: float
     end: float
     kind: str = ""  # "kernel" or "copy" on the device, the trace category on the host
+    correlation: int | None = None  # the trace's id that ties a launch call to its work on the device
 
     @property
     def seconds(self) -> float:
@@ -111,7 +112,8 @@ class Profiler:
 
 def parse(events: list) -> Span:
     """A Chrome trace's complete events (``"ph": "X"``, µs) → the
-    :class:`Span` between its first and last mark."""
+    :class:`Span` between its first and last mark; each interval keeps its
+    event's ``args.correlation``."""
     marks = sorted(e["ts"] for e in events if e.get("ph") == "X" and e.get("name") == MARK)
     if len(marks) < 2:
         raise ValueError("the trace holds no span marks")
@@ -124,7 +126,8 @@ def parse(events: list) -> Span:
         start, end = max(e["ts"], t0), min(e["ts"] + e.get("dur", 0), t1)
         if end <= start:
             continue
-        iv = Interval(e["name"], (start - t0) * 1e-6, (end - t0) * 1e-6)
+        iv = Interval(e["name"], (start - t0) * 1e-6, (end - t0) * 1e-6,
+                      correlation=(e.get("args") or {}).get("correlation"))
         if cat in DEVICE_CATS:
             iv.kind = DEVICE_CATS[cat]
             span.device.append(iv)

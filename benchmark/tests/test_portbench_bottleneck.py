@@ -30,8 +30,9 @@ def _spanned(extra_launch=False, lost=(), copies=True):
     the host, then its landmark network (a span ``zaru.track.net``)
     launches a kernel of its own and three chains of bottleneck blocks,
     each a span ``zaru.net.bottleneck`` whose launches run on the device
-    after the host has moved on. ``lost``: device records the profiler
-    lost, by launch index."""
+    after the host has moved on; each launch call and its interval share a
+    correlation id. ``lost``: device records the profiler lost, by launch
+    index."""
     ms = lambda n, a, b, kind: trace.Interval(n, a * 1e-3, b * 1e-3, kind)  # noqa: E731
     launches, ann, t_dev = [], [], 1.0
     for step in range(2):
@@ -48,13 +49,15 @@ def _spanned(extra_launch=False, lost=(), copies=True):
                          for j in range(n)]
         launches.append(("cudaLaunchKernel", t0 + 4.5, "tail", 0.1))
     device, calls = [], []
-    for call, t, name, dur in launches:
+    for k, (call, t, name, dur) in enumerate(launches):
         calls.append(ms(call, t, t + 0.01, "cuda_runtime"))
         t_dev = max(t_dev, t + 0.05)
         device.append(ms(name, t_dev, t_dev + dur, "copy" if call == "cudaMemcpyAsync" else "kernel"))
+        calls[-1].correlation = device[-1].correlation = 100 + k
         t_dev += dur
     if extra_launch:
         calls.append(ms("cudaLaunchKernel", 19.5, 19.51, "cuda_runtime"))
+        calls[-1].correlation = 99
     device = [iv for k, iv in enumerate(device) if k not in lost]
     return trace.Span(0.020, device, ann + calls)
 
@@ -83,16 +86,15 @@ def test_bound_is_the_chains_least_time_at_512():
         bottlenecks.bound_seconds(run)
 
 
-@pytest.mark.parametrize("lost, extra_launch", [((0,), False), ((0, 1), False), ((), True)])
+@pytest.mark.parametrize("lost, extra_launch", [((0,), False), ((0, 1), False), ((4,), False), ((), True)])
 def test_device_ms_reads_the_steps_whose_launches_pair(lost, extra_launch):
     """The device records of the first launches are lost (the copy, then
-    the stem's kernel), or a launch after the last step has none: the
-    intervals pair with the calls whose copies and kernels fall in the same
-    places, and the steps whose every launch pairs are read, where the
-    accepted readers' pairing gives up."""
+    the stem's kernel), or one inside the first step's chains, or a launch
+    after the last step has none: the steps whose every launch pairs by
+    correlation id are read."""
     tracked = torch.ones(512, dtype=torch.bool)
     run = _run(_spanned(extra_launch, lost), [(512, tracked, False), (512, tracked, False)])
-    assert spans.launched(run.span) is None
+    assert [w is None for _, w in spans.launched(run.span)].count(True) == len(lost) + extra_launch
     assert Spec().reader("bottleneck_device_ms")(run) == pytest.approx(0.25 + 2 * 0.5 + 0.75)
     seconds, steps = bottlenecks.device_seconds(run)
     assert len(steps) == (1 if lost else 2)
@@ -100,11 +102,9 @@ def test_device_ms_reads_the_steps_whose_launches_pair(lost, extra_launch):
         100 * bottlenecks.bound_seconds(run, steps) / seconds)
 
 
-@pytest.mark.parametrize("lost, copies", [((4,), True), ((6,), True), ((0,), False)])
-def test_device_ms_refuses_launches_that_pair_no_one_way(lost, copies):
-    """A record lost inside the span leaves copies and kernels in other
-    places than their calls; with no copies the calls pair with the
-    intervals in more than one way."""
+@pytest.mark.parametrize("lost, copies", [((4, 13), True), ((6, 10), True), ((0, 8), False)])
+def test_device_ms_refuses_when_no_step_pairs(lost, copies):
+    """A record lost in each step leaves no step to read."""
     tracked = torch.ones(512, dtype=torch.bool)
     span = _spanned(lost=lost, copies=copies)
     assert Spec().reader("bottleneck_device_ms")(_run(span, [(512, tracked, False)] * 2)) is None
@@ -119,8 +119,8 @@ def test_readers_find_nothing_without_the_span_or_pairs(name):
     older = _spanned()
     older.host = [iv for iv in older.host if iv.name != bottlenecks.SPAN]
     assert read(_run(older, profiled)) is None
-    # Work lost inside a step: no pairing holds.
-    assert read(_run(_spanned(lost=(4,)), profiled)) is None
+    # Work lost inside each step: no step pairs.
+    assert read(_run(_spanned(lost=(4, 13)), profiled)) is None
     if name == "bottleneck_roofline":
         assert read(_run(_spanned(), profiled, kind="cpu")) is None
 

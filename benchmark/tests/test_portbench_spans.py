@@ -35,7 +35,8 @@ def _spanned():
     at 0.5-1.0, its copy done at 0.7 and the device idle until 1.2; a
     forced detect step (7.8-20) whose letterbox fit copies at 8.2-8.6,
     covered on the device by that copy until 8.7, then idle until 8.8.
-    Each launch call pairs with the next interval on the device."""
+    Each launch call and its interval on the device share a correlation
+    id."""
     ms = lambda n, a, b, kind: trace.Interval(n, a * 1e-3, b * 1e-3, kind)  # noqa: E731
     launches = [("cudaMemcpyAsync", 0.5, "Memcpy DtoH", 0.6, 0.7, "copy"),
                 ("cudaLaunchKernel", 1.1, "lm", 1.2, 5.2, "kernel"),
@@ -50,6 +51,8 @@ def _spanned():
     device = [ms(n, a, b, kind) for _, _, n, a, b, kind in launches]
     calls = [ms(c, t, t + 0.01, "cuda_driver" if c.startswith("cu") and not c.startswith("cuda") else "cuda_runtime")
              for c, t, *_ in launches]
+    for k, (call, work) in enumerate(zip(calls, device)):
+        call.correlation = work.correlation = 100 + k
     ann = [ms(n, a, b, "user_annotation") for n, a, b in [
         ("zaru.step", 0.0, 7.8), ("zaru.sync.gate", 0.5, 1.0), ("zaru.track.net", 1.1, 2.0),
         ("zaru.track.tail", 2.0, 3.0), ("zaru.step", 7.8, 20.0), ("zaru.detect", 8.1, 12.0),
@@ -84,7 +87,7 @@ def test_device_readers_refuse_calls_and_work_that_do_not_pair(name, fault):
     if fault == "a launch untraced":
         span.host = [iv for iv in span.host if not (iv.name == "cuLaunchKernel")]
     else:
-        span.device.append(trace.Interval("Memcpy DtoD", 0.0195, 0.0196, "copy"))
+        span.device.append(trace.Interval("Memcpy DtoD", 0.0195, 0.0196, "copy", correlation=999))
     assert spans.launched(_spanned()) is not None and spans.launched(span) is None
     assert Spec().reader(name)(_run(span, [(512, torch.ones(512, dtype=torch.bool), True)])) is None
 
