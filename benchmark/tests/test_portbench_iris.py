@@ -1,0 +1,200 @@
+"""The iris cell, ``face_v1_iris.track_b512``: the program against the plain
+iris reference (``benchmark/reference/face_iris.py``) through the
+harness's own run on the CPU at small size; its reader ``iris_device_ms``
+and the shared readers ``bottleneck_roofline`` and ``step_mfu`` on a canned
+trace of the iris branch and on one without the iris spans; and that
+``eyes_px``'s limit catches the iris network run in bfloat16, on the CPU at
+2 streams and, on the chip, at the cell's 512."""
+
+from __future__ import annotations
+
+import copy
+import time
+from pathlib import Path
+
+import pytest
+import torch
+
+from benchmark.harness import bottlenecks, frames, readings, trace
+from benchmark.harness.loops import Window
+from benchmark.harness.report import result
+from benchmark.harness.spec import Spec
+from benchmark.reference import face_iris
+from benchmark.work import networks
+
+ROOT = Path(__file__).resolve().parents[2]
+MODELS = ROOT / "assets" / "onnx"
+CELL = "face_v1_iris.track_b512"
+H100 = "NVIDIA H100 80GB HBM3"
+SEED = 2**31 + 17
+
+
+def _small(cell, **kw):
+    """The cell's traffic at 3 streams of 480×270 frames, a detect period of
+    3 steps, 3 kept steps besides the first two."""
+    t = dict(cell.traffic, streams=3, width=480, height=270, check_steps=3, detect_every=3,
+             profile={"from": 3, "steps": 3})
+    t.update(kw)
+    return t
+
+
+def _result(compute_dtype=None):
+    cell = Spec().cell(CELL)
+    out, _ = result(cell, ROOT, SEED, 0.3, False, time.perf_counter(), "cpu", compute_dtype, _small(cell))
+    return out
+
+
+def test_the_cell_is_the_iris_configuration_on_track_b512():
+    cell = Spec().cell(CELL)
+    assert cell.config["program"]["options"] == {"iris": True} and cell.config["reference"] == "face_iris"
+    assert cell.traffic == Spec().traffic("track_b512") and cell.chips == 1
+    # Every accepted per-layer metric reads on this cell, and iris_device_ms.
+    accepted = [m["name"] for m in Spec().data["per_layer"] if m["name"] != "iris_device_ms"]
+    assert [m["name"] for m in cell.per_layer] == accepted + ["iris_device_ms"]
+    assert set(cell.limits) == {"landmarks_px", "roi_px", "filter_dx", "flags", "eyes_px"}
+
+
+def test_reference_holds_the_program():
+    out = _result()
+    assert out["correct"], out["checks"]
+    assert out["streams_lost_after_first_step"] == 0
+    assert out["checks"]["eyes_px"]["value"] <= 1e-4
+    assert out["checks"]["landmarks_px"]["value"] <= 1e-4
+
+
+def test_control_in_bfloat16_is_not_correct():
+    out = _result(torch.bfloat16)
+    assert not out["correct"]
+    assert out["checks"]["eyes_px"]["value"] > out["checks"]["eyes_px"]["limit"]
+
+
+class _Bfloat16:
+    """An iris graph run with its weights and activations in bfloat16."""
+
+    def __init__(self, graph):
+        self.graph = copy.copy(graph)
+        self.graph.weights = {k: v.bfloat16() for k, v in graph.weights.items()}
+        self.output_names = graph.output_names
+
+    def __call__(self, x):
+        return [o.float() for o in self.graph(x.bfloat16())]
+
+
+def _bfloat16_gap(cell, streams: int, seed: int, device) -> float:
+    """The reference's own detect step on ``streams`` streams of the cell's
+    frames; the largest distance, in image px, between the eyes of the same
+    eye crops through the iris network in float32 and in bfloat16."""
+    made = frames.traffic_frames(dict(cell.traffic, streams=streams), seed, device, {})
+    ref = face_iris.Cascade(cell.config, MODELS, device)
+    n = cell.config["landmarker"]["num_landmarks"]
+    zeros = torch.zeros(streams, n, 3, device=device)
+    state = {"roi": torch.zeros(streams, 5, device=device),
+             "tracking": torch.zeros(streams, dtype=torch.bool, device=device),
+             "filter": {"x": zeros, "dx": zeros, "init": torch.zeros(streams, n, 3, dtype=torch.bool, device=device)}}
+    _state, out = ref.step(state, made, True)
+    assert bool(out["valid"].all())
+    rects = ref.eye_rects(out["landmarks"])
+    crops = ref.eye_crops(made, rects, False)
+    assert torch.equal(ref.eyes(crops, rects), out["eyes"])
+    ref.eye_net = _Bfloat16(ref.eye_net)
+    return float((ref.eyes(crops, rects) - out["eyes"]).abs().max())
+
+
+def test_an_iris_network_in_bfloat16_fails_eyes_px():
+    """At the cell's 1920×1080 on 2 streams: an iris network in bfloat16
+    moves the eyes further than the cell's ``eyes_px`` limit."""
+    cell = Spec().cell(CELL)
+    gap = _bfloat16_gap(cell, 2, SEED, "cpu")
+    assert gap > cell.limits["eyes_px"]["limit"], gap
+
+
+# The seeds whose gaps at 512 streams set eyes_px's upper reading (PERF.md §2).
+CHIP_SEEDS = (2300000101, 2300000103, 2300000105, 2300000107)
+
+
+@pytest.mark.chip
+def test_an_iris_network_in_bfloat16_fails_eyes_px_at_the_cells_size(cuda):
+    """The same at the cell's 512 streams on the card; prints each seed's
+    gap (``pytest -s``), the upper reading of ``eyes_px`` in its limits
+    file being the smallest."""
+    cell = Spec().cell(CELL)
+    gaps = {seed: _bfloat16_gap(cell, cell.traffic["streams"], seed, cuda) for seed in CHIP_SEEDS}
+    for seed, gap in gaps.items():
+        print(f"eyes_px of a bfloat16 iris network, 512 streams, seed {seed}: {gap}")
+    assert min(gaps.values()) > cell.limits["eyes_px"]["limit"], gaps
+
+
+# --- the readers ---------------------------------------------------------
+
+def _run(span, profiled, kind=H100):
+    window = Window(1.0, [0.01], 0, 0, profiled, {})
+    return readings.Run(Spec().config("face_v1_iris"), window, span, kind, MODELS)
+
+
+def _spanned(iris=True):
+    """Two tracking steps, times in ms: Face Mesh (``zaru.track.net``), then
+    the iris branch: its sampler (``zaru.iris.sample``), its network
+    (``zaru.iris.net``: a stem kernel and two chains of bottleneck blocks,
+    each a span ``zaru.net.bottleneck``) and its tail (``zaru.iris.tail``).
+    Each launch call and its device interval share a correlation id.
+    ``iris=False``: the same trace without the ``zaru.iris.*`` spans (an
+    older program)."""
+    ms = lambda n, a, b, kind: trace.Interval(n, a * 1e-3, b * 1e-3, kind)  # noqa: E731
+    launches, ann = [], []
+    for step in range(2):
+        t0 = 10.0 * step
+        ann += [ms("zaru.step", t0, t0 + 9.0, "user_annotation"),
+                ms("zaru.track.net", t0 + 0.5, t0 + 2.0, "user_annotation"),
+                ms("zaru.iris.sample", t0 + 2.0, t0 + 2.5, "user_annotation"),
+                ms("zaru.iris.net", t0 + 2.5, t0 + 6.0, "user_annotation"),
+                ms("zaru.iris.tail", t0 + 6.0, t0 + 7.0, "user_annotation")]
+        launches += [(t0 + 0.6, "blaze_stage", 1.0), (t0 + 2.1, "rotated_sample", 0.1), (t0 + 2.6, "stem", 0.5)]
+        for k, n in enumerate((2, 1)):
+            a = t0 + 3.0 + k
+            ann.append(ms("zaru.net.bottleneck", a, a + 0.5, "user_annotation"))
+            launches += [(a + 0.1 * (j + 1), "bottleneck_block_kernel", 0.25 * (k + 1)) for j in range(n)]
+        launches.append((t0 + 6.5, "tail", 0.1))
+    device, calls, t_dev = [], [], 1.0
+    for k, (t, name, dur) in enumerate(launches):
+        calls.append(ms("cudaLaunchKernel", t, t + 0.01, "cuda_runtime"))
+        t_dev = max(t_dev, t + 0.05)
+        device.append(ms(name, t_dev, t_dev + dur, "kernel"))
+        calls[-1].correlation = device[-1].correlation = 100 + k
+        t_dev += dur
+    if not iris:
+        ann = [iv for iv in ann if not iv.name.startswith("zaru.iris.")]
+    return trace.Span(0.020, device, ann + calls)
+
+
+PROFILED = [(512, torch.ones(512, dtype=torch.bool), False)] * 2
+
+
+def test_readers_on_a_canned_trace():
+    run = _run(_spanned(), PROFILED)
+    read = Spec().reader
+    # Inside zaru.iris.net a step: the stem, then 2 × 0.25 and 1 × 0.5 ms.
+    assert read("iris_device_ms")(run) == pytest.approx(0.5 + 2 * 0.25 + 0.5)
+    seconds, steps = bottlenecks.device_seconds(run)
+    assert seconds == pytest.approx(2 * (2 * 0.25 + 0.5) * 1e-3) and steps == run.profiled()
+    assert read("bottleneck_roofline")(run) == pytest.approx(100 * bottlenecks.bound_seconds(run) / seconds)
+    # The iris network's chains, at two crops a stream: the only chains of the configuration.
+    iris = str(MODELS / "iris_landmark.onnx")
+    per_frame = sum(max(n * bottlenecks.block_ops(c, h, w) / 67e12, 8 * c * h * w / 3.35e12)
+                    for c, h, w, n in bottlenecks.chains(iris))
+    assert bottlenecks.bound_seconds(run) == pytest.approx(2 * 512 * 2 * per_frame)
+    lm = networks.flops(MODELS / "face_landmark.onnx")
+    flops = 2 * 512 * (lm + 2 * networks.flops(iris))
+    assert readings.network_flops(run) == flops
+    assert read("step_mfu")(run) == pytest.approx(100 * flops / (0.020 * 67e12))
+
+
+@pytest.mark.parametrize("name", ["iris_device_ms", "bottleneck_roofline", "step_mfu"])
+def test_readers_find_nothing_without_a_trace_or_the_iris_spans(name):
+    read = Spec().reader(name)
+    assert read(_run(None, [])) is None
+    older = read(_run(_spanned(iris=False), PROFILED))
+    if name == "iris_device_ms":
+        assert older is None
+    else:  # read no zaru.iris.* span: the same on an older program
+        assert older == read(_run(_spanned(), PROFILED)) is not None
+        assert read(_run(_spanned(), PROFILED, kind="cpu")) is None

@@ -34,9 +34,11 @@ lost streams (``_detect_bucket`` :216).
 
 Spans and counters (:mod:`zaru_tpu_torch.profiling`, free while no profiler
 runs): every entry point is a ``zaru.step`` span; inside it ``zaru.detect``
-(the whole branch, ``.sample``, ``.net``, ``.tail`` within) and
-``zaru.track.sample``, ``.net``, ``.tail``. Each host sync is a
-``zaru.sync.<site>`` span counted in ``host_syncs``: the gate's read
+(the whole branch, ``.sample``, ``.net``, ``.tail`` within),
+``zaru.track.sample``, ``.net``, ``.tail`` and, with ``iris``,
+``zaru.iris.sample`` (eye rects and crops), ``.net`` and ``.tail`` (flips,
+decode, unmap), whose crops ``counters["eye_crops"]`` counts. Each host
+sync is a ``zaru.sync.<site>`` span counted in ``host_syncs``: the gate's read
 (``gate``, each step that is not forced), the letterbox fit's copy
 (``frame_fit``, each detect step), and on the exact sampler's paths its
 channel shifts (``sampler_shifts``, each call), its mirror flags
@@ -297,30 +299,48 @@ class FaceTracker:
         _xy_view, pos = _ops.landmarks_to_image(coords, view_rects, res)
         return pos
 
+    _MIRROR = (False, True)  # right eyes go through the network mirrored
+
+    def _eye_samples(self, frames, rects, exact: bool = False):
+        """Eye view rects ``[B,2,5]`` → the eye crops in the iris network's
+        layout, through the rotated-ROI kernel on the 256-pixel grid
+        (``_iris_batch`` :394) or, ``exact``, the exact sampler
+        (``_iris_single`` :381), right eyes mirrored by the sampler."""
+        if exact:
+            return self.eye_cnn.sample_on_view(frames, rects, mirror=self._MIRROR)
+        return self.eye_cnn.sample_views_fast(frames, rects, self.EYE_PRESCALE_M, self.eye_cnn.layout, self._MIRROR)
+
     def _iris_batch(self, frames, pos, exact: bool = False):
         """Both eyes of every stream → ``[B,2,76,3]`` (:394; ``exact``
-        :381)."""
-        return self._iris_views(frames, self._eye_view_rects(pos), exact)
+        :381): the eye rects from the landmarks and the crops (the span
+        ``zaru.iris.sample``), then :meth:`_iris_run`."""
+        with span("zaru.iris.sample"):
+            rects = self._eye_view_rects(pos)
+            xs = self._eye_samples(frames, rects, exact)
+        return self._iris_run(xs, rects)
 
     def _iris_views(self, frames, rects, exact: bool = False):
-        """Eye view rects ``[B,2,5]`` → ``[B,2,76,3]``: the eye crops through
-        the rotated-ROI kernel on the 256-pixel grid (``_iris_batch`` :394),
-        or ``exact`` the exact sampler (``_iris_single`` :381), right eyes
-        mirrored by the sampler, ``[B,2]`` flattened to ``[2B]`` around the
-        iris network."""
-        mirror = (False, True)
-        if exact:
-            outputs = self.eye_cnn.apply_on_view(frames, rects, mirror=mirror)
-        else:
-            outputs = self.eye_cnn.apply_views_fast(
-                frames, rects, prescale_m=self.EYE_PRESCALE_M, mirror=mirror
-            )
+        """Eye view rects ``[B,2,5]`` → ``[B,2,76,3]``: the crops of the
+        given rects (``zaru.iris.sample``), then :meth:`_iris_run`."""
+        with span("zaru.iris.sample"):
+            xs = self._eye_samples(frames, rects, exact)
+        return self._iris_run(xs, rects)
+
+    def _iris_run(self, xs, rects):
+        """The iris network on the ``2B`` eye crops (``zaru.iris.net``),
+        then the flips, decode and unmap (``zaru.iris.tail``), ``[B,2]``
+        flattened to ``[2B]`` around the network; counted in
+        ``counters["eye_crops"]``."""
         b = rects.shape[0]
-        with sync("zaru.sync.iris_flip"):
-            flips = torch.tensor(mirror, device=rects.device)
-        flips = flips.repeat(b)
-        eyes = self._iris_decode(outputs, rects.reshape(2 * b, 5), flips)
-        return eyes.reshape(b, 2, EyeLandmarks.NUM_LANDMARKS, 3)
+        counters["eye_crops"] += 2 * b
+        with span("zaru.iris.net"):
+            outputs = self.eye_cnn.apply_samples(xs)
+        with span("zaru.iris.tail"):
+            with sync("zaru.sync.iris_flip"):
+                flips = torch.tensor(self._MIRROR, device=rects.device)
+            flips = flips.repeat(b)
+            eyes = self._iris_decode(outputs, rects.reshape(2 * b, 5), flips)
+            return eyes.reshape(b, 2, EyeLandmarks.NUM_LANDMARKS, 3)
 
     @staticmethod
     def _kept(roi, tr, frames):

@@ -14,14 +14,16 @@
   branch), ``host_syncs`` (host syncs of the step path, each also a
   ``zaru.sync.<site>`` span), ``host_copies`` (device copies the ONNX
   executor made of host values it had not copied before),
-  ``kernel_builds`` (CUDA sources compiled by ``ops/_build.build_all``)
-  and ``bottleneck_blocks`` (residual bottleneck blocks run through the
-  executor's fused chains, ``ops/bottleneck.fused_bottlenecks``).
+  ``kernel_builds`` (CUDA sources compiled by ``ops/_build.build_all``),
+  ``bottleneck_blocks`` (residual bottleneck blocks run through the
+  executor's fused chains, ``ops/bottleneck.fused_bottlenecks``) and
+  ``eye_crops`` (eye crops the iris network ran on, two a stream a step).
 - :func:`reset`: zeroes the counters.
 
 The spans of a tracker step (``pipeline/face_cascade.py``): ``zaru.step``
-around ``zaru.detect`` (``.sample``, ``.net``, ``.tail``) and
-``zaru.track``'s ``.sample``, ``.net`` and ``.tail``; ``zaru.sync.<site>``
+around ``zaru.detect`` (``.sample``, ``.net``, ``.tail``),
+``zaru.track``'s ``.sample``, ``.net`` and ``.tail`` and, with iris,
+``zaru.iris``'s ``.sample``, ``.net`` and ``.tail``; ``zaru.sync.<site>``
 around each host sync (:func:`sync`); ``zaru.build.kernels`` and
 ``zaru.build.host_copy`` where the step builds something it keeps;
 ``zaru.net.bottleneck`` around each fused chain of bottleneck blocks in a
@@ -43,7 +45,7 @@ import torch.autograd.profiler as _profiler
 __all__ = ["annotate", "counters", "reset", "span", "sync", "trace"]
 
 counters = {"steps": 0, "detect_steps": 0, "host_syncs": 0, "host_copies": 0, "kernel_builds": 0,
-            "bottleneck_blocks": 0}
+            "bottleneck_blocks": 0, "eye_crops": 0}
 
 
 @contextmanager
