@@ -5,6 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py              # every phase, on one card
     python3 chip_smoke.py --sharding   # the build and the sharding phase only (any number of cards)
     python3 chip_smoke.py --bottleneck # the build and the bottleneck kernel's phase only
+    python3 chip_smoke.py --blaze-block # the build and the BlazeBlock kernel's phase only
 
 Phases, one line of output each and each phase's wall time (any failed
 check exits non-zero):
@@ -231,7 +232,14 @@ check exits non-zero):
    uniform inputs, timed beside its bound and the per-op chain, its
    refusal of 24 channels, ``analyze`` with and without the plan, and
    ``FaceTracker(iris=True)`` at 512 in turns with and without the plan on
-   the eye network;
+   the eye network; the BlazeBlock kernel (``phase_blaze_block``, alone
+   with ``--blaze-block``): within the CNN bar of its plain version on
+   random weights at ragged shapes and of the per-op chain at every block
+   of BlazeFace short range and Face Mesh V1 (batches 512 and 1), timed
+   beside its bound and the per-op chain, ``analyze`` with and without the
+   plan, a forward's counted blocks and launches, its refusals, and the
+   main path's launches at 512 (phase 5's run; alone, a run of its own):
+   6 a step and 11 more a detect step;
 7. the launch counts of phase 5, then one JSON line of per-kernel numbers,
    then the result line.
 
@@ -242,6 +250,7 @@ JAX is not used.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -328,6 +337,7 @@ VIEW_CASES = [  # (cx, cy, w, h, theta), tests/test_torch_samplers.py
 # wins: cuDNN's convolution kernels before the matrix products (Gemm).
 PROFILE_GROUPS = [
     ("blaze_stage", ("blaze_stage_kernel",)),
+    ("blaze_block", ("blaze_block_kernel",)),
     ("samplers", ("rotated_sample_kernel", "letterbox_sample_kernel")),
     ("convolution", ("conv", "fprop", "implicit", "cudnn", "winograd")),
     ("gemm", ("gemm", "gemv", "xmma")),
@@ -897,15 +907,19 @@ def phase_multi_vs_jax(torch, np, device, rgba):
 
 
 # The kernels each path must launch in its run (rgb_to_yuv is on no path).
-FACE_KERNELS = ("rotated_sample", "letterbox_sample", "blaze_stage")
+FACE_KERNELS = ("rotated_sample", "letterbox_sample", "blaze_stage", "blaze_block")
 HAND_KERNELS = ("rotated_sample", "letterbox_sample")
 STEPS, WARMUP = 54, 9
+# The BlazeBlock kernel's launches on the face path: Face Mesh V1's 6 blocks
+# every step, BlazeFace short range's 11 on a detect step.
+BLAZE_BLOCKS_TRACK, BLAZE_BLOCKS_DETECT = 6, 11
 MULTI_BATCH = 128  # streams of the multi-object runs (4 slots each: 512 crops a step)
 
 
 def launch_counters():
     """Each kernel's wrapper and the attribute that counts its kernel's
     launches (the stage kernel counts its NHWC variant apart)."""
+    from zaru_tpu_torch.ops.blaze_block import fused_blaze_block
     from zaru_tpu_torch.ops.bottleneck import fused_bottlenecks
     from zaru_tpu_torch.ops.cnn_stage import fused_blocks
     from zaru_tpu_torch.ops.letterbox import letterbox_sample
@@ -914,7 +928,8 @@ def launch_counters():
 
     return {"rotated_sample": (rotated_sample_fast, "launches"), "letterbox_sample": (letterbox_sample, "launches"),
             "blaze_stage": (fused_blocks, "launches"), "blaze_stage_nhwc": (fused_blocks, "nhwc_launches"),
-            "rgb_to_yuv": (rgb_to_yuv_fast, "launches"), "bottleneck_stage": (fused_bottlenecks, "launches")}
+            "rgb_to_yuv": (rgb_to_yuv_fast, "launches"), "bottleneck_stage": (fused_bottlenecks, "launches"),
+            "blaze_block": (fused_blaze_block, "launches")}
 
 
 def zero_launches():
@@ -926,23 +941,39 @@ def read_launches():
     return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
 
 
-def timed_run(torch, step, what, kernels):
+def timed_run(torch, step, what, kernels, counted=None):
     """``step(i)`` for WARMUP steps, then STEPS steps timed on the host
     clock with the launch counts zeroed just before and read just after;
-    fails unless every kernel in ``kernels`` launched. → (seconds,
-    launches)."""
+    fails unless every kernel in ``kernels`` launched. ``counted``, a dict,
+    receives the tracker steps and detect steps of the timed steps
+    (``profiling.counters``). → (seconds, launches)."""
+    from zaru_tpu_torch import profiling
+
     for i in range(WARMUP):
         step(i)
     torch.cuda.synchronize()
     zero_launches()
+    before = dict(profiling.counters)
     t0 = time.perf_counter()
     for i in range(STEPS):
         step(i)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
+    if counted is not None:
+        counted.update({k: profiling.counters[k] - before[k] for k in ("steps", "detect_steps")})
     check(all(launches[k] > 0 for k in kernels), f"{what}: a kernel of the path was never launched: {launches}")
     return dt, launches
+
+
+def check_blaze_block_launches(what, launches, counted):
+    """A face run's BlazeBlock launches against BLAZE_BLOCKS_TRACK a step
+    plus BLAZE_BLOCKS_DETECT a detect step (``counted`` from
+    :func:`timed_run`). → the run's launches, steps and detect steps."""
+    n, steps, detects = launches["blaze_block"], counted["steps"], counted["detect_steps"]
+    want = BLAZE_BLOCKS_TRACK * steps + BLAZE_BLOCKS_DETECT * detects
+    check(n == want, f"{what}: {n} BlazeBlock launches in {steps} steps with {detects} detect steps, want {want}")
+    return {"launches": n, "steps": steps, "detect_steps": detects}
 
 
 def phase_full_size(torch, img, device, card):
@@ -959,7 +990,9 @@ def phase_full_size(torch, img, device, card):
         def step(i, tr=tr, frames=frames, box=box):
             box["state"], box["out"] = tr.step_batch(box["state"], frames, force_detect=(i % 9 == 0))
 
-        dt, launches = timed_run(torch, step, what, FACE_KERNELS)
+        counted = {}
+        dt, launches = timed_run(torch, step, what, FACE_KERNELS, counted)
+        blaze = check_blaze_block_launches(f"{what}, batch {batch}", launches, counted)
         result.setdefault("ms", {})[(what, batch)] = dt / STEPS * 1e3
         out = box["out"]
         valid = bool(out["valid"].all())
@@ -974,6 +1007,8 @@ def phase_full_size(torch, img, device, card):
                   f"iris: eyes of shape {tuple(eyes.shape)}")
         if batch == 512:
             result["launches"][what] = launches
+            if what == "main path":
+                result["blaze_block"] = blaze
             result[what] = (frames, box["state"], step)
             crops = [(192, 192), (128, 128)] + ([(64, 64)] if tr is iris else [])
             check_no_layout_copy(torch, step, crops, what)
@@ -1400,19 +1435,6 @@ def phase_stage_times(torch, tracker, frames, state, launches, steps, what="main
     }
 
 
-def without_bottleneck_plan(net):
-    """Runs ``net`` (an ``OnnxModule``) node by node where its bottleneck
-    plan would run, until the returned function is called."""
-    plan = (net.bottlenecks, net._bottleneck_at, net._in_stage)
-    net.bottlenecks, net._bottleneck_at = [], {}
-    net._in_stage = {i for st in net.stages for i in st.nodes}
-
-    def restore():
-        net.bottlenecks, net._bottleneck_at, net._in_stage = plan
-
-    return restore
-
-
 def phase_bottleneck(torch, np, device, card, img=None):
     """The bottleneck kernel at every chain of Face Mesh V2 and the iris
     model, on the chain's input (the network on uniform [-1, 1] inputs) and
@@ -1446,11 +1468,8 @@ def phase_bottleneck(torch, np, device, card, img=None):
     for name, res, batch in (("face_landmarks_detector.onnx", 256, 512), ("iris_landmark.onnx", 64, 1024)):
         net = load_model((ROOT / "assets" / "onnx" / name).read_bytes(), device)
         flops = analyze(net).flops
-        restore = without_bottleneck_plan(net)
-        try:
+        with net.without_plans("bottlenecks"):
             op_by_op = analyze(net).flops
-        finally:
-            restore()
         check(flops == op_by_op, f"{name}: analyze counts {flops} FLOPs with the bottleneck plan, {op_by_op} without")
         gen = torch.Generator(device=device).manual_seed(5)
         xin = torch.rand(batch, 3, res, res, device=device, generator=gen) * 2 - 1
@@ -1527,12 +1546,8 @@ def phase_bottleneck(torch, np, device, card, img=None):
 
         times = {}
         for plan in (True, False, False, True):
-            restore = None if plan else without_bottleneck_plan(iris.eye_cnn.net)
-            try:
+            with contextlib.nullcontext() if plan else iris.eye_cnn.net.without_plans("bottlenecks"):
                 dt, launches = timed_run(torch, step, "FaceTracker(iris=True)", FACE_KERNELS)
-            finally:
-                if restore:
-                    restore()
             times.setdefault(plan, []).append(dt / STEPS * 1e3)
             check((launches["bottleneck_stage"] > 0) == plan, f"iris: bottleneck launches {launches}")
         print(f"FaceTracker(iris=True) at 512, detect every 9th step: {times[True]} ms/step with the bottleneck "
@@ -1544,6 +1559,172 @@ def phase_bottleneck(torch, np, device, card, img=None):
         "bound_by": "+".join(sorted(bound_by)), "library_ms": tot["library_ms"],
         "library": "per-op chain: F.conv2d 1x1, torch.where PReLU, F.conv2d depthwise, F.conv2d 1x1, add, "
                    "torch.where PReLU",
+    }
+
+
+# The BlazeBlock kernel's random cases: (C_in, C_out, B, H, W, stride, pads,
+# relu): ragged sizes, bands and whole images, rows that are no multiple of
+# four floats, both pad splits at stride 2, more images than a launch's
+# thread block takes.
+BLAZE_BLOCK_CASES = [
+    (24, 28, 3, 37, 29, 1, (1, 1, 1, 1), True), (28, 32, 2, 20, 13, 2, (0, 0, 1, 1), True),
+    (42, 48, 5, 9, 7, 2, (1, 1, 0, 0), False), (16, 32, 3, 96, 96, 2, (0, 0, 1, 1), False),
+    (128, 128, 7, 6, 6, 2, (0, 0, 1, 1), False), (128, 128, 37, 3, 3, 2, (0, 1, 1, 0), False),
+    (88, 96, 1, 16, 16, 2, (0, 0, 1, 1), True), (80, 88, 600, 4, 4, 1, (1, 1, 1, 1), True),
+    (36, 42, 2, 30, 30, 1, (1, 1, 1, 1), False), (8, 13, 4, 64, 64, 1, (1, 1, 1, 1), False),
+]
+
+
+def phase_blaze_block(torch, np, device, card, img, main=None):
+    """The BlazeBlock kernel at random weights on ragged shapes, then at
+    every block of BlazeFace short range and Face Mesh V1 on the block's
+    input (the network on uniform [-1, 1] inputs) and the real weights, at
+    batch 512 and batch 1: within the CNN bar of the per-op chain the
+    executor runs without the plan (TF32 off), timed beside it and its
+    bound; ``analyze`` of each network with and without the plan, which must
+    agree; a forward's blocks in ``counters["blaze_blocks"]`` and its
+    launches; the refusals. ``main``: the main path's launches at 512
+    (:func:`check_blaze_block_launches` of phase 5's run); without it the
+    main path runs here on the photo ``img``, as phase 5 runs it, and is
+    checked the same way. → the ``kernels`` line's row."""
+    from zaru_tpu_torch import profiling
+    from zaru_tpu_torch.onnx import load_model
+    from zaru_tpu_torch.onnx.analysis import analyze
+    from zaru_tpu_torch.onnx.executor import _OPS
+    from zaru_tpu_torch.ops import blaze_block as bb
+
+    def within(got, want):
+        diff = (got - want).abs()
+        atol = CNN_ATOL * max(1.0, float(want.abs().max()))
+        return bool((diff <= atol + CNN_RTOL * want.abs()).all()), float(diff.max()), atol
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for c_in, c_out, B, H, W, s, pads, relu in BLAZE_BLOCK_CASES:
+            x = torch.rand(B, c_in, H, W, device=device, generator=gen) * 2 - 1
+            packed = (torch.rand(bb.row_floats(c_in, c_out), device=device, generator=gen) - 0.5) * (2.0 / c_in ** 0.5)
+            got = bb.fused_blaze_block(x, packed, c_out, s, pads, relu)
+            want = bb.blaze_block_reference(x, bb.unpack_blaze_block(packed, c_in, c_out, relu), s, pads, relu)
+            torch.cuda.synchronize()
+            ok, err, atol = within(got, want)
+            check(got.shape == want.shape and ok,
+                  f"blaze_block disagrees with its plain version at [{B},{c_in},{H},{W}] -> {c_out}, stride {s}, "
+                  f"pads {pads}: max abs err {err} (atol {atol:.3g}), tiling {bb.tiling(c_in, c_out, H, W, s, B)}")
+    print(f"blaze_block within the CNN bar of its plain version on random weights at {len(BLAZE_BLOCK_CASES)} "
+          f"ragged shapes [{card}]", flush=True)
+    tot = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    bound_by = set()
+    for name, res, want_blocks in (("face_detection_short_range.onnx", 128, 11), ("face_landmark.onnx", 192, 6)):
+        net = load_model((ROOT / "assets" / "onnx" / name).read_bytes(), device)
+        check(len(net.blaze_blocks) == want_blocks, f"{name}: {len(net.blaze_blocks)} blocks in the plan")
+        flops = analyze(net).flops
+        with net.without_plans("blaze_blocks"):
+            op_by_op = analyze(net).flops
+        check(flops == op_by_op, f"{name}: analyze counts {flops} FLOPs with the BlazeBlock plan, {op_by_op} without")
+        gen = torch.Generator(device=device).manual_seed(5)
+        xin = torch.rand(512, 3, res, res, device=device, generator=gen) * 2 - 1
+        params = net.params()
+        with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            before, launched = profiling.counters["blaze_blocks"], bb.fused_blaze_block.launches
+            fused = net(xin)
+            plain = net(xin, stages=False)
+            torch.cuda.synchronize()
+            counted = profiling.counters["blaze_blocks"] - before, bb.fused_blaze_block.launches - launched
+            check(counted == (want_blocks, want_blocks), f"{name}: a forward counted (blocks, launches) {counted}")
+            worst = max(within(a, b)[1] / within(a, b)[2] for a, b in zip(fused, plain))
+            print(f"{name} at 512, the whole network with and without the plan: largest difference "
+                  f"{worst:.3g} of the CNN bar's atol [{card}]", flush=True)
+            env = net.activations(xin, stages=False)
+            for k, blk in enumerate(net.blaze_blocks):
+                packed = net._blaze_packed[blk.nodes[-1]]
+                for b in (512, 1):
+                    x = env[blk.input][:b].contiguous()
+                    B, C, H, W = x.shape
+
+                    # The block's nodes, and a MaxPool it shares with another block.
+                    order = sorted(set(blk.nodes) | {j for j, n in enumerate(net.nodes)
+                                                     if n.op_type == "MaxPool" and n.inputs[0] == blk.input})
+
+                    def chain(x=x, blk=blk, order=order):
+                        vals = dict(params)
+                        vals[blk.input] = x
+                        for i in order:
+                            node = net.nodes[i]
+                            vals[node.outputs[0]] = _OPS[node.op_type](node, [vals[n] for n in node.inputs])
+                        return vals[blk.output]
+
+                    kernel = lambda x=x, p=packed, blk=blk: bb.fused_blaze_block(  # noqa: E731
+                        x, p, blk.c_out, blk.stride, blk.pads, blk.relu)
+                    got, ops_out = kernel(), chain()
+                    torch.cuda.synchronize()
+                    ok, err, atol = within(got, ops_out)
+                    ms = cuda_ms(torch, kernel, queued=True)
+                    chain_ms = cuda_ms(torch, chain, reps=20, queued=True)
+                    ops = bb.blaze_block_flops(tuple(x.shape), packed.shape, blk.c_out, blk.stride, blk.pads,
+                                               blk.relu)
+                    t_bytes = (x.numel() + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+                    t_ops = ops / F32_FLOPS * 1e3
+                    bound = max(t_bytes, t_ops)
+                    by = "bytes" if t_bytes >= t_ops else "operations"
+                    print(f"blaze_block, {name} block {k}: [{B},{C},{H},{W}] -> {blk.c_out}, stride {blk.stride}, "
+                          f"{'ReLU' if blk.relu else 'PReLU'} (tile rows, images "
+                          f"{bb.tiling(C, blk.c_out, H, W, blk.stride, B)}): {ms:.4f} ms, bound {bound:.4f} ms "
+                          f"({by}), {100 * bound / ms:.1f}% of it; per-op chain {chain_ms:.4f} ms; max abs err "
+                          f"{err:.3g} (atol {atol:.3g}, rtol {CNN_RTOL}) [{card}]", flush=True)
+                    check(ok, f"blaze_block disagrees with the per-op chain at {name} block {k}, batch {B}")
+                    if b == 512:
+                        for key, v in (("ms", ms), ("library_ms", chain_ms), ("bound_ms", bound)):
+                            tot[key] += v
+                        tot["err"] = max(tot["err"], err)
+                        bound_by.add(by)
+            del env
+    refusals = {
+        "5x5": lambda: bb.pack_blaze_block({"dw_w": torch.zeros(8, 1, 5, 5), "dw_b": torch.zeros(8),
+                                            "pw_w": torch.zeros(16, 8, 1, 1), "pw_b": torch.zeros(16)}, 8, 16),
+        "C_out < C_in": lambda: bb.fused_blaze_block(torch.zeros(2, 16, 8, 8, device=device),
+                                                     torch.zeros(bb.row_floats(16, 8), device=device), 8, 2,
+                                                     (0, 0, 1, 1), True),
+        "float64": lambda: bb.fused_blaze_block(torch.zeros(2, 8, 8, 8, device=device, dtype=torch.float64),
+                                                torch.zeros(bb.row_floats(8, 16), device=device), 16, 1,
+                                                (1, 1, 1, 1), True),
+        "channels_last": lambda: bb.fused_blaze_block(
+            torch.zeros(2, 8, 8, 8, device=device).to(memory_format=torch.channels_last),
+            torch.zeros(bb.row_floats(8, 16), device=device), 16, 1, (1, 1, 1, 1), True),
+    }
+    for what, fn in refusals.items():
+        try:
+            fn()
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"the BlazeBlock kernel took {what}")
+    if main is None:
+        from zaru_tpu_torch.pipeline import FaceTracker
+
+        tracker = FaceTracker(device=device)
+        frames = img.expand(512, *img.shape).contiguous()
+        box = {"state": tracker.init_state(512)}
+
+        def step(i):
+            box["state"], _out = tracker.step_batch(box["state"], frames, force_detect=(i % 9 == 0))
+
+        counted = {}
+        _dt, launches = timed_run(torch, step, "main path", FACE_KERNELS, counted)
+        main = check_blaze_block_launches("main path, batch 512", launches, counted)
+    print(f"blaze_block, the 17 blocks of BlazeFace short range and Face Mesh V1 at batch 512: {tot['ms']:.4f} ms, "
+          f"bound {tot['bound_ms']:.4f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}%), per-op chain "
+          f"{tot['library_ms']:.4f} ms; refused {sorted(refusals)}; main path at 512: {main['launches']} launches "
+          f"in {main['steps']} steps, {main['detect_steps']} of them detect steps, "
+          f"{main['launches'] / main['steps']:.3f} launches/step [{card}]", flush=True)
+    return {
+        "name": "blaze_block", "route": "cuda", "source": "zaru_tpu_torch/csrc/blaze_block.cu",
+        "replaces": "none (XLA's per-op blocks)",
+        "path": "BlazeFace short range's 11 and Face Mesh V1's 6 blocks at batch 512",
+        "launches": main["launches"], "steps": main["steps"], "detect_steps": main["detect_steps"],
+        "max_abs_err": tot["err"], "ms": tot["ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "+".join(sorted(bound_by)), "library_ms": tot["library_ms"],
+        "library": "per-op chain: F.pad, F.conv2d depthwise, F.conv2d 1x1, max_pool2d, F.pad, add, "
+                   "torch.relu or torch.where PReLU",
     }
 
 
@@ -3321,13 +3502,8 @@ def phase_analysis_full_size(torch, device, card, tracker, batch=512):
 
     for what, cnn in (("BlazeFace short-range", tracker.det_cnn), ("Face Mesh V1", tracker.lm_cnn)):
         rep = analyze(cnn.net, what)
-        m = cnn.net
-        plan = (m.stages, m._stage_at, m._in_stage)
-        m.stages, m._stage_at, m._in_stage = [], {}, set()
-        try:
+        with cnn.net.without_plans():
             op_by_op = analyze(cnn.net, what).flops
-        finally:
-            m.stages, m._stage_at, m._in_stage = plan
         check(op_by_op == rep.flops, f"{what}: analyze counts {rep.flops} FLOPs with the stage plan, {op_by_op} without")
         res = cnn.input_resolution()
         x = torch.rand(batch, 3, res.height, res.width, device=device) * 2 - 1
@@ -3753,7 +3929,11 @@ def main() -> int:
     print(f"build: {len(_build.SOURCES)} kernel sources in {_build.build_all():.1f} s "
           f"({' '.join(_build.NVCC_FLAGS)})", flush=True)
 
-    if "--bottleneck" in sys.argv[1:]:
+    if "--blaze-block" in sys.argv[1:]:
+        _rgba, img = load_photo(torch, np, device)
+        kernels = [timed_phase("6, the BlazeBlock kernel", phase_blaze_block, torch, np, device, smi, img)]
+        print(json.dumps({"kernels": kernels}), flush=True)
+    elif "--bottleneck" in sys.argv[1:]:
         _rgba, img = load_photo(torch, np, device)
         kernels = [timed_phase("6, the bottleneck kernel", phase_bottleneck, torch, np, device, smi, img)]
         print(json.dumps({"kernels": kernels}), flush=True)
@@ -3849,6 +4029,7 @@ def run_phases(torch, np, device, smi):
                                      "Cnn with NHWC-layout modules", nhwc=True))
     kernels.append(phase_yuv_times(torch, rgb, launches["rgb_to_yuv"]))
     kernels.append(phase_bottleneck(torch, np, device, smi, img))
+    kernels.append(phase_blaze_block(torch, np, device, smi, img, runs["blaze_block"]))
     phase_kernel_times(torch, hand_frames, hands.lm_cnn, hands.det_cnn, seed, multi["hand tracking"],
                        "hand tracking run", prescale_m=256)
     v2, v2_state, v2_launches = models["FaceTracker(landmarker=FaceMeshV2())"]

@@ -267,10 +267,6 @@ def test_flop_formula_counts_the_nodes(k, nets):
     assert _flops(lambda: bn.bottleneck_stage_op(x, packed)) == want
     assert want == bn.bottleneck_flops(tuple(x.shape), tuple(packed.shape))
     if k == 0:
-        plan = (net.bottlenecks, net._bottleneck_at, net._in_stage)
         with_plan = analyze(net).flops
-        net.bottlenecks, net._bottleneck_at, net._in_stage = [], {}, set()
-        try:
+        with net.without_plans("bottlenecks"):
             assert analyze(net).flops == with_plan == 236374173
-        finally:
-            net.bottlenecks, net._bottleneck_at, net._in_stage = plan

@@ -103,6 +103,25 @@ chain; on the CPU the plain per-op chain), with its packed weights built
 as the stages' are. A bf16 or NHWC module builds no
 bottleneck plan and runs these blocks node by node.
 
+**BlazeBlock plan.** An f32 NCHW module also finds the BlazeBlocks whose
+residual is not their plain input (:func:`find_blaze_blocks`): a depthwise
+3×3 ``Conv`` (``group == C_in``, a bias, stride 1 with pads 1, or stride 2
+with one pixel of padding an axis) → a 1×1 ``Conv`` C_in→C_out with a
+bias → an ``Add`` with ``Pad(x)`` (channels only, zeros, C_in→C_out),
+``MaxPool(x)`` (2×2, stride 2, C_out == C_in) or ``Pad(MaxPool(x))``, where
+``x`` is the depthwise conv's input → ``Relu`` or ``PRelu`` with C_out
+slopes; C_out > C_in at stride 1 (the stride-1 blocks of one width are the
+stage plan's). Every intermediate is read by its one consumer only, but
+the ``MaxPool``: two blocks may share one (Face Mesh V1), each pooling its
+own input, and the node runs only where something outside the plan's
+blocks reads it. Each block runs as one
+``ops.blaze_block.fused_blaze_block`` call (on CUDA one launch of the
+BlazeBlock kernel, on the CPU the plain per-op block) with its packed
+weights built as the stages' are. A bf16 or NHWC module builds no
+BlazeBlock plan and runs these blocks node by node.
+:meth:`OnnxModule.without_plans` runs the nodes of chosen plans one by one
+for a while (to count or time the graph without them).
+
 The other convolutions stay ``F.conv2d`` (cuDNN on the GPU), as the JAX
 package left them to XLA. cuDNN runs f32 convolutions in TF32 by default,
 which keeps about three decimal digits and breaks the repo's CNN bar
@@ -148,7 +167,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -156,11 +175,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import profiling
-from ..ops import bottleneck, cnn_stage
+from ..ops import blaze_block, bottleneck, cnn_stage
 from . import layout as _layout
 from .proto import TENSOR_DTYPES, OnnxModel, OnnxNode
 
-__all__ = ["Bottlenecks", "OnnxModule", "SUPPORTED_OPS", "Stage", "find_bottlenecks", "find_stages", "resize"]
+__all__ = ["BlazeBlock", "Bottlenecks", "OnnxModule", "PLANS", "SUPPORTED_OPS", "Stage", "find_blaze_blocks",
+           "find_bottlenecks", "find_stages", "resize"]
 
 
 def _static(node, vals, idx: int, what: str) -> np.ndarray:
@@ -1280,6 +1300,152 @@ def find_bottlenecks(model: OnnxModel) -> list[Bottlenecks]:
     return chains
 
 
+@dataclass(frozen=True)
+class BlazeBlock:
+    """A BlazeBlock with a pooled or channel-padded residual: its input and
+    output value names, its widths, stride, the depthwise's pads ``(top,
+    left, bottom, right)``, whether its activation is a ReLU, its
+    initializer names (``dw_w``, ``dw_b``, ``pw_w``, ``pw_b``, ``alpha``;
+    ``alpha`` None for a ReLU) and the indices of the nodes it replaces, in
+    graph order (the activation last)."""
+
+    input: str
+    output: str
+    c_in: int
+    c_out: int
+    stride: int
+    pads: tuple
+    relu: bool
+    names: dict
+    nodes: tuple
+
+
+def _channel_pad(node, inits, c_in: int) -> int | None:
+    """The channels a ``Pad`` node adds at the end of axis 1 of a 4-D value
+    with zeros, padding nothing else, or None."""
+    if node.op_type != "Pad" or _str(node.attrs.get("mode", "constant")) != "constant":
+        return None
+    pads = node.attrs.get("pads")
+    if pads is None and len(node.inputs) > 1:
+        pads = inits.get(node.inputs[1])
+        pads = None if pads is None else pads.tolist()
+    value = node.attrs.get("value", 0.0)
+    if len(node.inputs) > 2 and node.inputs[2]:
+        v = inits.get(node.inputs[2])
+        value = None if v is None or v.size != 1 else float(v.reshape(-1)[0])
+    if pads is None or len(pads) != 8 or value != 0.0:
+        return None
+    if any(pads[k] for k in (0, 1, 2, 3, 4, 6, 7)) or pads[5] <= 0:
+        return None
+    return int(pads[5])
+
+
+def _max_pool_2x2(node) -> bool:
+    a = node.attrs
+    return (node.op_type == "MaxPool" and len(node.outputs) == 1 and a.get("kernel_shape") == [2, 2]
+            and a.get("strides") == [2, 2] and not any(a.get("pads") or [])
+            and a.get("auto_pad", "NOTSET") in ("NOTSET", "VALID") and not a.get("ceil_mode", 0)
+            and a.get("dilations", [1, 1]) == [1, 1] and not a.get("storage_order", 0))
+
+
+def _blaze_block_at(nodes, i, consumers, producer, inits):
+    """The BlazeBlock whose depthwise conv is ``nodes[i]``, as a
+    :class:`BlazeBlock` (its pool, if any, among its nodes), or None."""
+    dw = nodes[i]
+    if dw.op_type != "Conv" or len(dw.inputs) != 3 or dw.inputs[2] not in inits:
+        return None
+    x, w, b = dw.inputs
+    wt = inits.get(w)
+    if wt is None or wt.ndim != 4:
+        return None
+    c_in = wt.shape[0]
+    a = dw.attrs
+    strides, pads = a.get("strides", [1, 1]), a.get("pads") or [0, 0, 0, 0]
+    if (wt.shape != (c_in, 1, 3, 3) or a.get("group") != c_in or a.get("auto_pad", "NOTSET") != "NOTSET"
+            or a.get("dilations", [1, 1]) != [1, 1] or strides not in ([1, 1], [2, 2]) or len(pads) != 4):
+        return None
+    stride = strides[0]
+    pt, pl, pb, pr = pads
+    if stride == 1 and pads != [1, 1, 1, 1]:
+        return None
+    if stride == 2 and not (pt + pb == 1 and pl + pr == 1 and min(pads) >= 0):
+        return None
+
+    def only(name, *ops):
+        cs = consumers.get(name, [])
+        return cs[0] if len(cs) == 1 and cs[0] >= 0 and nodes[cs[0]].op_type in ops else None
+
+    j = only(dw.outputs[0], "Conv")
+    if j is None:
+        return None
+    pw = nodes[j]
+    pa = pw.attrs
+    pwt = inits.get(pw.inputs[1])
+    if (len(pw.inputs) != 3 or pw.inputs[0] != dw.outputs[0] or pwt is None or pwt.ndim != 4
+            or pwt.shape[1:] != (c_in, 1, 1) or pw.inputs[2] not in inits or pa.get("group", 1) != 1
+            or any(pa.get("pads") or []) or pa.get("auto_pad", "NOTSET") not in ("NOTSET", "VALID")
+            or pa.get("strides", [1, 1]) != [1, 1] or pa.get("dilations", [1, 1]) != [1, 1]):
+        return None
+    c_out = pwt.shape[0]
+    if c_out < c_in or (c_out == c_in and stride == 1):
+        return None
+    k = only(pw.outputs[0], "Add")
+    if k is None or len(nodes[k].inputs) != 2 or pw.outputs[0] not in nodes[k].inputs:
+        return None
+    add = nodes[k]
+    r = add.inputs[1] if add.inputs[0] == pw.outputs[0] else add.inputs[0]
+    # The residual, from the Add back to x: Pad, then MaxPool at stride 2.
+    taken, src = [], r
+    if c_out > c_in:
+        pad = producer.get(src)
+        if pad is None or only(src, "Add") != k or _channel_pad(nodes[pad], inits, c_in) != c_out - c_in:
+            return None
+        taken.append(pad)
+        src = nodes[pad].inputs[0]
+    if stride == 2:
+        pool = producer.get(src)
+        if pool is None or not _max_pool_2x2(nodes[pool]):
+            return None
+        taken.append(pool)
+        src = nodes[pool].inputs[0]
+    if src != x:
+        return None
+    act = only(add.outputs[0], "PRelu", "Relu")
+    if act is None or nodes[act].inputs[0] != add.outputs[0]:
+        return None
+    slope = None
+    if nodes[act].op_type == "PRelu":
+        slope = nodes[act].inputs[1]
+        if slope not in inits or inits[slope].size != c_out:
+            return None
+    names = {"dw_w": w, "dw_b": b, "pw_w": pw.inputs[1], "pw_b": pw.inputs[2], "alpha": slope}
+    return BlazeBlock(x, nodes[act].outputs[0], c_in, c_out, stride, (pt, pl, pb, pr), slope is None, names,
+                      tuple(sorted([i, j, k, act, *taken])))
+
+
+def find_blaze_blocks(model: OnnxModel) -> list[BlazeBlock]:
+    """The graph's BlazeBlocks with a pooled or channel-padded residual that
+    the BlazeBlock kernel takes (see the module docstring). A ``MaxPool``
+    stays among a block's nodes only where every reader of its output is a
+    node of the found blocks; else it runs as a node too, and each block
+    pools its own input."""
+    g = model.graph
+    nodes = g.nodes
+    consumers: dict[str, list[int]] = {}
+    for i, n in enumerate(nodes):
+        for name in n.inputs:
+            consumers.setdefault(name, []).append(i)
+    for vi in g.outputs:
+        consumers.setdefault(vi.name, []).append(-1)
+    producer = {o: i for i, n in enumerate(nodes) for o in n.outputs}
+    found = [b for b in (_blaze_block_at(nodes, i, consumers, producer, g.initializers) for i in range(len(nodes)))
+             if b is not None]
+    pools = {k for b in found for k in b.nodes if nodes[k].op_type == "MaxPool"}
+    inside = {k for b in found for k in b.nodes} - pools
+    shared = {k for k in pools if not set(consumers.get(nodes[k].outputs[0], [])) <= inside}
+    return [replace(b, nodes=tuple(k for k in b.nodes if k not in shared)) for b in found]
+
+
 def _live_nodes(nodes, outputs) -> set[int]:
     """Indices of the nodes that ``outputs`` depend on."""
     needed, live = set(outputs), set()
@@ -1288,6 +1454,10 @@ def _live_nodes(nodes, outputs) -> set[int]:
             live.add(i)
             needed.update(n for n in nodes[i].inputs if n)
     return live
+
+
+# The plans a module may build, as its attributes name them.
+PLANS = ("stages", "bottlenecks", "blaze_blocks")
 
 
 class OnnxModule(nn.Module):
@@ -1349,11 +1519,38 @@ class OnnxModule(nn.Module):
         self.output_info = [info[n] for n in self.output_names]
         self._live = _live_nodes(g.nodes, self.output_names)
         self.stages = [] if compute_dtype else find_stages(model)
-        self._stage_at = {st.nodes[0]: st for st in self.stages}
         self.bottlenecks = [] if compute_dtype or self.layout == "NHWC" else find_bottlenecks(model)
-        self._bottleneck_at = {bn.nodes[0]: bn for bn in self.bottlenecks}
-        self._in_stage = {i for st in self.stages + self.bottlenecks for i in st.nodes}
+        self.blaze_blocks = [] if compute_dtype or self.layout == "NHWC" else find_blaze_blocks(model)
+        self._index_plans()
         self._derive_weights()
+
+    def _index_plans(self) -> None:
+        """Each plan's entries by the node that runs them, and every node a
+        plan runs, from ``stages``, ``bottlenecks`` and ``blaze_blocks``."""
+        self._stage_at = {st.nodes[0]: st for st in self.stages}
+        self._bottleneck_at = {bn.nodes[0]: bn for bn in self.bottlenecks}
+        self._blaze_at = {blk.nodes[-1]: blk for blk in self.blaze_blocks}
+        self._in_stage = {i for st in self.stages + self.bottlenecks + self.blaze_blocks for i in st.nodes}
+
+    @contextlib.contextmanager
+    def without_plans(self, *kinds: str):
+        """Inside the block, the plans named in ``kinds`` (``"stages"``,
+        ``"bottlenecks"``, ``"blaze_blocks"``; all three where none is named)
+        are empty and their nodes run one by one; the others run as
+        planned. The packed weights are kept: load no parameters inside."""
+        unknown = set(kinds) - set(PLANS)
+        if unknown:
+            raise ValueError(f"unknown plans {sorted(unknown)}; have {list(PLANS)}")
+        kept = {kind: getattr(self, kind) for kind in kinds or PLANS}
+        for kind in kept:
+            setattr(self, kind, [])
+        self._index_plans()
+        try:
+            yield self
+        finally:
+            for kind, plan in kept.items():
+                setattr(self, kind, plan)
+            self._index_plans()
 
     def _plan_values(self, model: OnnxModel) -> None:
         """The steps (:class:`Step`): which nodes run on the host, which
@@ -1415,8 +1612,8 @@ class OnnxModule(nn.Module):
 
     @torch.no_grad()
     def _derive_weights(self) -> None:
-        """The stage and bottleneck kernels' packed weights and, in bf16, the
-        parameters' cast copy, from the current parameters."""
+        """The stage, bottleneck and BlazeBlock kernels' packed weights and,
+        in bf16, the parameters' cast copy, from the current parameters."""
         params = self.params()
         self._compute_params = (
             {k: v.to(self.compute_dtype) for k, v in params.items()} if self.compute_dtype else params
@@ -1432,6 +1629,11 @@ class OnnxModule(nn.Module):
             bn.nodes[0]: bottleneck.pack_bottlenecks([{k: params[v] for k, v in b.items()} for b in bn.blocks],
                                                      bn.channels)
             for bn in self.bottlenecks
+        }
+        self._blaze_packed = {
+            i: blaze_block.pack_blaze_block({k: None if v is None else params[v] for k, v in blk.names.items()},
+                                            blk.c_in, blk.c_out)
+            for i, blk in self._blaze_at.items()
         }
 
     def params(self) -> dict[str, torch.Tensor]:
@@ -1458,8 +1660,9 @@ class OnnxModule(nn.Module):
         """Every value the selected outputs depend on, by name (a chain's
         inner values are not computed), for ``inputs``: device values as
         tensors, host values as numpy arrays. ``stages=False`` runs the
-        chains node by node too: the graph JAX differentiates (the stage
-        and bottleneck kernels' ops have no gradient)."""
+        chains and blocks node by node too: the graph JAX differentiates
+        (the stage, bottleneck and BlazeBlock kernels' ops have no
+        gradient)."""
         if len(inputs) != len(self.input_info):
             raise ValueError(f"expected {len(self.input_info)} inputs, got {len(inputs)}")
         dtype = self.compute_dtype
@@ -1488,6 +1691,12 @@ class OnnxModule(nn.Module):
                     x = env[bn.input]
                     env[bn.output] = bottleneck.fused_bottlenecks(
                         x, self._bottleneck_packed[i], x.shape[2], x.shape[3], bn.channels
+                    )
+                    continue
+                blk = self._blaze_at.get(i) if stages else None
+                if blk is not None:
+                    env[blk.output] = blaze_block.fused_blaze_block(
+                        env[blk.input], self._blaze_packed[i], blk.c_out, blk.stride, blk.pads, blk.relu
                     )
                     continue
                 if stages and i in self._in_stage:

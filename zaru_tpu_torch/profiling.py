@@ -16,8 +16,10 @@
   executor made of host values it had not copied before),
   ``kernel_builds`` (CUDA sources compiled by ``ops/_build.build_all``),
   ``bottleneck_blocks`` (residual bottleneck blocks run through the
-  executor's fused chains, ``ops/bottleneck.fused_bottlenecks``) and
-  ``eye_crops`` (eye crops the iris network ran on, two a stream a step).
+  executor's fused chains, ``ops/bottleneck.fused_bottlenecks``),
+  ``blaze_blocks`` (BlazeBlocks with a pooled or channel-padded residual
+  run through ``ops/blaze_block.fused_blaze_block``, 11 a BlazeFace short
+  range forward, 6 a Face Mesh V1 forward) and ``eye_crops`` (eye crops the iris network ran on, two a stream a step).
 - :func:`reset`: zeroes the counters.
 
 The spans of a tracker step (``pipeline/face_cascade.py``): ``zaru.step``
@@ -27,7 +29,8 @@ around ``zaru.detect`` (``.sample``, ``.net``, ``.tail``),
 around each host sync (:func:`sync`); ``zaru.build.kernels`` and
 ``zaru.build.host_copy`` where the step builds something it keeps;
 ``zaru.net.bottleneck`` around each fused chain of bottleneck blocks in a
-network (``ops/bottleneck.fused_bottlenecks``). The
+network (``ops/bottleneck.fused_bottlenecks``) and ``zaru.net.blaze_block``
+around each fused BlazeBlock (``ops/blaze_block.fused_blaze_block``). The
 serve loop adds ``zaru.serve.stage``, ``zaru.serve.flush``,
 ``zaru.sync.emit`` and ``zaru.serve.gather``.
 """
@@ -45,7 +48,7 @@ import torch.autograd.profiler as _profiler
 __all__ = ["annotate", "counters", "reset", "span", "sync", "trace"]
 
 counters = {"steps": 0, "detect_steps": 0, "host_syncs": 0, "host_copies": 0, "kernel_builds": 0,
-            "bottleneck_blocks": 0, "eye_crops": 0}
+            "bottleneck_blocks": 0, "blaze_blocks": 0, "eye_crops": 0}
 
 
 @contextmanager
