@@ -917,28 +917,24 @@ MULTI_BATCH = 128  # streams of the multi-object runs (4 slots each: 512 crops a
 
 
 def launch_counters():
-    """Each kernel's wrapper and the attribute that counts its kernel's
+    """Each kernel's name → the ``profiling.counters`` key that counts its
     launches (the stage kernel counts its NHWC variant apart)."""
-    from zaru_tpu_torch.ops.blaze_block import fused_blaze_block
-    from zaru_tpu_torch.ops.bottleneck import fused_bottlenecks
-    from zaru_tpu_torch.ops.cnn_stage import fused_blocks
-    from zaru_tpu_torch.ops.letterbox import letterbox_sample
-    from zaru_tpu_torch.ops.rotated_fast import rotated_sample_fast
-    from zaru_tpu_torch.ops.yuv import rgb_to_yuv_fast
+    from zaru_tpu_torch import profiling
 
-    return {"rotated_sample": (rotated_sample_fast, "launches"), "letterbox_sample": (letterbox_sample, "launches"),
-            "blaze_stage": (fused_blocks, "launches"), "blaze_stage_nhwc": (fused_blocks, "nhwc_launches"),
-            "rgb_to_yuv": (rgb_to_yuv_fast, "launches"), "bottleneck_stage": (fused_bottlenecks, "launches"),
-            "blaze_block": (fused_blaze_block, "launches")}
+    return {key.removeprefix("launches."): key for key in profiling.counters if key.startswith("launches.")}
 
 
 def zero_launches():
-    for fn, attr in launch_counters().values():
-        setattr(fn, attr, 0)
+    from zaru_tpu_torch import profiling
+
+    for key in launch_counters().values():
+        profiling.counters[key] = 0
 
 
 def read_launches():
-    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
+    from zaru_tpu_torch import profiling
+
+    return {name: profiling.counters[key] for name, key in launch_counters().items()}
 
 
 def timed_run(torch, step, what, kernels, counted=None):
@@ -1475,9 +1471,10 @@ def phase_bottleneck(torch, np, device, card, img=None):
         xin = torch.rand(batch, 3, res, res, device=device, generator=gen) * 2 - 1
         params = net.params()
         with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            env = net.activations(xin, stages=False)
+            with net.without_plans():
+                env = net.activations(xin)
             for k, bn in enumerate(net.bottlenecks):
-                packed = net._bottleneck_packed[bn.nodes[0]]
+                packed = net._packed[bn.at]
                 for b in (batch, 1):
                     x = env[bn.input][:b].contiguous()
                     B, C, H, W = x.shape
@@ -1625,18 +1622,20 @@ def phase_blaze_block(torch, np, device, card, img, main=None):
         xin = torch.rand(512, 3, res, res, device=device, generator=gen) * 2 - 1
         params = net.params()
         with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            before, launched = profiling.counters["blaze_blocks"], bb.fused_blaze_block.launches
+            before = dict(profiling.counters)
             fused = net(xin)
-            plain = net(xin, stages=False)
+            with net.without_plans():
+                plain = net(xin)
             torch.cuda.synchronize()
-            counted = profiling.counters["blaze_blocks"] - before, bb.fused_blaze_block.launches - launched
+            counted = tuple(profiling.counters[k] - before[k] for k in ("blaze_blocks", "launches.blaze_block"))
             check(counted == (want_blocks, want_blocks), f"{name}: a forward counted (blocks, launches) {counted}")
             worst = max(within(a, b)[1] / within(a, b)[2] for a, b in zip(fused, plain))
             print(f"{name} at 512, the whole network with and without the plan: largest difference "
                   f"{worst:.3g} of the CNN bar's atol [{card}]", flush=True)
-            env = net.activations(xin, stages=False)
+            with net.without_plans():
+                env = net.activations(xin)
             for k, blk in enumerate(net.blaze_blocks):
-                packed = net._blaze_packed[blk.nodes[-1]]
+                packed = net._packed[blk.at]
                 for b in (512, 1):
                     x = env[blk.input][:b].contiguous()
                     B, C, H, W = x.shape
@@ -2981,7 +2980,7 @@ def phase_stage_nhwc_vs_plain(torch, np, device):
             for k, st in enumerate(net.stages):
                 _, C, H, W = env[st.input].shape
                 x = (torch.rand((512, C, H, W), generator=gen) * 2 - 1).to(device)
-                packed = net._packed[st.nodes[0]]
+                packed = net._packed[st.at]
                 x_cl = x.contiguous(memory_format=torch.channels_last)
                 got, ref = fused_blocks(x_cl, packed, H, W, C), fused_blocks(x, packed, H, W, C)
                 want = blaze_blocks_reference(x_cl, unpack_blocks(packed, C))
@@ -3584,7 +3583,8 @@ def phase_trainer(torch, np, device, card):
         zero_launches()
         fused = net.module(xd)[0]
         stage = read_launches()["blaze_stage"]
-        op_by_op = net.module(xd, stages=False)[0]
+        with net.module.without_plans():
+            op_by_op = net.module(xd)[0]
     err = float((fused - op_by_op).abs().max())
     tol = 1e-3 * max(1.0, float(op_by_op.abs().max()))
     print(f"after training: inference through the stage kernel ({stage} launches) against the op-by-op graph on "
@@ -3640,7 +3640,6 @@ def phase_writer_on_card(torch, np, device):
     and the output within the CNN bar of the same graph on the CPU."""
     from zaru_tpu_torch.onnx import load_model, writer
     from zaru_tpu_torch.onnx import writer_cases as cases
-    from zaru_tpu_torch.ops.cnn_stage import fused_blocks
 
     stored = cases.stored()
     same = {k: g(writer) == stored[k] for k, g in cases.GRAPHS.items()}
@@ -3651,11 +3650,11 @@ def phase_writer_on_card(torch, np, device):
     xd = torch.from_numpy(x).to(device)
     calls = 3
     with torch.inference_mode():
-        before = fused_blocks.launches
+        before = read_launches()["blaze_stage"]
         for _ in range(calls):
             (out,) = module(xd)
         torch.cuda.synchronize()
-        launches = fused_blocks.launches - before
+        launches = read_launches()["blaze_stage"] - before
         (want,) = cpu(torch.from_numpy(x))
     got = out.cpu()
     err = float((got - want).abs().max())

@@ -12,7 +12,7 @@ against zaru_tpu/bench_programs.py, on the CPU.
   within 1e-5 (``_assert_step_close``'s bar), every step's tracking flag
   equal, and the later steps, where the two trackers run free and drift
   apart ("Chaos" in ROADMAP.md), within the measured bounds below.
-  ``test_fixture_is_current`` runs JAX's scan again in a spawned process.
+  ``test_fixture_is_current`` runs JAX's scan again, in the test process.
   Regenerate the fixture with::
 
       JAX_PLATFORMS=cpu python tests/test_torch_bench_programs.py
@@ -27,7 +27,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_port import jax_processes, one_torch_thread  # noqa: E402,F401
+from torch_port import one_torch_thread  # noqa: E402,F401
 
 FIXTURE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -162,8 +162,7 @@ def test_cascade_scan_matches_jax(stored, port_run):
 def test_fixture_is_current(stored):
     """The stored run is what zaru_tpu's ``build_cascade_scan`` computes now
     (held to 1e-3, as the other fixtures are)."""
-    with jax_processes(1) as pool:
-        live = pool.submit(jax_scan_arrays).result()
+    live = jax_scan_arrays()
     assert set(live) == set(stored)
     for k, v in live.items():
         if v.dtype.kind == "f":

@@ -38,7 +38,7 @@ zaru_tpu's ``compute_dtype=jnp.bfloat16``, on the CPU.
 
 JAX's results are stored in ``zaru_tpu_torch/fixtures/bf16_models.npz``
 (``chip_smoke.py`` replays the networks and the tracker steps on the GPU).
-Only ``test_fixture_is_current`` runs JAX, in spawned processes.
+Only ``test_fixture_is_current`` runs JAX, in the test process.
 Regenerate it with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_bf16.py
@@ -56,7 +56,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import stub_models  # noqa: E402
-from torch_port import jax_processes, numpy_params, one_torch_thread  # noqa: E402,F401
+from torch_port import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "zaru_tpu_torch", "fixtures")
@@ -349,13 +349,20 @@ def jax_tracker(name, model_dir):
         out.update(flatten(state, f"track/{name}/{t}/state/"))
         state, step_out = tracker._step_batch_gated(tracker.params, state, jnp.asarray(frames_for(rgba, zeroed)), force)
         out.update(flatten(step_out, f"track/{name}/{t}/out/"))
-    return out, numpy_params(tracker.params)
+    return out, tracker.params
 
 
-def jax_now(pool, model_dir):
-    futs = {"ops": pool.submit(jax_ops), "nets": pool.submit(jax_nets, model_dir)}
-    futs.update((name, pool.submit(jax_tracker, name, model_dir)) for name in TRACKERS)
-    return futs
+def jax_now(model_dir):
+    """Every JAX result the fixture stores, and the params of each network
+    and of each tracker."""
+    now = jax_ops()
+    nets, net_params = jax_nets(model_dir)
+    now.update(nets)
+    tracker_params = {}
+    for name in TRACKERS:
+        arrays, tracker_params[name] = jax_tracker(name, model_dir)
+        now.update(arrays)
+    return now, net_params, tracker_params
 
 
 def regen():
@@ -363,10 +370,7 @@ def regen():
 
     with tempfile.TemporaryDirectory() as d:
         write_stubs(d)
-        arrays = jax_ops()
-        arrays.update(jax_nets(d)[0])
-        for name in TRACKERS:
-            arrays.update(jax_tracker(name, d)[0])
+        arrays = jax_now(d)[0]
     np.savez_compressed(FIXTURE, **arrays)
     print(f"wrote {FIXTURE}")
 
@@ -410,15 +414,7 @@ def test_fixture_is_current(stored, stub_dir):
     networks hold JAX's weights bit for bit."""
     from zaru_tpu_torch.weights import network_params_from_jax, params_from_jax
 
-    with jax_processes(2 + len(TRACKERS)) as pool:
-        futs = jax_now(pool, stub_dir)
-        now = dict(futs["ops"].result())
-        nets, net_params = futs["nets"].result()
-        now.update(nets)
-        tracker_params = {}
-        for name in TRACKERS:
-            arrays, tracker_params[name] = futs[name].result()
-            now.update(arrays)
+    now, net_params, tracker_params = jax_now(stub_dir)
     assert set(now) == set(stored)
     for k, v in now.items():
         if k.startswith("op/") or v.dtype.kind != "f":
@@ -473,8 +469,8 @@ def test_network_matches_jax(stored, stub_dir, name):
 def test_bf16_module_has_no_stage_plan(monkeypatch):
     """Face Mesh V1 in bf16 has an empty stage plan and never reaches the
     stage kernel's wrapper; in f32 it has its 8 chains."""
-    from zaru_tpu_torch.onnx import executor
     from zaru_tpu_torch.onnx import load_model
+    from zaru_tpu_torch.ops import cnn_stage
 
     path = os.path.join(ONNX_DIR, "face_landmark.onnx")
     assert len(load_model(path, torch.device("cpu")).stages) == 8
@@ -484,7 +480,7 @@ def test_bf16_module_has_no_stage_plan(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a bf16 module called fused_blocks")
 
-    monkeypatch.setattr(executor.cnn_stage, "fused_blocks", refuse)
+    monkeypatch.setattr(cnn_stage, "fused_blocks", refuse)
     with torch.inference_mode():
         outs = m(torch.from_numpy(net_input("face_mesh_v1", batch=1)))
     assert all(o.dtype == torch.float32 for o in outs)

@@ -1,21 +1,16 @@
 """The port's fused BlazeBlock with a pooled or channel-padded residual
-(zaru_tpu_torch.ops.blaze_block) and the executor's BlazeBlock plan, on the
-CPU.
+(zaru_tpu_torch.ops.blaze_block), on the CPU. The plan that finds the
+blocks is tested with the other plans in test_torch_fusion.py.
 
-- The plan finds 11 blocks in BlazeFace short range, 6 in Face Mesh V1
-  (all stride 2, two sharing one MaxPool) and none in the other bundled
-  models; bf16 and NHWC modules build no plan.
-- With the plan, each forward equals the node-by-node run bit for bit (on
-  the CPU a block runs the executor's own nodes).
-- Packing round-trips; ``load_params`` repacks; the launch's tiling fits
-  the shared memory; the CUDA wrapper raises on what the kernel does not
-  take and falls back to nothing.
-- Each forward counts its blocks in ``profiling.counters`` and marks each
-  with the span ``zaru.net.blaze_block``; the registered op's FLOP formula
-  counts what ``onnx/analysis.analyze`` counts for the nodes.
+- Face Mesh V1's two last blocks share one MaxPool, which runs only where
+  something else reads it.
+- Packing round-trips; the launch's tiling fits the shared memory; the
+  CUDA wrapper raises on what the kernel does not take and falls back to
+  nothing; on the CPU the op is the plain block.
+- The registered op's FLOP formula counts what ``onnx/analysis.analyze``
+  counts for the nodes.
 """
 
-import json
 import os
 import sys
 
@@ -27,7 +22,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from torch_port import one_torch_thread  # noqa: E402,F401
 
-from zaru_tpu_torch import profiling  # noqa: E402
 from zaru_tpu_torch.assets import model_path  # noqa: E402
 from zaru_tpu_torch.onnx import executor as ex  # noqa: E402
 from zaru_tpu_torch.onnx import load_model  # noqa: E402
@@ -47,9 +41,6 @@ BLOCKS = {
     V1: (192, [(16, 32, 2, 96, False), (32, 64, 2, 48, False), (64, 128, 2, 24, False), (128, 128, 2, 12, False),
                (128, 128, 2, 6, False), (128, 128, 2, 6, False)]),
 }
-OTHERS = ["face_detection_full_range.onnx", "face_landmarks_detector.onnx", "hand_landmark_lite.onnx",
-          "iris_landmark.onnx", "landmarks_68_pfld.onnx", "mobilefacenet.onnx", "palm_detection_lite.onnx",
-          "slim_160_latest.onnx"]
 PADS = {1: (1, 1, 1, 1), 2: (0, 0, 1, 1)}
 
 
@@ -69,27 +60,6 @@ def _block(rng, c_in, c_out, relu=False):
             "alpha": None if relu else rng.uniform(0.05, 0.3, c_out).astype(np.float32)}
 
 
-@pytest.mark.parametrize("name", sorted(BLOCKS))
-def test_plan_finds_the_blocks(name, nets):
-    """Blocks of the listed widths, strides and sizes, each output of the
-    depthwise's size; a block's nodes: the depthwise, the 1×1, the Pad, the
-    MaxPool, the Add and the activation."""
-    net = nets[name]
-    res, want = BLOCKS[name]
-    env = net.activations(_input(res, 1))
-    got = [(b.c_in, b.c_out, b.stride, env[b.input].shape[2], b.relu) for b in net.blaze_blocks]
-    assert got == want
-    for b in net.blaze_blocks:
-        assert b.pads == PADS[b.stride]
-        assert env[b.output].shape == (1, b.c_out, env[b.input].shape[2] // b.stride,
-                                       env[b.input].shape[3] // b.stride)
-        ops = sorted(net.nodes[i].op_type for i in b.nodes)
-        want_ops = ["Add", "Conv", "Conv", "PRelu" if not b.relu else "Relu"]
-        want_ops += ["Pad"] * (b.c_out > b.c_in) + ["MaxPool"] * (b.stride == 2)
-        assert ops == sorted(want_ops)
-        assert b.nodes[-1] == max(b.nodes) and net.nodes[b.nodes[-1]].outputs[0] == b.output
-
-
 def test_a_shared_max_pool_runs_only_when_read_outside(nets):
     """Face Mesh V1's two last blocks share one MaxPool: it is among both
     blocks' nodes and is not run, as nothing else reads it; where something
@@ -98,85 +68,21 @@ def test_a_shared_max_pool_runs_only_when_read_outside(nets):
     last = net.blaze_blocks[-2:]
     assert last[0].input == last[1].input
     (pool,) = [i for i, n in enumerate(net.nodes) if n.op_type == "MaxPool" and n.inputs[0] == last[0].input]
-    assert all(pool in b.nodes for b in last) and pool in net._in_stage
+    assert all(pool in b.nodes for b in last) and pool in net._in_plan
     env = net.activations(_input(192, 1))
     assert net.nodes[pool].outputs[0] not in env
     model = parse_model(model_path(V1).read_bytes())
     model.graph.outputs.append(ValueInfo(net.nodes[pool].outputs[0], [1, 128, 3, 3], 1))
     opened = ex.OnnxModule(model, torch.device("cpu"))
     assert len(opened.blaze_blocks) == 6 and all(pool not in b.nodes for b in opened.blaze_blocks[-2:])
-    assert pool not in opened._in_stage
+    assert pool not in opened._in_plan
     x = _input(192, 2, seed=5)
     with torch.no_grad():
-        for a, b in zip(opened(x), opened(x, stages=False)):
-            assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("name", OTHERS)
-def test_plan_finds_nothing_elsewhere(name):
-    """Full-range BlazeFace's double blocks (1×1 down, ReLU, a second
-    depthwise, 1×1 up before the Add), Face Mesh V2's and the iris model's
-    stride-2 entry blocks (their depthwise reads the output of a 2×2
-    convolution, not the pooled value) and the other bundled models run
-    node by node."""
-    assert load_model(model_path(name).read_bytes(), torch.device("cpu")).blaze_blocks == []
-
-
-@pytest.mark.parametrize("name", sorted(BLOCKS))
-def test_plan_equals_node_by_node(name, nets):
-    """Batch 2: every output of the forward with the plan equals the
-    node-by-node run (``stages=False``) bit for bit."""
-    net = nets[name]
-    x = _input(BLOCKS[name][0], 2, seed=3)
-    with torch.no_grad():
-        fused, plain = net(x), net(x, stages=False)
-    assert len(fused) == len(plain)
-    for a, b in zip(fused, plain):
+        fused = opened(x)
+        with opened.without_plans():
+            plain = opened(x)
+    for a, b in zip(fused, plain, strict=True):
         assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("kinds", [(), ("stages",), ("blaze_blocks",), ("stages", "blaze_blocks")])
-@pytest.mark.parametrize("name", sorted(BLOCKS))
-def test_without_plans_runs_the_named_plans_node_by_node(name, kinds, nets):
-    """Inside ``without_plans`` the named plans (all three where none is
-    named) are empty and only the others' nodes are left to them; the
-    forward runs no BlazeBlock where that plan is named and still equals the
-    node-by-node run bit for bit; on leaving, by an exception too, every
-    plan is back."""
-    net = nets[name]
-    plans, in_plans = {k: list(getattr(net, k)) for k in ex.PLANS}, set(net._in_stage)
-    cleared = kinds or ex.PLANS
-    x = _input(BLOCKS[name][0], 2, seed=7)
-    with torch.no_grad():
-        plain = net(x, stages=False)
-        with pytest.raises(KeyError, match="left"):
-            with net.without_plans(*kinds):
-                assert all(getattr(net, k) == [] for k in cleared)
-                kept = [p for k in ex.PLANS if k not in cleared for p in plans[k]]
-                assert net._in_stage == {i for p in kept for i in p.nodes}
-                before = profiling.counters["blaze_blocks"]
-                got = net(x)
-                ran = profiling.counters["blaze_blocks"] - before
-                assert ran == (0 if "blaze_blocks" in cleared else len(plans["blaze_blocks"]))
-                assert all(torch.equal(a, b) for a, b in zip(got, plain, strict=True))
-                raise KeyError("left")
-    assert {k: getattr(net, k) for k in ex.PLANS} == plans and net._in_stage == in_plans
-    assert set(net._blaze_at) == {blk.nodes[-1] for blk in plans["blaze_blocks"]}
-
-
-def test_without_plans_refuses_an_unknown_plan(nets):
-    net = nets[V1]
-    with pytest.raises(ValueError, match="unknown plans"):
-        with net.without_plans("stage"):
-            pass
-    assert len(net.blaze_blocks) == 6 and net.stages
-
-
-@pytest.mark.parametrize("kw", [{"compute_dtype": torch.bfloat16}, {"layout": "NHWC"}])
-@pytest.mark.parametrize("name", sorted(BLOCKS))
-def test_bf16_and_nhwc_modules_build_no_plan(kw, name):
-    net = load_model(model_path(name).read_bytes(), torch.device("cpu"), **kw)
-    assert net.blaze_blocks == [] and net._blaze_packed == {}
 
 
 @pytest.mark.parametrize("c_in,c_out,relu", [(24, 28, True), (42, 48, False), (128, 128, False), (5, 13, True)])
@@ -208,24 +114,6 @@ def test_fused_blaze_block_on_the_cpu_is_the_plain_block(c_in, c_out, B, H, W, s
     want = bb.blaze_block_reference(x, block, stride, pads, relu)
     assert got.shape == (B, c_out, (H + pads[0] + pads[2] - 3) // stride + 1, (W + pads[1] + pads[3] - 3) // stride + 1)
     assert torch.equal(got, want)
-
-
-def test_load_params_repacks():
-    """New weights loaded after construction are the ones the blocks run
-    with: the block's output changes and equals the plain block on them."""
-    net = load_model(model_path(V1).read_bytes(), torch.device("cpu"))
-    blk = net.blaze_blocks[1]
-    x = _input(192, 1, seed=4)
-    before = net.activations(x)
-    params = {k: v.clone() for k, v in net.params().items()}
-    params[blk.names["pw_w"]] *= 1.5
-    params[blk.names["alpha"]] += 0.1
-    net.load_params(params)
-    after = net.activations(x)
-    assert not torch.equal(after[blk.output], before[blk.output])
-    block = {k: None if v is None else params[v] for k, v in blk.names.items()}
-    assert torch.equal(after[blk.output], bb.blaze_block_reference(after[blk.input], block, blk.stride, blk.pads,
-                                                                   blk.relu))
 
 
 def _band_floats(c_in, H, W, stride, pads, th, images):
@@ -297,32 +185,6 @@ def test_cuda_launch_refuses_and_never_falls_back(monkeypatch):
         bb.fused_blaze_block(torch.zeros(1, 8, 8, 8, device="meta"), packed.to("meta"), 16, 1, (1, 1, 1, 1), True)
 
 
-def test_forwards_count_their_blocks(nets):
-    """11 blocks a BlazeFace short range forward, 6 a Face Mesh V1 forward,
-    none a forward run node by node."""
-    c = profiling.counters
-
-    def ran(fn):
-        before = c["blaze_blocks"]
-        with torch.no_grad():
-            fn()
-        return c["blaze_blocks"] - before
-
-    assert ran(lambda: nets[SHORT](_input(128, 1))) == 11
-    assert ran(lambda: nets[V1](_input(192, 1))) == 6
-    assert ran(lambda: nets[V1](_input(192, 1), stages=False)) == 0
-
-
-@pytest.mark.parametrize("name,count", [(SHORT, 11), (V1, 6)])
-def test_each_block_is_a_span_under_trace(name, count, nets, tmp_path):
-    with profiling.trace(tmp_path), torch.no_grad():
-        nets[name](_input(BLOCKS[name][0], 1))
-    (trace,) = tmp_path.glob("trace_*.json")
-    events = json.loads(trace.read_text())["traceEvents"]
-    spans = [e for e in events if e.get("name") == "zaru.net.blaze_block" and e.get("ph") == "X"]
-    assert len(spans) == count
-
-
 def _flops(fn):
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -340,7 +202,7 @@ def test_flop_formula_counts_the_nodes(name, k, nets):
     net = nets[name]
     blk = net.blaze_blocks[k]
     x = net.activations(_input(BLOCKS[name][0], 1))[blk.input]
-    packed = net._blaze_packed[blk.nodes[-1]]
+    packed = net._packed[blk.at]
     params = net.params()
     pools = {j for j, n in enumerate(net.nodes) if n.op_type == "MaxPool" and n.inputs[0] == blk.input}
 

@@ -27,7 +27,7 @@ The fixture also stores JAX's raw network outputs and decodes on the photo
 on random keypoints (the port's ``torch.linalg.vector_norm`` against
 ``jnp.linalg.norm``), and its rotated sampler on body views (256² on the
 256-pixel grid, ``square_views=True``, read by tests/test_torch_samplers.py).
-Only ``test_fixture_is_current`` runs JAX, in spawned processes. Regenerate
+Only ``test_fixture_is_current`` runs JAX, in the test process. Regenerate
 it with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_body.py
@@ -47,7 +47,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import stub_models  # noqa: E402
-from torch_port import jax_processes, numpy_params, one_torch_thread  # noqa: E402,F401
+from torch_port import one_torch_thread  # noqa: E402,F401
 
 FIXTURES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "zaru_tpu_torch", "fixtures"
@@ -187,7 +187,7 @@ def jax_tracker_run(name):
         arrays[f"state_{k}"] = np.stack([s[k] for s in states])
     for k in outs[0]:
         arrays[f"out_{k}"] = np.stack([o[k] for o in outs])
-    return {f"{name}__{k}": v for k, v in arrays.items()}, numpy_params(tracker.params)
+    return {f"{name}__{k}": v for k, v in arrays.items()}, tracker.params
 
 
 def jax_pieces():
@@ -236,12 +236,16 @@ def jax_views():
             "views_exact": np.asarray(np.array_equal(views, unmap_u8(views_u8)))}
 
 
-def jax_runs_now(pool):
-    """Every JAX run, each in its own process: name → future."""
-    futs = {"views": pool.submit(jax_views)}
-    futs.update((name, pool.submit(jax_tracker_run, name)) for name in RUNS)
-    futs["pieces"] = pool.submit(jax_pieces)
-    return futs
+def jax_now():
+    """Every JAX result the fixture stores but the stub blobs, and the
+    tracker's params."""
+    now, jparams = {}, None
+    for name in RUNS:
+        arrays, jparams = jax_tracker_run(name)
+        now.update(arrays)
+    now.update(jax_pieces())
+    now.update(jax_views())
+    return now, jparams
 
 
 def regen():
@@ -252,10 +256,7 @@ def regen():
         write_blobs(d, blobs)
         os.environ["ZARU_TPU_MODELS"] = d
         arrays = dict(blobs)
-        for name in RUNS:
-            arrays.update(jax_tracker_run(name)[0])
-        arrays.update(jax_pieces())
-        arrays.update(jax_views())
+        arrays.update(jax_now()[0])
     assert arrays["views_exact"], "the colour map at [0, 1] does not round-trip through u8"
     np.savez_compressed(FIXTURE, **arrays)
     print(f"wrote {FIXTURE}")
@@ -328,14 +329,7 @@ def test_fixture_is_current(stored, port, stub_env):
 
     for key, blob in stub_blobs().items():
         np.testing.assert_array_equal(stored[key], blob, err_msg=key)
-    with jax_processes(len(RUNS) + 2) as pool:
-        futs = jax_runs_now(pool)
-        now, jparams = {}, None
-        for name in RUNS:
-            arrays, jparams = futs[name].result()
-            now.update(arrays)
-        now.update(futs["pieces"].result())
-        now.update(futs["views"].result())
+    now, jparams = jax_now()
     assert set(now) == set(stored) - set(BLOBS)
     for k, v in now.items():
         if v.dtype.kind in "fc":

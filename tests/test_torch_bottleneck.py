@@ -1,21 +1,15 @@
-"""The port's fused residual bottleneck blocks (zaru_tpu_torch.ops.bottleneck)
-and the executor's bottleneck plan, on the CPU.
+"""The port's fused residual bottleneck blocks (zaru_tpu_torch.ops.bottleneck),
+on the CPU. The plan that finds the chains is tested with the other plans
+in test_torch_fusion.py.
 
-- The plan finds 28 blocks in 7 chains in Face Mesh V2, 20 in the iris
-  model and none in the other bundled models; bf16 and NHWC modules build
-  no plan.
-- With the plan, Face Mesh V2's and the iris model's forwards equal the
-  node-by-node run bit for bit (on the CPU a chain runs the executor's own
-  per-op chain).
-- Packing round-trips; ``load_params`` repacks; the kernel's launch plan
-  covers each chain and image and fits the shared memory; the CUDA wrapper
-  raises on what the kernel does not take and falls back to nothing.
-- Each forward counts its blocks in ``profiling.counters`` and marks each
-  chain with the span ``zaru.net.bottleneck``; the registered op's FLOP
-  formula counts what ``onnx/analysis.analyze`` counts for the nodes.
+- Packing round-trips; on the CPU the op is the plain chain; the kernel's
+  launch plan covers each chain and image and fits the shared memory; the
+  CUDA wrapper raises on what the kernel does not take and falls back to
+  nothing.
+- The registered op's FLOP formula counts what ``onnx/analysis.analyze``
+  counts for the nodes.
 """
 
-import json
 import os
 import sys
 
@@ -27,7 +21,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from torch_port import one_torch_thread  # noqa: E402,F401
 
-from zaru_tpu_torch import profiling  # noqa: E402
 from zaru_tpu_torch.assets import model_path  # noqa: E402
 from zaru_tpu_torch.onnx import load_model  # noqa: E402
 from zaru_tpu_torch.onnx.analysis import _mapping, analyze  # noqa: E402
@@ -43,9 +36,6 @@ CHAINS = {
     IRIS: (64, [(64, 4, 32), (128, 4, 16), (128, 2, 8), (128, 2, 8), (128, 2, 4), (128, 2, 2), (128, 2, 4),
                 (128, 2, 2)]),
 }
-OTHERS = ["face_detection_full_range.onnx", "face_detection_short_range.onnx", "face_landmark.onnx",
-          "hand_landmark_lite.onnx", "landmarks_68_pfld.onnx", "mobilefacenet.onnx", "palm_detection_lite.onnx",
-          "slim_160_latest.onnx"]
 
 
 @pytest.fixture(scope="module")
@@ -64,52 +54,6 @@ def _blocks(rng, C, nb):
     return [{"w1": f(M, C, 1, 1), "b1": f(M, s=0.1), "a1": rng.uniform(0.05, 0.3, M).astype(np.float32),
              "dw_w": f(M, 1, 3, 3), "dw_b": f(M, s=0.1), "w2": f(C, M, 1, 1), "b2": f(C, s=0.1),
              "a2": rng.uniform(0.05, 0.3, C).astype(np.float32)} for _ in range(nb)]
-
-
-def test_assets_are_the_listed_models():
-    assert sorted(os.listdir(model_path(V2).parent)) == sorted([V2, IRIS, *OTHERS])
-
-
-@pytest.mark.parametrize("name", sorted(CHAINS))
-def test_plan_finds_the_chains(name, nets):
-    """Chains of the listed widths, lengths and sizes; each chain's six
-    nodes a block, its output the shape of its input."""
-    net = nets[name]
-    res, want = CHAINS[name]
-    env = net.activations(_input(res, 1))
-    got = [(bn.channels, len(bn.blocks), env[bn.input].shape[2]) for bn in net.bottlenecks]
-    assert got == want
-    assert sum(len(b.blocks) for b in net.bottlenecks) == {V2: 28, IRIS: 20}[name]
-    for chain in net.bottlenecks:
-        assert env[chain.output].shape == env[chain.input].shape
-        assert len(chain.nodes) == 6 * len(chain.blocks)
-        assert [net.nodes[i].op_type for i in chain.nodes[:6]] == ["Conv", "PRelu", "Conv", "Conv", "Add", "PRelu"]
-
-
-@pytest.mark.parametrize("name", OTHERS)
-def test_plan_finds_nothing_elsewhere(name):
-    """Full-range BlazeFace's bottleneck-like blocks (ReLU, no such
-    residual) and every other bundled model run node by node."""
-    assert load_model(model_path(name).read_bytes(), torch.device("cpu")).bottlenecks == []
-
-
-@pytest.mark.parametrize("name", sorted(CHAINS))
-def test_plan_equals_node_by_node(name, nets):
-    """Batch 2: every output of the forward with the plan equals the
-    node-by-node run (``stages=False``) bit for bit."""
-    net = nets[name]
-    x = _input(CHAINS[name][0], 2, seed=3)
-    with torch.no_grad():
-        fused, plain = net(x), net(x, stages=False)
-    assert len(fused) == len(plain)
-    for a, b in zip(fused, plain):
-        assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("kw", [{"compute_dtype": torch.bfloat16}, {"layout": "NHWC"}])
-def test_bf16_and_nhwc_modules_build_no_plan(kw):
-    net = load_model(model_path(V2).read_bytes(), torch.device("cpu"), **kw)
-    assert net.bottlenecks == [] and net._bottleneck_packed == {}
 
 
 @pytest.mark.parametrize("C,nb", [(16, 1), (32, 3), (128, 2)])
@@ -131,24 +75,6 @@ def test_fused_bottlenecks_on_the_cpu_is_the_plain_chain(C, B, H, W, nb):
     x = torch.from_numpy(rng.normal(0, 1, (B, C, H, W)).astype(np.float32))
     got = bn.fused_bottlenecks(x, bn.pack_bottlenecks(blocks, C), H, W, C)
     assert torch.equal(got, bn.bottleneck_blocks_reference(x, blocks))
-
-
-def test_load_params_repacks(nets):
-    """New weights loaded after construction are the ones the chains run
-    with: the chain's output changes and equals the plain chain on them."""
-    net = load_model(model_path(V2).read_bytes(), torch.device("cpu"))
-    chain = net.bottlenecks[2]
-    x = _input(256, 1, seed=4)
-    before = net.activations(x)
-    params = {k: v.clone() for k, v in net.params().items()}
-    for b in chain.blocks:
-        params[b["w2"]] *= 1.5
-        params[b["a2"]] += 0.1
-    net.load_params(params)
-    after = net.activations(x)
-    assert not torch.equal(after[chain.output], before[chain.output])
-    blocks = [{k: params[v] for k, v in b.items()} for b in chain.blocks]
-    assert torch.equal(after[chain.output], bn.bottleneck_blocks_reference(after[chain.input], blocks))
 
 
 def _tile_buffers(C, H, W, th, tw, images, nb):
@@ -209,33 +135,6 @@ def test_cuda_launch_refuses_and_never_falls_back(monkeypatch):
         bn.fused_bottlenecks(torch.zeros(1, 16, 4, 4), packed16[:, 1:], 4, 4, 16)
 
 
-def test_forwards_count_their_blocks(nets):
-    """28 blocks a Face Mesh V2 forward, none a Face Mesh V1 forward, none
-    a forward run node by node."""
-    v1 = load_model(model_path("face_landmark.onnx").read_bytes(), torch.device("cpu"))
-    c = profiling.counters
-
-    def ran(fn):
-        before = c["bottleneck_blocks"]
-        with torch.no_grad():
-            fn()
-        return c["bottleneck_blocks"] - before
-
-    assert ran(lambda: nets[V2](_input(256, 1))) == 28
-    assert ran(lambda: nets[IRIS](_input(64, 1))) == 20
-    assert ran(lambda: v1(_input(192, 1))) == 0
-    assert ran(lambda: nets[IRIS](_input(64, 1), stages=False)) == 0
-
-
-def test_each_chain_is_a_span_under_trace(nets, tmp_path):
-    with profiling.trace(tmp_path), torch.no_grad():
-        nets[V2](_input(256, 1))
-    (trace,) = tmp_path.glob("trace_*.json")
-    events = json.loads(trace.read_text())["traceEvents"]
-    spans = [e for e in events if e.get("name") == "zaru.net.bottleneck" and e.get("ph") == "X"]
-    assert len(spans) == 7
-
-
 def _flops(fn):
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -253,7 +152,7 @@ def test_flop_formula_counts_the_nodes(k, nets):
     net = nets[V2]
     chain = net.bottlenecks[k]
     x = net.activations(_input(256, 1))[chain.input]
-    packed = net._bottleneck_packed[chain.nodes[0]]
+    packed = net._packed[chain.at]
     params = net.params()
 
     def nodes():

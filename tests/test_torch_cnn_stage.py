@@ -1,5 +1,5 @@
-"""The port's fused BlazeBlock stage (zaru_tpu_torch.ops.cnn_stage) and the
-executor's stage plan, against zaru_tpu on the CPU.
+"""The port's fused BlazeBlock stage (zaru_tpu_torch.ops.cnn_stage), against
+zaru_tpu on the CPU.
 
 - ``fused_blocks`` on a CPU tensor (its plain version) and
   ``blaze_blocks_reference`` against JAX ``fused_blocks(interpret=True)``
@@ -9,11 +9,9 @@ executor's stage plan, against zaru_tpu on the CPU.
 - Every chain's channel count is one the CUDA kernel is built for, and its
   tiling covers the image with regions whose shared memory, counted from
   the kernel's layout, is what the launch asks for and fits the card.
-- The executor finds the chains listed below in the two face models and
-  none in the iris model (its blocks are bottlenecks: 1×1 128→64, PReLU,
-  depthwise 64, 1×1 64→128); ``load_params`` after construction reaches
-  the stages. The models' outputs against JAX, stage plan included, are
-  tests/test_torch_onnx.py's.
+- The chains are those the executor finds in the two face models (its
+  plans are tested in test_torch_fusion.py; the models' outputs against
+  JAX, stage plan included, in tests/test_torch_onnx.py).
 """
 
 import numpy as np
@@ -25,8 +23,6 @@ import torch
 from zaru_tpu.ops.cnn_stage import blaze_blocks_reference as jax_reference
 from zaru_tpu.ops.cnn_stage import fused_blocks as jax_fused
 from zaru_tpu.ops.cnn_stage import pack_blocks as jax_pack
-from zaru_tpu_torch.assets import model_path
-from zaru_tpu_torch.onnx import load_model
 from zaru_tpu_torch.ops.cnn_stage import (
     KERNEL_CHANNELS, PIXELS_PER_THREAD, SMEM_LIMIT, THREADS, _tiling, blaze_blocks_reference, fused_blocks, pack_blocks,
     unpack_blocks,
@@ -127,41 +123,3 @@ def test_chain_fits_the_kernel(name, nb, C, H, W):
                 assert rh * rw <= PIXELS_PER_THREAD[C] * THREADS
     assert (covered == 1).all()
     assert most <= smem <= SMEM_LIMIT
-
-
-@pytest.mark.parametrize("name", sorted(STAGES))
-def test_stage_plan(name):
-    """Chain count, blocks per chain, channels, spatial size and activation
-    of every chain the executor finds."""
-    res, want = STAGES[name]
-    net = load_model(model_path(name).read_bytes(), torch.device("cpu"))
-    x = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (1, 3, res, res)).astype(np.float32))
-    env = net.activations(x)
-    got = [
-        (len(st.blocks), st.channels, tuple(env[st.input].shape[2:]), st.blocks[0]["alpha"] is None)
-        for st in net.stages
-    ]
-    assert got == want
-    for st in net.stages:
-        assert env[st.output].shape == env[st.input].shape
-        assert len(st.nodes) == 4 * len(st.blocks)
-
-
-def test_load_params_reaches_the_stages():
-    """New weights loaded after construction are the ones the stages run
-    with: the output changes, and equals the plain chain on the new
-    weights."""
-    net = load_model(model_path("face_landmark.onnx").read_bytes(), torch.device("cpu"))
-    st = net.stages[0]
-    x = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, (1, 3, 192, 192)).astype(np.float32))
-    before = net.activations(x)
-    params = {k: v.clone() for k, v in net.params().items()}
-    for b in st.blocks:
-        params[b["pw_w"]] *= 1.5
-        params[b["alpha"]] += 0.1
-    net.load_params(params)
-    after = net.activations(x)
-    assert not torch.allclose(after[st.output], before[st.output])
-    blocks = [{k: None if v is None else params[v] for k, v in b.items()} for b in st.blocks]
-    want = blaze_blocks_reference(after[st.input], blocks)
-    torch.testing.assert_close(after[st.output], want, rtol=0, atol=0)

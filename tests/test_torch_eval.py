@@ -15,7 +15,7 @@ zaru_tpu_torch eval``) against zaru_tpu.eval on the CPU.
 JAX's results are stored in ``zaru_tpu_torch/fixtures/host_eval.npz`` (keys
 ``eval__*``; tests/test_torch_host.py owns the ``host__*`` keys), with the
 535×535 photo decoded (the card's machine has no JPEG decoder). Only
-``test_fixture_is_current`` runs JAX, one runner a process. Regenerate the
+``test_fixture_is_current`` runs JAX, in the test process. Regenerate the
 keys of this file with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_eval.py
@@ -33,7 +33,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_port import jax_processes, one_torch_thread  # noqa: E402,F401
+from torch_port import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "zaru_tpu_torch", "fixtures")
@@ -118,17 +118,17 @@ def jax_geometry(cropped):
     return out
 
 
-def jax_now(pool, cropped):
-    futs = {name: pool.submit(jax_sweep, name, cropped) for name in RUNNER_NAMES}
-    futs["geometry"] = pool.submit(jax_geometry, cropped)
-    return futs
+def jax_now(cropped):
+    """Every JAX result the fixture stores but the photo."""
+    now = jax_geometry(cropped)
+    for name in RUNNER_NAMES:
+        now.update(jax_sweep(name, cropped))
+    return now
 
 
 def regen():
     cropped = decode_cropped()
-    arrays = {"cropped": cropped, **jax_geometry(cropped)}
-    for name in RUNNER_NAMES:
-        arrays.update(jax_sweep(name, cropped))
+    arrays = {"cropped": cropped, **jax_now(cropped)}
     keep = {}
     if os.path.exists(FIXTURE):
         with np.load(FIXTURE) as f:
@@ -161,10 +161,7 @@ def test_fixture_is_current(stored):
     within 1e-3 px, the regen machine's own rounding)."""
     cropped = decode_cropped()
     np.testing.assert_array_equal(stored["cropped"], cropped)
-    with jax_processes(len(RUNNER_NAMES) + 1) as pool:
-        now = {}
-        for fut in jax_now(pool, cropped).values():
-            now.update(fut.result())
+    now = jax_now(cropped)
     assert set(now) == set(stored) - {"cropped"}
     for k, v in now.items():
         if v.dtype.kind == "f":

@@ -14,7 +14,7 @@ JAX's side is stored in ``zaru_tpu_torch/fixtures/export_train.npz`` (keys
 - its FLOP counts, parameter counts and output shapes (``analyze``) of
   BlazeFace short-range, Face Mesh V1 and slim_160.
 
-``test_fixture_is_current`` runs JAX again in spawned processes. Regenerate
+``test_fixture_is_current`` runs JAX again, in the test process. Regenerate
 this file's keys with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_export.py
@@ -46,7 +46,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_port import jax_processes, one_torch_thread  # noqa: E402,F401
+from torch_port import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "zaru_tpu_torch", "fixtures")
@@ -133,14 +133,13 @@ def jax_analysis_and_sidecar():
     return out
 
 
-def jax_now(pool):
-    return [pool.submit(jax_step_run), pool.submit(jax_analysis_and_sidecar)]
+def jax_now():
+    """Every JAX result the fixture stores."""
+    return {**jax_step_run(), **jax_analysis_and_sidecar()}
 
 
 def regen():
-    arrays = {}
-    for part in (jax_step_run(), jax_analysis_and_sidecar()):
-        arrays.update(part)
+    arrays = jax_now()
     keep = {}
     if os.path.exists(FIXTURE):
         with np.load(FIXTURE) as f:
@@ -190,10 +189,7 @@ def test_fixture_is_current(stored, tmp_path):
     compared by content, as a zip's bytes hold its time of writing)."""
     from zaru_tpu.export import load_state
 
-    with jax_processes(2) as pool:
-        now = {}
-        for fut in jax_now(pool):
-            now.update(fut.result())
+    now = jax_now()
     assert set(now) == set(stored)
     for k, v in now.items():
         if k == "sidecar":

@@ -40,7 +40,7 @@ The main sequence and the bucket sequence, with JAX's states and outputs,
 are stored in ``zaru_tpu_torch/fixtures/sad_linus_track.npz``. The port is
 held to the stored runs, here and in ``chip_smoke.py`` on the GPU, where JAX
 is absent; ``test_fixture_is_current`` runs both sequences through JAX
-again, each in its own process (one compile of each tracker, most of the
+again, in the test process (one compile of each tracker, most of the
 file's time), and ties the stored runs, and the port's own weights, to the
 reference. Regenerate the fixture with::
 
@@ -59,7 +59,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_port import jax_processes, numpy_params, one_torch_thread  # noqa: E402,F401
+from torch_port import one_torch_thread  # noqa: E402,F401
 
 FIXTURE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -119,13 +119,6 @@ def jax_run(rgb, plan=PLAN, **kwargs):
         for out in outs:
             out["eye_rects"] = np.asarray(rects(jnp.asarray(out["landmarks"])))
     return tracker, states, outs
-
-
-def jax_run_arrays(rgb, plan=PLAN, **kwargs):
-    """:func:`jax_run` as a process returns it: (states, outputs, the
-    tracker's params as numpy)."""
-    tracker, states, outs = jax_run(rgb, plan, **kwargs)
-    return states, outs, numpy_params(tracker.params)
 
 
 def _flat(states, outs, plan=PLAN, prefix=""):
@@ -238,14 +231,11 @@ def test_fixture_is_current(stored, port_iris):
     assert np.abs(stored["rgb"].astype(int) - decoded).mean() < 1.0
     np.testing.assert_array_equal(stored["force"], [f for f, _ in PLAN])
     np.testing.assert_array_equal(stored["zero"], [z for _, z in PLAN])
-    with jax_processes(2) as pool:
-        main = pool.submit(jax_run_arrays, stored["rgb"], iris=True)
-        bucket = pool.submit(jax_run_arrays, stored["rgb"], BUCKET_PLAN, redetect_bucket=1)
-        states, outs, jparams = main.result()
-        bstates, bouts, _ = bucket.result()
+    tracker, states, outs = jax_run(stored["rgb"], iris=True)
+    _, bstates, bouts = jax_run(stored["rgb"], BUCKET_PLAN, redetect_bucket=1)
     _assert_run_current(stored, _flat(states, outs))
     _assert_run_current(stored, _flat(bstates, bouts, BUCKET_PLAN, "bucket_"))
-    want = params_from_jax(jparams)
+    want = params_from_jax(tracker.params)
     for net, cnn in (("det", port_iris.det_cnn), ("lm", port_iris.lm_cnn), ("eye", port_iris.eye_cnn)):
         got = cnn.net.params()
         assert set(got) == set(want[net]), net

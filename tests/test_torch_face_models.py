@@ -34,13 +34,14 @@ JAX's states and outputs are stored in
 ``zaru_tpu_torch/fixtures/face_models_track.npz`` (the photo comes from
 ``sad_linus_track.npz``). The port is held to the stored runs, here and in
 ``chip_smoke.py`` on the GPU, where JAX is absent;
-``test_fixture_is_current`` runs every run through JAX again, each tracker
-in its own process, and ties the stored runs, and the port's own weights, to
+``test_fixture_is_current`` runs every run through JAX again, in the test
+process, and ties the stored runs, and the port's own weights, to
 the reference. Regenerate the fixture with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_face_models.py
 """
 
+import functools
 import json
 import os
 import sys
@@ -54,7 +55,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_port import jax_processes, numpy_params, one_torch_thread  # noqa: E402,F401
+from torch_port import one_torch_thread  # noqa: E402,F401
 
 FIXTURES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "zaru_tpu_torch", "fixtures"
@@ -155,7 +156,7 @@ def jax_run(rgb, name):
         frames = np.stack([f for _, f in steps_of(name, rgb)])
         _, scanned = tracker.scan_video(tracker.init_state(), jnp.asarray(frames))
         scan = {k: np.asarray(v) for k, v in scanned.items()}
-    return states, outs, scan, numpy_params(tracker.params)
+    return states, outs, scan, tracker.params
 
 
 def flat(name, states, outs):
@@ -242,10 +243,9 @@ def port_step(port, name, state, force, frames):
 
 @pytest.fixture(scope="module")
 def jax_runs(rgb):
-    """Every run of RUNS through JAX, started together, each in its own
-    process: name → future of :func:`jax_run`'s result."""
-    with jax_processes(len(RUNS)) as pool:
-        yield {name: pool.submit(jax_run, rgb, name) for name in RUNS}
+    """name → the run of RUNS through JAX (:func:`jax_run`'s result),
+    computed in the test process when first asked for."""
+    return functools.cache(lambda name: jax_run(rgb, name))
 
 
 def test_fixture_is_current(stored, live, jax_runs):
@@ -257,7 +257,7 @@ def test_fixture_is_current(stored, live, jax_runs):
     from zaru_tpu_torch.weights import params_from_jax
 
     name, port, _, _ = live
-    states, outs, scan, jparams = jax_runs[name].result()
+    states, outs, scan, jparams = jax_runs(name)
     for k, v in flat(name, states, outs).items():
         if v.dtype.kind == "f":
             np.testing.assert_allclose(stored[k], v, rtol=0, atol=1e-3, err_msg=k)
@@ -354,15 +354,12 @@ def test_tilted_face_fast_sampler_equals_exact(rgb, deg):
 
 
 def regen():
-    """Writes the fixture: every run of RUNS through JAX, each in its own
-    process."""
+    """Writes the fixture: every run of RUNS through JAX."""
     rgb = photo()
     arrays = {}
-    with jax_processes(len(RUNS)) as pool:
-        runs = {name: pool.submit(jax_run, rgb, name) for name in RUNS}
-        for name, fut in runs.items():
-            states, outs, _scan, _ = fut.result()
-            arrays.update(flat(name, states, outs))
+    for name in RUNS:
+        states, outs, _scan, _ = jax_run(rgb, name)
+        arrays.update(flat(name, states, outs))
     np.savez_compressed(FIXTURE, **arrays)
     print(f"wrote {FIXTURE}")
 

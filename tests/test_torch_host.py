@@ -36,7 +36,7 @@ JAX loads (``test_fixture_is_current`` holds its parameters equal to JAX's
 
 JAX's results are stored in ``zaru_tpu_torch/fixtures/host_eval.npz`` (keys
 ``host__*``; tests/test_torch_eval.py owns the ``eval__*`` keys). Only
-``test_fixture_is_current`` runs JAX, in spawned processes. Regenerate the
+``test_fixture_is_current`` runs JAX, in the test process. Regenerate the
 keys of this file with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_host.py
@@ -52,7 +52,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_port import jax_processes, one_torch_thread  # noqa: E402,F401
+from torch_port import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "zaru_tpu_torch", "fixtures")
@@ -350,17 +350,18 @@ def jax_remainders(model_dir):
     return out
 
 
-def jax_now(pool, model_dir):
-    return pool.submit(jax_graphs), pool.submit(jax_engines), pool.submit(jax_remainders, model_dir)
+def jax_now(model_dir):
+    """Every JAX result the fixture stores, and the four models' params."""
+    graphs, params = jax_graphs()
+    return {**graphs, **jax_engines(), **jax_remainders(model_dir)}, params
 
 
 def regen():
     import tempfile
 
-    graphs, _params = jax_graphs()
     with tempfile.TemporaryDirectory() as d:
         write_pose_stubs(d)
-        arrays = {**graphs, **jax_engines(), **jax_remainders(d)}
+        arrays = jax_now(d)[0]
     keep = {}
     if os.path.exists(FIXTURE):
         with np.load(FIXTURE) as f:
@@ -413,11 +414,7 @@ def test_fixture_is_current(stored, stub_dir):
     from zaru_tpu_torch.nn import NeuralNetwork
     from zaru_tpu_torch.weights import network_params_from_jax
 
-    with jax_processes(3) as pool:
-        graphs, engines, remainders = jax_now(pool, stub_dir)
-        now, params = graphs.result()
-        now.update(engines.result())
-        now.update(remainders.result())
+    now, params = jax_now(stub_dir)
     assert set(now) == set(stored)
     for k, v in now.items():
         if v.dtype.kind == "f":

@@ -36,7 +36,7 @@ The photos are the decoded ones the port's fixtures already hold: the
 JAX's results are stored in ``zaru_tpu_torch/fixtures/identify.npz`` (the
 crops as their u8 channel values, which the colour map turns into JAX's
 f32 crops bit for bit). Only ``test_fixture_is_current`` runs JAX, in
-spawned processes. Regenerate the fixture with::
+the test process. Regenerate the fixture with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_identify.py
 """
@@ -52,7 +52,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_port import jax_processes, numpy_params, one_torch_thread  # noqa: E402,F401
+from torch_port import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "zaru_tpu_torch", "fixtures")
@@ -199,16 +199,16 @@ def jax_stream(enrolled):
     flat = {"gallery": np.asarray(sid._gallery), "zero": np.asarray(PLAN, np.int32)}
     for name, items in (("state", states), ("out", outs)):
         flat.update({f"{name}_{k}": np.stack([s[k] for s in items]) for k in items[0]})
-    return {f"stream_{k}": v for k, v in flat.items()}, numpy_params(sid.params)
+    return {f"stream_{k}": v for k, v in flat.items()}, sid.params
 
 
-def jax_now(pool, enrolled):
-    """Both JAX runs in ``pool``'s processes, the stream's on the stored
-    enrolled row (which the first run recomputes) → (arrays, the
-    StreamIdentifier's ``{"det", "lm", "emb"}`` params as numpy)."""
-    first, second = pool.submit(jax_identify), pool.submit(jax_stream, enrolled)
-    stream, params = second.result()
-    return {**first.result(), **stream}, params
+def jax_now(enrolled):
+    """Both JAX runs, the stream's on the stored enrolled row (which the
+    first run recomputes) → (arrays, the StreamIdentifier's ``{"det",
+    "lm", "emb"}`` params)."""
+    arrays = jax_identify()
+    stream, params = jax_stream(enrolled)
+    return {**arrays, **stream}, params
 
 
 def regen():
@@ -275,8 +275,7 @@ def test_fixture_is_current(stored, sid):
     from zaru_tpu_torch.face.identify import StreamIdentifier
     from zaru_tpu_torch.weights import params_from_jax
 
-    with jax_processes(2) as pool:
-        now, params = jax_now(pool, stored["enrolled"])
+    now, params = jax_now(stored["enrolled"])
     assert set(now) == set(stored)
     for k, v in now.items():
         if v.dtype.kind == "f":

@@ -62,13 +62,14 @@ JAX's states and outputs are stored in
 ``sad_linus_track.npz``). The port is held to the stored runs, here and in
 ``chip_smoke.py`` on the GPU, where JAX is absent; ``test_fixture_is_current``
 runs each plan through JAX again (one compile of its tracker) and ties the
-stored run to the reference. The four JAX runs and the ``angle_clamp``
-pass start together, each in its own process (``jax_runs``). Regenerate
-it with::
+stored run to the reference. Each JAX run and the ``angle_clamp`` pass
+runs in the test process when a test first asks for it (``jax_runs``).
+Regenerate it with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_multi_object.py
 """
 
+import functools
 import json
 import os
 import sys
@@ -82,7 +83,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_port import jax_processes, numpy_params, one_torch_thread  # noqa: E402,F401
+from torch_port import one_torch_thread  # noqa: E402,F401
 
 FIXTURES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "zaru_tpu_torch", "fixtures"
@@ -297,13 +298,6 @@ def unflat(stored, name):
     return states, outs
 
 
-def jax_run_arrays(rgb, name):
-    """:func:`jax_run` as a process returns it: (states, outputs, the
-    tracker's params as numpy)."""
-    tracker, states, outs = jax_run(rgb, name)
-    return states, outs, numpy_params(tracker.params)
-
-
 def jax_clamp_run(rgb, clamp=0.6):
     """JAX's ``_track_slots_batch`` of a ``MultiHandTracker`` with
     ``angle_clamp`` on the seeded slots → (its outputs, the tracker's
@@ -315,18 +309,23 @@ def jax_clamp_run(rgb, clamp=0.6):
     jt.angle_clamp = clamp
     frames, rois = frames_for(rgb, ()), seed_state()["rois"]
     want = jax.jit(jt._track_slots_batch)(jt.params, jnp.asarray(frames), jnp.asarray(rois))
-    return jax.tree_util.tree_map(np.asarray, want), numpy_params(jt.params)
+    return jax.tree_util.tree_map(np.asarray, want), jt.params
 
 
 @pytest.fixture(scope="module")
 def jax_runs(rgb):
-    """Every run of RUNS through JAX, and the ``angle_clamp`` pass, started
-    together in their own processes: name → future of
-    :func:`jax_run_arrays`'s (or :func:`jax_clamp_run`'s) result."""
-    with jax_processes(len(RUNS) + 1) as pool:
-        runs = {name: pool.submit(jax_run_arrays, rgb, name) for name in RUNS}
-        runs["angle_clamp"] = pool.submit(jax_clamp_run, rgb)
-        yield runs
+    """name → the run of RUNS through JAX, as (states, outputs, the
+    tracker's params), or for ``"angle_clamp"`` :func:`jax_clamp_run`'s
+    result; each computed in the test process when first asked for."""
+
+    @functools.cache
+    def run(name):
+        if name == "angle_clamp":
+            return jax_clamp_run(rgb)
+        tracker, states, outs = jax_run(rgb, name)
+        return states, outs, tracker.params
+
+    return run
 
 
 @pytest.fixture(scope="module", params=list(RUNS))
@@ -345,7 +344,7 @@ def test_fixture_is_current(stored, live, jax_runs):
     from zaru_tpu_torch.weights import params_from_jax
 
     name, port, _, _ = live
-    states, outs, jparams = jax_runs[name].result()
+    states, outs, jparams = jax_runs(name)
     now = flat(name, states, outs)
     for k, v in now.items():
         if v.dtype.kind in "fc":
@@ -424,7 +423,7 @@ def test_angle_clamp_matches_jax(rgb, jax_runs):
     from zaru_tpu_torch.pipeline import MultiHandTracker as TTracker
     from zaru_tpu_torch.weights import params_from_jax
 
-    want, jparams = jax_runs["angle_clamp"].result()
+    want, jparams = jax_runs("angle_clamp")
     pt = TTracker(max_hands=S, params=params_from_jax(jparams), device="cpu")
     pt.angle_clamp = 0.6
     frames, rois = frames_for(rgb, ()), seed_state()["rois"]

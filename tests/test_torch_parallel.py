@@ -29,7 +29,7 @@ small CNN differences grow; tests/test_torch_face_cascade.py); each shard's
 outputs and state bit-equal to that shard's own ``step_batch`` /
 ``run_frames`` on its slice; the training step's first loss and gradient
 within tests/test_torch_train.py's tolerances, its losses falling.
-``test_fixture_is_current`` runs JAX again, each run in its own process.
+``test_fixture_is_current`` runs JAX again, in the test process.
 Regenerate the fixture with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_parallel.py
@@ -44,7 +44,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_port import jax_processes, one_torch_thread  # noqa: E402,F401
+from torch_port import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "zaru_tpu_torch", "fixtures")
@@ -158,11 +158,10 @@ RUNS = ("step", "gated", "bucket", "multi")
 
 
 def jax_all() -> dict:
-    """Every stored run, each in its own process."""
-    with jax_processes(len(RUNS) + 1) as pool:
-        futures = {name: pool.submit(jax_tracker_run, name) for name in RUNS}
-        futures["train"] = pool.submit(jax_train_run)
-        return {f"{name}/{k}": v for name, f in futures.items() for k, v in f.result().items()}
+    """Every stored run."""
+    runs = {name: jax_tracker_run(name) for name in RUNS}
+    runs["train"] = jax_train_run()
+    return {f"{name}/{k}": v for name, run in runs.items() for k, v in run.items()}
 
 
 def regen():

@@ -10,7 +10,7 @@ a numpy seed (the same numbers in both packages), then K Adam steps at
 a checkpoint it wrote (``save_params`` of those parameters) are stored in
 ``zaru_tpu_torch/fixtures/export_train.npz`` (keys ``train__*``;
 tests/test_torch_export.py owns the ``export__*`` keys);
-``test_fixture_is_current`` runs JAX again in a spawned process. Regenerate
+``test_fixture_is_current`` runs JAX again, in the test process. Regenerate
 this file's keys with::
 
     JAX_PLATFORMS=cpu python tests/test_torch_train.py
@@ -37,7 +37,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_port import jax_processes, one_torch_thread  # noqa: E402,F401
+from torch_port import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "zaru_tpu_torch", "fixtures")
@@ -169,8 +169,7 @@ def test_fixture_is_current(stored):
     rounding aside: 1e-6 relative on the losses, 1e-6 on the parameters)."""
     crops = crops_u8()
     np.testing.assert_array_equal(stored["crops"], crops)
-    with jax_processes(1) as pool:
-        now = pool.submit(jax_run, crops).result()
+    now = jax_run(crops)
     assert set(now) == set(stored) - {"crops"}
     np.testing.assert_allclose(now["losses"], stored["losses"], rtol=1e-6)
     np.testing.assert_allclose(now["labels"], stored["labels"], rtol=0, atol=1e-6)
@@ -230,8 +229,10 @@ def test_packed_weights_follow_training():
     with torch.no_grad():
         before = module(x)[0]
     Trainer(net).train_step(x, torch.zeros(2, 1404))
+    with torch.no_grad(), module.without_plans():
+        op_by_op = module(x)[0]
     with torch.no_grad():
-        fused, op_by_op = module(x)[0], module(x, stages=False)[0]
+        fused = module(x)[0]
     np.testing.assert_allclose(fused.numpy(), op_by_op.numpy(), rtol=2e-3,
                                atol=1e-3 * max(1.0, float(op_by_op.abs().max())))
     assert float((fused - before).abs().max()) > 1e-3

@@ -75,52 +75,10 @@ an image more than one row of it:
   MatMul raises when a batched operand of one or two axes would have its
   axis 0 contracted or moved; Gemm's ``transA`` always raises.
 
-**Stage plan.** When a module is built it finds the maximal chains of
-stride-1 BlazeBlocks (:func:`find_stages`): a depthwise 3×3 ``Conv``
-(``group == C``, stride 1, pads 1) → a 1×1 ``Conv`` C→C → an ``Add`` with
-the depthwise conv's input → ``PRelu`` or ``Relu``, every intermediate read
-by that one consumer only, with a channel count ``C`` the stage kernel is
-built for (``cnn_stage.KERNEL_CHANNELS``); a chain longer than
-``cnn_stage.max_blocks(C)`` is split so that every piece has a tiling at
-any image size. Any other chain runs node by node. :meth:`OnnxModule.forward`
-runs each chain as one ``ops.cnn_stage.fused_blocks`` call (the stage
-kernel on CUDA, the plain per-op chain on the CPU) and every other node one
-by one, so the CPU and the card run the same plan. The packed stage
-weights are built from the parameters at construction and again by
-:meth:`OnnxModule.load_params`.
-
-**Bottleneck plan.** Beside it an f32 NCHW module finds the chains of
-stride-1 residual bottleneck blocks (:func:`find_bottlenecks`): a 1×1
-``Conv`` C→C/2 with a bias → ``PRelu`` with C/2 slopes → a depthwise 3×3
-``Conv`` (``group == C/2``, stride 1, pads 1, a bias) → a 1×1 ``Conv``
-C/2→C with a bias → an ``Add`` with the block's input → ``PRelu`` with C
-slopes, every intermediate read by its one consumer only, C one of
-``bottleneck.KERNEL_CHANNELS``; a block's output read by exactly the next
-block's first ``Conv`` and its ``Add`` continues the chain. Each chain runs
-as one ``ops.bottleneck.fused_bottlenecks`` call (on CUDA the bottleneck
-kernel, launches of one or more blocks as ``bottleneck.plan`` cuts the
-chain; on the CPU the plain per-op chain), with its packed weights built
-as the stages' are. A bf16 or NHWC module builds no
-bottleneck plan and runs these blocks node by node.
-
-**BlazeBlock plan.** An f32 NCHW module also finds the BlazeBlocks whose
-residual is not their plain input (:func:`find_blaze_blocks`): a depthwise
-3×3 ``Conv`` (``group == C_in``, a bias, stride 1 with pads 1, or stride 2
-with one pixel of padding an axis) → a 1×1 ``Conv`` C_in→C_out with a
-bias → an ``Add`` with ``Pad(x)`` (channels only, zeros, C_in→C_out),
-``MaxPool(x)`` (2×2, stride 2, C_out == C_in) or ``Pad(MaxPool(x))``, where
-``x`` is the depthwise conv's input → ``Relu`` or ``PRelu`` with C_out
-slopes; C_out > C_in at stride 1 (the stride-1 blocks of one width are the
-stage plan's). Every intermediate is read by its one consumer only, but
-the ``MaxPool``: two blocks may share one (Face Mesh V1), each pooling its
-own input, and the node runs only where something outside the plan's
-blocks reads it. Each block runs as one
-``ops.blaze_block.fused_blaze_block`` call (on CUDA one launch of the
-BlazeBlock kernel, on the CPU the plain per-op block) with its packed
-weights built as the stages' are. A bf16 or NHWC module builds no
-BlazeBlock plan and runs these blocks node by node.
-:meth:`OnnxModule.without_plans` runs the nodes of chosen plans one by one
-for a while (to count or time the graph without them).
+**Fused kernels.** The subgraphs that run as one hand-written kernel, and
+their packed weights, are ``onnx/fusion.py``'s plans, found when the module
+is built and packed again by :meth:`OnnxModule.load_params`;
+:meth:`OnnxModule.without_plans` runs chosen plans node by node.
 
 The other convolutions stay ``F.conv2d`` (cuDNN on the GPU), as the JAX
 package left them to XLA. cuDNN runs f32 convolutions in TF32 by default,
@@ -151,11 +109,10 @@ is promoted to f32 as in JAX. Ops follow JAX's rounding in bf16:
   restores the caller's setting afterwards;
 - Resize contracts one axis at a time and rounds in between (:func:`resize`).
 
-A bf16 module builds no stage plan: the stage kernel
-(``csrc/blaze_stage.cu``) is f32 by design, and JAX's bf16 path runs its
-convolutions in XLA (``cnn_stage.fused_blocks`` has no caller in
-``zaru_tpu/``). The choice is made once, when the module is built; an f32
-module on CUDA launches the stage kernel or raises, as before.
+A bf16 module builds no plan: the fused kernels are f32 by design, and
+JAX's bf16 path runs its convolutions in XLA (``cnn_stage.fused_blocks`` has
+no caller in ``zaru_tpu/``). The choice is made once, when the module is
+built; an f32 module on CUDA launches its kernels or raises.
 
 **Layout.** ``layout="NHWC"`` keeps the activations channels_last
 (``onnx/layout.py``), the counterpart of JAX's NHWC layout: logical shapes
@@ -167,7 +124,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import warnings
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -175,8 +132,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import profiling
-from ..ops import blaze_block, bottleneck, cnn_stage
 from . import layout as _layout
+from .fusion import PLANS, BlazeBlock, Bottlenecks, Stage, find_blaze_blocks, find_bottlenecks, find_plans, find_stages
 from .proto import TENSOR_DTYPES, OnnxModel, OnnxNode
 
 __all__ = ["BlazeBlock", "Bottlenecks", "OnnxModule", "PLANS", "SUPPORTED_OPS", "Stage", "find_blaze_blocks",
@@ -1076,376 +1033,6 @@ def _full_precision():
         matmul.allow_bf16_reduced_precision_reduction = prev[1]
 
 
-@dataclass(frozen=True)
-class Stage:
-    """A chain of BlazeBlocks: its input and output value names, its channel
-    count, each block's initializer names (``dw_w``, ``dw_b``, ``pw_w``,
-    ``pw_b``, ``alpha``; ``alpha`` is None for a ReLU) and the indices of its
-    nodes in the graph."""
-
-    input: str
-    output: str
-    channels: int
-    blocks: tuple
-    nodes: tuple
-
-
-def _block_at(nodes, i, consumers, inits):
-    """The BlazeBlock whose depthwise conv is ``nodes[i]``, as ``(block
-    names, node indices, output name)``, or None."""
-    dw = nodes[i]
-    if dw.op_type != "Conv" or len(dw.inputs) != 3:
-        return None
-    x, w, b = dw.inputs
-    wt = inits.get(w)
-    if wt is None or wt.ndim != 4 or b not in inits:
-        return None
-    C = wt.shape[0]
-    a = dw.attrs
-    if (wt.shape != (C, 1, 3, 3) or a.get("group") != C or a.get("pads") != [1, 1, 1, 1]
-            or a.get("auto_pad", "NOTSET") != "NOTSET"
-            or a.get("strides", [1, 1]) != [1, 1] or a.get("dilations", [1, 1]) != [1, 1]):
-        return None
-
-    def only(name, op):
-        cs = consumers.get(name, [])
-        return cs[0] if len(cs) == 1 and cs[0] >= 0 and nodes[cs[0]].op_type == op else None
-
-    j = only(dw.outputs[0], "Conv")
-    if j is None:
-        return None
-    pw = nodes[j]
-    a = pw.attrs
-    pwt = inits.get(pw.inputs[1])
-    if (len(pw.inputs) != 3 or pw.inputs[0] != dw.outputs[0] or pwt is None
-            or pwt.shape != (C, C, 1, 1) or pw.inputs[2] not in inits
-            or a.get("group", 1) != 1 or any(a.get("pads") or [])
-            or a.get("auto_pad", "NOTSET") not in ("NOTSET", "VALID")
-            or a.get("strides", [1, 1]) != [1, 1]):
-        return None
-    k = only(pw.outputs[0], "Add")
-    if k is None or sorted(nodes[k].inputs) != sorted([x, pw.outputs[0]]):
-        return None
-    add_out = nodes[k].outputs[0]
-    act = only(add_out, "PRelu")
-    if act is not None:
-        slope = nodes[act].inputs[1]
-        if nodes[act].inputs[0] != add_out or slope not in inits or inits[slope].size != C:
-            return None
-    else:
-        act = only(add_out, "Relu")
-        if act is None:
-            return None
-        slope = None
-    names = {"dw_w": w, "dw_b": b, "pw_w": pw.inputs[1], "pw_b": pw.inputs[2], "alpha": slope}
-    return names, (i, j, k, act), nodes[act].outputs[0]
-
-
-def find_stages(model: OnnxModel) -> list[Stage]:
-    """The graph's chains of BlazeBlocks that the stage kernel takes (see
-    the module docstring): maximal chains of a channel count in
-    ``cnn_stage.KERNEL_CHANNELS``, split into pieces of at most
-    ``cnn_stage.max_blocks(C)`` blocks. A block output read by anything but
-    the next block (or a graph output) ends its chain."""
-    g = model.graph
-    nodes = g.nodes
-    consumers: dict[str, list[int]] = {}
-    for i, n in enumerate(nodes):
-        for name in n.inputs:
-            consumers.setdefault(name, []).append(i)
-    for vi in g.outputs:
-        consumers.setdefault(vi.name, []).append(-1)
-    stages, taken = [], set()
-    for i in range(len(nodes)):
-        if i in taken:
-            continue
-        found = _block_at(nodes, i, consumers, g.initializers)
-        if found is None:
-            continue
-        names, idx, out = found
-        chain = [(nodes[i].inputs[0], names, idx, out)]
-        while True:
-            nxt = None
-            cs = consumers.get(out, [])
-            if len(cs) == 2 and -1 not in cs:
-                for c in cs:
-                    f = _block_at(nodes, c, consumers, g.initializers)
-                    if f is not None and set(cs) == {c, f[1][2]}:
-                        nxt = f
-            if nxt is None:
-                break
-            chain.append((out, *nxt))
-            out = nxt[2]
-        taken.update(k for link in chain for k in link[2])
-        C = g.initializers[names["dw_w"]].shape[0]
-        if C not in cnn_stage.KERNEL_CHANNELS:
-            continue
-        most = cnn_stage.max_blocks(C)
-        for s in range(0, len(chain), most):
-            piece = chain[s:s + most]
-            stages.append(Stage(piece[0][0], piece[-1][3], C, tuple(link[1] for link in piece),
-                                tuple(k for link in piece for k in link[2])))
-    return stages
-
-
-@dataclass(frozen=True)
-class Bottlenecks:
-    """A chain of residual bottleneck blocks: its input and output value
-    names, its channel count, each block's initializer names (``w1``,
-    ``b1``, ``a1``, ``dw_w``, ``dw_b``, ``w2``, ``b2``, ``a2``) and the
-    indices of its nodes in the graph."""
-
-    input: str
-    output: str
-    channels: int
-    blocks: tuple
-    nodes: tuple
-
-
-def _bottleneck_at(nodes, i, consumers, inits):
-    """The bottleneck block whose first 1×1 conv is ``nodes[i]``, as
-    ``(block names, node indices, output name)``, or None."""
-
-    def only(name, op):
-        cs = consumers.get(name, [])
-        return cs[0] if len(cs) == 1 and cs[0] >= 0 and nodes[cs[0]].op_type == op else None
-
-    def conv(n, shape, group=1, pads=None):
-        """Whether node ``n`` is a Conv with weights of ``shape`` and a bias,
-        stride 1, no dilation, ``group`` groups and these pads (none when
-        None)."""
-        a = n.attrs
-        w = inits.get(n.inputs[1]) if n.op_type == "Conv" and len(n.inputs) == 3 else None
-        return (w is not None and w.shape == shape and n.inputs[2] in inits
-                and a.get("group", 1) == group and a.get("auto_pad", "NOTSET") == "NOTSET"
-                and a.get("strides", [1, 1]) == [1, 1] and a.get("dilations", [1, 1]) == [1, 1]
-                and (a.get("pads") == pads if pads else not any(a.get("pads") or [])))
-
-    def prelu(k, src, n):
-        """The slope name of node ``k`` if it is a PRelu of ``src`` with ``n``
-        slopes."""
-        if k is None or nodes[k].inputs[0] != src or nodes[k].inputs[1] not in inits:
-            return None
-        return nodes[k].inputs[1] if inits[nodes[k].inputs[1]].size == n else None
-
-    c1 = nodes[i]
-    w1 = inits.get(c1.inputs[1]) if c1.op_type == "Conv" and len(c1.inputs) == 3 else None
-    if w1 is None or w1.ndim != 4:
-        return None
-    C = w1.shape[1]
-    M = C // 2
-    if C % 2 or not conv(c1, (M, C, 1, 1)):
-        return None
-    x = c1.inputs[0]
-    p1 = only(c1.outputs[0], "PRelu")
-    a1 = prelu(p1, c1.outputs[0], M)
-    dw = only(nodes[p1].outputs[0], "Conv") if a1 else None
-    if (dw is None or nodes[dw].inputs[0] != nodes[p1].outputs[0]
-            or not conv(nodes[dw], (M, 1, 3, 3), M, [1, 1, 1, 1])):
-        return None
-    c2 = only(nodes[dw].outputs[0], "Conv")
-    if c2 is None or nodes[c2].inputs[0] != nodes[dw].outputs[0] or not conv(nodes[c2], (C, M, 1, 1)):
-        return None
-    add = only(nodes[c2].outputs[0], "Add")
-    if add is None or sorted(nodes[add].inputs) != sorted([x, nodes[c2].outputs[0]]):
-        return None
-    p2 = only(nodes[add].outputs[0], "PRelu")
-    a2 = prelu(p2, nodes[add].outputs[0], C)
-    if a2 is None:
-        return None
-    names = {"w1": c1.inputs[1], "b1": c1.inputs[2], "a1": a1, "dw_w": nodes[dw].inputs[1],
-             "dw_b": nodes[dw].inputs[2], "w2": nodes[c2].inputs[1], "b2": nodes[c2].inputs[2], "a2": a2}
-    return names, (i, p1, dw, c2, add, p2), nodes[p2].outputs[0]
-
-
-def find_bottlenecks(model: OnnxModel) -> list[Bottlenecks]:
-    """The graph's chains of stride-1 residual bottleneck blocks that the
-    bottleneck kernel takes (see the module docstring): maximal chains of a
-    channel count in ``bottleneck.KERNEL_CHANNELS``. A block output read by
-    anything but the next block (or a graph output) ends its chain."""
-    g = model.graph
-    nodes = g.nodes
-    consumers: dict[str, list[int]] = {}
-    for i, n in enumerate(nodes):
-        for name in n.inputs:
-            consumers.setdefault(name, []).append(i)
-    for vi in g.outputs:
-        consumers.setdefault(vi.name, []).append(-1)
-    chains, taken = [], set()
-    for i in range(len(nodes)):
-        if i in taken:
-            continue
-        found = _bottleneck_at(nodes, i, consumers, g.initializers)
-        if found is None:
-            continue
-        names, idx, out = found
-        chain = [(names, idx)]
-        while True:
-            nxt = None
-            cs = consumers.get(out, [])
-            if len(cs) == 2 and -1 not in cs:
-                for c in cs:
-                    f = _bottleneck_at(nodes, c, consumers, g.initializers)
-                    if f is not None and set(cs) == {c, f[1][4]}:
-                        nxt = f
-            if nxt is None:
-                break
-            chain.append(nxt[:2])
-            out = nxt[2]
-        taken.update(k for _, link in chain for k in link)
-        C = g.initializers[names["w1"]].shape[1]
-        if C in bottleneck.KERNEL_CHANNELS:
-            chains.append(Bottlenecks(nodes[i].inputs[0], out, C, tuple(n for n, _ in chain),
-                                      tuple(k for _, link in chain for k in link)))
-    return chains
-
-
-@dataclass(frozen=True)
-class BlazeBlock:
-    """A BlazeBlock with a pooled or channel-padded residual: its input and
-    output value names, its widths, stride, the depthwise's pads ``(top,
-    left, bottom, right)``, whether its activation is a ReLU, its
-    initializer names (``dw_w``, ``dw_b``, ``pw_w``, ``pw_b``, ``alpha``;
-    ``alpha`` None for a ReLU) and the indices of the nodes it replaces, in
-    graph order (the activation last)."""
-
-    input: str
-    output: str
-    c_in: int
-    c_out: int
-    stride: int
-    pads: tuple
-    relu: bool
-    names: dict
-    nodes: tuple
-
-
-def _channel_pad(node, inits, c_in: int) -> int | None:
-    """The channels a ``Pad`` node adds at the end of axis 1 of a 4-D value
-    with zeros, padding nothing else, or None."""
-    if node.op_type != "Pad" or _str(node.attrs.get("mode", "constant")) != "constant":
-        return None
-    pads = node.attrs.get("pads")
-    if pads is None and len(node.inputs) > 1:
-        pads = inits.get(node.inputs[1])
-        pads = None if pads is None else pads.tolist()
-    value = node.attrs.get("value", 0.0)
-    if len(node.inputs) > 2 and node.inputs[2]:
-        v = inits.get(node.inputs[2])
-        value = None if v is None or v.size != 1 else float(v.reshape(-1)[0])
-    if pads is None or len(pads) != 8 or value != 0.0:
-        return None
-    if any(pads[k] for k in (0, 1, 2, 3, 4, 6, 7)) or pads[5] <= 0:
-        return None
-    return int(pads[5])
-
-
-def _max_pool_2x2(node) -> bool:
-    a = node.attrs
-    return (node.op_type == "MaxPool" and len(node.outputs) == 1 and a.get("kernel_shape") == [2, 2]
-            and a.get("strides") == [2, 2] and not any(a.get("pads") or [])
-            and a.get("auto_pad", "NOTSET") in ("NOTSET", "VALID") and not a.get("ceil_mode", 0)
-            and a.get("dilations", [1, 1]) == [1, 1] and not a.get("storage_order", 0))
-
-
-def _blaze_block_at(nodes, i, consumers, producer, inits):
-    """The BlazeBlock whose depthwise conv is ``nodes[i]``, as a
-    :class:`BlazeBlock` (its pool, if any, among its nodes), or None."""
-    dw = nodes[i]
-    if dw.op_type != "Conv" or len(dw.inputs) != 3 or dw.inputs[2] not in inits:
-        return None
-    x, w, b = dw.inputs
-    wt = inits.get(w)
-    if wt is None or wt.ndim != 4:
-        return None
-    c_in = wt.shape[0]
-    a = dw.attrs
-    strides, pads = a.get("strides", [1, 1]), a.get("pads") or [0, 0, 0, 0]
-    if (wt.shape != (c_in, 1, 3, 3) or a.get("group") != c_in or a.get("auto_pad", "NOTSET") != "NOTSET"
-            or a.get("dilations", [1, 1]) != [1, 1] or strides not in ([1, 1], [2, 2]) or len(pads) != 4):
-        return None
-    stride = strides[0]
-    pt, pl, pb, pr = pads
-    if stride == 1 and pads != [1, 1, 1, 1]:
-        return None
-    if stride == 2 and not (pt + pb == 1 and pl + pr == 1 and min(pads) >= 0):
-        return None
-
-    def only(name, *ops):
-        cs = consumers.get(name, [])
-        return cs[0] if len(cs) == 1 and cs[0] >= 0 and nodes[cs[0]].op_type in ops else None
-
-    j = only(dw.outputs[0], "Conv")
-    if j is None:
-        return None
-    pw = nodes[j]
-    pa = pw.attrs
-    pwt = inits.get(pw.inputs[1])
-    if (len(pw.inputs) != 3 or pw.inputs[0] != dw.outputs[0] or pwt is None or pwt.ndim != 4
-            or pwt.shape[1:] != (c_in, 1, 1) or pw.inputs[2] not in inits or pa.get("group", 1) != 1
-            or any(pa.get("pads") or []) or pa.get("auto_pad", "NOTSET") not in ("NOTSET", "VALID")
-            or pa.get("strides", [1, 1]) != [1, 1] or pa.get("dilations", [1, 1]) != [1, 1]):
-        return None
-    c_out = pwt.shape[0]
-    if c_out < c_in or (c_out == c_in and stride == 1):
-        return None
-    k = only(pw.outputs[0], "Add")
-    if k is None or len(nodes[k].inputs) != 2 or pw.outputs[0] not in nodes[k].inputs:
-        return None
-    add = nodes[k]
-    r = add.inputs[1] if add.inputs[0] == pw.outputs[0] else add.inputs[0]
-    # The residual, from the Add back to x: Pad, then MaxPool at stride 2.
-    taken, src = [], r
-    if c_out > c_in:
-        pad = producer.get(src)
-        if pad is None or only(src, "Add") != k or _channel_pad(nodes[pad], inits, c_in) != c_out - c_in:
-            return None
-        taken.append(pad)
-        src = nodes[pad].inputs[0]
-    if stride == 2:
-        pool = producer.get(src)
-        if pool is None or not _max_pool_2x2(nodes[pool]):
-            return None
-        taken.append(pool)
-        src = nodes[pool].inputs[0]
-    if src != x:
-        return None
-    act = only(add.outputs[0], "PRelu", "Relu")
-    if act is None or nodes[act].inputs[0] != add.outputs[0]:
-        return None
-    slope = None
-    if nodes[act].op_type == "PRelu":
-        slope = nodes[act].inputs[1]
-        if slope not in inits or inits[slope].size != c_out:
-            return None
-    names = {"dw_w": w, "dw_b": b, "pw_w": pw.inputs[1], "pw_b": pw.inputs[2], "alpha": slope}
-    return BlazeBlock(x, nodes[act].outputs[0], c_in, c_out, stride, (pt, pl, pb, pr), slope is None, names,
-                      tuple(sorted([i, j, k, act, *taken])))
-
-
-def find_blaze_blocks(model: OnnxModel) -> list[BlazeBlock]:
-    """The graph's BlazeBlocks with a pooled or channel-padded residual that
-    the BlazeBlock kernel takes (see the module docstring). A ``MaxPool``
-    stays among a block's nodes only where every reader of its output is a
-    node of the found blocks; else it runs as a node too, and each block
-    pools its own input."""
-    g = model.graph
-    nodes = g.nodes
-    consumers: dict[str, list[int]] = {}
-    for i, n in enumerate(nodes):
-        for name in n.inputs:
-            consumers.setdefault(name, []).append(i)
-    for vi in g.outputs:
-        consumers.setdefault(vi.name, []).append(-1)
-    producer = {o: i for i, n in enumerate(nodes) for o in n.outputs}
-    found = [b for b in (_blaze_block_at(nodes, i, consumers, producer, g.initializers) for i in range(len(nodes)))
-             if b is not None]
-    pools = {k for b in found for k in b.nodes if nodes[k].op_type == "MaxPool"}
-    inside = {k for b in found for k in b.nodes} - pools
-    shared = {k for k in pools if not set(consumers.get(nodes[k].outputs[0], [])) <= inside}
-    return [replace(b, nodes=tuple(k for k in b.nodes if k not in shared)) for b in found]
-
-
 def _live_nodes(nodes, outputs) -> set[int]:
     """Indices of the nodes that ``outputs`` depend on."""
     needed, live = set(outputs), set()
@@ -1454,10 +1041,6 @@ def _live_nodes(nodes, outputs) -> set[int]:
             live.add(i)
             needed.update(n for n in nodes[i].inputs if n)
     return live
-
-
-# The plans a module may build, as its attributes name them.
-PLANS = ("stages", "bottlenecks", "blaze_blocks")
 
 
 class OnnxModule(nn.Module):
@@ -1518,25 +1101,24 @@ class OnnxModule(nn.Module):
         info = {vi.name: vi for vi in g.outputs}
         self.output_info = [info[n] for n in self.output_names]
         self._live = _live_nodes(g.nodes, self.output_names)
-        self.stages = [] if compute_dtype else find_stages(model)
-        self.bottlenecks = [] if compute_dtype or self.layout == "NHWC" else find_bottlenecks(model)
-        self.blaze_blocks = [] if compute_dtype or self.layout == "NHWC" else find_blaze_blocks(model)
+        for kind, entries in find_plans(model, compute_dtype, self.layout).items():
+            setattr(self, kind, entries)
         self._index_plans()
         self._derive_weights()
 
     def _index_plans(self) -> None:
-        """Each plan's entries by the node that runs them, and every node a
-        plan runs, from ``stages``, ``bottlenecks`` and ``blaze_blocks``."""
-        self._stage_at = {st.nodes[0]: st for st in self.stages}
-        self._bottleneck_at = {bn.nodes[0]: bn for bn in self.bottlenecks}
-        self._blaze_at = {blk.nodes[-1]: blk for blk in self.blaze_blocks}
-        self._in_stage = {i for st in self.stages + self.bottlenecks + self.blaze_blocks for i in st.nodes}
+        """Every plan's entries by the node that runs them, and every node
+        the plans replace, from the attributes :data:`PLANS` names."""
+        entries = [e for kind in PLANS for e in getattr(self, kind)]
+        self._plan_at = {e.at: e for e in entries}
+        self._in_plan = {i for e in entries for i in e.nodes}
 
     @contextlib.contextmanager
     def without_plans(self, *kinds: str):
-        """Inside the block, the plans named in ``kinds`` (``"stages"``,
-        ``"bottlenecks"``, ``"blaze_blocks"``; all three where none is named)
-        are empty and their nodes run one by one; the others run as
+        """Inside the block, the plans named in ``kinds`` (of :data:`PLANS`:
+        ``"stages"``, ``"bottlenecks"``, ``"blaze_blocks"``; all where none is
+        named) are empty and their nodes run one by one: the graph JAX
+        differentiates (the kernels' ops have no gradient). The others run as
         planned. The packed weights are kept: load no parameters inside."""
         unknown = set(kinds) - set(PLANS)
         if unknown:
@@ -1612,29 +1194,13 @@ class OnnxModule(nn.Module):
 
     @torch.no_grad()
     def _derive_weights(self) -> None:
-        """The stage, bottleneck and BlazeBlock kernels' packed weights and,
+        """The plans' packed weights, by the node that runs each entry, and,
         in bf16, the parameters' cast copy, from the current parameters."""
         params = self.params()
         self._compute_params = (
             {k: v.to(self.compute_dtype) for k, v in params.items()} if self.compute_dtype else params
         )
-        self._packed = {
-            st.nodes[0]: cnn_stage.pack_blocks(
-                [{k: None if v is None else params[v] for k, v in b.items()} for b in st.blocks],
-                st.channels,
-            )
-            for st in self.stages
-        }
-        self._bottleneck_packed = {
-            bn.nodes[0]: bottleneck.pack_bottlenecks([{k: params[v] for k, v in b.items()} for b in bn.blocks],
-                                                     bn.channels)
-            for bn in self.bottlenecks
-        }
-        self._blaze_packed = {
-            i: blaze_block.pack_blaze_block({k: None if v is None else params[v] for k, v in blk.names.items()},
-                                            blk.c_in, blk.c_out)
-            for i, blk in self._blaze_at.items()
-        }
+        self._packed = {i: e.pack(params) for i, e in self._plan_at.items()}
 
     def params(self) -> dict[str, torch.Tensor]:
         """The float initializers by ONNX name."""
@@ -1656,13 +1222,10 @@ class OnnxModule(nn.Module):
             p.copy_(v)
         self._derive_weights()
 
-    def activations(self, *inputs: torch.Tensor, stages: bool = True) -> dict:
-        """Every value the selected outputs depend on, by name (a chain's
-        inner values are not computed), for ``inputs``: device values as
-        tensors, host values as numpy arrays. ``stages=False`` runs the
-        chains and blocks node by node too: the graph JAX differentiates
-        (the stage, bottleneck and BlazeBlock kernels' ops have no
-        gradient)."""
+    def activations(self, *inputs: torch.Tensor) -> dict:
+        """Every value the selected outputs depend on, by name (the inner
+        values of a plan's entry are not computed), for ``inputs``: device
+        values as tensors, host values as numpy arrays."""
         if len(inputs) != len(self.input_info):
             raise ValueError(f"expected {len(self.input_info)} inputs, got {len(inputs)}")
         dtype = self.compute_dtype
@@ -1679,27 +1242,11 @@ class OnnxModule(nn.Module):
             for i, node in enumerate(self.nodes):
                 if i not in self._live or node.op_type == "Constant":
                     continue
-                st = self._stage_at.get(i) if stages else None
-                if st is not None:
-                    x = env[st.input]
-                    env[st.output] = cnn_stage.fused_blocks(
-                        x, self._packed[i], x.shape[2], x.shape[3], st.channels
-                    )
+                e = self._plan_at.get(i)
+                if e is not None:
+                    env[e.output] = e.run(env[e.input], self._packed[i])
                     continue
-                bn = self._bottleneck_at.get(i) if stages else None
-                if bn is not None:
-                    x = env[bn.input]
-                    env[bn.output] = bottleneck.fused_bottlenecks(
-                        x, self._bottleneck_packed[i], x.shape[2], x.shape[3], bn.channels
-                    )
-                    continue
-                blk = self._blaze_at.get(i) if stages else None
-                if blk is not None:
-                    env[blk.output] = blaze_block.fused_blaze_block(
-                        env[blk.input], self._blaze_packed[i], blk.c_out, blk.stride, blk.pads, blk.relu
-                    )
-                    continue
-                if stages and i in self._in_stage:
+                if i in self._in_plan:
                     continue
                 vals = [env[n] if n else None for n in node.inputs]
                 if i in self._on_host:
@@ -1715,8 +1262,8 @@ class OnnxModule(nn.Module):
                 env.update(zip(node.outputs, out if isinstance(out, list) else [out]))
         return env
 
-    def forward(self, *inputs: torch.Tensor, stages: bool = True) -> list[torch.Tensor]:
-        env = self.activations(*inputs, stages=stages)
+    def forward(self, *inputs: torch.Tensor) -> list[torch.Tensor]:
+        env = self.activations(*inputs)
         outs = [env[n] for n in self.output_names]
         if self.layout == "NHWC":
             outs = [_layout.to_nchw(o) for o in outs]

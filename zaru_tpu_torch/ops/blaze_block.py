@@ -17,8 +17,8 @@ short range has 11 such blocks (8 stride-1 blocks that widen the channels,
 (its blocks are double: a 1×1 down, ReLU, a second depthwise and a 1×1 up
 before the Add).
 
-The ONNX executor finds them (``onnx/executor.py``
-:func:`~zaru_tpu_torch.onnx.executor.find_blaze_blocks`) and runs each
+The ONNX executor finds them (``onnx/fusion.py``
+:func:`~zaru_tpu_torch.onnx.fusion.find_blaze_blocks`) and runs each
 through :func:`fused_blaze_block`: on a CUDA tensor it launches
 ``csrc/blaze_block.cu`` once, which reads the block's input once and
 writes its output once (op by op the block is 5-8 passes over device
@@ -35,7 +35,7 @@ captures it and ``FakeTensorMode`` runs it; a FLOP formula
 (:func:`blaze_block_flops`) counts it as ``onnx/analysis.analyze`` counts
 the nodes it replaces. Each call is the span ``zaru.net.blaze_block`` and
 adds one to ``profiling.counters["blaze_blocks"]``; each launch is counted
-in ``fused_blaze_block.launches``.
+in ``profiling.counters["launches.blaze_block"]``.
 
 A block is a dict of ``dw_w [C_in,1,3,3]``, ``dw_b [C_in]``, ``pw_w
 [C_out,C_in,1,1]``, ``pw_b [C_out]`` and ``alpha`` (``C_out`` slopes, any
@@ -247,7 +247,7 @@ def _geometry(c_in: int, c_out: int, H: int, W: int, stride: int, pads: tuple, B
 
 def _launch(x, packed, c_out: int, stride: int, pads, relu: bool):
     """The block on a CUDA tensor: one launch into a fresh output, counted in
-    ``fused_blaze_block.launches``. Raises on what the kernel does not take
+    ``launches.blaze_block``. Raises on what the kernel does not take
     (:func:`_check`), a non-contiguous input or a failed launch; nothing
     falls back."""
     _check(x, packed, c_out, stride, pads, relu)
@@ -262,7 +262,7 @@ def _launch(x, packed, c_out: int, stride: int, pads, relu: bool):
                 pads[1], int(relu), tile_h, images, smem, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"blaze_block kernel launch failed: CUDA error {rc}")
-    fused_blaze_block.launches += 1
+    profiling.counters["launches.blaze_block"] += 1
     return out
 
 
@@ -314,6 +314,3 @@ def fused_blaze_block(x, packed, c_out: int, stride: int, pads, relu: bool):
     profiling.counters["blaze_blocks"] += 1
     with profiling.span("zaru.net.blaze_block"):
         return blaze_block_op(x, packed, c_out, stride, list(pads), relu)
-
-
-fused_blaze_block.launches = 0

@@ -8,7 +8,7 @@ A block, on ``[B,C,H,W] f32`` with ``M = C/2``::
 
 Face Mesh V2 (``face_landmarks_detector.onnx``) has 28 of them in seven
 chains of four, the iris model 20. The ONNX executor finds the chains
-(``onnx/executor.py`` :func:`~zaru_tpu_torch.onnx.executor.find_bottlenecks`)
+(``onnx/fusion.py`` :func:`~zaru_tpu_torch.onnx.fusion.find_bottlenecks`)
 and runs each through :func:`fused_bottlenecks`: on a CUDA tensor it
 launches ``csrc/bottleneck_stage.cu``, a launch for a piece of the
 chain (:func:`plan`: one block, or several where that is estimated to be
@@ -27,7 +27,7 @@ captures it and ``FakeTensorMode`` runs it; a FLOP formula
 (:func:`bottleneck_flops`) counts it as ``onnx/analysis.analyze`` counts
 the nodes it replaces. Each call is the span ``zaru.net.bottleneck`` and
 adds its blocks to ``profiling.counters["bottleneck_blocks"]``; each launch
-is counted in ``fused_bottlenecks.launches``.
+is counted in ``profiling.counters["launches.bottleneck_stage"]``.
 
 Blocks are dicts of ``w1 [M,C,1,1]``, ``b1 [M]``, ``a1`` (M slopes, any
 shape), ``dw_w [M,1,3,3]``, ``dw_b [M]``, ``w2 [C,M,1,1]``, ``b2 [C]`` and
@@ -244,7 +244,7 @@ def _check(x, packed, H, W, C):
 
 def _launch(x, packed):
     """The chain on a CUDA tensor: the launches of :func:`plan`, each into a
-    fresh output, counted in ``fused_bottlenecks.launches``. Raises on a
+    fresh output, counted in ``launches.bottleneck_stage``. Raises on a
     width the kernel is not built for, more images than a launch takes, a
     non-contiguous input or a failed launch; nothing falls back."""
     B, C, H, W = x.shape
@@ -267,7 +267,7 @@ def _launch(x, packed):
                     images, _smem_bytes(C, H, W, tile_h, tile_w, images, nb), stream)
             if rc != 0:
                 raise RuntimeError(f"bottleneck_stage kernel launch failed: CUDA error {rc}")
-            fused_bottlenecks.launches += 1
+            profiling.counters["launches.bottleneck_stage"] += 1
             first += nb
             x = out
     return x
@@ -316,7 +316,3 @@ def fused_bottlenecks(x, packed, H: int, W: int, C: int):
     profiling.counters["bottleneck_blocks"] += packed.shape[0]
     with profiling.span("zaru.net.bottleneck"):
         return bottleneck_stage_op(x, packed)
-
-
-fused_bottlenecks.launches = 0
-

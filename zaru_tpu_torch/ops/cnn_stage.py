@@ -7,7 +7,7 @@ consecutive stride-1 BlazeBlocks on ``[B,C,H,W] f32``::
 
 (depthwise 3×3 with zero padding 1 → pointwise 1×1 → residual Add →
 PReLU; a ReLU block is PReLU with α = 0). The ONNX executor finds such
-chains in the face CNNs (``onnx/executor.py``) and runs each through
+chains in the face CNNs (``onnx/fusion.py``) and runs each through
 :func:`fused_blocks`: on a CUDA tensor it launches ``csrc/blaze_stage.cu``
 (the kernel in ``csrc/blaze_stage.cuh``),
 which keeps the stage's activations in shared memory; on a CPU tensor it
@@ -20,8 +20,8 @@ The kernel reads and writes either memory layout of the logical
 module, ``onnx/layout.py``; ``csrc/blaze_stage_nhwc.cu``), whose output is
 channels_last too. The two variants differ only in the index maps of the
 global load and store, so they are bit-equal on the same values. Each
-counts its launches:
-``fused_blocks.launches`` (NCHW) and ``fused_blocks.nhwc_launches``.
+counts its launches in ``profiling.counters``: ``launches.blaze_stage``
+(NCHW) and ``launches.blaze_stage_nhwc``.
 
 The stage is the registered op ``zaru_tpu_torch::blaze_stage``
 (:func:`blaze_stage_op`): its CUDA kernel is the launch, its CPU kernel the
@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from torch.utils.flop_counter import register_flop_formula
 
+from .. import profiling
 from ._build import library
 
 __all__ = [
@@ -199,8 +200,8 @@ def blaze_stage_op(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     """The stage as a registered op on ``x [B,C,H,W] f32`` and its packed
     blocks: the CUDA kernel launches ``csrc/blaze_stage.cu`` (an
     NCHW-contiguous ``x``) or ``csrc/blaze_stage_nhwc.cu`` (a channels_last
-    one) once and counts it in ``fused_blocks.launches`` or
-    ``fused_blocks.nhwc_launches``; the CPU kernel is the plain version.
+    one) once and counts it in ``profiling.counters["launches.blaze_stage"]``
+    or ``["launches.blaze_stage_nhwc"]``; the CPU kernel is the plain version.
     It has no autograd formula (JAX has no backward kernel either): a
     gradient asked through it raises."""
     B, C, H, W = x.shape
@@ -228,10 +229,7 @@ def blaze_stage_op(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"blaze_stage kernel launch failed: CUDA error {rc}")
-    if nhwc:
-        fused_blocks.nhwc_launches += 1
-    else:
-        fused_blocks.launches += 1
+    profiling.counters[f"launches.{name}"] += 1
     return out
 
 
@@ -265,7 +263,3 @@ def fused_blocks(x, packed, H: int, W: int, C: int):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     return blaze_stage_op(x, packed)
-
-
-fused_blocks.launches = 0
-fused_blocks.nhwc_launches = 0

@@ -20,6 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import profiling
 from ._build import library
 from .sampling import color_adjust, letterbox_sample_core
 
@@ -50,7 +51,8 @@ def letterbox_sample_op(
 ) -> torch.Tensor:
     """The sampler as a registered op: its CUDA kernel launches
     ``csrc/letterbox_sample.cu`` once and counts it in
-    ``letterbox_sample.launches``; its CPU kernel is the plain version."""
+    ``profiling.counters["launches.letterbox_sample"]``; its CPU kernel is
+    the plain version."""
     if not (frames_u8.is_contiguous() and rrects.is_contiguous()):
         raise ValueError("frames and rects must be contiguous")
     B, H, W, _ = frames_u8.shape
@@ -70,7 +72,7 @@ def letterbox_sample_op(
         )
     if rc != 0:
         raise RuntimeError(f"letterbox_sample kernel launch failed: CUDA error {rc}")
-    letterbox_sample.launches += 1
+    profiling.counters["launches.letterbox_sample"] += 1
     return out
 
 
@@ -99,6 +101,3 @@ def letterbox_sample(
     if frames_u8.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {frames_u8.device}")
     return letterbox_sample_op(frames_u8, rrects, out_w, out_h, lo, hi, layout == "NCHW")
-
-
-letterbox_sample.launches = 0

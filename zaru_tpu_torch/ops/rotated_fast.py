@@ -31,6 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import profiling
 from ..num import div, fma, recip
 from ._build import library
 from .sampling import color_map
@@ -242,13 +243,13 @@ def rotated_sample_op(
 ) -> torch.Tensor:
     """The sampler as a registered op on flat ``rects [N,5]`` (``mirror``:
     one flag a slot, or empty): its CUDA kernel is one launch of
-    :func:`rotated_sample_launch`, counted in ``rotated_sample_fast.launches``
+    :func:`rotated_sample_launch`, counted in ``launches.rotated_sample``
     (so a launch from inside an exported program counts too); its CPU
     kernel the plain version."""
     slots = rects.shape[0] // frames.shape[0]
     out = rotated_sample_launch(frames, rects, slots, out_w, out_h, lo, hi, prescale_m,
                                 "NCHW" if planar else "NHWC", mirror or None)
-    rotated_sample_fast.launches += 1
+    profiling.counters["launches.rotated_sample"] += 1
     return out
 
 
@@ -297,6 +298,3 @@ def rotated_sample_fast(
     out = rotated_sample_op(frames_u8, rrects.reshape(-1, 5).contiguous(), out_w, out_h, lo, hi, prescale_m,
                             layout == "NCHW", list(mirror or ()))
     return _shaped(out, rrects, out_w, out_h, layout)
-
-
-rotated_sample_fast.launches = 0

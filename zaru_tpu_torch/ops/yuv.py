@@ -27,6 +27,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import profiling
 from ._build import library
 
 __all__ = [
@@ -105,10 +106,10 @@ def rgb_to_yuv_launch(rgb):
 @torch.library.custom_op("zaru_tpu_torch::rgb_to_yuv", mutates_args=(), device_types="cuda")
 def rgb_to_yuv_op(rgb: torch.Tensor) -> torch.Tensor:
     """The conversion as a registered op: its CUDA kernel is one launch of
-    :func:`rgb_to_yuv_launch`, counted in ``rgb_to_yuv_fast.launches``; its
+    :func:`rgb_to_yuv_launch`, counted in ``launches.rgb_to_yuv``; its
     CPU kernel the plain version."""
     out = rgb_to_yuv_launch(rgb.contiguous())
-    rgb_to_yuv_fast.launches += 1
+    profiling.counters["launches.rgb_to_yuv"] += 1
     return out
 
 
@@ -128,6 +129,3 @@ def rgb_to_yuv_fast(rgb):
     if rgb.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {rgb.device}")
     return rgb_to_yuv_op(rgb)
-
-
-rgb_to_yuv_fast.launches = 0

@@ -9,12 +9,13 @@ Two things of the executor shape it:
 
 - the parameters are built frozen (``requires_grad=False``): the trainer
   makes them trainable;
-- the stage plan runs each BlazeBlock chain through the stage kernel from a
-  packed copy of the weights, and the kernel's op has no gradient. So the
-  trainer differentiates the graph node by node (``stages=False``, the graph
-  JAX differentiates), on the live parameters, and packs the weights again
-  after every step (``OnnxModule._derive_weights``), so that inference
-  through the stage kernel sees the trained weights.
+- the plans (``onnx/fusion.py``) run fused blocks through hand-written
+  kernels from a packed copy of the weights, and the kernels' ops have no
+  gradient. So the trainer differentiates the graph node by node (inside
+  ``OnnxModule.without_plans()``, the graph JAX differentiates), on the live
+  parameters, and packs the weights again after every step
+  (``OnnxModule._derive_weights``), so that inference through the kernels
+  sees the trained weights.
 
 :func:`make_data_parallel_train_step` trains over a mesh
 (:func:`zaru_tpu_torch.parallel.stream_mesh`) in one process, as JAX's
@@ -50,7 +51,8 @@ def landmark_mse_loss(model, output_index: int = 0) -> Callable:
     module = _module(model)
 
     def loss_fn(x, y):
-        out = module(x, stages=False)[output_index]
+        with module.without_plans():
+            out = module(x)[output_index]
         return torch.mean((out.reshape(y.shape) - y) ** 2)
 
     return loss_fn
