@@ -6,6 +6,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --sharding   # the build and the sharding phase only (any number of cards)
     python3 chip_smoke.py --bottleneck # the build and the bottleneck kernel's phase only
     python3 chip_smoke.py --blaze-block # the build and the BlazeBlock kernel's phase only
+    python3 chip_smoke.py --entry-block # the build and the entry block kernel's phase only
 
 Phases, one line of output each and each phase's wall time (any failed
 check exits non-zero):
@@ -239,7 +240,16 @@ check exits non-zero):
    beside its bound and the per-op chain, ``analyze`` with and without the
    plan, a forward's counted blocks and launches, its refusals, and the
    main path's launches at 512 (phase 5's run; alone, a run of its own):
-   6 a step and 11 more a detect step;
+   6 a step and 11 more a detect step; the entry block kernel
+   (``phase_entry_block``, alone with ``--entry-block``): within the CNN bar
+   of its plain version on random weights at ragged shapes and of the
+   per-op chain at every entry block of Face Mesh V2 (batches 512 and 1)
+   and the iris model (1024 and 1), timed beside its bound and the per-op
+   chain, ``analyze`` with and without the plan, a forward's counted blocks
+   and launches (6 a V2 or iris forward, none a Face Mesh V1 or BlazeFace
+   one), its refusals, and ``FaceTracker`` with Face Mesh V2 and with iris
+   at 512 in turns with and without the plan (6 launches a step with it);
+   phase 5's V2 and iris runs are held to 6 launches a step;
 7. the launch counts of phase 5, then one JSON line of per-kernel numbers,
    then the result line.
 
@@ -338,6 +348,7 @@ VIEW_CASES = [  # (cx, cy, w, h, theta), tests/test_torch_samplers.py
 PROFILE_GROUPS = [
     ("blaze_stage", ("blaze_stage_kernel",)),
     ("blaze_block", ("blaze_block_kernel",)),
+    ("entry_block", ("entry_block_kernel",)),
     ("samplers", ("rotated_sample_kernel", "letterbox_sample_kernel")),
     ("convolution", ("conv", "fprop", "implicit", "cudnn", "winograd")),
     ("gemm", ("gemm", "gemv", "xmma")),
@@ -913,6 +924,9 @@ STEPS, WARMUP = 54, 9
 # The BlazeBlock kernel's launches on the face path: Face Mesh V1's 6 blocks
 # every step, BlazeFace short range's 11 on a detect step.
 BLAZE_BLOCKS_TRACK, BLAZE_BLOCKS_DETECT = 6, 11
+# The entry block kernel's launches a forward of Face Mesh V2 and of the iris
+# network (each every step on its path), none on Face Mesh V1 or BlazeFace.
+ENTRY_BLOCKS = 6
 MULTI_BATCH = 128  # streams of the multi-object runs (4 slots each: 512 crops a step)
 
 
@@ -972,6 +986,14 @@ def check_blaze_block_launches(what, launches, counted):
     return {"launches": n, "steps": steps, "detect_steps": detects}
 
 
+def check_entry_block_launches(what, launches, steps, per_step):
+    """A run's entry block launches against ``per_step`` a step (ENTRY_BLOCKS
+    where Face Mesh V2 or the iris network runs every step, else 0)."""
+    n = launches["entry_block"]
+    check(n == per_step * steps, f"{what}: {n} entry block launches in {steps} steps, want {per_step * steps}")
+    return n
+
+
 def phase_full_size(torch, img, device, card):
     from zaru_tpu_torch.pipeline import FaceTracker
 
@@ -989,6 +1011,8 @@ def phase_full_size(torch, img, device, card):
         counted = {}
         dt, launches = timed_run(torch, step, what, FACE_KERNELS, counted)
         blaze = check_blaze_block_launches(f"{what}, batch {batch}", launches, counted)
+        check_entry_block_launches(f"{what}, batch {batch}", launches, counted["steps"],
+                                   ENTRY_BLOCKS if tr is iris else 0)
         result.setdefault("ms", {})[(what, batch)] = dt / STEPS * 1e3
         out = box["out"]
         valid = bool(out["valid"].all())
@@ -1178,6 +1202,7 @@ def phase_slice_full_size(torch, img, device, card, batch=512):
             box["state"], box["out"] = tr.step_batch(box["state"], frames, force_detect=(i % 9 == 0))
 
         dt, launches = timed_run(torch, step, what, FACE_KERNELS)
+        check_entry_block_launches(what, launches, STEPS, ENTRY_BLOCKS if points == 478 else 0)
         out = box["out"]
         valid, conf = bool(out["valid"].all()), float(out["confidence"].min())
         check(tuple(out["landmarks"].shape) == (batch, points, 3),
@@ -1724,6 +1749,175 @@ def phase_blaze_block(torch, np, device, card, img, main=None):
         "bound_by": "+".join(sorted(bound_by)), "library_ms": tot["library_ms"],
         "library": "per-op chain: F.pad, F.conv2d depthwise, F.conv2d 1x1, max_pool2d, F.pad, add, "
                    "torch.relu or torch.where PReLU",
+    }
+
+
+# The entry block kernel's random cases: (C_in, M, B, H, W): each width, bands
+# and whole images, sides that are no multiple of four, a 2x2 image, more
+# images than a thread block takes.
+ENTRY_BLOCK_CASES = [
+    (16, 16, 3, 130, 66), (32, 32, 2, 6, 22), (64, 64, 5, 34, 30), (128, 64, 3, 18, 14), (128, 64, 7, 8, 8),
+    (128, 64, 600, 4, 4), (64, 64, 2, 2, 2), (16, 16, 1, 10, 14),
+]
+
+
+def phase_entry_block(torch, np, device, card, img=None):
+    """The entry block kernel at random weights on ragged shapes, then at
+    every entry block of Face Mesh V2 (batch 512) and the iris model (1024)
+    on the block's input (the network on uniform [-1, 1] inputs) and the
+    real weights, and at batch 1: within the CNN bar of the per-op chain the
+    executor runs without the plan (TF32 off), timed beside it and its
+    bound; ``analyze`` of each network with and without the plan, which must
+    agree; a forward's blocks in ``counters["entry_blocks"]`` and its
+    launches, 6 for either network and none for Face Mesh V1 or BlazeFace;
+    the refusals. With ``img``: ``FaceTracker`` with Face Mesh V2 and with
+    iris at 512 on the photo, in turns with the plan and without it
+    (ms a step, 6 launches a step with it). → the ``kernels`` line's row."""
+    from zaru_tpu_torch import profiling
+    from zaru_tpu_torch.onnx import load_model
+    from zaru_tpu_torch.onnx.analysis import analyze
+    from zaru_tpu_torch.onnx.executor import _OPS
+    from zaru_tpu_torch.ops import entry_block as eb
+
+    def within(got, want):
+        diff = (got - want).abs()
+        atol = CNN_ATOL * max(1.0, float(want.abs().max()))
+        return bool((diff <= atol + CNN_RTOL * want.abs()).all()), float(diff.max()), atol
+
+    def counted(fn):
+        before = dict(profiling.counters)
+        fn()
+        torch.cuda.synchronize()
+        return tuple(profiling.counters[k] - before[k] for k in ("entry_blocks", "launches.entry_block"))
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for c_in, m, B, H, W in ENTRY_BLOCK_CASES:
+            x = torch.rand(B, c_in, H, W, device=device, generator=gen) * 2 - 1
+            packed = (torch.rand(eb.row_floats(c_in, m), device=device, generator=gen) - 0.5) * (1.0 / c_in ** 0.5)
+            got = eb.fused_entry_block(x, packed, m)
+            want = eb.entry_block_reference(x, eb.unpack_entry_block(packed, c_in, m))
+            torch.cuda.synchronize()
+            ok, err, atol = within(got, want)
+            check(got.shape == want.shape and ok,
+                  f"entry_block disagrees with its plain version at [{B},{c_in},{H},{W}], M {m}: max abs err {err} "
+                  f"(atol {atol:.3g}), tiling {eb.tiling(c_in, m, H, W, B)}")
+    print(f"entry_block within the CNN bar of its plain version on random weights at {len(ENTRY_BLOCK_CASES)} "
+          f"ragged shapes [{card}]", flush=True)
+    for name, res in (("face_landmark.onnx", 192), ("face_detection_short_range.onnx", 128)):
+        net = load_model((ROOT / "assets" / "onnx" / name).read_bytes(), device)
+        xin = torch.rand(8, 3, res, res, device=device, generator=gen) * 2 - 1
+        with torch.inference_mode():
+            runs = counted(lambda: net(xin))
+        check(net.entry_blocks == [] and runs == (0, 0), f"{name}: {runs} entry blocks and launches a forward")
+    tot = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    bound_by = set()
+    for name, res, batch in (("face_landmarks_detector.onnx", 256, 512), ("iris_landmark.onnx", 64, 1024)):
+        net = load_model((ROOT / "assets" / "onnx" / name).read_bytes(), device)
+        check(len(net.entry_blocks) == ENTRY_BLOCKS, f"{name}: {len(net.entry_blocks)} entry blocks in the plan")
+        flops = analyze(net).flops
+        with net.without_plans("entry_blocks"):
+            op_by_op = analyze(net).flops
+        check(flops == op_by_op, f"{name}: analyze counts {flops} FLOPs with the entry block plan, {op_by_op} without")
+        gen = torch.Generator(device=device).manual_seed(5)
+        xin = torch.rand(batch, 3, res, res, device=device, generator=gen) * 2 - 1
+        with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            box = {}
+            runs = counted(lambda: box.setdefault("fused", net(xin)))
+            check(runs == (ENTRY_BLOCKS, ENTRY_BLOCKS), f"{name}: a forward counted (blocks, launches) {runs}")
+            with net.without_plans("entry_blocks"):
+                plain = net(xin)
+            worst = max(within(a, b)[1] / within(a, b)[2] for a, b in zip(box["fused"], plain))
+            print(f"{name} at {batch}, the whole network with and without the entry block plan: largest difference "
+                  f"{worst:.3g} of the CNN bar's atol [{card}]", flush=True)
+            with net.without_plans():
+                env = net.activations(xin)
+            params = {**net._static, **net.params()}
+            for k, blk in enumerate(net.entry_blocks):
+                packed = net._packed[blk.at]
+                for b in (batch, 1):
+                    x = env[blk.input][:b].contiguous()
+                    B, C, H, W = x.shape
+
+                    def chain(x=x, blk=blk):
+                        vals = {**params, blk.input: x}
+                        for i in blk.nodes:
+                            node = net.nodes[i]
+                            vals[node.outputs[0]] = _OPS[node.op_type](node, [vals[n] for n in node.inputs])
+                        return vals[blk.output]
+
+                    kernel = lambda x=x, p=packed, blk=blk: eb.fused_entry_block(x, p, blk.m)  # noqa: E731
+                    got, ops_out = kernel(), chain()
+                    torch.cuda.synchronize()
+                    ok, err, atol = within(got, ops_out)
+                    ms = cuda_ms(torch, kernel, queued=True)
+                    chain_ms = cuda_ms(torch, chain, reps=20, queued=True)
+                    ops = eb.entry_block_flops(tuple(x.shape), packed.shape, blk.m)
+                    t_bytes = (x.numel() + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+                    t_ops = ops / F32_FLOPS * 1e3
+                    bound = max(t_bytes, t_ops)
+                    by = "bytes" if t_bytes >= t_ops else "operations"
+                    print(f"entry_block, {name} block {k}: [{B},{C},{H},{W}] -> {blk.c_out}, M {blk.m} (tile rows, "
+                          f"images, chunk {eb.tiling(C, blk.m, H, W, B)}): {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                          f"{100 * bound / ms:.1f}% of it; per-op chain {chain_ms:.4f} ms; max abs err {err:.3g} "
+                          f"(atol {atol:.3g}, rtol {CNN_RTOL}) [{card}]", flush=True)
+                    check(ok, f"entry_block disagrees with the per-op chain at {name} block {k}, batch {B}")
+                    if b == batch and name.startswith("face_landmarks"):
+                        for key, v in (("ms", ms), ("library_ms", chain_ms), ("bound_ms", bound)):
+                            tot[key] += v
+                        tot["err"] = max(tot["err"], err)
+                        bound_by.add(by)
+            del env
+    refusals = {
+        "24 channels": lambda: eb.fused_entry_block(torch.zeros(2, 24, 8, 8, device=device),
+                                                    torch.zeros(eb.row_floats(24, 16), device=device), 16),
+        "odd H": lambda: eb.fused_entry_block(torch.zeros(2, 16, 7, 8, device=device),
+                                              torch.zeros(eb.row_floats(16, 16), device=device), 16),
+        "float64": lambda: eb.fused_entry_block(torch.zeros(2, 16, 8, 8, device=device, dtype=torch.float64),
+                                                torch.zeros(eb.row_floats(16, 16), device=device), 16),
+        "channels_last": lambda: eb.fused_entry_block(
+            torch.zeros(2, 16, 8, 8, device=device).to(memory_format=torch.channels_last),
+            torch.zeros(eb.row_floats(16, 16), device=device), 16),
+    }
+    for what, fn in refusals.items():
+        try:
+            fn()
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"the entry block kernel took {what}")
+    print(f"entry_block, Face Mesh V2's six blocks at batch 512: {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+          f"({100 * tot['bound_ms'] / tot['ms']:.1f}%), per-op chain {tot['library_ms']:.4f} ms; refused "
+          f"{sorted(refusals)} [{card}]", flush=True)
+    if img is not None:
+        from zaru_tpu_torch.face.landmark.mediapipe import FaceMeshV2
+        from zaru_tpu_torch.pipeline import FaceTracker
+
+        frames = img.expand(512, *img.shape).contiguous()
+        v2, iris = FaceTracker(landmarker=FaceMeshV2(device=device), device=device), FaceTracker(iris=True, device=device)
+        for what, tr, net in (("FaceTracker(landmarker=FaceMeshV2())", v2, v2.lm_cnn.net),
+                              ("FaceTracker(iris=True)", iris, iris.eye_cnn.net)):
+            box = {"state": tr.init_state(512)}
+
+            def step(i, tr=tr, box=box):
+                box["state"], box["out"] = tr.step_batch(box["state"], frames, force_detect=(i % 9 == 0))
+
+            times = {}
+            for plan in (True, False, False, True):
+                with contextlib.nullcontext() if plan else net.without_plans("entry_blocks"):
+                    runs = {}
+                    dt, launches = timed_run(torch, step, what, FACE_KERNELS, runs)
+                times.setdefault(plan, []).append(dt / STEPS * 1e3)
+                check_entry_block_launches(what, launches, runs["steps"], ENTRY_BLOCKS if plan else 0)
+            print(f"{what} at 512, detect every 9th step: {[round(t, 3) for t in times[True]]} ms/step with the "
+                  f"entry block plan, {[round(t, 3) for t in times[False]]} without [{card}]", flush=True)
+    return {
+        "name": "entry_block", "route": "cuda", "source": "zaru_tpu_torch/csrc/entry_block.cu",
+        "replaces": "none (XLA's per-op blocks)", "path": "Face Mesh V2, six entry blocks at batch 512",
+        "max_abs_err": tot["err"], "ms": tot["ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "+".join(sorted(bound_by)), "library_ms": tot["library_ms"],
+        "library": "per-op chain: max_pool2d, F.pad, F.conv2d 2x2 stride 2, torch.where PReLU, F.conv2d depthwise, "
+                   "F.conv2d 1x1, add, torch.where PReLU",
     }
 
 
@@ -3932,6 +4126,10 @@ def main() -> int:
         _rgba, img = load_photo(torch, np, device)
         kernels = [timed_phase("6, the BlazeBlock kernel", phase_blaze_block, torch, np, device, smi, img)]
         print(json.dumps({"kernels": kernels}), flush=True)
+    elif "--entry-block" in sys.argv[1:]:
+        _rgba, img = load_photo(torch, np, device)
+        kernels = [timed_phase("6, the entry block kernel", phase_entry_block, torch, np, device, smi, img)]
+        print(json.dumps({"kernels": kernels}), flush=True)
     elif "--bottleneck" in sys.argv[1:]:
         _rgba, img = load_photo(torch, np, device)
         kernels = [timed_phase("6, the bottleneck kernel", phase_bottleneck, torch, np, device, smi, img)]
@@ -4029,6 +4227,7 @@ def run_phases(torch, np, device, smi):
     kernels.append(phase_yuv_times(torch, rgb, launches["rgb_to_yuv"]))
     kernels.append(phase_bottleneck(torch, np, device, smi, img))
     kernels.append(phase_blaze_block(torch, np, device, smi, img, runs["blaze_block"]))
+    kernels.append(phase_entry_block(torch, np, device, smi))
     phase_kernel_times(torch, hand_frames, hands.lm_cnn, hands.det_cnn, seed, multi["hand tracking"],
                        "hand tracking run", prescale_m=256)
     v2, v2_state, v2_launches = models["FaceTracker(landmarker=FaceMeshV2())"]

@@ -5,21 +5,23 @@ kind of plan and a network that has it.
 - Each plan finds its entries in its networks (BlazeFace short range: 2
   stage chains and 11 BlazeBlocks; Face Mesh V1: 8 stage chains and 6
   BlazeBlocks, all stride 2; Face Mesh V2: 7 bottleneck chains of 28
-  blocks; the iris model: 8 bottleneck chains of 20 blocks) and none in
-  the other bundled models; the module runs each entry at its node.
+  blocks and 6 entry blocks; the iris model: 8 bottleneck chains of 20
+  blocks and 6 entry blocks) and none in the other bundled models; the
+  module runs each entry at its node. An entry block's MaxPool or Pad that
+  something else reads runs as a node too.
 - With a plan, each forward equals the node-by-node run (inside
   ``without_plans``) bit for bit: on the CPU a kernel runs the executor's
   own nodes.
 - bf16 modules build no plan; NHWC modules only the stages.
 - ``load_params`` repacks each plan's weights.
-- Each forward counts its bottleneck blocks and BlazeBlocks in
-  ``profiling.counters`` and marks each chain or block with its span.
+- Each forward counts its bottleneck blocks, BlazeBlocks and entry blocks
+  in ``profiling.counters`` and marks each chain or block with its span.
 - ``without_plans(*kinds)`` runs the named plans node by node, and gives
   every plan back on leaving.
 
 The kernels themselves (packing, tiling, refusals, FLOP formulas) are
-tested in test_torch_cnn_stage.py, test_torch_bottleneck.py and
-test_torch_blaze_block.py.
+tested in test_torch_cnn_stage.py, test_torch_bottleneck.py,
+test_torch_blaze_block.py and test_torch_entry_block.py.
 """
 
 import json
@@ -38,7 +40,7 @@ from zaru_tpu_torch import profiling  # noqa: E402
 from zaru_tpu_torch.assets import model_path  # noqa: E402
 from zaru_tpu_torch.onnx import executor as ex  # noqa: E402
 from zaru_tpu_torch.onnx import fusion, load_model  # noqa: E402
-from zaru_tpu_torch.onnx.proto import parse_model  # noqa: E402
+from zaru_tpu_torch.onnx.proto import ValueInfo, parse_model  # noqa: E402
 
 SHORT = "face_detection_short_range.onnx"
 V1 = "face_landmark.onnx"
@@ -49,7 +51,8 @@ MODELS = [SHORT, V1, V2, IRIS, "face_detection_full_range.onnx", "hand_landmark_
 SIDE = {SHORT: 128, V1: 192, V2: 256, IRIS: 64}
 # Each plan's entries in its networks, in graph order, as summary() reads
 # them. Stages: (blocks, channels, H×W, ReLU); bottlenecks: (channels,
-# blocks, H); BlazeBlocks: (C_in, C_out, stride, H of the input, ReLU).
+# blocks, H); BlazeBlocks: (C_in, C_out, stride, H of the input, ReLU);
+# entry blocks: (C_in, M, C_out, H of the input).
 FOUND = {
     "stages": {
         V1: [(2, 16, (96, 96), False), (2, 32, (48, 48), False), (2, 64, (24, 24), False),
@@ -69,12 +72,21 @@ FOUND = {
         V1: [(16, 32, 2, 96, False), (32, 64, 2, 48, False), (64, 128, 2, 24, False), (128, 128, 2, 12, False),
              (128, 128, 2, 6, False), (128, 128, 2, 6, False)],
     },
+    "entry_blocks": {
+        V2: [(16, 16, 32, 128), (32, 32, 64, 64), (64, 64, 128, 32), (128, 64, 128, 16), (128, 64, 128, 8),
+             (128, 64, 128, 4)],
+        IRIS: [(64, 64, 128, 32), (128, 64, 128, 16), (128, 64, 128, 8), (128, 64, 128, 4), (128, 64, 128, 8),
+               (128, 64, 128, 4)],
+    },
 }
 HAS = [(kind, name) for kind, nets in FOUND.items() for name in nets]
 HAS_NOT = [(kind, name) for kind, nets in FOUND.items() for name in MODELS if name not in nets]
 # The counter and the span of the plans that have them (the stages have neither).
 COUNTED = {"bottlenecks": ("bottleneck_blocks", "zaru.net.bottleneck"),
-           "blaze_blocks": ("blaze_blocks", "zaru.net.blaze_block")}
+           "blaze_blocks": ("blaze_blocks", "zaru.net.blaze_block"),
+           "entry_blocks": ("entry_blocks", "zaru.net.entry_block")}
+# The entries that run at their last node (the others at their first).
+AT_LAST = ("blaze_blocks", "entry_blocks")
 BLAZE_PADS = {1: (1, 1, 1, 1), 2: (0, 0, 1, 1)}
 
 
@@ -101,6 +113,11 @@ def summary(kind, net, e, env) -> tuple:
         assert y == x and len(e.nodes) == 6 * len(e.blocks)
         assert ops[:6] == ["Conv", "PRelu", "Conv", "Conv", "Add", "PRelu"]
         return e.channels, len(e.blocks), x[2]
+    if kind == "entry_blocks":
+        assert y == (x[0], e.c_out, x[2] // 2, x[3] // 2) and e.c_out == 2 * e.m and e.nodes[-1] == max(e.nodes)
+        want = ["Conv", "PRelu", "Conv", "Conv", "Add", "PRelu", "MaxPool"] + ["Pad"] * (e.c_out > e.c_in)
+        assert sorted(ops) == sorted(want) and net.nodes[e.at].outputs[0] == e.output
+        return e.c_in, e.m, e.c_out, x[2]
     assert e.pads == BLAZE_PADS[e.stride] and y == (x[0], e.c_out, x[2] // e.stride, x[3] // e.stride)
     want = ["Add", "Conv", "Conv", "Relu" if e.relu else "PRelu"]
     want += ["Pad"] * (e.c_out > e.c_in) + ["MaxPool"] * (e.stride == 2)
@@ -113,20 +130,22 @@ def test_assets_are_the_listed_models():
 
 
 def test_kinds_are_the_plans():
-    assert fusion.PLANS == ex.PLANS == tuple(fusion.KINDS) == ("stages", "bottlenecks", "blaze_blocks")
+    assert fusion.PLANS == ex.PLANS == tuple(fusion.KINDS) == ("stages", "bottlenecks", "blaze_blocks",
+                                                               "entry_blocks")
 
 
 @pytest.mark.parametrize("kind,name", HAS)
 def test_plan_finds_its_entries(kind, name, nets):
     """The listed entries, each of its nodes; the module runs each at its
-    node (the first of a chain, a BlazeBlock's activation) and skips the
-    others; the finder importable from the executor finds the same."""
+    node (the first of a chain, a BlazeBlock's activation, an entry block's
+    last PRelu) and skips the others; the finder importable from the
+    executor finds the same."""
     net = nets[name]
     env = net.activations(_input(name, 1))
     entries = getattr(net, kind)
     assert [summary(kind, net, e, env) for e in entries] == FOUND[kind][name]
     assert all(net._plan_at[e.at] is e and set(e.nodes) <= net._in_plan for e in entries)
-    assert all(e.at == (e.nodes[-1] if kind == "blaze_blocks" else e.nodes[0]) for e in entries)
+    assert all(e.at == (e.nodes[-1] if kind in AT_LAST else e.nodes[0]) for e in entries)
     finder = getattr(ex, f"find_{kind}")
     assert finder is fusion.KINDS[kind][0]
     assert finder(parse_model(model_path(name).read_bytes())) == entries
@@ -137,8 +156,9 @@ def test_plan_finds_nothing_elsewhere(kind, name):
     """Every other bundled model runs these nodes one by one: full-range
     BlazeFace's double blocks and bottleneck look-alikes (ReLU, no such
     residual), Face Mesh V2's and the iris model's stride-2 entry blocks
-    (their depthwise reads a 2×2 convolution's output, not the pooled
-    value), the iris model's bottleneck blocks for the stages."""
+    for the BlazeBlocks (their depthwise reads a 2×2 convolution's output,
+    not the pooled value), the iris model's bottleneck blocks for the
+    stages; no other network has a 2×2 stride-2 convolution."""
     assert getattr(load_model(model_path(name).read_bytes(), torch.device("cpu")), kind) == []
 
 
@@ -180,7 +200,7 @@ def test_load_params_repacks(kind, name):
     x = _input(name, 1, seed=4)
     before = net.activations(x)
     params = {k: v.clone() for k, v in net.params().items()}
-    for names in (e.names,) if kind == "blaze_blocks" else e.blocks:
+    for names in (e.names,) if kind in AT_LAST else e.blocks:
         for v in names.values():
             if v is not None:
                 params[v] = params[v] * 1.5 + 0.1
@@ -193,10 +213,11 @@ def test_load_params_repacks(kind, name):
 
 @pytest.mark.parametrize("kind,name", [(k, n) for k, n in HAS if k in COUNTED])
 def test_forwards_count_their_blocks(kind, name, nets):
-    """A forward counts each plan's blocks in its counter (28 a Face Mesh V2
-    forward, 20 an iris forward, 11 a BlazeFace short range forward, 6 a
-    Face Mesh V1 forward; none of another network's kind), and none while
-    the plan is off."""
+    """A forward counts each plan's blocks in its counter (bottleneck blocks
+    28 a Face Mesh V2 forward and 20 an iris forward, entry blocks 6 in
+    each; BlazeBlocks 11 a BlazeFace short range forward, 6 a Face Mesh V1
+    forward; none of another network's kind), and none while the plan is
+    off."""
     net = nets[name]
     c = profiling.counters
 
@@ -207,7 +228,8 @@ def test_forwards_count_their_blocks(kind, name, nets):
         return {k: c[key] - before[key] for k, (key, _) in COUNTED.items()}
 
     want = {k: sum(len(e.blocks) if k == "bottlenecks" else 1 for e in getattr(net, k)) for k in COUNTED}
-    assert want[kind] == {V2: 28, IRIS: 20, SHORT: 11, V1: 6}[name]
+    assert want[kind] == {("bottlenecks", V2): 28, ("bottlenecks", IRIS): 20, ("blaze_blocks", SHORT): 11,
+                          ("blaze_blocks", V1): 6, ("entry_blocks", V2): 6, ("entry_blocks", IRIS): 6}[kind, name]
     assert ran(lambda: net(_input(name, 1))) == want
     with net.without_plans(kind):
         assert ran(lambda: net(_input(name, 1)))[kind] == 0
@@ -215,7 +237,7 @@ def test_forwards_count_their_blocks(kind, name, nets):
 
 @pytest.mark.parametrize("kind,name", [(k, n) for k, n in HAS if k in COUNTED])
 def test_each_entry_is_a_span_under_trace(kind, name, nets, tmp_path):
-    """One span a bottleneck chain or a BlazeBlock."""
+    """One span a bottleneck chain, a BlazeBlock or an entry block."""
     with profiling.trace(tmp_path), torch.no_grad():
         nets[name](_input(name, 1))
     (trace,) = tmp_path.glob("trace_*.json")
@@ -224,7 +246,8 @@ def test_each_entry_is_a_span_under_trace(kind, name, nets, tmp_path):
     assert len(spans) == len(getattr(nets[name], kind))
 
 
-@pytest.mark.parametrize("kinds", [(), ("stages",), ("bottlenecks",), ("blaze_blocks",), ("stages", "blaze_blocks")])
+@pytest.mark.parametrize("kinds", [(), ("stages",), ("bottlenecks",), ("blaze_blocks",), ("stages", "blaze_blocks"),
+                                   ("entry_blocks",)])
 @pytest.mark.parametrize("name", [SHORT, V1, V2])
 def test_without_plans_runs_the_named_plans_node_by_node(name, kinds, nets):
     """Inside ``without_plans`` the named plans (all where none is named)
@@ -261,3 +284,27 @@ def test_without_plans_refuses_an_unknown_plan(nets):
         with net.without_plans("stage"):
             pass
     assert len(net.blaze_blocks) == 6 and len(net.stages) == 8
+
+
+@pytest.mark.parametrize("read", ["MaxPool", "Pad"])
+def test_an_entry_blocks_pool_read_elsewhere_runs_as_a_node(read):
+    """Where a graph output reads Face Mesh V2's first entry block's Pad or
+    its MaxPool, that node (and the MaxPool under a Pad) runs as a node:
+    the block is still planned without it, and the forward equals the
+    node-by-node run bit for bit."""
+    model = parse_model(model_path(V2).read_bytes())
+    first = fusion.find_entry_blocks(model)[0]
+    (node,) = [i for i in first.nodes if model.graph.nodes[i].op_type == read]
+    model.graph.outputs.append(ValueInfo(model.graph.nodes[node].outputs[0], [1, 16, 64, 64], 1))
+    net = ex.OnnxModule(model, torch.device("cpu"))
+    kept = {i for i in first.nodes if model.graph.nodes[i].op_type in ({read, "MaxPool"})}
+    blk = net.entry_blocks[0]
+    assert len(net.entry_blocks) == 6 and set(blk.nodes) == set(first.nodes) - kept
+    assert not kept & net._in_plan and blk.input == first.input
+    x = _input(V2, 2, seed=6)
+    with torch.no_grad():
+        fused = net(x)
+        with net.without_plans():
+            plain = net(x)
+    for a, b in zip(fused, plain, strict=True):
+        assert torch.equal(a, b)

@@ -138,10 +138,10 @@ def test_host_syncs_count_the_gate_and_the_detect_sites(tracker, frames, tracked
     both. Each is one step, and only the detect steps count as such."""
     tracking = _counted(lambda: tracker.step_batch(tracked, frames))
     assert tracking == {"steps": 1, "detect_steps": 0, "host_syncs": SYNCS_TRACKING, "host_copies": 0,
-                        "kernel_builds": 0, "bottleneck_blocks": 0, "blaze_blocks": 6, "eye_crops": 0,
-                        "launches.blaze_stage": 0, "launches.blaze_stage_nhwc": 0, "launches.bottleneck_stage": 0,
-                        "launches.blaze_block": 0, "launches.letterbox_sample": 0, "launches.rotated_sample": 0,
-                        "launches.rgb_to_yuv": 0}
+                        "kernel_builds": 0, "bottleneck_blocks": 0, "blaze_blocks": 6, "entry_blocks": 0,
+                        "eye_crops": 0, "launches.blaze_stage": 0, "launches.blaze_stage_nhwc": 0,
+                        "launches.bottleneck_stage": 0, "launches.blaze_block": 0, "launches.entry_block": 0,
+                        "launches.letterbox_sample": 0, "launches.rotated_sample": 0, "launches.rgb_to_yuv": 0}
     forced = _counted(lambda: tracker.step_batch(tracked, frames, True))
     assert forced["host_syncs"] == SYNCS_FORCED and forced["detect_steps"] == 1
     assert forced["blaze_blocks"] == 11 + 6  # BlazeFace, then Face Mesh V1

@@ -133,11 +133,12 @@ from torch import nn
 
 from .. import profiling
 from . import layout as _layout
-from .fusion import PLANS, BlazeBlock, Bottlenecks, Stage, find_blaze_blocks, find_bottlenecks, find_plans, find_stages
+from .fusion import (PLANS, BlazeBlock, Bottlenecks, EntryBlock, Stage, find_blaze_blocks, find_bottlenecks,
+                     find_entry_blocks, find_plans, find_stages)
 from .proto import TENSOR_DTYPES, OnnxModel, OnnxNode
 
-__all__ = ["BlazeBlock", "Bottlenecks", "OnnxModule", "PLANS", "SUPPORTED_OPS", "Stage", "find_blaze_blocks",
-           "find_bottlenecks", "find_stages", "resize"]
+__all__ = ["BlazeBlock", "Bottlenecks", "EntryBlock", "OnnxModule", "PLANS", "SUPPORTED_OPS", "Stage",
+           "find_blaze_blocks", "find_bottlenecks", "find_entry_blocks", "find_stages", "resize"]
 
 
 def _static(node, vals, idx: int, what: str) -> np.ndarray:
@@ -1116,8 +1117,8 @@ class OnnxModule(nn.Module):
     @contextlib.contextmanager
     def without_plans(self, *kinds: str):
         """Inside the block, the plans named in ``kinds`` (of :data:`PLANS`:
-        ``"stages"``, ``"bottlenecks"``, ``"blaze_blocks"``; all where none is
-        named) are empty and their nodes run one by one: the graph JAX
+        ``"stages"``, ``"bottlenecks"``, ``"blaze_blocks"``, ``"entry_blocks"``;
+        all where none is named) are empty and their nodes run one by one: the graph JAX
         differentiates (the kernels' ops have no gradient). The others run as
         planned. The packed weights are kept: load no parameters inside."""
         unknown = set(kinds) - set(PLANS)

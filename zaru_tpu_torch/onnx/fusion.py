@@ -27,6 +27,14 @@ the entry alone.
   ``Pad(MaxPool(x))`` of the depthwise's input ``x`` → ``Relu`` or
   ``PRelu``; C_out > C_in at stride 1. Two blocks may share one
   ``MaxPool`` (Face Mesh V1); it runs as a node only if others read it.
+- **Entry blocks** (:func:`find_entry_blocks`, ``ops/entry_block.py``;
+  NCHW): stride-2 residual bottleneck blocks, a 2×2 stride-2 ``Conv``
+  C_in→M of x → ``PRelu`` → a depthwise 3×3 ``Conv`` (pads 1) → a 1×1
+  ``Conv`` M→2M → an ``Add`` with ``MaxPool(x)`` (2×2, stride 2) or
+  ``Pad(MaxPool(x))`` (zero channels up to 2M) → ``PRelu``, of widths in
+  ``entry_block.KERNEL_WIDTHS``. The ``MaxPool`` and ``Pad`` are the
+  block's only where the block alone reads them; else they run as nodes
+  too.
 
 **A new kernel** needs its ``ops/`` module, its ``csrc/`` source, and here
 an entry class (its fields, ``at``, ``pack`` and ``run``), its finder and
@@ -38,11 +46,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-from ..ops import blaze_block, bottleneck, cnn_stage
+from ..ops import blaze_block, bottleneck, cnn_stage, entry_block
 from .proto import OnnxModel
 
-__all__ = ["KINDS", "PLANS", "BlazeBlock", "Bottlenecks", "Stage", "find_blaze_blocks", "find_bottlenecks",
-           "find_plans", "find_stages"]
+__all__ = ["KINDS", "PLANS", "BlazeBlock", "Bottlenecks", "EntryBlock", "Stage", "find_blaze_blocks",
+           "find_bottlenecks", "find_entry_blocks", "find_plans", "find_stages"]
 
 # A stride-2 depthwise's pads (top, left, bottom, right): one pixel an axis.
 _STRIDE2_PADS = frozenset((t, l, 1 - t, 1 - l) for t in (0, 1) for l in (0, 1))
@@ -384,12 +392,95 @@ def find_blaze_blocks(model: OnnxModel) -> list[BlazeBlock]:
     return [replace(b, nodes=tuple(k for k in b.nodes if k not in shared)) for b in found]
 
 
+@dataclass(frozen=True)
+class EntryBlock:
+    """A stride-2 residual bottleneck block: its input and output value
+    names, its widths (``c_out = 2·m``), its initializer names (``w1``,
+    ``b1``, ``a1``, ``dw_w``, ``dw_b``, ``w2``, ``b2``, ``a2``) and the
+    indices of the nodes it replaces, in graph order (the last PRelu last).
+    It runs at its last PRelu."""
+
+    input: str
+    output: str
+    c_in: int
+    m: int
+    c_out: int
+    names: dict
+    nodes: tuple
+
+    @property
+    def at(self) -> int:
+        return self.nodes[-1]
+
+    def pack(self, params):
+        return entry_block.pack_entry_block(_weights(self.names, params), self.c_in, self.m)
+
+    def run(self, x, packed):
+        return entry_block.fused_entry_block(x, packed, self.m)
+
+
+def _entry_block_at(g: _Graph, i: int) -> EntryBlock | None:
+    """The entry block whose 2×2 stride-2 convolution is ``nodes[i]``."""
+    c1, w1 = g.nodes[i], g.weight(i)
+    if w1 is None:
+        return None
+    m, c_in, x = w1.shape[0], w1.shape[1], c1.inputs[0]
+    c_out = 2 * m
+    if (c_in, m) not in entry_block.KERNEL_WIDTHS or not g.conv(i, x, (m, c_in, 2, 2), 1, 2):
+        return None
+    p1 = g.activation(c1.outputs[0], m, ("PRelu",))
+    if p1 is None:
+        return None
+    mid = g.nodes[p1[0]].outputs[0]
+    dw = g.only(mid, "Conv")
+    if dw is None or not g.conv(dw, mid, (m, 1, 3, 3), m, 1, {(1, 1, 1, 1)}):
+        return None
+    c2 = g.only(g.nodes[dw].outputs[0], "Conv")
+    if c2 is None or not g.conv(c2, g.nodes[dw].outputs[0], (c_out, m, 1, 1)):
+        return None
+    v = g.nodes[c2].outputs[0]
+    k = g.only(v, "Add")
+    if k is None or len(g.nodes[k].inputs) != 2 or v not in g.nodes[k].inputs:
+        return None
+    add = g.nodes[k]
+    # The residual, from the Add back to x: a channel Pad where C_out > C_in, then the MaxPool.
+    residual, src = [], add.inputs[1] if add.inputs[0] == v else add.inputs[0]
+    if c_out > c_in:
+        pad = g.producer.get(src)
+        if pad is None or _channel_pad(g.nodes[pad], g.inits) != c_out - c_in:
+            return None
+        residual.append(pad)
+        src = g.nodes[pad].inputs[0]
+    pool = g.producer.get(src)
+    if pool is None or not _max_pool_2x2(g.nodes[pool]) or g.nodes[pool].inputs[0] != x:
+        return None
+    residual.append(pool)
+    p2 = g.activation(add.outputs[0], c_out, ("PRelu",))
+    if p2 is None:
+        return None
+    nodes = {i, p1[0], dw, c2, k, p2[0]}
+    for j in residual:  # the Pad first: the MaxPool is the block's only where the block's Pad alone reads it
+        if set(g.consumers.get(g.nodes[j].outputs[0], [])) <= nodes:
+            nodes.add(j)
+    names = {"w1": c1.inputs[1], "b1": c1.inputs[2], "a1": p1[1], "dw_w": g.nodes[dw].inputs[1],
+             "dw_b": g.nodes[dw].inputs[2], "w2": g.nodes[c2].inputs[1], "b2": g.nodes[c2].inputs[2], "a2": p2[1]}
+    return EntryBlock(x, g.nodes[p2[0]].outputs[0], c_in, m, c_out, names, tuple(sorted(nodes)))
+
+
+def find_entry_blocks(model: OnnxModel) -> list[EntryBlock]:
+    """The graph's stride-2 residual bottleneck blocks that the entry block
+    kernel takes."""
+    g = _Graph(model)
+    return [b for b in (_entry_block_at(g, i) for i in range(len(g.nodes))) if b is not None]
+
+
 # Each kind of plan, as OnnxModule's attribute names it: its finder, and the
 # layouts of the f32 modules that build it (no bf16 module builds any).
 KINDS = {
     "stages": (find_stages, ("NCHW", "NHWC")),
     "bottlenecks": (find_bottlenecks, ("NCHW",)),
     "blaze_blocks": (find_blaze_blocks, ("NCHW",)),
+    "entry_blocks": (find_entry_blocks, ("NCHW",)),
 }
 PLANS = tuple(KINDS)
 

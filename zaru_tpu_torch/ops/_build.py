@@ -10,8 +10,9 @@ interface::
 ``--fmad=false`` (and no ``--use_fast_math``) keeps every multiply and add
 rounded on its own: the samplers' index maps reproduce an exact f32
 operation order, and a contracted FMA moves pixels. The BlazeBlock stage
-kernel, the BlazeBlock kernel and the bottleneck kernel are held to their
-plain versions at a tolerance, and are built with ``--fmad=true``
+kernel, the BlazeBlock kernel, the bottleneck kernel and the entry block
+kernel are held to their plain versions at a tolerance, and are built with
+``--fmad=true``
 (:data:`FMAD_ON`); the
 stage kernel's two layouts are two sources that
 include one header (``blaze_stage.cuh``), so their builds run side by side.
@@ -43,7 +44,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-FMAD_ON = frozenset({"blaze_block", "blaze_stage", "blaze_stage_nhwc", "bottleneck_stage"})  # sources compared at a tolerance
+# sources compared at a tolerance
+FMAD_ON = frozenset({"blaze_block", "blaze_stage", "blaze_stage_nhwc", "bottleneck_stage", "entry_block"})
 SOURCES = {p.stem: p for p in sorted(_CSRC.glob("*.cu"))}
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -19,11 +19,13 @@
   executor's fused chains, ``ops/bottleneck.fused_bottlenecks``),
   ``blaze_blocks`` (BlazeBlocks with a pooled or channel-padded residual
   run through ``ops/blaze_block.fused_blaze_block``, 11 a BlazeFace short
-  range forward, 6 a Face Mesh V1 forward), ``eye_crops`` (eye crops the
+  range forward, 6 a Face Mesh V1 forward), ``entry_blocks`` (stride-2
+  residual bottleneck blocks run through ``ops/entry_block.fused_entry_block``,
+  6 a Face Mesh V2 forward, 6 an iris forward), ``eye_crops`` (eye crops the
   iris network ran on, two a stream a step) and ``launches.<kernel>``
   (launches of each hand-written CUDA kernel, counted as the host issues
   them: ``blaze_stage``, ``blaze_stage_nhwc``, ``bottleneck_stage``,
-  ``blaze_block``, ``letterbox_sample``, ``rotated_sample``,
+  ``blaze_block``, ``entry_block``, ``letterbox_sample``, ``rotated_sample``,
   ``rgb_to_yuv``; only on a GPU, so 0 on the CPU).
 - :func:`reset`: zeroes the counters.
 
@@ -35,7 +37,9 @@ around each host sync (:func:`sync`); ``zaru.build.kernels`` and
 ``zaru.build.host_copy`` where the step builds something it keeps;
 ``zaru.net.bottleneck`` around each fused chain of bottleneck blocks in a
 network (``ops/bottleneck.fused_bottlenecks``) and ``zaru.net.blaze_block``
-around each fused BlazeBlock (``ops/blaze_block.fused_blaze_block``). The
+around each fused BlazeBlock (``ops/blaze_block.fused_blaze_block``) and
+``zaru.net.entry_block`` around each fused entry block
+(``ops/entry_block.fused_entry_block``). The
 serve loop adds ``zaru.serve.stage``, ``zaru.serve.flush``,
 ``zaru.sync.emit`` and ``zaru.serve.gather``.
 """
@@ -53,9 +57,10 @@ import torch.autograd.profiler as _profiler
 __all__ = ["annotate", "counters", "reset", "span", "sync", "trace"]
 
 counters = {"steps": 0, "detect_steps": 0, "host_syncs": 0, "host_copies": 0, "kernel_builds": 0,
-            "bottleneck_blocks": 0, "blaze_blocks": 0, "eye_crops": 0, "launches.blaze_stage": 0,
+            "bottleneck_blocks": 0, "blaze_blocks": 0, "entry_blocks": 0, "eye_crops": 0, "launches.blaze_stage": 0,
             "launches.blaze_stage_nhwc": 0, "launches.bottleneck_stage": 0, "launches.blaze_block": 0,
-            "launches.letterbox_sample": 0, "launches.rotated_sample": 0, "launches.rgb_to_yuv": 0}
+            "launches.entry_block": 0, "launches.letterbox_sample": 0, "launches.rotated_sample": 0,
+            "launches.rgb_to_yuv": 0}
 
 
 @contextmanager
