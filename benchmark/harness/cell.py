@@ -1,7 +1,8 @@
 """One cell, end to end: set-up, the measured window, the check against the
 plain reference, and the result's numbers.
 
-:class:`Session` holds what set-up builds once (the program, and later the
+:class:`Session` holds what set-up builds once (the program, with the
+configuration's gallery installed where it has one, and later the
 reference); :meth:`Session.run` makes a seed's frames, warms up, runs the
 window and checks it. ``benchmark/run.py`` makes one session and one run;
 ``benchmark/calibrate.py`` reads many seeds in one session.
@@ -18,7 +19,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import check, frames, loops, program, readings, trace
+from . import check, frames, gallery, loops, program, readings, trace
 from .spec import Cell
 
 __all__ = ["Outcome", "Session", "p95_ms", "rate"]
@@ -59,6 +60,8 @@ class Session:
         self.model_dir = self.root / "assets" / "onnx"
         t0 = time.perf_counter()
         self.program = program.build(cell.config, self.device, compute_dtype)
+        if "gallery" in cell.config:
+            self.program.set_gallery(*gallery.rows(cell.config, self.model_dir))
         self._built_s = time.perf_counter() - t0
         self._uploader = None
         self._bases = {}

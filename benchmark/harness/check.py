@@ -19,7 +19,20 @@ against its limit:
 - ``flags``: mismatched booleans (``valid``, the state's ``tracking`` and
   the filter's ``init``), held to 0;
 - ``eyes_px``: the eyes' landmark coordinates (``eyes``), image pixels;
-  read only where both sides give ``eyes``.
+  read only where both sides give ``eyes``;
+- ``embedding``: the largest absolute difference of any component of the
+  unit embeddings (``embedding [B,D]``) of every stream the step embeds;
+  read only where both sides give ``embedding``;
+- ``identity``: mismatched gallery rows (``identity [B]``, -1 for none) of
+  the streams valid on both sides, counted only where the reference's
+  decision is clear: where its ``identity_margin`` (the smaller of half the
+  gap between its best and second-best distance and the distance from its
+  best to the threshold; ``inf`` with fewer than two rows) exceeds the
+  stream's ``‖e_program − e_reference‖₂`` by more than
+  :data:`DISTANCE_ROUNDING`. No distance moves by more than that norm, so
+  a flip outside the margin is a fault, not rounding. Held to 0; read only
+  where both sides give ``identity`` and ``embedding`` and the reference
+  its margin.
 
 A limits file that names a number the cell's outputs cannot give is an
 error, not a 0.
@@ -33,7 +46,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["NUMBERS", "Number", "compare", "judge"]
+__all__ = ["DISTANCE_ROUNDING", "NUMBERS", "Number", "compare", "judge"]
+
+# What float32 rounding can move a distance between unit embeddings of 128
+# or so components, on either side, beyond the embeddings' own gap: about
+# 1e-6 in practice and 3e-5 at worst (a sum of D squares rounded D times);
+# far below a real flip's margin.
+DISTANCE_ROUNDING = 1e-4
 
 
 def _corners(roi):
@@ -60,6 +79,7 @@ def _gap(a, b) -> float:
 class Number:
     needs: tuple  # the outputs both sides have to give
     read: Callable  # (program, reference) → float; each side {"out": ..., "state": ...}, one block of streams
+    reference_needs: tuple = ()  # the outputs the reference alone has to give
 
 
 def _out_gap(key):
@@ -77,6 +97,14 @@ def _flags(p, r) -> float:
                  + int((p["state"]["filter"]["init"] != r["state"]["filter"]["init"]).sum()))
 
 
+def _identity(p, r) -> float:
+    po, ro = p["out"], r["out"]
+    gap = torch.linalg.vector_norm(po["embedding"].float() - ro["embedding"].float(), dim=-1)
+    clear = ro["identity_margin"] > gap + DISTANCE_ROUNDING
+    flipped = po["identity"].long() != ro["identity"].long()
+    return float(int((flipped & po["valid"] & ro["valid"] & clear).sum()))
+
+
 NUMBERS = {
     "landmarks_px": Number(("landmarks",), _out_gap("landmarks")),
     "roi_px": Number(("roi",), _roi),
@@ -84,6 +112,8 @@ NUMBERS = {
     "filter_dx": Number((), lambda p, r: _gap(p["state"]["filter"]["dx"], r["state"]["filter"]["dx"])),
     "flags": Number(("valid",), _flags),
     "eyes_px": Number(("eyes",), _out_gap("eyes")),
+    "embedding": Number(("embedding",), _out_gap("embedding")),
+    "identity": Number(("identity", "embedding", "valid"), _identity, ("identity_margin",)),
 }
 
 
@@ -108,7 +138,8 @@ def compare(reference, kept: list, frames_of, exact: bool, single: bool, rows: i
                                  "filter": {k: v[a:b].to(device) for k, v in s_out["filter"].items()}}}
             ref = {"out": r_out, "state": r_state}
             for k, number in NUMBERS.items():
-                if all(n in program["out"] and n in r_out for n in number.needs):
+                if all(n in program["out"] and n in r_out for n in number.needs) \
+                        and all(n in r_out for n in number.reference_needs):
                     v = number.read(program, ref)
                     worst[k] = v if np.isnan(v) else max(worst.get(k, 0.0), v)
     return worst

@@ -17,24 +17,18 @@ residual bottleneck blocks, which the program runs one launch a block.
 - :func:`bound_seconds`: the least time of the blocks the profiled steps
   ran, per block and frame the larger of its operations over the float32
   peak and its bytes over the memory bandwidth;
-- :func:`device_seconds`: the device time of the kernels launched inside
-  the program's ``zaru.net.entry_block`` spans, one a block, with the
-  profiled steps it covers: the steps whose every launch pairs by
-  correlation id (:func:`benchmark.harness.spans.launched`). None on a
-  program without the span (an older checkout), where the calls do not
-  pair, or where no step pairs.
+- :data:`SPAN`: the program's span around each block, whose device time
+  :func:`benchmark.harness.spans.device_seconds` reads.
 """
 
 from __future__ import annotations
 
 import functools
-from bisect import bisect_left, bisect_right
 from pathlib import Path
 
 from ..work.networks import _shapes
-from .spans import host_spans, launched
 
-__all__ = ["SPAN", "block_bytes", "block_ops", "blocks", "bound_seconds", "device_seconds"]
+__all__ = ["SPAN", "block_bytes", "block_ops", "blocks", "bound_seconds"]
 
 SPAN = "zaru.net.entry_block"
 
@@ -129,30 +123,3 @@ def bound_seconds(run, profiled=None) -> float:
 
     return run.over_steps(per_frame, profiled)
 
-
-def device_seconds(run) -> tuple[float, list] | None:
-    """``(seconds, steps)``: summed device seconds of the work launched
-    inside the ``zaru.net.entry_block`` spans of the steps whose launches
-    all pair, and those steps' entries of ``run.profiled()``."""
-    spans = [iv for iv in host_spans(run, SPAN) if iv.name == SPAN]
-    if not spans or not run.device_busy():
-        return None
-    pairs = launched(run.span)
-    steps = sorted((iv for iv in host_spans(run, "zaru.step") if iv.name == "zaru.step"), key=lambda iv: iv.start)
-    if pairs is None or len(steps) != len(run.profiled()):
-        return None
-    starts = [c.start for c, _ in pairs]
-
-    def inside(iv):
-        return [w for _, w in pairs[bisect_left(starts, iv.start):bisect_right(starts, iv.end)]]
-
-    covered = [k for k, st in enumerate(steps) if all(w is not None for w in inside(st))]
-    if not covered:
-        return None
-    seconds = 0.0
-    for k in covered:
-        st = steps[k]
-        for s in spans:
-            if st.start <= s.start <= st.end:
-                seconds += sum(w.seconds for w in inside(s))
-    return seconds, [run.profiled()[k] for k in covered]

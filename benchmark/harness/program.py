@@ -2,7 +2,14 @@
 ``tracker`` sections: the port's tracker with its detector and landmark
 network, each named by its dotted path in ``zaru_tpu_torch``, and the
 tracker's further keyword arguments from ``program.options`` (for example
-``{"iris": true}``), passed through as they stand."""
+``{"iris": true}``), passed through as they stand.
+
+``program.wrap`` (``{"class": dotted path, "options": {...}}``), where a
+configuration has it, names a class that wraps the tracker (for example an
+identifier of the tracked faces): the system under test is then
+``cls(tracker, compute_dtype=..., device=..., **options)``. Either way the
+loops drive what :func:`build` returns through its ``init_state`` and
+``step_batch``."""
 
 from __future__ import annotations
 
@@ -24,9 +31,18 @@ def control_dtype(config: dict):
 
 
 def build(config: dict, device, compute_dtype=None):
-    """The tracker of ``config`` on ``device``; ``compute_dtype`` switches
-    its networks' bodies to that precision (None: the configuration's
+    """The tracker of ``config`` on ``device``, in its ``program.wrap``
+    where the configuration names one; ``compute_dtype`` switches the
+    networks' bodies to that precision (None: the configuration's
     float32)."""
+    tracker = _tracker(config, device, compute_dtype)
+    wrap = config["program"].get("wrap")
+    if wrap is None:
+        return tracker
+    return _load(wrap["class"])(tracker, compute_dtype=compute_dtype, device=device, **wrap.get("options", {}))
+
+
+def _tracker(config: dict, device, compute_dtype):
     p, t = config["program"], config["tracker"]
     f = t["one_euro"]
     return _load(p["tracker"])(

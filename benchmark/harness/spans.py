@@ -22,7 +22,7 @@ from bisect import bisect_left, bisect_right
 
 from . import trace
 
-__all__ = ["LAUNCHES", "SYNC", "device_ms", "host_spans", "launched", "sync_idle_seconds"]
+__all__ = ["LAUNCHES", "SYNC", "device_ms", "device_seconds", "host_spans", "launched", "sync_idle_seconds"]
 
 SYNC = "zaru.sync."  # the host syncs of the step path, one span a sync
 LAUNCHES = ("LaunchKernel", "LaunchCooperativeKernel", "Memcpy", "Memset")  # in the calls' names
@@ -71,6 +71,38 @@ def device_ms(run, name: str) -> float | None:
             total += sum(w.seconds for w in inside)
             read += 1
     return total / read * 1e3 if read else None
+
+
+def device_seconds(run, name: str) -> tuple[float, list] | None:
+    """``(seconds, steps)``: the summed device seconds of the work launched
+    inside the program's spans ``name`` (one a fused block or chain) in the
+    profiled steps whose every launch pairs, and those steps' entries of
+    ``run.profiled()``. The profiler can lose the device records of its
+    first milliseconds, so a step with an unpaired launch is left out.
+    None on a program without the span (an older checkout), where the
+    calls do not pair, or where no step pairs."""
+    spans = [iv for iv in host_spans(run, name) if iv.name == name]
+    if not spans or not run.device_busy():
+        return None
+    pairs = launched(run.span)
+    steps = sorted((iv for iv in host_spans(run, "zaru.step") if iv.name == "zaru.step"), key=lambda iv: iv.start)
+    if pairs is None or len(steps) != len(run.profiled()):
+        return None
+    starts = [c.start for c, _ in pairs]
+
+    def inside(iv):
+        return [w for _, w in pairs[bisect_left(starts, iv.start):bisect_right(starts, iv.end)]]
+
+    covered = [k for k, st in enumerate(steps) if all(w is not None for w in inside(st))]
+    if not covered:
+        return None
+    seconds = 0.0
+    for k in covered:
+        st = steps[k]
+        for s in spans:
+            if st.start <= s.start <= st.end:
+                seconds += sum(w.seconds for w in inside(s))
+    return seconds, [run.profiled()[k] for k in covered]
 
 
 def sync_idle_seconds(span, syncs) -> float:

@@ -4,11 +4,12 @@ inside its ``zaru.net.blaze_block`` spans, summed over the spans and divided
 by the profiled steps (those whose launches pair,
 ``benchmark/harness/blaze_blocks.py``)."""
 
-from benchmark.harness.blaze_blocks import device_seconds
+from benchmark.harness.blaze_blocks import SPAN
+from benchmark.harness.spans import device_seconds
 
 
 def read(run):
-    found = device_seconds(run)
+    found = device_seconds(run, SPAN)
     if found is None:
         return None
     seconds, steps = found

@@ -5,11 +5,12 @@ its input and output bytes over the memory bandwidth) over the device time
 of their ``zaru.net.blaze_block`` spans (the steps whose launches pair,
 ``benchmark/harness/blaze_blocks.py``)."""
 
-from benchmark.harness.blaze_blocks import bound_seconds, device_seconds
+from benchmark.harness.blaze_blocks import SPAN, bound_seconds
+from benchmark.harness.spans import device_seconds
 
 
 def read(run):
-    found = device_seconds(run) if run.peaks is not None else None
+    found = device_seconds(run, SPAN) if run.peaks is not None else None
     if found is None or found[0] <= 0:
         return None
     seconds, steps = found

@@ -4,11 +4,12 @@
 profiled steps (those whose launches pair,
 ``benchmark/harness/entry_blocks.py``)."""
 
-from benchmark.harness.entry_blocks import device_seconds
+from benchmark.harness.entry_blocks import SPAN
+from benchmark.harness.spans import device_seconds
 
 
 def read(run):
-    found = device_seconds(run)
+    found = device_seconds(run, SPAN)
     if found is None:
         return None
     seconds, steps = found

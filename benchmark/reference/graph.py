@@ -1,10 +1,15 @@
 """A plain PyTorch runner of the face models' ONNX graphs, in float32.
 
-It runs the ten ops the BlazeFace and Face Mesh graphs hold (Conv, Relu,
-PRelu, Add, Pad, MaxPool, Transpose, Reshape, Concat, Sigmoid) node by
-node with ``torch.nn.functional``, at batch ``B``: the graphs are exported
-at batch 1, and a Reshape's leading 1 is read as the batch. TF32 is off
-around every call, so a convolution on the GPU keeps full float32.
+It runs the eleven ops the BlazeFace, Face Mesh, iris and MobileFaceNet
+graphs hold (Conv, Relu, PRelu, Clip, Add, Pad, MaxPool, Transpose,
+Reshape, Concat, Sigmoid) node by node with ``torch.nn.functional``, at
+batch ``B``: the graphs are exported at batch 1, and a Reshape's leading 1
+is read as the batch. A Constant node is no step: its ``value`` is read
+once, at load, as a host value usable wherever an initializer is (a
+Reshape's shape, a Pad's pads, a Clip's bounds, or a float operand). Clip
+takes its bounds as inputs (opset 11 on) or as ``min``/``max`` attributes,
+either one absent. TF32 is off around every call, so a convolution on the
+GPU keeps full float32.
 
 ``hook(node, inputs, output)``, when given, sees every node as it runs; the
 benchmark's work counts read the graph through it on the ``meta`` device,
@@ -66,6 +71,18 @@ def _pad(node, x, pads=None):
     return F.pad(x, flat)
 
 
+def _bound(v):
+    return None if v is None else float(np.asarray(v).reshape(-1)[0])
+
+
+def _clip(node, x, lo=None, hi=None):
+    lo = node.attrs.get("min") if lo is None else lo
+    hi = node.attrs.get("max") if hi is None else hi
+    if lo is None and hi is None:
+        return x
+    return torch.clamp(x, _bound(lo), _bound(hi))
+
+
 def _reshape(node, x, shape):
     shape = [int(s) for s in np.asarray(shape).tolist()]
     shape = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
@@ -78,6 +95,7 @@ _OPS = {
     "Conv": _conv,
     "Relu": lambda node, x: torch.relu(x),
     "PRelu": lambda node, x, s: torch.where(x < 0, s * x, x),
+    "Clip": _clip,
     "Add": lambda node, a, b: a + b,
     "Sigmoid": lambda node, x: torch.sigmoid(x),
     "MaxPool": _max_pool,
@@ -86,28 +104,34 @@ _OPS = {
     "Transpose": lambda node, x: x.permute(*node.attrs["perm"]),
     "Concat": lambda node, *xs: torch.cat(xs, dim=node.attrs["axis"]),
 }
-_HOST_SLOTS = {("Pad", 1), ("Reshape", 1)}  # inputs read as numpy shapes or pads
+_HOST_SLOTS = {("Pad", 1), ("Reshape", 1), ("Clip", 1), ("Clip", 2)}  # inputs read as numpy values
 
 
 class Graph:
     """An ONNX model file as a callable on ``[B,C,H,W]`` float32 tensors on
-    ``device``; the weights are the file's float initializers (float16
-    ones widened to float32)."""
+    ``device``; the weights are the file's float initializers and float
+    Constants (float16 ones widened to float32). ``nodes`` are the graph's
+    nodes but its Constants, in the file's order."""
 
     def __init__(self, path: str | Path, device="cpu"):
         model = parse_model(Path(path).read_bytes())
         g = model.graph
-        self.nodes = g.nodes
+        self.nodes = [n for n in g.nodes if n.op_type != "Constant"]
         self.input_name = g.inputs[0].name
         self.input_shape = tuple(g.inputs[0].shape)
         self.output_names = [v.name for v in g.outputs]
-        unknown = {n.op_type for n in g.nodes} - set(_OPS)
+        unknown = {n.op_type for n in self.nodes} - set(_OPS)
         if unknown:
             raise NotImplementedError(f"{path}: ops {sorted(unknown)} are not in the reference")
         self.host = dict(g.initializers)
+        for n in g.nodes:
+            if n.op_type == "Constant":
+                if not isinstance(n.attrs.get("value"), np.ndarray):
+                    raise NotImplementedError(f"{path}: Constant {n.outputs[0]!r} has no tensor value")
+                self.host[n.outputs[0]] = n.attrs["value"]
         self.weights = {
             k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
-            for k, v in g.initializers.items() if np.issubdtype(v.dtype, np.floating)
+            for k, v in self.host.items() if np.issubdtype(v.dtype, np.floating)
         }
 
     def __call__(self, x, hook=None) -> list[torch.Tensor]:
@@ -116,7 +140,9 @@ class Graph:
             for node in self.nodes:
                 args = []
                 for i, name in enumerate(node.inputs):
-                    if (node.op_type, i) in _HOST_SLOTS:
+                    if not name:  # an optional input left out
+                        args.append(None)
+                    elif (node.op_type, i) in _HOST_SLOTS:
                         args.append(self.host[name])
                     else:
                         args.append(vals[name] if name in vals else self.weights[name])

@@ -72,7 +72,7 @@ def test_device_ms_sums_every_block_of_a_step():
     run = _run(_spanned(), _profiled())
     # The detect step: two blocks of 0.125 ms; each step: 0.25, 0.5, 0.75 ms.
     total = 2 * 0.125 + 2 * (0.25 + 0.5 + 0.75)
-    seconds, steps = blaze_blocks.device_seconds(run)
+    seconds, steps = spans.device_seconds(run, blaze_blocks.SPAN)
     assert seconds == pytest.approx(total * 1e-3) and steps == run.profiled()
     assert Spec().reader("blaze_block_device_ms")(run) == pytest.approx(total / 2)
     bound = blaze_blocks.bound_seconds(run)
@@ -102,7 +102,7 @@ def test_device_ms_reads_the_steps_whose_launches_pair(lost):
     that step unread; the other step is read with its own bound."""
     run = _run(_spanned(lost), _profiled())
     assert [w is None for _, w in spans.launched(run.span)].count(True) == len(lost)
-    seconds, steps = blaze_blocks.device_seconds(run)
+    seconds, steps = spans.device_seconds(run, blaze_blocks.SPAN)
     first = lost[0] < 8  # launches 0-7 are the first step's
     assert steps == (run.profiled()[1:] if first else run.profiled()[:1])
     assert seconds == pytest.approx((1.5 if first else 1.75) * 1e-3)

@@ -67,7 +67,7 @@ def test_device_ms_sums_every_chain_of_a_step():
     run = _run(_spanned(), [(512, tracked, False), (512, tracked, False)])
     # Per step: chains of 1, 2 and 1 launches of 0.25, 0.5 and 0.75 ms.
     per_step = 0.25 + 2 * 0.5 + 0.75
-    seconds, steps = bottlenecks.device_seconds(run)
+    seconds, steps = spans.device_seconds(run, bottlenecks.SPAN)
     assert seconds == pytest.approx(2 * per_step * 1e-3) and steps == run.profiled()
     assert Spec().reader("bottleneck_device_ms")(run) == pytest.approx(per_step)
     bound = bottlenecks.bound_seconds(run)
@@ -96,7 +96,7 @@ def test_device_ms_reads_the_steps_whose_launches_pair(lost, extra_launch):
     run = _run(_spanned(extra_launch, lost), [(512, tracked, False), (512, tracked, False)])
     assert [w is None for _, w in spans.launched(run.span)].count(True) == len(lost) + extra_launch
     assert Spec().reader("bottleneck_device_ms")(run) == pytest.approx(0.25 + 2 * 0.5 + 0.75)
-    seconds, steps = bottlenecks.device_seconds(run)
+    seconds, steps = spans.device_seconds(run, bottlenecks.SPAN)
     assert len(steps) == (1 if lost else 2)
     assert Spec().reader("bottleneck_roofline")(run) == pytest.approx(
         100 * bottlenecks.bound_seconds(run, steps) / seconds)

@@ -2,8 +2,9 @@
 
 - :func:`flops`: operations a frame, by the rule of the usual FLOP
   counters: a multiply-add is 2 (Conv), a bias 1 an output element, an
-  elementwise op (Add, Relu, PRelu's multiply, Sigmoid) 1 an output
-  element, data movement (Pad, MaxPool, Reshape, Transpose, Concat) 0;
+  elementwise op (Add, Relu, PRelu's multiply, Clip, Sigmoid) 1 an output
+  element, data movement (Pad, MaxPool, Reshape, Transpose, Concat) 0, as
+  ``zaru_tpu_torch/onnx/analysis.analyze`` counts them;
 - :func:`stage_chains`: the maximal chains of stride-1 BlazeBlocks, each a
   depthwise 3×3 convolution (stride 1, padding 1, one group a channel), a
   1×1 convolution from C to C channels, an Add with the block's input and a
@@ -28,7 +29,7 @@ from ..reference.graph import Graph
 
 __all__ = ["flops", "stage_chains", "block_ops"]
 
-_ELEMENTWISE = {"Add", "Relu", "PRelu", "Sigmoid"}
+_ELEMENTWISE = {"Add", "Relu", "PRelu", "Clip", "Sigmoid"}
 
 
 def block_ops(c: int, h: int, w: int) -> int:
